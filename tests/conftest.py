@@ -12,6 +12,7 @@ from repro.core import io as gio
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy distributed/model tests (CI runs -m 'not slow')")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device (skips without one)")
 
 
 # single canonical implementation (tests + benches share it)
