@@ -49,11 +49,15 @@ class UniGPS:
     library segment ops; "on" on the CPU runs the kernels' plain versions.
     `use_kernel` is the legacy boolean alias and wins when given.
 
+    reorder ("none"|"rcm"|"degree"|"auto"), frontier
+    ("dense"|"auto"|"sparse") and prefetch ("auto"|"on"|"off") work as in
+    `run_vcprog`, e.g. ``UniGPS(device="cpu", reorder="rcm",
+    frontier="auto")``; results are bit-identical to the defaults.
+
     lint defaults to "off": the port has no linter yet, and the other
-    values raise. reorder, frontier, prefetch, exchange, checkpoint_dir,
-    checkpoint_every, guards and lane_chunk keep the reference's names;
-    values whose machinery is a later slice raise NotImplementedError
-    when a run starts.
+    values raise. exchange, checkpoint_dir, checkpoint_every, guards and
+    lane_chunk keep the reference's names; values whose machinery is a
+    later slice raise NotImplementedError when a run starts.
     """
 
     def __init__(self, engine: str = DEFAULT_ENGINE, kernel: str = "auto",

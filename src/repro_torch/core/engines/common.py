@@ -29,7 +29,8 @@ class NonConvergenceWarning(UserWarning):
 
 def prepare_device_graph(g: PropertyGraph, reorder: str = "none",
                          device="cuda") -> DeviceGraph:
-    """Host→device conversion; see graph_device.build_device_graph."""
+    """Host→device conversion; see graph_device.build_device_graph.
+    `reorder` relabels the vertex space for locality (core/reorder.py)."""
     return build_device_graph(g, reorder=reorder, device=device)
 
 
@@ -83,7 +84,7 @@ def local_bytes_info() -> dict:
             "capacity": 0}
 
 
-def _refuse_later_slices(engine, reorder, batch, exchange, checkpoint_dir,
+def _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
                          checkpoint_every, guards, faults, warm_start):
     """Knobs whose machinery a later slice brings raise here, naming
     their ROADMAP.md Queue A entry."""
@@ -91,8 +92,6 @@ def _refuse_later_slices(engine, reorder, batch, exchange, checkpoint_dir,
         raise not_ported("engine", engine, "item 4b: the callback engine")
     if engine == "distributed":
         raise not_ported("engine", engine, "item 8: the distributed engine")
-    if reorder not in (None, "none"):
-        raise not_ported("reorder", reorder, "item 6: core/reorder.py")
     if batch is not None:
         raise not_ported("batch", batch, "item 7: batched lanes")
     if exchange not in CODECS:
@@ -135,18 +134,31 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
     kernels' plain versions. `use_kernel` is the legacy boolean alias and
     wins when given.
 
-    frontier must be "dense"; prefetch is validated and inert (the
-    resident kernel gives the same bits); overlap, resume and lane_chunk
-    are inert on this single-device path. reorder != "none", batch=,
-    exchange != "exact", checkpointing, guards, faults, warm_start and the
-    callback/distributed engines belong to later slices and raise
-    NotImplementedError.
+    reorder: "none" (default) | "rcm" | "degree" | "auto" — host-side
+    vertex relabeling for gather locality (core/reorder.py). Results come
+    back in the original ids, so the relabeling is invisible; `gdev`,
+    when given, wins over `reorder` (it was built with its own).
+
+    frontier: "dense" (default) | "auto" | "sparse" — the frontier-sparse
+    plane (message_plane.resolve_frontier_mode): below the crossover a
+    superstep runs the block-skip fused kernel or the compaction arm.
+    Bit-identical to dense.
+
+    prefetch: "auto" (default) | "on" | "off" — "off" pins the resident
+    fused kernel; otherwise dense fused passes run the windowed kernel
+    where the graph's tables carry a usable window (a locality-ordered
+    graph). Bit-identical either way.
+
+    overlap, resume and lane_chunk are inert on this single-device path.
+    batch=, exchange != "exact", checkpointing, guards, faults,
+    warm_start and the callback/distributed engines belong to later
+    slices and raise NotImplementedError.
     """
     frontier = message_plane.resolve_frontier_mode(frontier)
     prefetch = message_plane.resolve_prefetch_mode(prefetch)
     if exchange is None:
         exchange = "exact"
-    _refuse_later_slices(engine, reorder, batch, exchange, checkpoint_dir,
+    _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
                          checkpoint_every, guards, faults, warm_start)
     from . import gas, pregel, pushpull  # noqa: F401 (registration)
     eng = ENGINES[engine]

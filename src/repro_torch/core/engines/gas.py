@@ -5,7 +5,10 @@ GATHER phase reads the per-edge store over in-edges and folds it with the
 user monoid. Unfused, the E-sized edge-message store is materialized and
 carried through the loop state — the GAS memory profile — and inactive
 sources store the empty message, like Fig. 4b's `e.msg <-
-VP.emptyMessage()` default. With the fused kernel the store never exists.
+VP.emptyMessage()` default. With the fused kernel the store never exists,
+and the frontier/prefetch knobs pick its shape (block-skip, windowed);
+the unfused store is E-sized by definition, so it stays dense under every
+frontier mode (bit-identical, as in the reference).
 """
 from __future__ import annotations
 

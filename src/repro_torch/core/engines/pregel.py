@@ -5,7 +5,9 @@ this engine hands the message plane the **src-sorted** (out-edge) layout.
 The plane permutes the messages into canonical dst order and
 segment-combines them; with the kernel on it instead runs the whole plane
 as one fused pass over the layout's canonical alias (emit is a pure
-per-edge function, so evaluation order is semantics-free).
+per-edge function, so evaluation order is semantics-free). The frontier
+and prefetch knobs reach the plane unchanged: a thin frontier runs the
+compaction arm or the block-skip kernel.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ message plane receives:
                eligible.
 
 Heuristic (Gemini): push when `sum(out_degree[active]) < |E| / alpha`.
-The sum and the frontier's size come to the host in ONE read, and the
-loop reuses that size for its termination test.
+The sum and the frontier's size come to the host in ONE read; the loop
+reuses that size for its termination test, and the frontier-sparse plane
+(``frontier="auto"|"sparse"``) reuses the sum as its active-edge count.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class PushPullEngine:
             [out_edges, mask.sum()]).tolist()
         if isinstance(active, vcprog.Frontier):
             active.host_count = count
+            active.host_edges = active_out_edges
         use_push = active_out_edges < (graph.num_edges / self.alpha)
         layout = graph.src_sorted if use_push else graph.canonical
         inbox, has_msg = message_plane.emit_and_combine(

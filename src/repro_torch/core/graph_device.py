@@ -13,12 +13,16 @@
                         degrees and input vertex properties.
 
 Both are frozen dataclasses of tensors on one device. `workset_capacity`
-and `compute_prefetch_windows` are numpy helpers kept for the frontier-
-sparse and windowed slices.
+(the frontier-sparse crossover) and `compute_prefetch_windows` (the
+reference's 512-edge window table) are numpy helpers. The reference's
+table and the fused kernels' own block-skip and window tables
+(`kernels.fused_gather_emit.FusedTables`) are computed the first time
+something reads them, so a dense pass pays for neither.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -63,9 +67,18 @@ class EdgeLayout:
                   The segment and fused kernels walk these ranges.
       valid_mask: optional [E] bool — False rows are padding.
       src_ids / dst_ids: optional [E] endpoint ids handed to
-                  ``emit_message`` when they differ from src/dst.
+                  ``emit_message`` when they differ from src/dst (the
+                  original ids of a reordered graph).
       canonical:  optional combine-ordered alias of the same edge set.
+      fused_tables: optional FusedTables — the block-skip and windowed
+                  kernels' tables for this combine-ordered layout, each
+                  computed on first use.
       num_segments / num_edges: V and the edge SLOT count.
+
+    ``prefetch_blocks`` ([ceil(E/PREFETCH_BLOCK_E)] int32 slab index per
+    512-edge block) and ``prefetch_window`` (its W; 0 = resident) are the
+    reference's window table of this order, computed on the host the
+    first time either is read; the windowed kernel reads ``fused_tables``.
     """
 
     src: Any
@@ -78,8 +91,25 @@ class EdgeLayout:
     src_ids: Any = None
     dst_ids: Any = None
     canonical: Optional["EdgeLayout"] = None
+    fused_tables: Any = None
     num_segments: int = 0
     num_edges: int = 0
+
+    @functools.cached_property
+    def _prefetch(self):
+        valid = None if self.valid_mask is None \
+            else self.valid_mask.cpu().numpy()
+        blocks, w = compute_prefetch_windows(
+            self.src.cpu().numpy(), self.num_segments, valid=valid)
+        return _tensor(blocks, self.src.device, torch.int32), w
+
+    @property
+    def prefetch_blocks(self):
+        return self._prefetch[0]
+
+    @property
+    def prefetch_window(self) -> int:
+        return self._prefetch[1]
 
     @property
     def emit_src_ids(self):
@@ -98,8 +128,14 @@ class EdgeLayout:
 @dataclasses.dataclass(frozen=True)
 class DeviceGraph:
     """Device-resident property graph: both single-device edge layouts
-    plus the vertex-level arrays every engine needs. `vertex_perm` /
-    `inv_perm` stay None until the reorder slice."""
+    plus the vertex-level arrays every engine needs.
+
+    A graph built with a reorder strategy indexes a relabeled vertex
+    space: ``vertex_perm[new] = old`` and ``inv_perm[old] = new`` (int32),
+    the layouts carry the old ids in ``src_ids``/``dst_ids`` (what
+    ``emit_message`` sees), vertices are initialized with their old ids
+    and results are un-permuted before they return. None = natural
+    order."""
 
     canonical: EdgeLayout      # dst-sorted ("CSR over in-edges")
     src_sorted: EdgeLayout     # out-edge order, perm -> canonical
@@ -203,16 +239,26 @@ def build_device_graph(g: PropertyGraph, reorder: str = "none",
                        device="cuda") -> DeviceGraph:
     """Host→device conversion of the canonical + src-sorted edge layouts.
 
-    Precomputes everything structural that is a loop constant: the
+    Precomputes everything structural that every pass needs: the
     dst-sorted SegmentMeta and CSR row pointers (from the CSC row
     pointers already on the graph) and the canonical→src-sorted
-    permutation. Only ``reorder="none"`` exists in this package so far.
+    permutation. The fused kernels' block-skip and window tables are
+    attached unbuilt and computed on the device by the first pass that
+    runs either shape.
+
+    `reorder` ("none"|"rcm"|"degree"|"auto", see core/reorder.py) relabels
+    the vertex space host-side first: the layouts, their SegmentMeta and
+    tables then describe the relabeled edges, while the original ids ride
+    the layouts' `src_ids`/`dst_ids` so `emit_message` never sees the
+    relabeling.
     """
-    if reorder not in (None, "none"):
-        raise NotImplementedError(
-            f"reorder={reorder!r} is not ported yet (ROADMAP.md Queue A, "
-            "item 6: core/reorder.py)")
+    from ..kernels.fused_gather_emit import FusedTables
+
     device = resolve_device(device)
+    perm_np = inv_np = None
+    if reorder not in (None, "none"):
+        from .reorder import apply_reorder
+        g, perm_np, inv_np = apply_reorder(g, reorder)
     V, E = int(g.num_vertices), int(g.num_edges)
     if E >= 2**31:
         raise ValueError(f"{E} edges do not fit the int32 edge offsets")
@@ -223,26 +269,39 @@ def build_device_graph(g: PropertyGraph, reorder: str = "none",
     meta = vcprog.SegmentMeta(
         last_edge=_tensor(last_edge, device, torch.int32),
         has_edge=_tensor(g.in_degree > 0, device))
+
+    # original (user-visible) endpoint ids of the relabeled edges
+    uid = (lambda a: None) if perm_np is None else (
+        lambda a: _tensor(perm_np[np.asarray(a)], device, torch.int32))
+
+    src = _tensor(g.src, device, torch.int32)
+    dst = _tensor(g.dst, device, torch.int32)
+    in_indptr = _tensor(g.in_indptr, device, torch.int32)
+    out_degree = _tensor(g.out_degree, device, torch.int32)
+    # canonical -> src-sorted position: gathering emissions with this
+    # permutation scatters them back into combine (dst) order
+    perm = _tensor(inv_csc, device, torch.int64)
     canonical = EdgeLayout(
-        src=_tensor(g.src, device, torch.int32),
-        dst=_tensor(g.dst, device, torch.int32),
+        src=src, dst=dst,
         eprops={k: _tensor(v, device) for k, v in g.edge_props.items()},
-        seg_meta=meta,
-        in_indptr=_tensor(g.in_indptr, device, torch.int32),
+        seg_meta=meta, in_indptr=in_indptr,
+        src_ids=uid(g.src), dst_ids=uid(g.dst),
+        fused_tables=FusedTables(src, dst, in_indptr, perm, out_degree),
         num_segments=V, num_edges=E)
     src_sorted = EdgeLayout(
         src=_tensor(src_s, device, torch.int32),
         dst=_tensor(dst_s, device, torch.int32),
         eprops={k: _tensor(v, device) for k, v in eprops_s.items()},
-        # canonical -> src-sorted position: gathering emissions with this
-        # permutation scatters them back into combine (dst) order
-        perm=_tensor(inv_csc, device, torch.int64),
-        canonical=canonical,
-        num_segments=V, num_edges=E)
+        perm=perm, src_ids=uid(src_s), dst_ids=uid(dst_s),
+        canonical=canonical, num_segments=V, num_edges=E)
     return DeviceGraph(
         canonical=canonical,
         src_sorted=src_sorted,
-        out_degree=_tensor(g.out_degree, device, torch.int32),
+        out_degree=out_degree,
         in_degree=_tensor(g.in_degree, device, torch.int32),
         vprops_in={k: _tensor(v, device) for k, v in g.vertex_props.items()},
+        vertex_perm=None if perm_np is None
+        else _tensor(perm_np, device, torch.int32),
+        inv_perm=None if inv_np is None
+        else _tensor(inv_np, device, torch.int32),
         num_vertices=V, num_edges=E)

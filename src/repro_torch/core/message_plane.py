@@ -12,7 +12,9 @@ dispatcher reads its fields and the program's monoid to pick between
 
   * the fused gather–emit–combine kernel (Triton; one pass, messages never
     touch device memory) for programs with one message leaf under a named
-    monoid and a Triton emit (:meth:`VCProgram.triton_emit`),
+    monoid and a Triton emit (:meth:`VCProgram.triton_emit`) — resident,
+    windowed (a locality-ordered graph's slab pairs) or block-skip (a thin
+    frontier's live tiles),
   * the CUDA segment-combine kernel over materialized messages (named
     monoids, every other program when the kernels are on),
   * library segment ops (`scatter_reduce`) for named monoids or a
@@ -23,9 +25,15 @@ combine-ordered (pregel's src-sorted view). On CPU tensors both kernel
 wrappers run their plain versions, so `kernel_on` selects the same
 dataflow on either device.
 
-This slice carries the dense frontier only; the frontier-sparse plane,
-the windowed (prefetch) kernel and the packed multi-leaf kernel come with
-later slices (ROADMAP.md).
+Frontier sparsity lives here too (``frontier=``): convergent programs
+(SSSP, BFS, CC, label propagation) spend most supersteps on a thin
+frontier, so fused passes skip the tiles no active source reaches, and
+unfused named-monoid passes compact the active edge set into a workset
+below the crossover (`workset_capacity(E)` active edges). The loop is
+eager, so the crossover is a host branch on the active-edge count, which
+comes to the host in the same read as the frontier's size. Every mode is
+bit-identical to dense. The packed multi-leaf kernel comes with a later
+slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,9 +42,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import records
-from .graph_device import EdgeLayout
+from .graph_device import EdgeLayout, SPARSE_CAP_FRAC, workset_capacity
 from .knobs import knob_error, not_ported
-from .vcprog import (Record, RecordBatch, SegmentMeta, VCProgram,
+from .vcprog import (Frontier, Record, RecordBatch, SegmentMeta, VCProgram,
                      frontier_mask, make_segment_meta, record_vmap)
 
 _MODES = ("auto", "fused", "unfused")
@@ -75,14 +83,17 @@ def leaf_monoids(program: VCProgram, msg_tree) -> Optional[Tuple[str, ...]]:
 
 def resolve_frontier_mode(frontier) -> str:
     """Validate the frontier knob ("auto"|"dense"|"sparse"; None="dense").
-    Only "dense" is ported; the sparse modes raise NotImplementedError."""
+
+    "dense" runs every pass over all E edge slots. "auto" makes a
+    superstep's cost track the frontier: below the crossover (at most
+    `workset_capacity(E)` edges leave active sources) fused passes run the
+    block-skip kernel and unfused named-monoid passes the compaction arm;
+    above it, the dense pass. "sparse" forces the sparse shape of
+    whichever path dispatches. Every mode is bit-identical."""
     if frontier is None:
         return "dense"
     if frontier not in _FRONTIER:
         raise knob_error("frontier", frontier, _FRONTIER)
-    if frontier != "dense":
-        raise not_ported("frontier", frontier,
-                         "item 6: the frontier-sparse plane")
     return frontier
 
 
@@ -113,9 +124,12 @@ def resolve_kernel_arg(kernel, use_kernel, device="cuda") -> bool:
 
 
 def resolve_prefetch_mode(prefetch) -> str:
-    """Validate the prefetch knob ("auto"|"on"|"off"; None="auto"). Every
-    value runs the resident fused kernel, which gives the same bits as the
-    windowed one."""
+    """Validate the prefetch knob ("auto"|"on"|"off"; None="auto").
+
+    "auto" and "on" let a dense fused pass run the windowed kernel
+    whenever the layout's tables carry a usable window (a locality-ordered
+    graph, e.g. after ``reorder="rcm"``); "off" pins the resident kernel.
+    Bit-identical either way."""
     if prefetch is None:
         return "auto"
     if prefetch not in _PREFETCH:
@@ -245,12 +259,100 @@ def segment_combine(program: VCProgram, msgs, dst, valid, num_segments, empty,
 
 
 # ---------------------------------------------------------------------------
+# Frontier-sparse machinery: compaction of the active edge set
+# ---------------------------------------------------------------------------
+
+def compact_indices(flag: torch.Tensor, cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Order-preserving compaction of True positions.
+
+    Returns (idx, count): idx [cap] int32 holds the positions of the
+    first `cap` True flags in ascending order, padded with the sentinel
+    ``flag.shape[0]``; count (a 0-d tensor) is the total number of True
+    flags. idx[k] is the first position whose running count reaches k+1,
+    so positions past the count land on the sentinel by themselves."""
+    n = int(flag.shape[0])
+    if n == 0:
+        return (torch.zeros(cap, dtype=torch.int32, device=flag.device),
+                torch.zeros((), dtype=torch.int32, device=flag.device))
+    csum = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32)
+    want = torch.arange(1, cap + 1, dtype=torch.int32, device=flag.device)
+    return torch.searchsorted(csum, want, out_int32=True), csum[-1]
+
+
+def frontier_edge_count(active, cv: EdgeLayout, act_e=None) -> int:
+    """Edges of the combine-ordered `cv` whose source is on the frontier
+    (`act_e.sum()`; the active out-degree sum when `act_e` is not given),
+    as a host int. A Frontier that already holds it (the push/pull
+    heuristic reads it) answers without a device read; otherwise the
+    count and the frontier's size come to the host in one read, and both
+    stay on the Frontier so the loop's termination test reads nothing
+    more."""
+    fr = active if isinstance(active, Frontier) else None
+    if fr is not None and fr.host_edges is not None and cv.valid_mask is None:
+        return fr.host_edges
+    mask = frontier_mask(active)
+    if act_e is None:
+        ip = cv.fused_tables.out_indptr
+        n_e = torch.where(mask, ip[1:] - ip[:-1], 0).sum()
+    else:
+        n_e = act_e.sum()
+    n, count = torch.stack([n_e.to(torch.int64), mask.sum()]).tolist()
+    if fr is not None:
+        fr.host_count = count
+        if cv.valid_mask is None:
+            fr.host_edges = n
+    return n
+
+
+def _sparse_emit_combine(program: VCProgram, cv: EdgeLayout, vprops,
+                         empty: Record, kernel_on: bool,
+                         monoids: Tuple[str, ...], act_e, cap: int
+                         ) -> Tuple[RecordBatch, torch.Tensor]:
+    """The frontier-sparse arm: compact the active edge slots of the
+    combine-ordered `cv` (`act_e`, in its order) into a `cap`-slot
+    workset, then emit + segment-combine over the workset only.
+
+    Compaction is order-preserving, so the workset's dst run stays
+    ascending (sentinel `num_segments` pads keep it so through the tail)
+    and each vertex folds the same emissions in the same order as the
+    dense pass: bit-identical to dense. With the kernels on, the workset
+    combines through the segment kernel, whose row pointers drop the
+    sentinel ids."""
+    E, V = cv.num_edges, cv.num_segments
+    device = cv.src.device
+    ws, count = compact_indices(act_e, cap)
+    ws_valid = torch.arange(cap, dtype=torch.int32, device=device) < count
+    wsc = ws.clamp(max=max(E - 1, 0)).long()  # sentinel pads -> a real slot
+    sentinel = torch.tensor(V, dtype=torch.int32, device=device)
+    dst_ws = torch.where(ws_valid, cv.dst[wsc], sentinel)
+    sid_ws = cv.emit_src_ids[wsc]
+    did_ws = torch.where(ws_valid, cv.emit_dst_ids[wsc], sentinel)
+    src_prop = records.tree_gather(vprops, cv.src[wsc].long())
+    eprops_ws = records.tree_gather(cv.eprops, wsc)
+    is_emit, msgs = record_vmap(program.emit_message, (0, 0, 0, 0), device)(
+        sid_ws, did_ws, src_prop, eprops_ws)
+    valid = is_emit.to(torch.bool) & ws_valid  # the frontier is in act_e
+    meta = make_segment_meta(dst_ws, V, valid=valid)
+    seg_op = None
+    if kernel_on:
+        from ..kernels import ops as kops
+        indptr = kops.indptr_from_seg_ids(dst_ws, V)
+        seg_op = lambda x, monoid: kops.segment_combine(
+            x, dst_ws, V, monoid=monoid, indptr=indptr)
+    return _segment_named(program, msgs, dst_ws, valid, V, empty, meta,
+                          monoids, seg_op=seg_op)
+
+
+# ---------------------------------------------------------------------------
 # Layout-level dataflow pieces (what engines compose)
 # ---------------------------------------------------------------------------
 
 def edge_active(layout: EdgeLayout, active) -> torch.Tensor:
     """Per-edge frontier flags in LAYOUT order: src on the frontier and
-    the slot not padding."""
+    the slot not padding. Computed once per plane invocation and shared
+    by the emit veto, the permuted combine mask and the sparse arm's
+    compaction."""
     flags = frontier_mask(active)[layout.src.long()]
     if layout.valid_mask is not None:
         flags = flags & layout.valid_mask
@@ -340,17 +442,36 @@ def fused_applicable(program: VCProgram, layout: EdgeLayout, vprops,
 
 
 def _fused_emit_combine(program: VCProgram, layout: EdgeLayout, vprops,
-                        active, empty: Record):
+                        active, empty: Record, frontier: str = "dense",
+                        use_prefetch: bool = True):
     """Phases 3+1 as ONE pass of the fused kernel over the combine-ordered
     `layout`; vertices without a message get the user's exact empty
-    record."""
+    record.
+
+    The kernel's shape follows the reference's dispatch: block-skip when
+    the frontier mode is sparse ("sparse", or "auto" below the crossover),
+    otherwise the windowed kernel when `use_prefetch` and the layout's
+    tables carry a usable window, otherwise the resident one. Block-skip
+    wins on a thin frontier because it touches only live tiles, while the
+    windowed kernel stages every CTA's slab pair whatever the frontier.
+    Layouts without tables run the resident kernel (same bits)."""
     from ..kernels import ops as kops
     (monoid,) = leaf_monoids(program, empty)
+    tables = layout.fused_tables
+    variant, n_act = "resident", None
+    if frontier != "dense" and tables is not None:
+        n_act = frontier_edge_count(active, layout)
+        if frontier == "sparse" or n_act <= workset_capacity(
+                layout.num_edges):
+            variant = "skip"
+    if variant == "resident" and use_prefetch and tables is not None:
+        variant = "window"  # resident where the window is not usable
     inbox, has_msg = kops.gather_emit_combine(
         program, monoid, layout.src, layout.dst, vprops, layout.eprops,
         frontier_mask(active), layout.num_segments,
         indptr=layout.in_indptr, valid=layout.valid_mask,
-        src_ids=layout.src_ids, dst_ids=layout.dst_ids)
+        src_ids=layout.src_ids, dst_ids=layout.dst_ids, variant=variant,
+        tables=tables, num_active_edges=n_act)
     empty_v = records.tree_tile(empty, layout.num_segments)
     return records.tree_where(has_msg, inbox, empty_v), has_msg
 
@@ -379,8 +500,17 @@ def emit_and_combine(program: VCProgram, layout: EdgeLayout, vprops, active,
 
     multileaf="packed" (the packed multi-leaf kernel) is not ported yet
     and raises when a fused pass is asked for; "auto"/"perleaf" fuse
-    single-leaf records. frontier must be "dense"; prefetch is validated
-    and every value runs the resident kernel.
+    single-leaf records.
+
+    frontier ("auto"|"dense"|"sparse"): see :func:`resolve_frontier_mode`.
+    Fused passes run the block-skip kernel in sparse mode; unfused
+    named-monoid passes compact the active edges into a workset (sized to
+    the active-edge count, which the host reads once per superstep at
+    most); general (merge_message-only) monoids stay dense in every mode.
+
+    prefetch ("auto"|"on"|"off"): "off" pins the resident fused kernel;
+    otherwise a dense fused pass runs the windowed kernel where the
+    layout's tables carry a usable window.
 
     Returns (inbox [num_segments] record batch, has_msg [num_segments]).
     """
@@ -388,8 +518,8 @@ def emit_and_combine(program: VCProgram, layout: EdgeLayout, vprops, active,
         raise knob_error("mode", mode, _MODES)
     if multileaf not in _MULTILEAF:
         raise knob_error("multileaf", multileaf, _MULTILEAF)
-    resolve_frontier_mode(frontier)
-    resolve_prefetch_mode(prefetch)
+    frontier = resolve_frontier_mode(frontier)
+    prefetch = resolve_prefetch_mode(prefetch)
     want_fused = mode == "fused" or (mode == "auto" and kernel_on)
     if want_fused:
         if multileaf == "packed":
@@ -397,11 +527,29 @@ def emit_and_combine(program: VCProgram, layout: EdgeLayout, vprops, active,
                              "item 7: batched lanes and the packed kernel")
         if fused_applicable(program, layout, vprops, multileaf):
             return _fused_emit_combine(program, layout.combine_view, vprops,
-                                       active, empty)
+                                       active, empty, frontier=frontier,
+                                       use_prefetch=prefetch != "off")
     if mode == "fused":
         raise ValueError(
             "mode='fused' but the program/layout pair is not fusable "
             "(needs one message leaf under a named monoid and a Triton "
             "emit whose reads the graph has)")
-    msgs, valid = emit_messages(program, layout, vprops, active)
+
+    # the per-edge frontier mask is computed once (layout order) and shared
+    # by the emit veto, the permuted combine mask and the sparse arm
+    src_active = edge_active(layout, active)
+    monoids = leaf_monoids(program, empty)
+    cv = layout.combine_view
+    if (frontier != "dense" and monoids is not None
+            and cv.num_edges > 0 and cv.num_segments > 0):
+        act_e = (src_active if layout.perm is None
+                 else src_active[layout.perm])
+        n_act = frontier_edge_count(active, cv, act_e)
+        if frontier == "sparse" or n_act <= workset_capacity(
+                cv.num_edges, SPARSE_CAP_FRAC):
+            return _sparse_emit_combine(program, cv, vprops, empty,
+                                        kernel_on, monoids, act_e,
+                                        max(-(-n_act // 8) * 8, 8))
+    msgs, valid = emit_messages(program, layout, vprops, active,
+                                src_active=src_active)
     return combine(program, layout, msgs, valid, empty, kernel_on)

@@ -86,10 +86,15 @@ class Frontier:
                   it to the host (the push/pull heuristic does); the loop
                   then reuses it for its termination test instead of
                   paying a second device-to-host read.
+      host_edges: the number of edges whose source is in the frontier
+                  (the active vertices' out-degree sum) as a Python int,
+                  once read in the same transfer; the frontier-sparse
+                  plane's crossover and bitmap kernel reuse it.
     """
 
     mask: torch.Tensor
     host_count: Optional[int] = None
+    host_edges: Optional[int] = None
 
 
 def make_frontier(mask) -> Frontier:

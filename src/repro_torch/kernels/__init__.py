@@ -2,7 +2,8 @@
 
   fused_gather_emit  the message plane (gather src props -> emit ->
                      combine at dst) as ONE pass, in Triton, with the
-                     program's Triton emit inlined
+                     program's Triton emit inlined: resident, block-skip
+                     (plus its frontier bitmap kernel) and windowed
   segment_reduce     Phase-1 message combine over dst-sorted messages, in
                      CUDA C++ (csrc/segment_reduce.cu, built with nvcc)
 

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"segment_combine": 0, "gather_emit_combine": 0}
+LAUNCHES: Dict[str, int] = {
+    "segment_combine": 0, "gather_emit_combine": 0,
+    "gather_emit_combine_skip": 0, "gather_emit_combine_window": 0,
+    "tile_bitmap": 0}
 
 
 def reset() -> None:

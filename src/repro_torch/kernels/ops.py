@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .fused_gather_emit import gather_emit_combine  # noqa: F401
+from .fused_gather_emit import gather_emit_combine, tile_bitmap  # noqa: F401
 from .segment_reduce import indptr_from_seg_ids
 from .segment_reduce import segment_combine as _segment_combine
 

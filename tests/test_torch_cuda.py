@@ -12,6 +12,7 @@ kernels use fixed trees, the plain versions atomics); f16/bf16 sums round
 an f32 sum to the payload type and may differ by one step (rtol=2**-7).
 """
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch import UniGPS
 from repro_torch.core import graph_device, io, operators, vcprog
+from repro_torch.core.engines.common import NonConvergenceWarning
 from repro_torch.kernels import counters
 from repro_torch.kernels import fused_gather_emit as fge
 from repro_torch.kernels import segment_reduce as sr
@@ -283,6 +285,151 @@ def test_user_program_runs_segment_kernel(cuda, rmat, engine):
     counters.reset()
     out, info = U.vcprog(rmat, MinLabel(), engine=engine)
     assert counters.snapshot() == {
-        "segment_combine": info["iterations"], "gather_emit_combine": 0}
+        "segment_combine": info["iterations"], "gather_emit_combine": 0,
+        "gather_emit_combine_skip": 0, "gather_emit_combine_window": 0,
+        "tile_bitmap": 0}
     off, _ = U.vcprog(rmat, MinLabel(), engine=engine, kernel="off")
     assert torch.equal(out["label"], off["label"])
+
+
+# ---------------------------------------------------------------------------
+# block-skip and windowed shapes of the fused kernel, and the tile bitmap
+# ---------------------------------------------------------------------------
+
+def _frontier(V, dens, cuda, seed=3):
+    rng = np.random.default_rng(seed)
+    if 0 < dens < 1:
+        return torch.from_numpy(rng.random(V) < dens).to(cuda)
+    return torch.full((V,), bool(dens), device=cuda)
+
+
+def _active_edges(gdev, active):
+    return int(torch.where(active, gdev.out_degree, 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.001, 0.01, 0.1, 1.0])
+def test_tile_bitmap_kernel_vs_plain(cuda, rmat, dens):
+    """The frontier-walk bitmap kernel against both plain versions (the
+    PyTorch walk and the reference's E-wide gather + blocked max)."""
+    gdev = graph_device.build_device_graph(rmat, device=cuda)
+    cv, t = gdev.canonical, gdev.canonical.fused_tables
+    active = _frontier(rmat.num_vertices, dens, cuda)
+    counters.reset()
+    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    torch.cuda.synchronize()
+    assert counters.snapshot()["tile_bitmap"] == 1
+    assert torch.equal(bm, fge.tile_bitmap_walk_plain(active, t))
+    assert torch.equal(bm, fge.tile_bitmap_plain(active, cv.src, cv.dst,
+                                                 cv.in_indptr, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_skip_kernel_vs_plain(cuda, rmat, name, dens):
+    """The block-skip kernel: bitwise equal to the resident kernel (dead
+    tiles hold only identities), and to its plain version within the
+    stated tolerance."""
+    gdev = graph_device.build_device_graph(rmat, device=cuda)
+    V, cv = rmat.num_vertices, gdev.canonical
+    prog = BUILTINS[name](V)
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V)
+    active = _frontier(V, dens, cuda)
+    args = (prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V)
+    counters.reset()
+    out, hm = fge.gather_emit_combine(
+        *args, indptr=cv.in_indptr, variant="skip", tables=cv.fused_tables,
+        num_active_edges=_active_edges(gdev, active))
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_skip"] == 1
+    base, bhm = fge.gather_emit_combine(*args, indptr=cv.in_indptr)
+    assert torch.equal(hm, bhm)
+    (key,) = out.keys()
+    assert torch.equal(out[key], base[key])
+    bm = fge.tile_bitmap_plain(active, cv.src, cv.dst, cv.in_indptr,
+                               cv.fused_tables)
+    ref, rhm = fge.gather_emit_combine_skip_plain(
+        *args, cv.in_indptr, cv.fused_tables, bm)
+    assert torch.equal(hm, rhm)
+    dtype = "float32" if out[key].dtype == torch.float32 else "int32"
+    _assert_match(out[key], ref[key], dtype, prog.monoid)
+
+
+@pytest.fixture(scope="module")
+def banded():
+    """One banded community under scrambled ids, relabeled by RCM."""
+    return io.part_community_graph(1, 2**15, degree=16, band=4,
+                                   cross_edges=0, seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_window_kernel_vs_plain(cuda, banded, name):
+    """The windowed kernel on an RCM-ordered banded graph, against its
+    plain version and the resident kernel."""
+    fge.require_gather()
+    gdev = graph_device.build_device_graph(banded, reorder="rcm",
+                                           device=cuda)
+    V, cv = banded.num_vertices, gdev.canonical
+    t = cv.fused_tables
+    assert t.window > 0 and 2 * t.window < V
+    prog = BUILTINS[name](V)
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V,
+                              vids=gdev.vertex_perm)
+    active = _frontier(V, 0.5, cuda)
+    args = (prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V)
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    counters.reset()
+    out, hm = fge.gather_emit_combine(*args, indptr=cv.in_indptr,
+                                      variant="window", tables=t, **ids)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_window"] == 1
+    (key,) = out.keys()
+    dtype = "float32" if out[key].dtype == torch.float32 else "int32"
+    ref, rhm = fge.gather_emit_combine_window_plain(*args, t, **ids)
+    assert torch.equal(hm, rhm)
+    _assert_match(out[key], ref[key], dtype, prog.monoid)
+    res, rshm = fge.gather_emit_combine(*args, indptr=cv.in_indptr, **ids)
+    assert torch.equal(hm, rshm)
+    assert torch.equal(out[key], res[key])  # f32 sums too: one sum order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pushpull", "pregel", "gas"])
+@pytest.mark.parametrize("name", ["sssp", "cc", "bfs", "pagerank"])
+def test_operator_frontier_auto_vs_dense(cuda, rmat, name, engine):
+    """frontier="auto" on the card: the block-skip kernel runs on the thin
+    supersteps and every result equals the dense run."""
+    U = UniGPS()
+    dense = OPS[name](U, rmat, engine=engine)
+    counters.reset()
+    out = OPS[name](U, rmat, engine=engine, frontier="auto")
+    if name != "pagerank":
+        assert counters.snapshot()["gather_emit_combine_skip"] > 0
+        np.testing.assert_array_equal(out, dense)
+    else:
+        np.testing.assert_allclose(out, dense, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sssp", "cc", "bfs", "pagerank",
+                                  "degrees"])
+def test_operator_window_vs_prefetch_off(cuda, banded, name):
+    """The operators' dense passes run the windowed kernel on the RCM
+    graph, bitwise equal to prefetch="off" (f32 sums included)."""
+    gdev = graph_device.build_device_graph(banded, reorder="rcm",
+                                           device=cuda)
+    fn = {"sssp": lambda **kw: operators.sssp(banded, 0, **kw)[0],
+          "cc": lambda **kw: operators.connected_components(banded,
+                                                            **kw)[0],
+          "bfs": lambda **kw: operators.bfs(banded, 0, **kw)[0],
+          "pagerank": lambda **kw: operators.pagerank(banded, **kw)[0],
+          "degrees": lambda **kw: operators.degrees(banded, **kw)[0][1]}
+    counters.reset()
+    with warnings.catch_warnings():  # the long band outlasts max_iter
+        warnings.simplefilter("ignore", NonConvergenceWarning)
+        out = fn[name](gdev=gdev)
+        assert counters.snapshot()["gather_emit_combine_window"] > 0
+        off = fn[name](gdev=gdev, prefetch="off")
+    np.testing.assert_array_equal(out, off)

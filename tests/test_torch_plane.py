@@ -233,9 +233,11 @@ def test_plane_knobs(small_uniform_graph):
     with pytest.raises(ValueError, match="multileaf"):
         tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
                              multileaf="x")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
-                             frontier="sparse")
+    dense = tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty)
+    sparse = tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
+                                  frontier="sparse")
+    assert torch.equal(sparse[0]["distance"], dense[0]["distance"])
+    assert torch.equal(sparse[1], dense[1])
     with pytest.raises(ValueError, match="frontier"):
         tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
                              frontier="x")
