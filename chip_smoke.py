@@ -33,15 +33,41 @@ Phases, one line of numbers each:
      held against prefetch="off" and against reorder="none" on the same
      graph; the windowed kernel is held against its plain version and
      timed beside the resident kernel;
-  8. one JSON line {"kernels": [...]}: launches on each kernel's path,
+  8. lanes: sssp, bfs and personalized_pagerank with sources= (8 roots
+     from a seed, vertex 0 among them) and landmark_distances (16
+     landmarks, lane_chunk=8) on the phase-4 graph through
+     `run_vcprog(gdev=...)` (counters zeroed just before, read just after:
+     one packed launch per batched superstep, no single-leaf launch);
+     every lane bitwise against its sequential kernel-on run (PPR
+     included) and against the kernel="off" batched run (bitwise for min
+     and integers, SUM_RTOL for PPR); the packed kernel against its plain
+     version and against Q single-leaf launches, timed beside them;
+  9. lanes-frontier: `UniGPS(frontier="auto").sssp(sources=...)` runs the
+     packed block-skip shape and equals the dense batched result bitwise;
+     the shape against its plain version and the resident one;
+ 10. lanes-window: a batched SSSP on phase 7's RCM-relabeled banded graph
+     runs the packed windowed shape and equals prefetch="off" bitwise;
+     the shape against its plain version and the resident one;
+ 11. records: torch twins of the JAX tests' MixedStats, UniformTriple and
+     VecStats, each with a Triton emit, on the phase-4 graph: kernels on
+     against kernel="off", and at the plane multileaf="auto" (packed)
+     against "perleaf" and the unfused pass, and the packed kernel
+     against its plain version;
+ 12. compaction: an unfused f32-sum program under frontier="sparse" takes
+     the compaction arm through the segment kernel and equals
+     frontier="dense" bitwise;
+ 13. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line; without a CUDA device the script exits 2 at once.
 
-Tolerances: bitwise for min monoids and integer payloads. f32 sums
-(PageRank, PPR, the f32 sum kernels) add in another order in the kernel,
-its plain version and the kernel-off path, so they are held to
+Tolerances: bitwise for min monoids and integer payloads, and for every
+comparison of two kernel paths that fold in one order (a batched lane
+against its sequential run, block-skip or windowed against resident,
+the compaction arm against dense). f32 sums (PageRank, PPR, the f32 sum
+leaves) add in another order in the kernels, their plain versions and
+the kernel-off path, so those comparisons are held to
 max |a-b| <= 1e-4 * max|b| + 1e-12 per vector (rtol 1e-4 of the largest
 value), which f32 rounding over in-degrees up to ~1e5 stays well inside.
 """
@@ -522,6 +548,7 @@ def phase_window(ctx):
                           + 4 * V + V, 3 * E)
     log("window_bound", bound_ms=w_bound, slab_rows=-(-V // fge.WINDOW_ROWS)
         * 2 * W, vertex_rows=V)
+    ctx.update(gb=gb, gw=gw)
     return [{"name": "gather_emit_combine_window", "route": "triton",
              "source": "src/repro_torch/kernels/fused_gather_emit.py",
              "replaces": "src/repro/kernels/fused_gather_emit.py:411",
@@ -529,6 +556,668 @@ def phase_window(ctx):
              "max_abs_err": err, "ms": times["pagerank"]["ms"],
              "plain_ms": times["pagerank"]["plain_ms"],
              "bound_ms": w_bound, "bound_by": w_by, "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
+# Batched query lanes and multi-leaf records: the packed kernel
+# ---------------------------------------------------------------------------
+
+PACKED_SRC = "src/repro_torch/kernels/fused_packed.py"
+PACKED_REPLACES = "src/repro/kernels/fused_gather_emit.py:675"
+
+
+def lane_roots(V, q, seed):
+    """q distinct roots from a seed, vertex 0 (the hub's neighbourhood on
+    RMAT) first."""
+    rng = np.random.default_rng(seed)
+    rest = rng.choice(np.arange(1, V), size=q - 1, replace=False)
+    return [0] + [int(r) for r in rest]
+
+
+def batched_state(prog, gdev, rng, key, dens=0.5):
+    """A mid-run batched vertex state: per lane, random finite values of
+    `key` on a random half of the vertices and a random `_lane_act`."""
+    from repro_torch.core import vcprog
+    V = gdev.num_vertices
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V,
+                              vids=gdev.vertex_perm)
+    x = vp["p"][key]
+    shape = tuple(x.shape)
+    if x.dtype == torch.float32:
+        new = torch.from_numpy(rng.random(shape).astype(np.float32) * 50)
+    else:
+        new = torch.from_numpy(rng.integers(0, 6, shape).astype(np.int32))
+    keep = torch.from_numpy(rng.random(shape) < dens)
+    vp["p"][key] = torch.where(keep.to(x.device), new.to(x.device), x)
+    vp["_lane_act"] = torch.from_numpy(
+        (rng.random(shape) < 0.7).astype(np.int32)).to(x.device)
+    return vp
+
+
+def check_lanes(name, batched, rows, float_sum=False):
+    for i, ref in enumerate(rows):
+        check(f"{name} lane {i}", torch.from_numpy(np.asarray(batched[i])),
+              torch.from_numpy(np.asarray(ref)), float_sum)
+
+
+def phase_lanes(ctx):
+    """Phase 8: batched sssp, bfs and personalized_pagerank from 8 roots
+    and landmark_distances from 16 landmarks (lane_chunk=8) on RMAT-21
+    through the packed kernel, one launch per superstep; every lane
+    bitwise against its sequential kernel-on run (PPR included) and
+    against the kernel="off" batched run (PPR within SUM_RTOL); then the
+    packed kernel against its plain version and Q single-leaf launches.
+    Returns the JSON row of the packed resident kernel."""
+    from repro_torch.core import graph_device, operators, vcprog
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import counters
+    from repro_torch.kernels import fused_gather_emit as fge
+    from repro_torch.kernels import fused_packed as fp
+
+    g, gdev = ctx["g"], ctx["gdev"]
+    V, E = g.num_vertices, g.num_edges
+    Q = 8
+    roots = lane_roots(V, Q, seed=1)
+    marks = roots + lane_roots(V, 2 * Q, seed=2)[1:Q + 1]
+    ctx["lane_roots"] = roots
+    calls = {
+        "sssp": lambda **kw: operators.sssp(g, sources=roots, gdev=gdev,
+                                            **kw),
+        "bfs": lambda **kw: operators.bfs(g, sources=roots, gdev=gdev, **kw),
+        "personalized_pagerank": lambda **kw: operators.personalized_pagerank(
+            g, sources=roots, gdev=gdev, **kw),
+        "landmark_distances": lambda **kw: operators.landmark_distances(
+            g, marks, gdev=gdev, lane_chunk=8, **kw),
+    }
+    out, wall, infos, per_call = {}, {}, {}, {}
+    torch.cuda.synchronize()
+    counters.reset()
+    for name, fn in calls.items():
+        before, t = counters.snapshot(), time.time()
+        out[name], infos[name] = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.time() - t
+        per_call[name] = counters.snapshot()["gather_emit_combine_packed"] \
+            - before["gather_emit_combine_packed"]
+    launches = counters.snapshot()
+    log("lanes_path", launches=json.dumps(launches, separators=(",", ":")))
+    if launches["gather_emit_combine"] != 0:
+        fail("a batched run went through the single-leaf kernel")
+    # one packed launch per batched superstep, whatever Q is (each lane
+    # chunk of landmark_distances runs its own loop)
+    for name, info in infos.items():
+        chunks = info.get("lane_chunks", {"chunks": 1})["chunks"]
+        n = per_call[name]
+        if not (n > 0 and info["iterations"] <= n
+                <= chunks * info["iterations"]
+                and (chunks > 1 or n == info["iterations"])):
+            fail(f"{name}: {n} packed launches for {info['iterations']} "
+                 f"supersteps in {chunks} lane chunk(s)")
+    lm = infos["landmark_distances"]
+    seq = {"sssp": lambda r: operators.sssp(g, r, gdev=gdev)[0],
+           "bfs": lambda r: operators.bfs(g, r, gdev=gdev)[0],
+           "personalized_pagerank":
+               lambda r: operators.personalized_pagerank(g, r,
+                                                         gdev=gdev)[0]}
+    t = time.time()
+    for name, fn in seq.items():
+        check_lanes(f"{name} batched vs sequential kernel-on", out[name],
+                    [fn(r) for r in roots])
+    check_lanes("landmark_distances vs sequential sssp",
+                out["landmark_distances"][:Q], out["sssp"])
+    whole, _ = operators.sssp(g, sources=marks, gdev=gdev)
+    check("landmark_distances lane_chunk=8 vs one batch",
+          torch.from_numpy(out["landmark_distances"]),
+          torch.from_numpy(whole), False)
+    seq_s = time.time() - t
+    for name in ("sssp", "bfs", "personalized_pagerank"):
+        t = time.time()
+        off, _ = calls[name](kernel="off")
+        off_s = time.time() - t
+        fsum = name == "personalized_pagerank"
+        e = max_abs_err(torch.from_numpy(np.asarray(out[name])),
+                        torch.from_numpy(np.asarray(off)))
+        check_lanes(f"{name} batched kernel on vs off", out[name], off, fsum)
+        log("lanes_operator", name=name, Q=Q, wall_s=round(wall[name], 4),
+            kernel_off_wall_s=round(off_s, 4),
+            supersteps=infos[name]["iterations"],
+            packed_launches=per_call[name], max_abs_err_vs_off=e,
+            bitwise_vs_sequential=True)
+    log("lanes_operator", name="landmark_distances", Q=2 * Q,
+        lane_chunks=json.dumps(lm["lane_chunks"], separators=(",", ":")),
+        wall_s=round(wall["landmark_distances"], 4),
+        supersteps=lm["iterations"],
+        packed_launches=per_call["landmark_distances"],
+        sequential_checks_s=round(seq_s, 2))
+
+    # the packed kernel at the path's shapes: a mid-run batched state of
+    # SSSP and of PPR (Q=8), against its plain version and against Q
+    # single-leaf launches on each lane's own state
+    cv = gdev.canonical
+    rng = ctx["rng"]
+    union = random_frontier(V, 0.5, rng, gdev.device)
+    progs = {
+        "sssp": (vcprog.as_batched([operators.SSSPProgram(r)
+                                    for r in roots]), "distance"),
+        "ppr": (vcprog.as_batched([operators.PersonalizedPageRankProgram(
+            V, 20, r) for r in roots]), "rank"),
+    }
+    err, times = 0.0, {}
+    for name, (prog, key) in progs.items():
+        vp = batched_state(prog, gdev, rng, key)
+        monoids = leaf_monoids(prog, vcprog.empty_record(prog, gdev.device))
+        plan = fp.packed_plan(prog, vp, cv.eprops, V, E)
+        pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+        args = (prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, union, V)
+        act = union & (vp["_lane_act"] > 0).any(1)
+        run = lambda: fp.gather_emit_combine_packed_triton(
+            *args[:6], act, V, plan=plan, pack=pack)
+        slabs, hm = run()
+        (ref, rhm) = fp.gather_emit_combine_packed_plain(
+            prog, monoids, cv.src, cv.dst, vp, cv.eprops, act, V)
+        inbox = fp._unpack(plan, pack, slabs)
+        if not torch.equal(hm, rhm):
+            fail(f"packed kernel {name}: has_msg differs from its plain "
+                 "version")
+        for leaf, rleaf, mo in zip(
+                records_leaves(inbox), records_leaves(ref), monoids):
+            err = max(err, check(f"packed kernel {name} vs plain", leaf,
+                                 rleaf, mo == "sum" and leaf.dtype
+                                 == torch.float32))
+        # each lane against the single-leaf kernel on the lane's state
+        base = prog.base_program()
+        k1_ms = 0.0
+        for q in range(Q):
+            lane_vp = {k: v[:, q].contiguous() for k, v in vp["p"].items()}
+            lane_act = act & (vp["_lane_act"][:, q] > 0)
+            k1 = lambda: fge.gather_emit_combine_triton(
+                base, base.monoid, cv.in_indptr, cv.src, lane_vp, cv.eprops,
+                lane_act, V)
+            o1, h1 = k1()
+            check(f"packed kernel {name} lane {q} vs single-leaf kernel",
+                  inbox["m"][key][:, q].contiguous(), o1[key], False)
+            if not torch.equal(inbox["_lane_msg"][:, q] > 0, h1):
+                fail(f"packed kernel {name} lane {q}: _lane_msg differs "
+                     "from the single-leaf kernel's has_msg")
+            k1_ms += time_ms(k1, iters=5, warmup=1)
+        times[name] = dict(
+            ms=time_ms(run), plain_ms=time_ms(
+                lambda: fp.gather_emit_combine_packed_plain(
+                    prog, monoids, cv.src, cv.dst, vp, cv.eprops, act, V),
+                iters=3, warmup=1),
+            q_single_leaf_ms=k1_ms)
+        times[name]["per_query_ms"] = times[name]["ms"] / Q
+        log("packed_kernel", emit=name, Q=Q, slab_width=graph_device.
+            lane_slab_width(Q), **times[name])
+    # bound, SSSP emit at Q=8: indptr, src and weight once; distance and
+    # _lane_act [V, Q] and the union frontier once; the m and _lane_msg
+    # slabs [V, W] and has_msg written once; an add, a compare and a min
+    # per edge and lane
+    W = graph_device.lane_slab_width(Q)
+    b, by = bound(4 * (V + 1) + 8 * E + 2 * 4 * V * Q + V + 2 * 4 * V * W
+                  + V, 3 * E * Q)
+    log("packed_bound", bound_ms=b, bound_by=by, Q=Q)
+    return [{"name": "gather_emit_combine_packed", "route": "triton",
+             "source": PACKED_SRC, "replaces": PACKED_REPLACES,
+             "launches": launches["gather_emit_combine_packed"],
+             "max_abs_err": err, "ms": times["sssp"]["ms"],
+             "plain_ms": times["sssp"]["plain_ms"], "bound_ms": b,
+             "bound_by": by, "library_ms": None}]
+
+
+def records_leaves(rec):
+    from repro_torch.core import records
+    return records.tree_leaves(records.canonical(rec))
+
+
+def packed_shape(name, prog, gdev, key, act, rng, variant, **kw):
+    """A batched mid-run state of `prog` on `gdev`; the packed kernel in
+    the block-skip (`bitmap=` in kw) or windowed shape against its plain
+    version and, bitwise, against the resident shape, then all three
+    timed. Returns (max abs err vs plain, {ms, plain_ms, resident_ms})."""
+    from repro_torch.core import vcprog
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import fused_packed as fp
+
+    cv, tables = gdev.canonical, gdev.canonical.fused_tables
+    V, E = gdev.num_vertices, gdev.num_edges
+    vp = batched_state(prog, gdev, rng, key)
+    monoids = leaf_monoids(prog, vcprog.empty_record(prog, gdev.device))
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, E)
+    pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    args = (prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, act, V)
+    plain_args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, act, V)
+    launch = lambda **k: fp.gather_emit_combine_packed_triton(
+        *args, plan=plan, pack=pack, dst=cv.dst, tables=tables, **ids, **k)
+    if variant == "skip":
+        plain = lambda: fp.gather_emit_combine_packed_skip_plain(
+            *plain_args, cv.in_indptr, tables, kw["bitmap"], **ids)
+    else:
+        plain = lambda: fp.gather_emit_combine_packed_window_plain(
+            *plain_args, tables, **ids)
+    shape = lambda: launch(variant=variant, **kw)
+    slabs, hm = shape()
+    rslabs, rhm = launch()
+    ref, phm = plain()
+    if not (torch.equal(hm, rhm) and torch.equal(hm, phm)):
+        fail(f"packed {name} kernel: has_msg differs")
+    for a, b in zip(slabs, rslabs):
+        check(f"packed {name} vs packed resident", a, b, False)
+    err = 0.0
+    for a, b, mo in zip(records_leaves(fp._unpack(plan, pack, slabs)),
+                        records_leaves(ref), monoids):
+        err = max(err, check(f"packed {name} vs plain", a, b,
+                             mo == "sum" and a.dtype == torch.float32))
+    return err, dict(ms=time_ms(shape), plain_ms=time_ms(plain, iters=3,
+                                                         warmup=1),
+                     resident_ms=time_ms(launch))
+
+
+def phase_lanes_frontier(ctx):
+    """Phase 9: `UniGPS(frontier="auto").sssp(sources=...)` runs the
+    packed block-skip shape (counters zeroed just before, read just
+    after) and equals the dense batched result bitwise; the block-skip
+    shape against its plain version and the resident one at a 1% union
+    frontier. Returns the JSON row of the packed block-skip kernel."""
+    from repro_torch import UniGPS
+    from repro_torch.core import graph_device, operators, vcprog
+    from repro_torch.kernels import counters
+    from repro_torch.kernels import fused_gather_emit as fge
+
+    g, gdev, roots = ctx["g"], ctx["gdev"], ctx["lane_roots"]
+    V, E = g.num_vertices, g.num_edges
+    Q = len(roots)
+    dense, _ = operators.sssp(g, sources=roots, gdev=gdev)
+    torch.cuda.synchronize()
+    counters.reset()
+    t = time.time()
+    out, info = UniGPS(frontier="auto").sssp(g, sources=roots)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = counters.snapshot()
+    log("lanes_frontier_path",
+        launches=json.dumps(launches, separators=(",", ":")))
+    if launches["gather_emit_combine_packed_skip"] <= 0:
+        fail("the lanes frontier path never launched "
+             "gather_emit_combine_packed_skip")
+    e = check("UniGPS(frontier=auto).sssp(sources) vs dense batched",
+              torch.from_numpy(out), torch.from_numpy(dense), False)
+    log("lanes_frontier", name="sssp", Q=Q, wall_s=round(wall, 4),
+        supersteps=info["iterations"], max_abs_err_vs_dense=e)
+
+    tables = gdev.canonical.fused_tables
+    prog = vcprog.as_batched([operators.SSSPProgram(r) for r in roots])
+    act = random_frontier(V, 0.01, ctx["rng"], gdev.device)
+    bm = fge.tile_bitmap_triton(act, tables, active_edges(gdev, act))
+    share = int(bm.sum()) / tables.num_tiles
+    err, row = packed_shape("block-skip", prog, gdev, "distance", act,
+                            ctx["rng"], "skip", bitmap=bm)
+    log("packed_skip_kernel", Q=Q, density=0.01, live_tile_share=share,
+        **row)
+    # indptr, tile_ptr and the bitmap once; of src and weight and of the
+    # gathered rows (distance and _lane_act [V, Q], the frontier) the
+    # live tiles' share; the two [V, W] slabs and has_msg written once
+    W = graph_device.lane_slab_width(Q)
+    P = -(-V // fge.BLOCK_V)
+    b, by = bound(4 * (V + 1) + 4 * (P + 1) + tables.num_tiles
+                  + share * (8 * E + 8 * V * Q + V) + 8 * V * W + V,
+                  3 * share * E * Q)
+    return [{"name": "gather_emit_combine_packed_skip", "route": "triton",
+             "source": PACKED_SRC, "replaces": PACKED_REPLACES,
+             "launches": launches["gather_emit_combine_packed_skip"],
+             "max_abs_err": err, "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
+             "library_ms": None}]
+
+
+def phase_lanes_window(ctx):
+    """Phase 10: a batched SSSP (8 roots) on phase 7's RCM-relabeled
+    Banded-21 DeviceGraph runs the packed windowed shape (counters zeroed
+    just before, read just after) and equals prefetch="off" bitwise; the
+    windowed shape against its plain version and the resident one.
+    Returns the JSON row of the packed windowed kernel."""
+    import warnings
+
+    from repro_torch.core import graph_device, operators, vcprog
+    from repro_torch.core.engines.common import NonConvergenceWarning
+    from repro_torch.kernels import counters
+
+    gb, gw = ctx["gb"], ctx["gw"]
+    V, E = gb.num_vertices, gb.num_edges
+    Q = 8
+    roots = lane_roots(V, Q, seed=3)
+    with warnings.catch_warnings():
+        # the band's diameter is ~V/4 supersteps: the run stops at max_iter
+        warnings.simplefilter("ignore", NonConvergenceWarning)
+        torch.cuda.synchronize()
+        counters.reset()
+        t = time.time()
+        out, info = operators.sssp(gb, sources=roots, gdev=gw)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = counters.snapshot()
+        off, _ = operators.sssp(gb, sources=roots, gdev=gw, prefetch="off")
+    log("lanes_window_path",
+        launches=json.dumps(launches, separators=(",", ":")))
+    if launches["gather_emit_combine_packed_window"] <= 0:
+        fail("the lanes window path never launched "
+             "gather_emit_combine_packed_window")
+    e = check("batched sssp prefetch=auto vs off (Banded-21, RCM)",
+              torch.from_numpy(out), torch.from_numpy(off), False)
+    log("lanes_window", name="sssp", Q=Q, wall_s=round(wall, 4),
+        supersteps=info["iterations"], converged=info["converged"],
+        max_abs_err_vs_prefetch_off=e)
+
+    tables = gw.canonical.fused_tables
+    prog = vcprog.as_batched([operators.SSSPProgram(r) for r in roots])
+    act = random_frontier(V, 0.5, ctx["rng"], gw.device)
+    err, row = packed_shape("windowed", prog, gw, "distance", act,
+                            ctx["rng"], "window")
+    log("packed_window_kernel", Q=Q, W=tables.window, **row)
+    # the SSSP emit reads the ids it is handed (src_ids/dst_ids exist on
+    # a reordered graph but the emit ignores them, so they are not
+    # counted): indptr, src, weight once; distance and _lane_act [V, Q]
+    # and the frontier once; two [V, W] slabs and has_msg written once
+    W = graph_device.lane_slab_width(Q)
+    b, by = bound(4 * (V + 1) + 8 * E + 8 * V * Q + V + 8 * V * W + V,
+                  3 * E * Q)
+    return [{"name": "gather_emit_combine_packed_window", "route": "triton",
+             "source": PACKED_SRC, "replaces": PACKED_REPLACES,
+             "launches": launches["gather_emit_combine_packed_window"],
+             "max_abs_err": err, "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
+             "library_ms": None}]
+
+
+tl = None  # triton.language, bound by record_emits() at first launch
+
+
+def _mixed_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    ival = vps[0]
+    val = vps[1]
+    return ival < 6, (tl.full(ival.shape, 1, tl.int32), ival * 2, val,
+                      val + 1.0, val * 0.5)
+
+
+def _triple_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    a = vps[0]
+    return tl.full(a.shape, 1, tl.int1), (a, vps[1], vps[2])
+
+
+def _vec_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    emb = vps[0]
+    val = vps[1]
+    return val < 10.0, (tl.full(val.shape, 1, tl.int32), val, emb * 0.5,
+                        emb + 1.0)
+
+
+def record_emits():
+    global tl
+    from repro_torch.kernels.build import import_triton
+    triton, tl = import_triton()
+    return {"mixed": triton.jit(_mixed_emit),
+            "triple": triton.jit(_triple_emit), "vec": triton.jit(_vec_emit)}
+
+
+def record_programs(VCProgram):
+    """Torch twins of tests/test_multileaf.py's MixedStats, UniformTriple
+    and VecStats, each with a Triton emit (tuple protocol)."""
+    emits = record_emits()
+    INF = 3.4e38
+
+    class MixedStats(VCProgram):
+        monoid = {"cnt": "sum", "hi": "max", "lo": "min", "wsum": "sum",
+                  "w2": "sum"}
+        triton_emit_reads = (("ival", "val"), ())
+
+        def triton_emit(self):
+            return emits["mixed"]
+
+        def init_vertex(self, vid, out_degree, vprop):
+            return {"val": (vid % 13).to(torch.float32),
+                    "ival": (vid % 7).to(torch.int32),
+                    **self.empty_message()}
+
+        def empty_message(self):
+            return {"cnt": 0, "hi": -2**31, "lo": INF, "wsum": 0.0,
+                    "w2": 0.0}
+
+        def merge_message(self, a, b):
+            return {"cnt": a["cnt"] + b["cnt"],
+                    "hi": torch.maximum(a["hi"], b["hi"]),
+                    "lo": torch.minimum(a["lo"], b["lo"]),
+                    "wsum": a["wsum"] + b["wsum"], "w2": a["w2"] + b["w2"]}
+
+        def vertex_compute(self, prop, msg, it):
+            return {**prop, **msg}, it < 3
+
+        def emit_message(self, src, dst, sp, ep):
+            return sp["ival"] < 6, {"cnt": 1, "hi": sp["ival"] * 2,
+                                    "lo": sp["val"],
+                                    "wsum": sp["val"] * 0.5,
+                                    "w2": sp["val"] + 1.0}
+
+    class UniformTriple(VCProgram):
+        monoid = "min"
+        triton_emit_reads = (("a", "b", "c"), ())
+
+        def triton_emit(self):
+            return emits["triple"]
+
+        def init_vertex(self, vid, out_degree, vprop):
+            return {"a": vid.to(torch.int32),
+                    "b": (vid * 2).to(torch.int32),
+                    "c": (vid % 5).to(torch.float32)}
+
+        def empty_message(self):
+            return {"a": 2**31 - 1, "b": 2**31 - 1, "c": INF}
+
+        def merge_message(self, a, b):
+            return {k: torch.minimum(a[k], b[k]) for k in a}
+
+        def vertex_compute(self, prop, msg, it):
+            new = {k: torch.minimum(prop[k], msg[k]) for k in prop}
+            changed = (new["a"] < prop["a"]) | (new["b"] < prop["b"])
+            return new, (it == 1) | changed
+
+        def emit_message(self, src, dst, sp, ep):
+            return True, dict(sp)
+
+    class VecStats(VCProgram):
+        monoid = {"vec": "sum", "vmin": "min", "lo": "min", "cnt": "sum"}
+        triton_emit_reads = (("emb", "val"), ())
+
+        def triton_emit(self):
+            return emits["vec"]
+
+        def init_vertex(self, vid, out_degree, vprop):
+            base = (vid % 11).to(torch.float32)
+            cols = torch.arange(8, dtype=torch.float32, device=vid.device)
+            return {"emb": base + cols * 0.25, "val": base,
+                    **self.empty_message()}
+
+        def empty_message(self):
+            return {"vec": torch.zeros(8), "vmin": torch.full((8,), INF),
+                    "lo": INF, "cnt": 0}
+
+        def merge_message(self, a, b):
+            return {"vec": a["vec"] + b["vec"],
+                    "vmin": torch.minimum(a["vmin"], b["vmin"]),
+                    "lo": torch.minimum(a["lo"], b["lo"]),
+                    "cnt": a["cnt"] + b["cnt"]}
+
+        def vertex_compute(self, prop, msg, it):
+            return {**prop, **msg}, it < 3
+
+        def emit_message(self, src, dst, sp, ep):
+            return sp["val"] < 10.0, {"vec": sp["emb"] * 0.5,
+                                      "vmin": sp["emb"] + 1.0,
+                                      "lo": sp["val"], "cnt": 1}
+
+    return {"MixedStats": MixedStats, "UniformTriple": UniformTriple,
+            "VecStats": VecStats}
+
+
+def phase_records(ctx):
+    """Phase 11: the three record programs on RMAT-21. A whole run with
+    the kernels on (counters zeroed just before, read just after: the
+    packed kernel must have run) against kernel="off"; at the plane,
+    multileaf="auto" (packed) against "perleaf" and against the unfused
+    kernel-off pass; the packed kernel against its plain version. Bitwise
+    for min, max and integer leaves, f32 sums within SUM_RTOL."""
+    import repro_torch
+    from repro_torch import run_vcprog
+    from repro_torch.core import message_plane, vcprog
+    from repro_torch.kernels import counters
+    from repro_torch.kernels import fused_packed as fp
+
+    g, gdev = ctx["g"], ctx["gdev"]
+    V, cv = g.num_vertices, gdev.canonical
+    active = random_frontier(V, 0.5, ctx["rng"], gdev.device)
+    for name, cls in record_programs(repro_torch.VCProgram).items():
+        prog = cls()
+        torch.cuda.synchronize()
+        counters.reset()
+        t = time.time()
+        on, info = run_vcprog(prog, g, 4, gdev=gdev)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = counters.snapshot()
+        if launches["gather_emit_combine_packed"] <= 0:
+            fail(f"{name}: the packed kernel never ran")
+        off, _ = run_vcprog(cls(), g, 4, gdev=gdev, kernel="off")
+        monoid = prog.monoid
+        err_run = 0.0
+        for k in sorted(on):
+            fsum = (monoid == "sum" if isinstance(monoid, str)
+                    else monoid.get(k) == "sum") \
+                and on[k].dtype == torch.float32
+            err_run = max(err_run, check(f"{name} {k} kernel on vs off",
+                                         on[k], off[k], fsum))
+        vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V)
+        empty = vcprog.empty_record(prog, gdev.device)
+        monoids = message_plane.leaf_monoids(prog, empty)
+        res = {ml: message_plane.emit_and_combine(
+            prog, cv, vp, active, empty, kernel_on=True, multileaf=ml)
+            for ml in ("auto", "perleaf")}
+        res["off"] = message_plane.emit_and_combine(
+            prog, cv, vp, active, empty, kernel_on=False)
+        errs = {}
+        for other in ("perleaf", "off"):
+            if not torch.equal(res["auto"][1], res[other][1]):
+                fail(f"{name}: has_msg packed vs {other} differs")
+            errs[other] = 0.0
+            for a, b, mo in zip(records_leaves(res["auto"][0]),
+                                records_leaves(res[other][0]), monoids):
+                errs[other] = max(errs[other], check(
+                    f"{name} packed vs {other}", a, b,
+                    mo == "sum" and a.dtype == torch.float32))
+        plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+        pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+        slabs, hm = fp.gather_emit_combine_packed_triton(
+            prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, active, V,
+            plan=plan, pack=pack)
+        ref, rhm = fp.gather_emit_combine_packed_plain(
+            prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
+        if not torch.equal(hm, rhm):
+            fail(f"{name}: packed kernel has_msg differs from plain")
+        e_plain = 0.0
+        for a, b, mo in zip(records_leaves(fp._unpack(plan, pack, slabs)),
+                            records_leaves(ref), monoids):
+            e_plain = max(e_plain, check(
+                f"{name} packed kernel vs plain", a, b,
+                mo == "sum" and a.dtype == torch.float32))
+        ms = time_ms(lambda: fp.gather_emit_combine_packed_triton(
+            prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, active, V,
+            plan=plan, pack=pack))
+        log("records", name=name, leaves=len(monoids),
+            columns=plan.ncol, wall_s=round(wall, 4),
+            supersteps=info["iterations"],
+            packed_launches=launches["gather_emit_combine_packed"],
+            max_abs_err_on_vs_off=err_run,
+            max_abs_err_vs_perleaf=errs["perleaf"],
+            max_abs_err_vs_unfused=errs["off"],
+            max_abs_err_vs_plain=e_plain, packed_ms=ms)
+
+
+def phase_compaction(ctx):
+    """Phase 12: an unfused f32-sum program (no Triton emit) under
+    frontier="sparse" takes the compaction arm through the segment
+    kernel with dense-row offsets and equals frontier="dense" bitwise."""
+    import repro_torch
+    from repro_torch import run_vcprog
+    from repro_torch.kernels import counters
+
+    class WeightedInSum(repro_torch.VCProgram):
+        monoid = "sum"
+
+        def init_vertex(self, vid, out_degree, vprop):
+            return {"x": (vid % 97).to(torch.float32) * 0.37 + 0.11,
+                    "s": torch.zeros((), dtype=torch.float32)}
+
+        def empty_message(self):
+            return {"s": 0.0}
+
+        def merge_message(self, m1, m2):
+            return {"s": m1["s"] + m2["s"]}
+
+        def vertex_compute(self, prop, msg, it):
+            return ({"x": prop["x"], "s": msg["s"]},
+                    (it < 4) & (prop["x"] < 20.0))
+
+        def emit_message(self, src, dst, src_prop, edge_prop):
+            return True, {"s": src_prop["x"] * edge_prop["weight"]}
+
+    g, gdev = ctx["g"], ctx["gdev"]
+    dense, _ = run_vcprog(WeightedInSum(), g, 6, gdev=gdev)
+    torch.cuda.synchronize()
+    counters.reset()
+    t = time.time()
+    sparse, info = run_vcprog(WeightedInSum(), g, 6, gdev=gdev,
+                              frontier="sparse")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = counters.snapshot()
+    if launches["segment_combine"] <= 0:
+        fail("the compaction arm never ran through the segment kernel")
+    e = check("compaction arm (f32 sum, segment kernel) vs dense",
+              sparse["s"], dense["s"], False)
+    log("compaction", wall_s=round(wall, 4), supersteps=info["iterations"],
+        segment_launches=launches["segment_combine"],
+        max_abs_err_vs_dense=e, bitwise=True)
+
+    # the segment kernel on a 10 % workset of the graph's rows: with the
+    # dense-row offsets (the compaction arm's call) against the dense rows
+    # with the dropped entries set to 0; timed beside the same workset
+    # without offsets (lanes stride the compacted row) and the dense call
+    from repro_torch.kernels import segment_reduce as sr
+    cv, rng = gdev.canonical, ctx["rng"]
+    E, V = cv.num_edges, cv.num_segments
+    vals = torch.from_numpy(rng.random(E).astype(np.float32) * 10).to(
+        gdev.device)[:, None]
+    keep = torch.from_numpy(rng.random(E) < 0.1).to(gdev.device)
+    pos = torch.nonzero(keep).flatten()
+    ws_dst = cv.dst[pos].contiguous()
+    ws_ip = sr.indptr_from_seg_ids(ws_dst, V)
+    offsets = (pos - cv.in_indptr.long()[ws_dst.long()]).to(torch.int32)
+    ws_vals = vals[pos].contiguous()
+    dense_vals = torch.where(keep[:, None], vals, 0.0).contiguous()
+    want = sr.segment_combine_cuda(dense_vals, cv.in_indptr, V, "sum")
+    got = sr.segment_combine_cuda(ws_vals, ws_ip, V, "sum", offsets)
+    check("segment kernel on a workset with offsets vs dense", got, want,
+          False)
+    # bound: the values and offsets read, indptr read, out written once
+    n = int(pos.numel())
+    log("segment_workset", kept=n, bound_ms=bound(
+        8 * n + 4 * (V + 1) + 4 * V, n)[0], dense_ms=time_ms(
+        lambda: sr.segment_combine_cuda(dense_vals, cv.in_indptr, V, "sum")),
+        ordered_ms=time_ms(lambda: sr.segment_combine_cuda(
+            ws_vals, ws_ip, V, "sum", offsets)),
+        unordered_ms=time_ms(lambda: sr.segment_combine_cuda(
+            ws_vals, ws_ip, V, "sum")),
+        plain_ms=time_ms(lambda: sr.segment_combine_plain(
+            ws_vals, ws_ip, V, "sum", offsets), iters=5))
 
 
 def main():
@@ -745,6 +1434,11 @@ def main():
                results=results, rng=rng, log2v=args.log2v)
     rows += phase_frontier(ctx)
     rows += phase_window(ctx)
+    rows += phase_lanes(ctx)
+    rows += phase_lanes_frontier(ctx)
+    rows += phase_lanes_window(ctx)
+    phase_records(ctx)
+    phase_compaction(ctx)
     log("memory", peak_gib=round(torch.cuda.max_memory_allocated() / 2**30,
                                  3), total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)

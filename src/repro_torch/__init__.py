@@ -4,7 +4,7 @@
 # records across as numpy.
 from .core.api import UniGPS  # noqa: F401
 from .core.graph import PropertyGraph, from_edges, partition_graph  # noqa: F401
-from .core.vcprog import VCProgram  # noqa: F401
+from .core.vcprog import BatchedProgram, VCProgram, as_batched  # noqa: F401
 from .core.engines import run_vcprog  # noqa: F401
 from .core import io, operators  # noqa: F401
 from . import convert  # noqa: F401

@@ -5,7 +5,9 @@ with the same fields. Neither imports the other, so data crosses between
 them as plain numpy: :func:`graph_arrays` reads the fields of either
 class into a dict of numpy arrays, and :func:`graph_from_arrays` builds the
 port's graph from such a dict. Vertex records cross as ``{name: ndarray}``
-through :func:`record_to_torch` and :func:`to_numpy`.
+through :func:`record_to_torch` and :func:`to_numpy`; the [V, Q] leaves
+of a batched run split into Q per-lane records with :func:`split_lanes`
+and stack back with :func:`stack_lanes`.
 """
 from __future__ import annotations
 
@@ -66,3 +68,21 @@ def to_numpy(tree):
             return x.detach().cpu().numpy()
         return x
     return records.tree_map(leaf, tree)
+
+
+def split_lanes(record: dict) -> list:
+    """A batched run's ``{name: [V, Q] array or tensor}`` vertex record
+    (either package's) -> Q numpy records ``{name: [V]}``, lane order."""
+    host = {k: np.asarray(to_numpy(v)) for k, v in record.items()}
+    q = {a.shape[-1] for a in host.values()}
+    if len(q) != 1:
+        raise ValueError(f"leaves carry different lane counts {q}")
+    return [{k: a[..., i] for k, a in host.items()} for i in range(q.pop())]
+
+
+def stack_lanes(lanes: list) -> dict:
+    """Q per-lane ``{name: [V]}`` records (numpy or tensors) -> one
+    ``{name: [V, Q]}`` numpy record, the layout a batched run returns."""
+    host = [{k: np.asarray(to_numpy(v)) for k, v in r.items()}
+            for r in lanes]
+    return {k: np.stack([r[k] for r in host], axis=-1) for k in host[0]}

@@ -54,10 +54,14 @@ class UniGPS:
     `run_vcprog`, e.g. ``UniGPS(device="cpu", reorder="rcm",
     frontier="auto")``; results are bit-identical to the defaults.
 
+    lane_chunk (None | int | "auto") splits batched runs (`sources=`,
+    `batch=`, `landmark_distances`) wider than that many lanes into
+    sub-batches, bitwise equal to one batch.
+
     lint defaults to "off": the port has no linter yet, and the other
-    values raise. exchange, checkpoint_dir, checkpoint_every, guards and
-    lane_chunk keep the reference's names; values whose machinery is a
-    later slice raise NotImplementedError when a run starts.
+    values raise. exchange, checkpoint_dir, checkpoint_every and guards
+    keep the reference's names; values whose machinery is a later slice
+    raise NotImplementedError when a run starts.
     """
 
     def __init__(self, engine: str = DEFAULT_ENGINE, kernel: str = "auto",
@@ -134,7 +138,10 @@ class UniGPS:
                output_file: Optional[str] = None, batch: int | None = None,
                lint: Optional[str] = None, **kw):
         """Run one user program; returns (vprops {name: tensor}, info).
-        `lint=` overrides the session's lint mode for this call."""
+        `user_program` may be a list of same-class programs (one query
+        lane each), or `batch=Q` replicates one program over Q lanes:
+        vprops leaves are then [V, Q]. `lint=` overrides the session's
+        lint mode for this call."""
         if lint is not None:
             _resolve_lint(lint)
         eng = engine or self.engine
@@ -174,6 +181,13 @@ class UniGPS:
         return operators.personalized_pagerank(
             graph, source, num_iters, damping,
             engine=engine or self.engine, sources=sources,
+            **self._kernel_kw(kw))
+
+    def landmark_distances(self, graph, landmarks, max_iter: int = 100,
+                           engine: Optional[str] = None, **kw):
+        """[Q, V] distances from Q landmarks in one batched SSSP run."""
+        return operators.landmark_distances(
+            graph, landmarks, max_iter, engine=engine or self.engine,
             **self._kernel_kw(kw))
 
     def connected_components(self, graph, max_iter: int = 200,

@@ -14,7 +14,8 @@ import torch
 
 from .. import message_plane, records, vcprog
 from ..graph import PropertyGraph
-from ..graph_device import DeviceGraph, build_device_graph
+from ..graph_device import (DeviceGraph, build_device_graph,
+                            resolve_lane_chunk)
 from ..knobs import knob_error, not_ported
 
 #: wire codec names of the distributed exchange (copied from the
@@ -53,13 +54,17 @@ def _make_step(program, graph: DeviceGraph, engine, kernel_on: bool,
                frontier: str, prefetch: str):
     dev = graph.device
     empty = vcprog.empty_record(program, dev)
+    batched = isinstance(program, vcprog.BatchedProgram)
 
     def step(it, vprops, active, inbox, has_msg, extra):
         process = active | has_msg
         it_t = torch.tensor(it, dtype=torch.int32, device=dev)
         vprops, active = vcprog.compute_phase(program, vprops, inbox,
                                               process, it_t)
-        front = vcprog.make_frontier(active)
+        # a batched run's `active` is already the OR across lanes (the
+        # program's scalar is_active); the per-lane masks ride along
+        lanes = vprops["_lane_act"] > 0 if batched else None
+        front = vcprog.make_frontier(active, lane_mask=lanes)
         inbox, has_msg, extra = engine.emit_and_combine(
             graph, program, vprops, front, extra, empty, kernel_on,
             frontier, prefetch)
@@ -84,7 +89,7 @@ def local_bytes_info() -> dict:
             "capacity": 0}
 
 
-def _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
+def _refuse_later_slices(engine, exchange, checkpoint_dir,
                          checkpoint_every, guards, faults, warm_start):
     """Knobs whose machinery a later slice brings raise here, naming
     their ROADMAP.md Queue A entry."""
@@ -92,8 +97,6 @@ def _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
         raise not_ported("engine", engine, "item 4b: the callback engine")
     if engine == "distributed":
         raise not_ported("engine", engine, "item 8: the distributed engine")
-    if batch is not None:
-        raise not_ported("batch", batch, "item 7: batched lanes")
     if exchange not in CODECS:
         raise knob_error("exchange", exchange, CODECS)
     if exchange != "exact":
@@ -111,6 +114,29 @@ def _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
         raise not_ported("faults", faults, "item 9: checkpoint and faults")
     if warm_start is not None:
         raise not_ported("warm_start", "...", "item 10: serving")
+
+
+def _run_lane_chunked(program: vcprog.BatchedProgram, graph, max_iter,
+                      chunk_width: int, gdev, reorder, device, **kw):
+    """Run a wide batch as `chunk_width`-lane sub-batches on one device
+    graph and concatenate them on the trailing lane axis: bitwise equal
+    to the unchunked run (lanes never interact)."""
+    if gdev is None:
+        gdev = prepare_device_graph(graph, reorder=reorder, device=device)
+    outs, infos = [], []
+    for sub in program.split(chunk_width):
+        v, i = run_vcprog(sub, graph, max_iter, gdev=gdev, reorder=reorder,
+                          device=device, **kw)
+        outs.append(v)
+        infos.append(i)
+    vprops = records.tree_concat(outs, axis=-1)
+    info = dict(infos[0])
+    info["iterations"] = max(i["iterations"] for i in infos)
+    info["active_at_end"] = sum(i["active_at_end"] for i in infos)
+    info["converged"] = all(i["converged"] for i in infos)
+    info["batch"] = program.num_lanes
+    info["lane_chunks"] = {"width": int(chunk_width), "chunks": len(infos)}
+    return vprops, info
 
 
 def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
@@ -149,17 +175,42 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
     where the graph's tables carry a usable window (a locality-ordered
     graph). Bit-identical either way.
 
-    overlap, resume and lane_chunk are inert on this single-device path.
-    batch=, exchange != "exact", checkpointing, guards, faults,
-    warm_start and the callback/distributed engines belong to later
-    slices and raise NotImplementedError.
+    batch: the multi-query axis. `program` may be a sequence of
+    same-class programs (one query lane each), or `batch=Q` replicates
+    one program across Q lanes; either way the lanes run as ONE
+    :class:`~repro_torch.core.vcprog.BatchedProgram` whose record leaves
+    carry a trailing [Q] lane axis, so each superstep makes one pass over
+    the edges for all Q queries (the packed fused kernel takes the lanes
+    as columns). Returned vprops leaves are [V, Q]; each lane is
+    bit-identical to its own sequential run; `info["batch"] = Q` and
+    `info["iterations"]` is the slowest lane's count.
+
+    lane_chunk: None (default) | int | "auto" — run a batch wider than
+    this many lanes as sub-batches of at most that width ("auto" =
+    graph_device.LANE_CHUNK_DEFAULT) on one device graph, and concatenate
+    them on the lane axis; bitwise equal to the unchunked run, with
+    `info["lane_chunks"]` reporting the split.
+
+    overlap and resume are inert on this single-device path.
+    exchange != "exact", checkpointing, guards, faults, warm_start and
+    the callback/distributed engines belong to later slices and raise
+    NotImplementedError.
     """
     frontier = message_plane.resolve_frontier_mode(frontier)
     prefetch = message_plane.resolve_prefetch_mode(prefetch)
     if exchange is None:
         exchange = "exact"
-    _refuse_later_slices(engine, batch, exchange, checkpoint_dir,
+    _refuse_later_slices(engine, exchange, checkpoint_dir,
                          checkpoint_every, guards, faults, warm_start)
+    program = vcprog.as_batched(program, batch)
+    batched = isinstance(program, vcprog.BatchedProgram)
+    chunk_width = resolve_lane_chunk(lane_chunk)
+    if batched and chunk_width and program.num_lanes > chunk_width:
+        return _run_lane_chunked(
+            program, graph, max_iter, chunk_width, gdev, reorder, device,
+            engine=engine, kernel=kernel, use_kernel=use_kernel,
+            frontier=frontier, prefetch=prefetch, exchange=exchange,
+            overlap=overlap)
     from . import gas, pregel, pushpull  # noqa: F401 (registration)
     eng = ENGINES[engine]
     if gdev is None:
@@ -178,6 +229,11 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
             "bytes_exchanged": local_bytes_info(),
             "iterations": int(iters), "active_at_end": num_active,
             "converged": num_active == 0}
+    if batched:
+        # the user sees the base record with [V, Q] leaves; `_lane_act`
+        # stays internal
+        vprops = vprops["p"]
+        info["batch"] = program.num_lanes
     if not info["converged"]:
         warnings.warn(
             f"run_vcprog hit max_iter={int(max_iter)} with "

@@ -48,6 +48,33 @@ def workset_capacity(num_items: int, frac: float = SPARSE_CAP_FRAC) -> int:
     return int(min(cap, -(-n // 8) * 8))
 
 
+#: lane-chunk width `lane_chunk="auto"` resolves to: a batch wider than
+#: this runs as sub-batches of this width (`run_vcprog`'s `lane_chunk=`).
+LANE_CHUNK_DEFAULT = 32
+
+
+def resolve_lane_chunk(lane_chunk) -> int:
+    """Resolve the `lane_chunk` knob: None/0 = no chunking (one pass
+    whatever Q is), "auto" = LANE_CHUNK_DEFAULT, an int = that width."""
+    if lane_chunk in (None, 0, False, "none", "off"):
+        return 0
+    if lane_chunk == "auto":
+        return LANE_CHUNK_DEFAULT
+    w = int(lane_chunk)
+    if w < 1:
+        raise ValueError(f"lane_chunk must be >= 1, got {lane_chunk!r}")
+    return w
+
+
+def lane_slab_width(num_lanes: int) -> int:
+    """Slab columns Q query lanes occupy in the packed fused kernel's
+    message slabs: a batched scalar leaf is a [V, Q] record leaf, so its
+    PackSlot takes Q columns and its group's slab pads to LANE_ALIGN."""
+    from ..kernels.fused_packed import LANE_ALIGN
+    q = max(int(num_lanes), 1)
+    return -(-q // LANE_ALIGN) * LANE_ALIGN
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeLayout:
     """One view of an edge set, as the message plane consumes it.
@@ -73,6 +100,11 @@ class EdgeLayout:
       fused_tables: optional FusedTables — the block-skip and windowed
                   kernels' tables for this combine-ordered layout, each
                   computed on first use.
+      pack:       optional :class:`~repro_torch.kernels.fused_gather_emit.
+                  PackSpec` — the packed kernel's slab table for one known
+                  program. Graph builders leave it None and the plane
+                  derives it from the program; a caller running one
+                  program may build it with `make_pack_spec` and set it.
       num_segments / num_edges: V and the edge SLOT count.
 
     ``prefetch_blocks`` ([ceil(E/PREFETCH_BLOCK_E)] int32 slab index per
@@ -92,6 +124,7 @@ class EdgeLayout:
     dst_ids: Any = None
     canonical: Optional["EdgeLayout"] = None
     fused_tables: Any = None
+    pack: Any = None
     num_segments: int = 0
     num_edges: int = 0
 

@@ -15,6 +15,10 @@ dispatcher reads its fields and the program's monoid to pick between
     monoid and a Triton emit (:meth:`VCProgram.triton_emit`) — resident,
     windowed (a locality-ordered graph's slab pairs) or block-skip (a thin
     frontier's live tiles),
+  * the packed fused kernel (Triton, the same three shapes) for records
+    with several leaves, a per-leaf monoid table, vector leaves or the
+    query lanes of a batched program: one launch per pass whatever the
+    record,
   * the CUDA segment-combine kernel over materialized messages (named
     monoids, every other program when the kernels are on),
   * library segment ops (`scatter_reduce`) for named monoids or a
@@ -32,8 +36,8 @@ unfused named-monoid passes compact the active edge set into a workset
 below the crossover (`workset_capacity(E)` active edges). The loop is
 eager, so the crossover is a host branch on the active-edge count, which
 comes to the host in the same read as the frontier's size. Every mode is
-bit-identical to dense. The packed multi-leaf kernel comes with a later
-slice (ROADMAP.md).
+bit-identical to dense. A batched run dispatches on the union frontier
+(the OR across lanes), so nothing a lane needs is ever skipped.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import torch
 
 from . import records
 from .graph_device import EdgeLayout, SPARSE_CAP_FRAC, workset_capacity
-from .knobs import knob_error, not_ported
+from .knobs import knob_error
 from .vcprog import (Frontier, Record, RecordBatch, SegmentMeta, VCProgram,
                      frontier_mask, make_segment_meta, record_vmap)
 
@@ -315,10 +319,12 @@ def _sparse_emit_combine(program: VCProgram, cv: EdgeLayout, vprops,
 
     Compaction is order-preserving, so the workset's dst run stays
     ascending (sentinel `num_segments` pads keep it so through the tail)
-    and each vertex folds the same emissions in the same order as the
-    dense pass: bit-identical to dense. With the kernels on, the workset
+    and each vertex folds the emissions the dense pass keeps, in the same
+    order: bit-identical to dense. With the kernels on, the workset
     combines through the segment kernel, whose row pointers drop the
-    sentinel ids."""
+    sentinel ids; it gets each slot's offset inside its vertex's dense
+    in-edge row, so its warp lanes fold the terms they fold in the dense
+    pass (kernels/segment_reduce.py), f32 sums included."""
     E, V = cv.num_edges, cv.num_segments
     device = cv.src.device
     ws, count = compact_indices(act_e, cap)
@@ -338,8 +344,13 @@ def _sparse_emit_combine(program: VCProgram, cv: EdgeLayout, vprops,
     if kernel_on:
         from ..kernels import ops as kops
         indptr = kops.indptr_from_seg_ids(dst_ws, V)
+        dense_ip = cv.in_indptr if cv.in_indptr is not None \
+            else kops.indptr_from_seg_ids(cv.dst, V)
+        offsets = torch.where(
+            ws_valid, wsc.to(torch.int32)
+            - dense_ip[dst_ws.clamp(max=max(V - 1, 0)).long()], 0)
         seg_op = lambda x, monoid: kops.segment_combine(
-            x, dst_ws, V, monoid=monoid, indptr=indptr)
+            x, dst_ws, V, monoid=monoid, indptr=indptr, offsets=offsets)
     return _segment_named(program, msgs, dst_ws, valid, V, empty, meta,
                           monoids, seg_op=seg_op)
 
@@ -409,54 +420,84 @@ def _program_monoids(program: VCProgram):
     return leaf_monoids(program, program.empty_message())
 
 
+def _packed_plan(program: VCProgram, cv: EdgeLayout, vprops):
+    """The packed kernel's plan for this program on the combine-ordered
+    `cv`, or None when it cannot run it (no Triton emit, a leaf shape it
+    does not take, an emit that fails on the one-edge probe)."""
+    from ..kernels import fused_packed
+    try:
+        return fused_packed.packed_plan(program, vprops, cv.eprops,
+                                        cv.num_segments, cv.num_edges)
+    except ValueError:  # the plane then runs unfused, as the reference does
+        return None
+
+
+def _will_pack(plan, multileaf: str) -> bool:
+    """Does a fused pass of this plan run the packed kernel? Several
+    leaves, a vector leaf or multileaf="packed" pack; "perleaf" never
+    does."""
+    return multileaf != "perleaf" and (
+        len(plan.sources) > 1 or multileaf == "packed" or plan.vector)
+
+
 def fused_applicable(program: VCProgram, layout: EdgeLayout, vprops,
                      multileaf: str = "auto") -> bool:
-    """Static check: can this (program, layout) pair run as ONE fused
-    kernel pass? Needs a combine-ordered view, a record of ONE message
-    leaf under a named monoid, and a Triton emit whose declared reads
-    (at most two [V] vertex-property leaves, at most one edge-property
-    leaf) exist on this graph. Everything else runs unfused."""
+    """Static check: can this (program, layout) pair run as fused kernel
+    passes? Needs a combine-ordered view, named monoids (one for the
+    record or one per leaf) and a Triton emit whose reads this graph
+    holds, over [N] or [N, D] leaves. One scalar leaf runs the
+    single-leaf kernel; several leaves, a vector leaf or a batched
+    program run the packed kernel (or, under multileaf="perleaf", one
+    launch per leaf, which cannot carry vector leaves)."""
     cv = layout.combine_view
     if cv is None or cv.num_segments == 0:
         return False
-    mono = _program_monoids(program)
-    if mono is None:
+    if _program_monoids(program) is None:
         return False
-    leaves = records.tree_leaves(program.empty_message())
-    if len(leaves) != 1 or records.as_leaf(leaves[0]).ndim != 0:
+    if program.triton_emit_reads is None:
         return False
-    if multileaf == "packed":
-        return False
-    reads = program.triton_emit_reads
-    if reads is None:
-        return False
-    vp_names, ep_names = reads
-    if len(vp_names) > 2 or len(ep_names) > 1:
-        return False
-    V, E = cv.num_segments, cv.num_edges
-    if any(n not in vprops or tuple(vprops[n].shape) != (V,)
-           for n in vp_names):
-        return False
-    return all(n not in cv.eprops or tuple(cv.eprops[n].shape) == (E,)
-               for n in ep_names)
+    plan = _packed_plan(program, cv, vprops)
+    return plan is not None and (
+        not plan.vector or _will_pack(plan, multileaf))
+
+
+def _per_leaf_fused(program: VCProgram, layout: EdgeLayout, vprops, active,
+                    monoids, plan, **kw):
+    """One launch per message leaf — the baseline the packed pass
+    collapses into one launch (multileaf="perleaf"). Each launch is the
+    packed kernel restricted to that leaf."""
+    from ..kernels import ops as kops
+    runs = [kops.gather_emit_combine_packed(
+        program, monoids, layout.src, layout.dst, vprops, layout.eprops,
+        active, layout.num_segments, leaves=(j,), **kw)
+        for j in range(len(monoids))]
+    # every launch computes the same has_msg (the veto does not depend on
+    # the leaf)
+    return (records.tree_unflatten([inbox[j] for j, (inbox, _)
+                                    in enumerate(runs)], plan.spec),
+            runs[0][1])
 
 
 def _fused_emit_combine(program: VCProgram, layout: EdgeLayout, vprops,
                         active, empty: Record, frontier: str = "dense",
-                        use_prefetch: bool = True):
-    """Phases 3+1 as ONE pass of the fused kernel over the combine-ordered
+                        use_prefetch: bool = True, multileaf: str = "auto"):
+    """Phases 3+1 as fused kernel passes over the combine-ordered
     `layout`; vertices without a message get the user's exact empty
     record.
 
-    The kernel's shape follows the reference's dispatch: block-skip when
-    the frontier mode is sparse ("sparse", or "auto" below the crossover),
-    otherwise the windowed kernel when `use_prefetch` and the layout's
-    tables carry a usable window, otherwise the resident one. Block-skip
-    wins on a thin frontier because it touches only live tiles, while the
-    windowed kernel stages every CTA's slab pair whatever the frontier.
-    Layouts without tables run the resident kernel (same bits)."""
+    Records with several leaves, a per-leaf monoid table, vector leaves
+    or batched lanes (or multileaf="packed") run the packed kernel: one
+    launch for the whole record (``layout.pack`` is honoured when set);
+    multileaf="perleaf" runs one launch per leaf instead; one scalar leaf
+    runs the single-leaf kernel. The kernel's shape follows the
+    reference's dispatch: block-skip when the frontier mode is sparse
+    ("sparse", or "auto" below the crossover; the bitmap comes from the
+    union frontier), otherwise the windowed kernel when `use_prefetch`
+    and the layout's tables carry a usable window, otherwise the
+    resident one. Layouts without tables run the resident kernel (same
+    bits)."""
     from ..kernels import ops as kops
-    (monoid,) = leaf_monoids(program, empty)
+    monoids = leaf_monoids(program, empty)
     tables = layout.fused_tables
     variant, n_act = "resident", None
     if frontier != "dense" and tables is not None:
@@ -466,12 +507,23 @@ def _fused_emit_combine(program: VCProgram, layout: EdgeLayout, vprops,
             variant = "skip"
     if variant == "resident" and use_prefetch and tables is not None:
         variant = "window"  # resident where the window is not usable
-    inbox, has_msg = kops.gather_emit_combine(
-        program, monoid, layout.src, layout.dst, vprops, layout.eprops,
-        frontier_mask(active), layout.num_segments,
-        indptr=layout.in_indptr, valid=layout.valid_mask,
-        src_ids=layout.src_ids, dst_ids=layout.dst_ids, variant=variant,
-        tables=tables, num_active_edges=n_act)
+    mask = frontier_mask(active)
+    kw = dict(indptr=layout.in_indptr, valid=layout.valid_mask,
+              src_ids=layout.src_ids, dst_ids=layout.dst_ids,
+              variant=variant, tables=tables, num_active_edges=n_act)
+    plan = _packed_plan(program, layout, vprops)
+    if multileaf == "perleaf" and len(monoids) > 1:
+        inbox, has_msg = _per_leaf_fused(program, layout, vprops, mask,
+                                         monoids, plan, pack=layout.pack,
+                                         **kw)
+    elif _will_pack(plan, multileaf):
+        inbox, has_msg = kops.gather_emit_combine_packed(
+            program, monoids, layout.src, layout.dst, vprops, layout.eprops,
+            mask, layout.num_segments, pack=layout.pack, **kw)
+    else:
+        inbox, has_msg = kops.gather_emit_combine(
+            program, monoids[0], layout.src, layout.dst, vprops,
+            layout.eprops, mask, layout.num_segments, **kw)
     empty_v = records.tree_tile(empty, layout.num_segments)
     return records.tree_where(has_msg, inbox, empty_v), has_msg
 
@@ -498,9 +550,10 @@ def emit_and_combine(program: VCProgram, layout: EdgeLayout, vprops, active,
       mode="unfused"  never fuse (still honors `kernel_on` for the
                       segment-combine kernel).
 
-    multileaf="packed" (the packed multi-leaf kernel) is not ported yet
-    and raises when a fused pass is asked for; "auto"/"perleaf" fuse
-    single-leaf records.
+    multileaf ("auto"|"packed"|"perleaf") picks the fused pass for
+    multi-leaf records: "auto" packs several leaves (per-(dtype, monoid)
+    message slabs) into ONE launch, "perleaf" forces one launch per leaf,
+    "packed" packs even one leaf.
 
     frontier ("auto"|"dense"|"sparse"): see :func:`resolve_frontier_mode`.
     Fused passes run the block-skip kernel in sparse mode; unfused
@@ -521,19 +574,16 @@ def emit_and_combine(program: VCProgram, layout: EdgeLayout, vprops, active,
     frontier = resolve_frontier_mode(frontier)
     prefetch = resolve_prefetch_mode(prefetch)
     want_fused = mode == "fused" or (mode == "auto" and kernel_on)
-    if want_fused:
-        if multileaf == "packed":
-            raise not_ported("multileaf", multileaf,
-                             "item 7: batched lanes and the packed kernel")
-        if fused_applicable(program, layout, vprops, multileaf):
-            return _fused_emit_combine(program, layout.combine_view, vprops,
-                                       active, empty, frontier=frontier,
-                                       use_prefetch=prefetch != "off")
+    if want_fused and fused_applicable(program, layout, vprops, multileaf):
+        return _fused_emit_combine(program, layout.combine_view, vprops,
+                                   active, empty, frontier=frontier,
+                                   use_prefetch=prefetch != "off",
+                                   multileaf=multileaf)
     if mode == "fused":
         raise ValueError(
             "mode='fused' but the program/layout pair is not fusable "
-            "(needs one message leaf under a named monoid and a Triton "
-            "emit whose reads the graph has)")
+            "(needs named monoids, [N] or [N, D] leaves and a Triton emit "
+            "whose reads the graph has)")
 
     # the per-edge frontier mask is computed once (layout order) and shared
     # by the emit veto, the permuted combine mask and the sparse arm

@@ -21,7 +21,6 @@ import torch
 from . import vcprog
 from .engines import run_vcprog
 from .graph import PropertyGraph
-from .knobs import not_ported
 
 # practical +inf for min-monoids in f32
 INF = float(3.4e38)
@@ -41,9 +40,14 @@ def _validate_root(graph: PropertyGraph, root, name: str = "root") -> int:
     return r
 
 
-def _no_sources(sources):
-    if sources is not None:
-        raise not_ported("sources", sources, "item 7: batched lanes")
+def _validate_sources(graph: PropertyGraph, sources, name: str = "sources"):
+    """Bounds-check every entry of a multi-source list (the ValueError
+    names the offending entry). Returns the entries as Python ints."""
+    sources = list(sources)
+    if not sources:
+        raise ValueError(f"{name} must contain at least one vertex id")
+    return [_validate_root(graph, s, name=f"{name}[{i}]")
+            for i, s in enumerate(sources)]
 
 
 def _f32(x, like):
@@ -194,16 +198,38 @@ def sssp(graph: PropertyGraph, root: int = 0, max_iter: int = 100,
          use_kernel: bool | None = None, reorder: str = "none",
          frontier: str = "dense", prefetch: str = "auto", sources=None,
          exchange: str = "exact", device="cuda", **resilience):
-    """Bellman-Ford distances; unreachable vertices are np.inf."""
-    _no_sources(sources)
-    prog = SSSPProgram(_validate_root(graph, root))
+    """Bellman-Ford distances; unreachable vertices are np.inf.
+    `sources=[r0, r1, ...]` runs Q = len(sources) queries as lanes of ONE
+    batched program (one pass over the edges per superstep for all of
+    them) and returns a [Q, V] matrix whose row i is bitwise what
+    `sssp(root=sources[i])` returns."""
+    if sources is not None:
+        prog = [SSSPProgram(r) for r in _validate_sources(graph, sources)]
+    else:
+        prog = SSSPProgram(_validate_root(graph, root))
     vprops, info = run_vcprog(prog, graph, max_iter=max_iter, engine=engine,
                               kernel=kernel, use_kernel=use_kernel,
                               reorder=reorder, frontier=frontier,
                               prefetch=prefetch, exchange=exchange,
                               device=device, **resilience)
     dist = vprops["distance"].cpu().numpy()
+    if sources is not None:
+        dist = dist.T  # [V, Q] -> [Q, V]
     return np.where(dist >= float(INF) * 0.5, np.inf, dist), info
+
+
+def landmark_distances(graph: PropertyGraph, landmarks, max_iter: int = 100,
+                       engine: str = "pushpull", kernel: str = "auto",
+                       use_kernel: bool | None = None,
+                       reorder: str = "none", frontier: str = "dense",
+                       prefetch: str = "auto", exchange: str = "exact",
+                       device="cuda", **resilience):
+    """[Q, V] shortest-path distances from Q landmark vertices, from ONE
+    batched SSSP run (the landmark table of distance oracles)."""
+    return sssp(graph, max_iter=max_iter, engine=engine, kernel=kernel,
+                use_kernel=use_kernel, reorder=reorder, frontier=frontier,
+                prefetch=prefetch, sources=landmarks, exchange=exchange,
+                device=device, **resilience)
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +321,21 @@ def bfs(graph: PropertyGraph, root: int = 0, max_iter: int = 100,
         use_kernel: bool | None = None, reorder: str = "none",
         frontier: str = "dense", prefetch: str = "auto", sources=None,
         exchange: str = "exact", device="cuda", **resilience):
-    """BFS depths (int64); unreachable vertices are -1."""
-    _no_sources(sources)
-    prog = BFSProgram(_validate_root(graph, root))
+    """BFS depths (int64); unreachable vertices are -1. `sources=[r0,
+    ...]` batches Q root queries into one lane-packed run and returns a
+    [Q, V] matrix (row i bitwise equal to `bfs(root=sources[i])`)."""
+    if sources is not None:
+        prog = [BFSProgram(r) for r in _validate_sources(graph, sources)]
+    else:
+        prog = BFSProgram(_validate_root(graph, root))
     vprops, info = run_vcprog(prog, graph, max_iter=max_iter, engine=engine,
                               kernel=kernel, use_kernel=use_kernel,
                               reorder=reorder, frontier=frontier,
                               prefetch=prefetch, exchange=exchange,
                               device=device, **resilience)
     depth = vprops["depth"].cpu().numpy().astype(np.int64)
+    if sources is not None:
+        depth = depth.T
     return np.where(depth >= 2**31 - 1, -1, depth), info
 
 
@@ -344,19 +376,25 @@ def personalized_pagerank(graph: PropertyGraph, source: int | None = None,
                           prefetch: str = "auto", sources=None,
                           exchange: str = "exact", device="cuda",
                           **resilience):
-    """PPR mass from one source."""
-    _no_sources(sources)
-    if source is None:
-        raise ValueError("personalized_pagerank needs source=")
-    prog = PersonalizedPageRankProgram(graph.num_vertices, num_iters,
-                                       _validate_root(graph, source,
-                                                      name="source"), damping)
+    """PPR mass from one source, or — with `sources=[s0, s1, ...]` — a
+    [Q, V] matrix of Q personalization vectors from ONE batched run."""
+    if sources is not None:
+        prog = [PersonalizedPageRankProgram(graph.num_vertices, num_iters,
+                                            s, damping)
+                for s in _validate_sources(graph, sources)]
+    elif source is None:
+        raise ValueError("personalized_pagerank needs source= or sources=")
+    else:
+        prog = PersonalizedPageRankProgram(
+            graph.num_vertices, num_iters,
+            _validate_root(graph, source, name="source"), damping)
     vprops, info = run_vcprog(prog, graph, max_iter=num_iters, engine=engine,
                               kernel=kernel, use_kernel=use_kernel,
                               reorder=reorder, frontier=frontier,
                               prefetch=prefetch, exchange=exchange,
                               device=device, **resilience)
-    return vprops["rank"].cpu().numpy(), info
+    rank = vprops["rank"].cpu().numpy()
+    return (rank.T if sources is not None else rank), info
 
 
 # ---------------------------------------------------------------------------

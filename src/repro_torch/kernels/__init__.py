@@ -4,6 +4,10 @@
                      combine at dst) as ONE pass, in Triton, with the
                      program's Triton emit inlined: resident, block-skip
                      (plus its frontier bitmap kernel) and windowed
+  fused_packed       the same pass for a whole multi-leaf record
+                     (mixed monoids, vector leaves, batched query lanes)
+                     in ONE launch, in Triton: resident, block-skip and
+                     windowed
   segment_reduce     Phase-1 message combine over dst-sorted messages, in
                      CUDA C++ (csrc/segment_reduce.cu, built with nvcc)
 

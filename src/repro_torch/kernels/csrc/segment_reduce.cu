@@ -79,8 +79,19 @@ __device__ __forceinline__ float clamp_big(float x) {
 }
 
 template <typename T, typename Acc, int OP>
+__device__ __forceinline__ Acc load_acc(const T* __restrict__ vals,
+                                        int64_t i) {
+  Acc x = to_acc(vals[i]);
+  if constexpr (std::is_floating_point<Acc>::value && OP != kSum) {
+    x = clamp_big(x);  // float min/max only
+  }
+  return x;
+}
+
+template <typename T, typename Acc, int OP>
 __global__ void segment_combine_kernel(const T* __restrict__ vals,
                                        const int* __restrict__ indptr,
+                                       const int* __restrict__ offsets,
                                        T* __restrict__ out, int64_t num_rows,
                                        int D, Acc ident) {
   const int64_t warp =
@@ -92,12 +103,27 @@ __global__ void segment_combine_kernel(const T* __restrict__ vals,
   const int lo = indptr[v];
   const int hi = indptr[v + 1];
   Acc acc = ident;
-  for (int e = lo + lane; e < hi; e += 32) {
-    Acc x = to_acc(vals[static_cast<int64_t>(e) * D + d]);
-    if constexpr (std::is_floating_point<Acc>::value && OP != kSum) {
-      x = clamp_big(x);  // float min/max only
+  if (offsets == nullptr) {
+    for (int e = lo + lane; e < hi; e += 32) {
+      acc = fold<OP>(acc, load_acc<T, Acc, OP>(
+                              vals, static_cast<int64_t>(e) * D + d));
     }
-    acc = fold<OP>(acc, x);
+  } else {
+    // 32 entries per round, loaded coalesced; entry j goes to the lane of
+    // its dense offset, rounds and j in row order
+    for (int base = lo; base < hi; base += 32) {
+      const int e = base + lane;
+      const int off = e < hi ? offsets[e] : 0;
+      const Acc x = e < hi ? load_acc<T, Acc, OP>(
+                                 vals, static_cast<int64_t>(e) * D + d)
+                           : ident;
+      const int n = hi - base < 32 ? hi - base : 32;
+      for (int j = 0; j < n; ++j) {
+        const int oj = __shfl_sync(0xffffffffu, off, j);
+        const Acc xj = __shfl_sync(0xffffffffu, x, j);
+        if ((oj & 31) == lane) acc = fold<OP>(acc, xj);
+      }
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -113,9 +139,9 @@ __global__ void segment_combine_kernel(const T* __restrict__ vals,
 }
 
 template <typename T, typename Acc>
-cudaError_t launch_typed(const void* vals, const int* indptr, void* out,
-                         int64_t V, int D, int op, double ident,
-                         cudaStream_t stream) {
+cudaError_t launch_typed(const void* vals, const int* indptr,
+                         const int* offsets, void* out, int64_t V, int D,
+                         int op, double ident, cudaStream_t stream) {
   constexpr int kThreads = 256;  // 8 warps, one (vertex, column) each
   const int64_t warps = V * D;
   if (warps == 0) return cudaGetLastError();
@@ -128,17 +154,17 @@ cudaError_t launch_typed(const void* vals, const int* indptr, void* out,
     case kSum:
       segment_combine_kernel<T, Acc, kSum>
           <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-              v, indptr, o, V, D, id);
+              v, indptr, offsets, o, V, D, id);
       break;
     case kMin:
       segment_combine_kernel<T, Acc, kMin>
           <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-              v, indptr, o, V, D, id);
+              v, indptr, offsets, o, V, D, id);
       break;
     case kMax:
       segment_combine_kernel<T, Acc, kMax>
           <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-              v, indptr, o, V, D, id);
+              v, indptr, offsets, o, V, D, id);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -149,31 +175,33 @@ cudaError_t launch_typed(const void* vals, const int* indptr, void* out,
 }  // namespace
 
 // C interface, bound with ctypes. Pointers and the stream are opaque;
-// `ident` is the identity as a double (exact for every int32 and for the
-// float identities). Returns the cudaError_t of the launch.
+// `offsets` is null for dense rows; `ident` is the identity as a double
+// (exact for every int32 and for the float identities). Returns the
+// cudaError_t of the launch.
 extern "C" int segment_combine(const void* vals, const int* indptr,
-                               void* out, int64_t num_rows, int D, int dtype,
-                               int op, double ident, void* stream) {
+                               const int* offsets, void* out,
+                               int64_t num_rows, int D, int dtype, int op,
+                               double ident, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_typed<float, float>(vals, indptr, out, num_rows, D, op,
-                                        ident, s);
+      return launch_typed<float, float>(vals, indptr, offsets, out,
+                                        num_rows, D, op, ident, s);
     case kF16:
-      return launch_typed<__half, float>(vals, indptr, out, num_rows, D, op,
-                                         ident, s);
+      return launch_typed<__half, float>(vals, indptr, offsets, out,
+                                         num_rows, D, op, ident, s);
     case kBF16:
-      return launch_typed<__nv_bfloat16, float>(vals, indptr, out, num_rows,
-                                                D, op, ident, s);
+      return launch_typed<__nv_bfloat16, float>(vals, indptr, offsets, out,
+                                                num_rows, D, op, ident, s);
     case kI8:
-      return launch_typed<int8_t, int>(vals, indptr, out, num_rows, D, op,
-                                       ident, s);
+      return launch_typed<int8_t, int>(vals, indptr, offsets, out, num_rows,
+                                       D, op, ident, s);
     case kI16:
-      return launch_typed<int16_t, int>(vals, indptr, out, num_rows, D, op,
-                                        ident, s);
+      return launch_typed<int16_t, int>(vals, indptr, offsets, out,
+                                        num_rows, D, op, ident, s);
     case kI32:
-      return launch_typed<int32_t, int>(vals, indptr, out, num_rows, D, op,
-                                        ident, s);
+      return launch_typed<int32_t, int>(vals, indptr, offsets, out,
+                                        num_rows, D, op, ident, s);
     default:
       return cudaErrorInvalidValue;
   }

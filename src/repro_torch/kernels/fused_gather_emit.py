@@ -80,6 +80,7 @@ from ..core.graph_device import min_prefetch_window
 from ..core.vcprog import record_vmap
 
 _MONOID_CODE = {"sum": 0, "min": 1, "max": 2}
+_REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 
 #: vertex rows per program and edge columns per tile of the resident and
 #: block-skip kernels; 8 x 256 was the fastest of six shapes for every
@@ -235,11 +236,21 @@ def window_usable(tables: FusedTables | None, num_vertices: int,
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def gather_emit_combine_plain(program, monoid: str, src, dst, vprops, eprops,
-                              active, num_vertices: int, valid=None,
-                              src_ids=None, dst_ids=None):
-    """Three-pass plain version: gather src props, vmap the torch emit,
-    segment-combine. Returns (inbox record [V], has_msg [V] bool)."""
+def _plain_fold(x, ok, seg, V: int, monoid: str, has_msg):
+    """Fold one [E] message column at dst under `monoid`: vetoed entries
+    fold the identity, vertices without a message get the identity."""
+    ident, _ = identity(x.dtype, monoid)
+    xm = torch.where(ok, x, torch.as_tensor(ident, dtype=x.dtype,
+                                            device=x.device))
+    out = torch.full((V + 1,), ident, dtype=x.dtype, device=x.device)
+    out.scatter_reduce_(0, seg, xm, _REDUCE[monoid], include_self=True)
+    return torch.where(has_msg, out[:V], out.new_tensor(ident))
+
+
+def _plain_emit(program, src, dst, vprops, eprops, active, num_vertices,
+                valid, src_ids, dst_ids):
+    """Gather src props and run the vmapped torch emit: (messages, ok,
+    dst segment ids, has_msg) of the three-pass plain versions."""
     V = int(num_vertices)
     device = src.device
     src_l = src.long()
@@ -253,18 +264,19 @@ def gather_emit_combine_plain(program, monoid: str, src, dst, vprops, eprops,
     seg = dst.long().clamp(max=V)
     hm = torch.zeros(V + 1, dtype=torch.int32, device=device)
     hm.scatter_reduce_(0, seg, ok.to(torch.int32), "amax")
-    has_msg = hm[:V] > 0
-    reduce = {"sum": "sum", "min": "amin", "max": "amax"}[monoid]
+    return msgs, ok, seg, hm[:V] > 0
 
-    def leaf(x):
-        ident, _ = identity(x.dtype, monoid)
-        xm = torch.where(ok, x, torch.as_tensor(ident, dtype=x.dtype,
-                                                device=device))
-        out = torch.full((V + 1,), ident, dtype=x.dtype, device=device)
-        out.scatter_reduce_(0, seg, xm, reduce, include_self=True)
-        return torch.where(has_msg, out[:V], out.new_tensor(ident))
 
-    return records.tree_map(leaf, msgs), has_msg
+def gather_emit_combine_plain(program, monoid: str, src, dst, vprops, eprops,
+                              active, num_vertices: int, valid=None,
+                              src_ids=None, dst_ids=None):
+    """Three-pass plain version: gather src props, vmap the torch emit,
+    segment-combine. Returns (inbox record [V], has_msg [V] bool)."""
+    V = int(num_vertices)
+    msgs, ok, seg, has_msg = _plain_emit(program, src, dst, vprops, eprops,
+                                         active, V, valid, src_ids, dst_ids)
+    return records.tree_map(
+        lambda x: _plain_fold(x, ok, seg, V, monoid, has_msg), msgs), has_msg
 
 
 def _and(valid, veto):
@@ -316,10 +328,23 @@ def gather_emit_combine_skip_plain(program, monoid: str, src, dst, vprops,
                                    valid=None, src_ids=None, dst_ids=None):
     """Plain version of the block-skip kernel: the three-pass plain pass
     with every edge of a dead tile vetoed."""
-    live = bitmap[edge_tiles(dst, indptr, tables)] != 0
     return gather_emit_combine_plain(
         program, monoid, src, dst, vprops, eprops, active, num_vertices,
-        valid=_and(valid, live), src_ids=src_ids, dst_ids=dst_ids)
+        valid=_and(valid, _skip_live(dst, indptr, tables, bitmap)),
+        src_ids=src_ids, dst_ids=dst_ids)
+
+
+def _skip_live(dst, indptr, tables: FusedTables, bitmap):
+    """[E] bool: the edge's tile is live in the block-skip bitmap."""
+    return bitmap[edge_tiles(dst, indptr, tables)] != 0
+
+
+def _in_window(src, dst, tables: FusedTables):
+    """[E] bool: the edge's src lies in its windowed CTA's slab pair."""
+    w = int(tables.window)
+    base = tables.window_q.long()[dst.long() // WINDOW_ROWS] * w
+    idx = src.long() - base
+    return (idx >= 0) & (idx < 2 * w)
 
 
 def gather_emit_combine_window_plain(program, monoid: str, src, dst, vprops,
@@ -328,13 +353,10 @@ def gather_emit_combine_window_plain(program, monoid: str, src, dst, vprops,
                                      src_ids=None, dst_ids=None):
     """Plain version of the windowed kernel: the three-pass plain pass
     with every edge whose src lies outside its CTA's slab pair vetoed."""
-    w = int(tables.window)
-    base = tables.window_q.long()[dst.long() // WINDOW_ROWS] * w
-    idx = src.long() - base
-    in_win = (idx >= 0) & (idx < 2 * w)
     return gather_emit_combine_plain(
         program, monoid, src, dst, vprops, eprops, active, num_vertices,
-        valid=_and(valid, in_win), src_ids=src_ids, dst_ids=dst_ids)
+        valid=_and(valid, _in_window(src, dst, tables)), src_ids=src_ids,
+        dst_ids=dst_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -354,16 +376,10 @@ def _acc_init(IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
     return acc
 
 
-def _fold_tile(acc, got, e, emask, ok, s, rows, a, b, w_ptr, valid_ptr,
-               sid_ptr, did_ptr, EMIT: "tl.constexpr",
-               MONOID: "tl.constexpr", IDENT: "tl.constexpr",
-               ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
-               HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
-               HAS_IDS: "tl.constexpr", BV: "tl.constexpr",
-               BK: "tl.constexpr", LANES: "tl.constexpr"):
-    # one [BV, BK] tile of every shape: the emit on the gathered source
-    # leaves `a`, `b`, the veto (`ok` holds the shape's edge mask and the
-    # frontier flag) and the fold into the rows' accumulators
+def _tile_ids_w(e, emask, s, rows, w_ptr, sid_ptr, did_ptr,
+                HAS_W: "tl.constexpr", HAS_IDS: "tl.constexpr",
+                BV: "tl.constexpr", BK: "tl.constexpr"):
+    # the emit's endpoint ids and edge-property leaf for one tile
     if HAS_W:
         w = tl.load(w_ptr + e, mask=emask, other=0)
     else:
@@ -374,10 +390,15 @@ def _fold_tile(acc, got, e, emask, ok, s, rows, a, b, w_ptr, valid_ptr,
     else:
         sid = s
         did = rows[:, None] + tl.zeros([BV, BK], tl.int32)
-    is_emit, msg = EMIT(sid, did, a, b, w, HAS_W)
-    ok = ok & (is_emit != 0)
-    if HAS_VALID:
-        ok = ok & (tl.load(valid_ptr + e, mask=emask, other=0) != 0)
+    return sid, did, w
+
+
+def _fold_acc(acc, msg, ok, MONOID: "tl.constexpr", IDENT: "tl.constexpr",
+              ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
+              BV: "tl.constexpr", BK: "tl.constexpr",
+              LANES: "tl.constexpr"):
+    # fold one [BV, BK] tile of one message column into the rows'
+    # accumulators; vetoed entries (`ok` False) fold the identity
     if ACC_INT:
         m = msg.to(tl.int32)
     else:
@@ -396,12 +417,10 @@ def _fold_tile(acc, got, e, emask, ok, s, rows, a, b, w_ptr, valid_ptr,
         acc = tl.minimum(acc, tl.min(tl.where(ok, m, IDENT), axis=1))
     else:
         acc = tl.maximum(acc, tl.max(tl.where(ok, m, IDENT), axis=1))
-    got = tl.maximum(got, tl.max(ok.to(tl.int32), axis=1))
-    return acc, got
+    return acc
 
 
-def _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got,
-                FSUM: "tl.constexpr", BV: "tl.constexpr",
+def _finish_acc(acc, FSUM: "tl.constexpr", BV: "tl.constexpr",
                 LANES: "tl.constexpr", LOG_LANES: "tl.constexpr"):
     if FSUM:
         # the lanes' partial sums, added as a fixed pairwise tree
@@ -409,6 +428,35 @@ def _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got,
             x0, x1 = tl.split(tl.reshape(acc, [BV, LANES >> (lvl + 1), 2]))
             acc = x0 + x1
         acc = tl.reshape(acc, [BV])
+    return acc
+
+
+def _fold_tile(acc, got, e, emask, ok, s, rows, a, b, w_ptr, valid_ptr,
+               sid_ptr, did_ptr, EMIT: "tl.constexpr",
+               MONOID: "tl.constexpr", IDENT: "tl.constexpr",
+               ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
+               HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+               HAS_IDS: "tl.constexpr", BV: "tl.constexpr",
+               BK: "tl.constexpr", LANES: "tl.constexpr"):
+    # one [BV, BK] tile of every shape: the emit on the gathered source
+    # leaves `a`, `b`, the veto (`ok` holds the shape's edge mask and the
+    # frontier flag) and the fold into the rows' accumulators
+    sid, did, w = _tile_ids_w(e, emask, s, rows, w_ptr, sid_ptr, did_ptr,
+                              HAS_W, HAS_IDS, BV, BK)
+    is_emit, msg = EMIT(sid, did, a, b, w, HAS_W)
+    ok = ok & (is_emit != 0)
+    if HAS_VALID:
+        ok = ok & (tl.load(valid_ptr + e, mask=emask, other=0) != 0)
+    acc = _fold_acc(acc, msg, ok, MONOID, IDENT, ACC_INT, FSUM, BV, BK,
+                    LANES)
+    got = tl.maximum(got, tl.max(ok.to(tl.int32), axis=1))
+    return acc, got
+
+
+def _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got,
+                FSUM: "tl.constexpr", BV: "tl.constexpr",
+                LANES: "tl.constexpr", LOG_LANES: "tl.constexpr"):
+    acc = _finish_acc(acc, FSUM, BV, LANES, LOG_LANES)
     tl.store(out_ptr + rows, acc.to(out_ptr.dtype.element_ty), mask=rmask)
     tl.store(hm_ptr + rows, got.to(tl.uint8), mask=rmask)
 
@@ -540,10 +588,12 @@ def _triton():
     triton, tl = import_triton()
     # the shared device functions are looked up by name when a kernel
     # compiles, so they are bound as jitted functions first
-    global _acc_init, _fold_tile, _store_rows
-    _acc_init, _fold_tile, _store_rows = (
-        triton.jit(_acc_init), triton.jit(_fold_tile),
-        triton.jit(_store_rows))
+    global _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile
+    global _store_rows
+    _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile, \
+        _store_rows = (triton.jit(f) for f in (
+            _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile,
+            _store_rows))
     return triton, {"resident": triton.jit(_gather_emit_combine_kernel),
                     "window": triton.jit(_window_kernel),
                     "mark": triton.jit(_mark_tiles_kernel)}

@@ -10,6 +10,13 @@ so one warp folds one (vertex, column) range with its lanes striding over
 it and a fixed shuffle tree, which needs no atomics and no one-hot work
 and gives the same bits on every run.
 
+Compacted rows (the frontier-sparse arm's workset, a subsequence of each
+dense row) pass ``offsets``: every entry's offset inside its vertex's
+dense in-edge row. Warp lane l then folds the entries whose dense offset
+is l (mod 32), in row order — the terms lane l adds in the dense pass,
+minus identities — so the compacted combine has the dense pass's bits,
+f32 sums included.
+
 Semantics (shared by the kernel and :func:`segment_combine_plain`, and
 bit for bit those of the Pallas kernel for min/max and integer payloads):
 accumulation in f32 for float payloads and int32 for integer payloads;
@@ -51,10 +58,25 @@ def indptr_from_seg_ids(seg_ids: torch.Tensor, num_segments: int
     return torch.searchsorted(seg_ids, bounds, out_int32=True)
 
 
+def _check_offsets(offsets, vals):
+    if offsets is not None and (
+            offsets.dtype != torch.int32 or offsets.device != vals.device
+            or tuple(offsets.shape) != (int(vals.shape[0]),)
+            or not offsets.is_contiguous()):
+        raise ValueError(f"segment kernel: offsets must be contiguous int32 "
+                         f"({int(vals.shape[0])},) on {vals.device}")
+
+
 def segment_combine_plain(vals: torch.Tensor, indptr: torch.Tensor,
-                          num_segments: int, monoid: str = "sum"
+                          num_segments: int, monoid: str = "sum",
+                          offsets: torch.Tensor | None = None
                           ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: vals [E, D] -> [V, D]."""
+    """The plain PyTorch version of the kernel: vals [E, D] -> [V, D].
+    It folds each row in row order, so the entries of a compacted row
+    (``offsets`` given) fold in the order of the dense row they came
+    from, and a dropped identity changes nothing: ``offsets`` is checked
+    and needs no other handling here."""
+    _check_offsets(offsets, vals)
     V, E = int(num_segments), int(vals.shape[0])
     ident, acc = identity(vals.dtype, monoid)
     x = vals.to(acc)
@@ -77,17 +99,21 @@ def _library():
     fn = lib.segment_combine
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def segment_combine_cuda(vals: torch.Tensor, indptr: torch.Tensor,
-                         num_segments: int, monoid: str = "sum"
+                         num_segments: int, monoid: str = "sum",
+                         offsets: torch.Tensor | None = None
                          ) -> torch.Tensor:
     """Launch the CUDA kernel: vals [E, D] -> [V, D] on vals' device, on
-    the current stream, without synchronising."""
+    the current stream, without synchronising. `offsets` ([E] int32, each
+    entry's offset inside its dense row) folds compacted rows in the dense
+    pass's order."""
     V = int(num_segments)
     if monoid not in MONOIDS:
         raise ValueError(f"segment kernel needs a named monoid, got {monoid!r}")
@@ -103,12 +129,15 @@ def segment_combine_cuda(vals: torch.Tensor, indptr: torch.Tensor,
         raise ValueError(f"segment kernel needs contiguous int32 indptr of "
                          f"shape ({V + 1},), got {indptr.dtype} "
                          f"{tuple(indptr.shape)}")
+    _check_offsets(offsets, vals)
     ident, _ = identity(vals.dtype, monoid)
     fn = _library()
     out = torch.empty((V, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = fn(vals.data_ptr(), indptr.data_ptr(), out.data_ptr(), V,
+    err = fn(vals.data_ptr(), indptr.data_ptr(),
+             None if offsets is None else offsets.data_ptr(),
+             out.data_ptr(), V,
              int(vals.shape[1]), _DTYPE_CODE[vals.dtype], _OP_CODE[monoid],
              float(ident), stream)
     if err != 0:
@@ -119,9 +148,11 @@ def segment_combine_cuda(vals: torch.Tensor, indptr: torch.Tensor,
 
 
 def segment_combine(vals: torch.Tensor, indptr: torch.Tensor,
-                    num_segments: int, monoid: str = "sum") -> torch.Tensor:
+                    num_segments: int, monoid: str = "sum",
+                    offsets: torch.Tensor | None = None) -> torch.Tensor:
     """vals [E, D] (dst-sorted) -> [V, D]: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. `offsets`: see the module."""
     if vals.device.type == "cpu":
-        return segment_combine_plain(vals, indptr, num_segments, monoid)
-    return segment_combine_cuda(vals, indptr, num_segments, monoid)
+        return segment_combine_plain(vals, indptr, num_segments, monoid,
+                                     offsets)
+    return segment_combine_cuda(vals, indptr, num_segments, monoid, offsets)

@@ -124,13 +124,32 @@ def _ids_emit(sid, did, x, b, w, HAS_W: "tl.constexpr"):
     return tl.full(x.shape, 1, tl.int1), x + (sid + did).to(tl.float32)
 
 
+def _mixed_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    ival = vps[0]
+    val = vps[1]
+    if HAS_W:
+        w2 = val + w
+    else:
+        w2 = val + 1.0
+    return ival < 6, (tl.full(ival.shape, 1, tl.int32), ival * 2, val, w2,
+                      val * 0.5)
+
+
+def _vec_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    emb = vps[0]
+    val = vps[1]
+    return val < 10.0, (tl.full(val.shape, 1, tl.int32), val, emb * 0.5,
+                        emb + 1.0)
+
+
 @functools.cache
 def _test_triton_emits():
     global tl
     from repro_torch.kernels.build import import_triton
     triton, tl = import_triton()
     return {"filtered": triton.jit(_filtered_emit),
-            "ids": triton.jit(_ids_emit)}
+            "ids": triton.jit(_ids_emit), "mixed": triton.jit(_mixed_emit),
+            "vec": triton.jit(_vec_emit)}
 
 
 class _EmitProgram(vcprog.VCProgram):
@@ -284,10 +303,8 @@ def test_user_program_runs_segment_kernel(cuda, rmat, engine):
     U = UniGPS()
     counters.reset()
     out, info = U.vcprog(rmat, MinLabel(), engine=engine)
-    assert counters.snapshot() == {
-        "segment_combine": info["iterations"], "gather_emit_combine": 0,
-        "gather_emit_combine_skip": 0, "gather_emit_combine_window": 0,
-        "tile_bitmap": 0}
+    launched = {k: v for k, v in counters.snapshot().items() if v}
+    assert launched == {"segment_combine": info["iterations"]}
     off, _ = U.vcprog(rmat, MinLabel(), engine=engine, kernel="off")
     assert torch.equal(out["label"], off["label"])
 
@@ -433,3 +450,292 @@ def test_operator_window_vs_prefetch_off(cuda, banded, name):
         assert counters.snapshot()["gather_emit_combine_window"] > 0
         off = fn[name](gdev=gdev, prefetch="off")
     np.testing.assert_array_equal(out, off)
+
+
+# ---------------------------------------------------------------------------
+# the repaired segment kernel on compacted rows, and the packed kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("monoid", ["sum", "min", "max"])
+def test_segment_kernel_compacted_rows_keep_dense_order(cuda, dtype, monoid):
+    """A workset of kept entries, combined with their dense-row offsets,
+    gives the dense pass's bits (vetoed entries hold the identity there),
+    f32 sums included: warp lane l folds the dense offsets l (mod 32)."""
+    rng = np.random.default_rng(11)
+    V = 400
+    deg = rng.integers(0, 300, V)
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    E = int(ip[-1])
+    seg = np.repeat(np.arange(V), deg).astype(np.int32)
+    if dtype == "float32":  # positive: the plain version's check is rtol
+        vals = (rng.random(E) * 10).astype(np.float32)
+    else:
+        vals = rng.integers(-1000, 1000, E).astype(np.int32)
+    keep = rng.random(E) < 0.3
+    ident, _ = sr.identity(TDT[dtype], monoid)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    dense = to(np.where(keep, vals, np.asarray(ident, vals.dtype)))[:, None]
+    pos = np.flatnonzero(keep)
+    ws_ip = sr.indptr_from_seg_ids(to(seg[pos]), V)
+    offsets = to((pos - ip[seg[pos]]).astype(np.int32))
+    want = sr.segment_combine_cuda(dense.contiguous(), to(ip), V, monoid)
+    got = sr.segment_combine_cuda(to(vals[pos])[:, None].contiguous(), ws_ip,
+                                  V, monoid, offsets=offsets)
+    assert torch.equal(got, want)
+    plain = sr.segment_combine_plain(to(vals[pos])[:, None], ws_ip, V,
+                                     monoid, offsets=offsets)
+    _assert_match(got, plain, dtype, monoid)
+
+
+@pytest.mark.cuda
+def test_compaction_arm_bitwise_to_dense(cuda, rmat):
+    """An unfused f32-sum program under frontier="sparse" runs the
+    compaction arm through the segment kernel, bitwise equal to dense."""
+    class SumIn(vcprog.VCProgram):
+        monoid = "sum"
+
+        def init_vertex(self, vid, out_degree, vprop):
+            return {"x": (vid % 97).to(torch.float32) * 0.37 + 0.11,
+                    "s": torch.zeros((), dtype=torch.float32)}
+
+        def empty_message(self):
+            return {"s": 0.0}
+
+        def merge_message(self, m1, m2):
+            return {"s": m1["s"] + m2["s"]}
+
+        def vertex_compute(self, prop, msg, it):
+            return {"x": prop["x"], "s": msg["s"]}, \
+                (it < 4) & (prop["x"] < 20.0)
+
+        def emit_message(self, src, dst, src_prop, edge_prop):
+            return True, {"s": src_prop["x"] * edge_prop["weight"]}
+
+    U = UniGPS()
+    dense, _ = U.vcprog(rmat, SumIn(), max_iter=6)
+    counters.reset()
+    sparse, _ = U.vcprog(rmat, SumIn(), max_iter=6, frontier="sparse")
+    assert counters.snapshot()["segment_combine"] > 0
+    assert torch.equal(sparse["s"], dense["s"])
+
+
+class _Mixed(vcprog.VCProgram):
+    """Five leaves, three monoids, two dtypes, with a Triton emit."""
+
+    monoid = {"cnt": "sum", "hi": "max", "lo": "min", "wsum": "sum",
+              "w2": "sum"}
+    triton_emit_reads = (("ival", "val"), ("weight",))
+
+    def triton_emit(self):
+        return _test_triton_emits()["mixed"]
+
+    def init_vertex(self, vid, out_degree, vprop):
+        return {"val": (vid % 13).to(torch.float32),
+                "ival": (vid % 7).to(torch.int32), **self.empty_message()}
+
+    def empty_message(self):
+        return {"cnt": 0, "hi": -2**31, "lo": 3.4e38, "wsum": 0.0,
+                "w2": 0.0}
+
+    def merge_message(self, a, b):
+        return {"cnt": a["cnt"] + b["cnt"],
+                "hi": torch.maximum(a["hi"], b["hi"]),
+                "lo": torch.minimum(a["lo"], b["lo"]),
+                "wsum": a["wsum"] + b["wsum"], "w2": a["w2"] + b["w2"]}
+
+    def vertex_compute(self, prop, msg, it):
+        return {**prop, **msg}, it < 3
+
+    def emit_message(self, src, dst, sp, ep):
+        return sp["ival"] < 6, {"cnt": 1, "hi": sp["ival"] * 2,
+                                "lo": sp["val"],
+                                "w2": sp["val"] + ep.get("weight", 1.0),
+                                "wsum": sp["val"] * 0.5}
+
+
+class _Vec(vcprog.VCProgram):
+    """An 8-wide f32 sum leaf and an 8-wide f32 min leaf beside scalar
+    min and sum leaves (the emit runs a column at a time)."""
+
+    monoid = {"vec": "sum", "vmin": "min", "lo": "min", "cnt": "sum"}
+    triton_emit_reads = (("emb", "val"), ())
+
+    def triton_emit(self):
+        return _test_triton_emits()["vec"]
+
+    def init_vertex(self, vid, out_degree, vprop):
+        base = (vid % 11).to(torch.float32)
+        cols = torch.arange(8, dtype=torch.float32, device=vid.device)
+        return {"emb": base + cols * 0.25, "val": base,
+                **self.empty_message()}
+
+    def empty_message(self):
+        return {"vec": torch.zeros(8), "vmin": torch.full((8,), 3.4e38),
+                "lo": 3.4e38, "cnt": 0}
+
+    def merge_message(self, a, b):
+        return {"vec": a["vec"] + b["vec"],
+                "vmin": torch.minimum(a["vmin"], b["vmin"]),
+                "lo": torch.minimum(a["lo"], b["lo"]),
+                "cnt": a["cnt"] + b["cnt"]}
+
+    def vertex_compute(self, prop, msg, it):
+        return {**prop, **msg}, it < 3
+
+    def emit_message(self, src, dst, sp, ep):
+        return sp["val"] < 10.0, {"vec": sp["emb"] * 0.5,
+                                  "vmin": sp["emb"] + 1.0, "lo": sp["val"],
+                                  "cnt": 1}
+
+
+PACKED = {
+    "sssp_lanes": lambda V: vcprog.as_batched(
+        [operators.SSSPProgram(r) for r in (0, 3, 17, 40, 99)]),
+    "ppr_lanes": lambda V: vcprog.as_batched(
+        [operators.PersonalizedPageRankProgram(V, 20, r)
+         for r in (0, 5, 7, 300, 8, 9, 10, 11, 12)]),
+    "bfs_lanes": lambda V: vcprog.as_batched(
+        [operators.BFSProgram(r) for r in range(8)]),
+    "mixed": lambda V: _Mixed(),
+    "vec": lambda V: _Vec(),
+}
+
+
+def _packed_state(prog, gdev, seed=5):
+    """A mid-run vertex state: the program's init, with random distances
+    or depths on the lanes so every lane emits somewhere."""
+    from repro_torch.core.message_plane import leaf_monoids
+    V = gdev.num_vertices
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V,
+                              vids=gdev.vertex_perm)
+    rng = np.random.default_rng(seed)
+    if isinstance(prog, vcprog.BatchedProgram):
+        p = vp["p"]
+        for k, x in p.items():
+            if k in ("distance", "depth"):
+                r = rng.random(tuple(x.shape))
+                new = (r * 50).astype(np.float32) if k == "distance" \
+                    else (r * 6).astype(np.int32)
+                keep = r < 0.5
+                p[k] = torch.where(torch.from_numpy(keep).to(x.device),
+                                   torch.from_numpy(new).to(x.device), x)
+        vp["_lane_act"] = torch.from_numpy(
+            (rng.random(tuple(vp["_lane_act"].shape)) < 0.7)
+            .astype(np.int32)).to(gdev.device)
+    empty = vcprog.empty_record(prog, gdev.device)
+    return vp, leaf_monoids(prog, empty)
+
+
+def _assert_records(out, ref, monoids, exact=False):
+    from repro_torch.core import records
+    la, lb = records.tree_leaves(out), records.tree_leaves(ref)
+    assert len(la) == len(lb) == len(monoids)
+    for a, b, m in zip(la, lb, monoids):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if exact or m != "sum" or a.dtype != torch.float32:
+            assert torch.equal(a, b)
+        else:
+            _assert_match(a, b, "float32", "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["resident", "skip", "window"])
+@pytest.mark.parametrize("name", sorted(PACKED))
+def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
+    """The packed kernel's three shapes against their plain versions
+    (bitwise for min/max/int, f32 sums within tolerance), and the
+    block-skip and windowed shapes bitwise against the resident one."""
+    from repro_torch.kernels import fused_packed as fp
+    g = banded if shape == "window" else rmat
+    gdev = graph_device.build_device_graph(
+        g, reorder="rcm" if shape == "window" else "none", device=cuda)
+    V, cv, t = g.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog = PACKED[name](V)
+    vp, monoids = _packed_state(prog, gdev)
+    active = _frontier(V, 0.05 if shape == "skip" else 0.6, cuda)
+    args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    counters.reset()
+    out, hm = fp.gather_emit_combine_packed(
+        *args, indptr=cv.in_indptr, variant=shape, tables=t,
+        num_active_edges=_active_edges(gdev, active), **ids)
+    torch.cuda.synchronize()
+    key = {"resident": "gather_emit_combine_packed",
+           "skip": "gather_emit_combine_packed_skip",
+           "window": "gather_emit_combine_packed_window"}[shape]
+    assert counters.snapshot()[key] == 1
+    if shape == "skip":
+        bm = fge.tile_bitmap_walk_plain(active, t)
+        ref, rhm = fp.gather_emit_combine_packed_skip_plain(
+            *args, cv.in_indptr, t, bm, **ids)
+    elif shape == "window":
+        ref, rhm = fp.gather_emit_combine_packed_window_plain(*args, t,
+                                                              **ids)
+    else:
+        ref, rhm = fp.gather_emit_combine_packed_plain(*args, **ids)
+    assert torch.equal(hm, rhm)
+    _assert_records(out, ref, monoids)
+    res, reshm = fp.gather_emit_combine_packed(*args, indptr=cv.in_indptr,
+                                               **ids)
+    assert torch.equal(hm, reshm)
+    _assert_records(out, res, monoids, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pushpull", "pregel", "gas"])
+@pytest.mark.parametrize("name", ["sssp", "bfs", "ppr"])
+def test_packed_lanes_match_sequential_kernel_runs(cuda, rmat, name,
+                                                   engine):
+    """Each lane of a batched run through the packed kernel is bitwise
+    equal to its own sequential run through the single-leaf kernel,
+    PageRank-style f32 sums included (one fold order)."""
+    roots = [0, 1, 2, 77, 4000]
+    U = UniGPS()
+    run = {"sssp": lambda **kw: U.sssp(rmat, engine=engine, **kw)[0],
+           "bfs": lambda **kw: U.bfs(rmat, engine=engine, **kw)[0],
+           "ppr": lambda **kw: U.personalized_pagerank(
+               rmat, engine=engine, **kw)[0]}[name]
+    key = "source" if name == "ppr" else "root"
+    counters.reset()
+    batched = run(sources=roots)
+    launched = counters.snapshot()
+    assert launched["gather_emit_combine_packed"] > 0
+    assert launched["gather_emit_combine"] == 0
+    for i, r in enumerate(roots):
+        np.testing.assert_array_equal(batched[i], run(**{key: r}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pushpull", "pregel", "gas"])
+@pytest.mark.parametrize("name", ["mixed", "vec"])
+def test_packed_records_vs_perleaf_and_off(cuda, rmat, name, engine):
+    """Multi-leaf records on every engine: the packed pass against
+    kernel="off"; at the plane, against one launch per leaf (a vector
+    record runs unfused there)."""
+    from repro_torch import run_vcprog
+    from repro_torch.core import message_plane
+    prog = PACKED[name](0)
+    counters.reset()
+    out, _ = run_vcprog(prog, rmat, 4, engine=engine)
+    assert counters.snapshot()["gather_emit_combine_packed"] > 0
+    off, _ = run_vcprog(PACKED[name](0), rmat, 4, engine=engine,
+                        kernel="off")
+    for k in sorted(out):
+        if prog.monoid.get(k) == "sum" and out[k].dtype == torch.float32:
+            _assert_match(out[k], off[k], "float32", "sum")
+        else:
+            assert torch.equal(out[k], off[k]), k
+    gdev = graph_device.build_device_graph(rmat, device=cuda)
+    vp, monoids = _packed_state(prog, gdev)
+    active = _frontier(rmat.num_vertices, 0.6, cuda)
+    empty = vcprog.empty_record(prog, cuda)
+    packed = message_plane.emit_and_combine(
+        prog, gdev.canonical, vp, active, empty, kernel_on=True)
+    perleaf = message_plane.emit_and_combine(
+        prog, gdev.canonical, vp, active, empty, kernel_on=True,
+        multileaf="perleaf")
+    assert torch.equal(packed[1], perleaf[1])
+    _assert_records(packed[0], perleaf[0], monoids,
+                    exact=name == "mixed")

@@ -232,21 +232,26 @@ def test_unknown_keyword_rejected(kernel_graph):
 ])
 def test_later_slice_knobs_raise(kernel_graph, kw):
     """Knobs of later slices raise, naming their ROADMAP.md item; the
-    knobs that have been ported since (reorder, frontier) run and give
-    the default run's bits."""
+    knobs that have been ported since (reorder, frontier, sources) run
+    and give the default run's bits (row 0 of a batch from root 0)."""
     T = UniGPS(device="cpu")
     if kw in PORTED_KNOBS:
         base, _ = T.sssp(_port(kernel_graph), 0)
         out, info = T.sssp(_port(kernel_graph), 0, **kw)
-        np.testing.assert_array_equal(out, base)
         (key, value), = kw.items()
-        assert info[key] == value
+        if key == "sources":
+            assert info["batch"] == len(value)
+            out = out[0]
+        else:
+            assert info[key] == value
+        np.testing.assert_array_equal(out, base)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         T.sssp(_port(kernel_graph), 0, **kw)
 
 
-PORTED_KNOBS = ({"reorder": "rcm"}, {"frontier": "auto"})
+PORTED_KNOBS = ({"reorder": "rcm"}, {"frontier": "auto"},
+                {"sources": [0, 1]})
 
 
 def test_lint_and_batch_raise(kernel_graph):
@@ -255,8 +260,12 @@ def test_lint_and_batch_raise(kernel_graph):
     with pytest.raises(ValueError, match="lint"):
         UniGPS(device="cpu", lint="loud")
     T = UniGPS(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        T.vcprog(_port(kernel_graph), UniSSSP(0), batch=2)
+    # batch= is ported: two identical lanes, each the unbatched run
+    out, info = T.vcprog(_port(kernel_graph), UniSSSP(0), batch=2)
+    one, _ = T.vcprog(_port(kernel_graph), UniSSSP(0))
+    assert info["batch"] == 2
+    for lane in range(2):
+        assert torch.equal(out["distance"][:, lane], one["distance"])
     with pytest.raises(ValueError, match="kernel"):
         T.bfs(_port(kernel_graph), 0, kernel="maybe")
 

@@ -244,9 +244,10 @@ def test_plane_knobs(small_uniform_graph):
     with pytest.raises(ValueError, match="prefetch"):
         tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
                              prefetch="x")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
-                             kernel_on=True, multileaf="packed")
+    packed = tmp.emit_and_combine(prog, tdev.canonical, tv, act, empty,
+                                  kernel_on=True, multileaf="packed")
+    assert torch.equal(packed[0]["distance"], dense[0]["distance"])
+    assert torch.equal(packed[1], dense[1])
     gen = _ArgMinProgram()
     gv = tvc.init_vertices(gen, tdev.vprops_in, tdev.out_degree, V)
     assert not tmp.fused_applicable(gen, tdev.canonical, gv)
