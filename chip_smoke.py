@@ -1,12 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # Graph500-parameter RMAT, scale 21
+                                     # and qwen3-14b at full width
 
 Phases, one line of numbers each:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build: the CUDA segment-combine kernel with nvcc for sm_90a from
-     src/repro_torch/kernels/csrc (prints ptxas' registers and spills),
-     and the fused Triton kernel once per built-in emit;
+  2. build: the CUDA kernels (segment combine, flash attention) with nvcc
+     for sm_90a from src/repro_torch/kernels/csrc, one nvcc each, started
+     together (prints ptxas' registers and spills), and the fused Triton
+     kernel once per built-in emit;
   3. kernel parity at the main path's shapes: each kernel against its plain
      PyTorch version on the same card inputs;
   4. the main path: `UniGPS()` runs pagerank, sssp, connected_components,
@@ -56,7 +58,29 @@ Phases, one line of numbers each:
  12. compaction: an unfused f32-sum program under frontier="sparse" takes
      the compaction arm through the segment kernel and equals
      frontier="dense" bitwise;
- 13. one JSON line {"kernels": [...]}: launches on each kernel's path,
+ 13. flash (after phases 2-12 have freed their graphs): the flash
+     attention kernel against its plain version in bf16 at qwen3-14b's
+     prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
+     7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000, and
+     in f32 at the first shape cut to T=1024 (tolerances f32 2e-5 abs and
+     rel; bf16 2^-6 rel + 2^-9 * max|v| abs, see flash_tol, and it must
+     reject planted off-by-one-key faults on long rows); its time, the
+     plain version's, the bound and SDPA's at the causal shape;
+ 14. lm: qwen3-14b at full width (40 layers, bf16 weights from
+     torch.Generator seed 0) through `prefill_step` on B=2 prompts of 4096
+     tokens (numpy seed 0, caches of 4128), `decode_step` and
+     `greedy_generate` of 32 tokens, attention through the flash kernel.
+     Gates: 40 flash launches per prefill (counters zeroed just before,
+     read just after); each layer's attention output, kernel against the
+     einsum path on that layer's q/k/v along the flash forward, within
+     phase 13's bf16 tolerance; last-position logits within
+     5e-2 * max|logit| of the einsum path (attn_impl="xla") on the same
+     weights (generated tokens reported, not gated: bf16 may flip a
+     near-tie); the same model cut to 4 layers in f32, flash against xla
+     within 2e-4; prefill on T tokens plus one decode step against the
+     forward at T+1 within 5e-2 * max|logit| (bf16). Prints prefill wall,
+     decode ms per token and peak memory;
+ 15. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -74,6 +98,7 @@ value), which f32 rounding over in-degrees up to ~1e5 stays well inside.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import pathlib
@@ -1207,6 +1232,13 @@ def phase_compaction(ctx):
     got = sr.segment_combine_cuda(ws_vals, ws_ip, V, "sum", offsets)
     check("segment kernel on a workset with offsets vs dense", got, want,
           False)
+    # library_ms: torch.segment_reduce, the one PyTorch call that folds
+    # the compacted workset (as lengths per vertex) into [V, 1]
+    lengths = (ws_ip[1:] - ws_ip[:-1]).long()
+    lib = torch.segment_reduce(ws_vals, "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    check("torch.segment_reduce on the workset vs the segment kernel",
+          lib, got, True)
     # bound: the values and offsets read, indptr read, out written once
     n = int(pos.numel())
     log("segment_workset", kept=n, bound_ms=bound(
@@ -1217,46 +1249,23 @@ def phase_compaction(ctx):
         unordered_ms=time_ms(lambda: sr.segment_combine_cuda(
             ws_vals, ws_ip, V, "sum")),
         plain_ms=time_ms(lambda: sr.segment_combine_plain(
-            ws_vals, ws_ip, V, "sum", offsets), iters=5))
+            ws_vals, ws_ip, V, "sum", offsets), iters=5),
+        library_ms=time_ms(lambda: torch.segment_reduce(
+            ws_vals, "sum", lengths=lengths, axis=0, unsafe=True)))
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=int, default=21,
-                    help="RMAT scale (V = 2**scale); 21 is the smoke's size")
-    ap.add_argument("--log2v", type=int, default=21,
-                    help="vertices of the window phase's banded graph "
-                         "(V = 2**log2v); 21 is the smoke's size")
-    args = ap.parse_args()
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke runs on a GPU",
-              file=sys.stderr)
-        return 2
-    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
-    sys.path.insert(0, str(ROOT / "src"))
+def graph_phases(args, dev):
+    """Phases 2-12 on the RMAT-21 and Banded-21 graphs; returns their
+    `kernels` rows. Every graph tensor is local to this call, so the
+    card's memory is free again when it returns."""
     import repro_torch
     from repro_torch import UniGPS
     from repro_torch.core import graph_device, io, operators, vcprog
-    from repro_torch.kernels import build, counters
+    from repro_torch.kernels import counters
     from repro_torch.kernels import fused_gather_emit as fge
     from repro_torch.kernels import segment_reduce as sr
 
-    t_all = time.time()
-    dev = torch.device("cuda")
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    print(smi, flush=True)
-    log("device", name=repr(kind), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
-
-    # -- 2. build ------------------------------------------------------------
-    t = time.time()
-    _, report = build.build("segment_reduce")
-    log("build", kernel="segment_combine", route="cuda",
-        seconds=round(time.time() - t, 2))
-    for line in build.ptxas_summary(report).splitlines():
-        print("  ptxas:", line, flush=True)
+    # -- 2. build (the CUDA kernels are built in main) -------------------------
     log("build", kernel="gather_emit_combine_window", route="triton",
         triton=fge.require_gather())  # raises unless tl.gather exists
 
@@ -1439,8 +1448,421 @@ def main():
     rows += phase_lanes_window(ctx)
     phase_records(ctx)
     phase_compaction(ctx)
-    log("memory", peak_gib=round(torch.cuda.max_memory_allocated() / 2**30,
-                                 3), total_s=round(time.time() - t_all, 1))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: flash attention and the LM serving path
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+# (name, B, Hq, Hkv, T = S, dtype, window): qwen3-14b's prefill, starcoder2-
+# 7b's windowed prefill, a ragged T, and the first shape cut to T = 1024 in
+# f32; Dh = 128 throughout
+FLASH_SHAPES = (
+    ("qwen3-14b", 2, 40, 8, 4096, torch.bfloat16, None),
+    ("starcoder2-7b-window", 1, 36, 4, 8192, torch.bfloat16, 4096),
+    ("ragged-4000", 2, 40, 8, 4000, torch.bfloat16, None),
+    ("qwen3-14b-f32", 2, 40, 8, 1024, torch.float32, None),
+)
+
+
+# the lm phase: B prompts of T tokens (numpy seed 0), caches of MAX_LEN,
+# STEPS greedy tokens; bf16 logits gates at REL * max |logit|
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = \
+    "qwen3-14b", 2, 4096, 4128, 32
+LM_REL = 5e-2
+LM_F32_TOKENS = 1024
+
+
+def live_pairs(T, S, causal, window):
+    """(query, key) pairs the masks keep: the work of one head."""
+    t = np.arange(T, dtype=np.int64)
+    hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(B, Hq, Hkv, T, S, Dh, dtype, causal, window):
+    """(least ms, what bounds it): 4·Dh flops per live pair per head (two
+    products) at the tensor cores' bf16 rate (f32 outside them), or q, k,
+    v read once and out written once at the memory rate."""
+    ops = 4.0 * B * Hq * Dh * live_pairs(T, S, causal, window)
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * Dh * (2 * B * Hq * T + 2 * B * Hkv * S)
+    rate = BF16_OPS_PER_S if dtype != torch.float32 else F32_OPS_PER_S
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_tol(v):
+    """(rtol, atol) of |kernel - plain| <= atol + rtol * |plain|,
+    elementwise, for f32 or bf16 inputs (v's dtype). f32: the reference's
+    2e-5. bf16: both sides round one f32 value, so they may differ by one
+    unit in the last place of |plain|, at most 2^-7 of it (rtol 2^-6
+    allows two); and the kernel rounds P to bf16 (unit roundoff 2^-8)
+    before P @ V, which moves an output by at most
+    2^-8 * sum_j p_j |v_j| / l <= 2^-8 * max|v|. Those rounding errors
+    have random signs across a row's keys, so atol is half that worst
+    case, 2^-9 * max|v| (~0.01 with randn inputs, where a row over t keys
+    has |o| ~ t^-1/2, 0.026 at t = 4096). flash_close reports the least
+    atol each comparison needs; planted_faults shows that off-by-one-key
+    faults on long rows still fail."""
+    if v.dtype == torch.float32:
+        return 2e-5, 2e-5
+    return 2**-6, 2**-9 * float(v.abs().max())
+
+
+def flash_close(name, got, ref, v):
+    """Fail unless got is finite, of ref's shape and dtype, and within
+    flash_tol(v) of ref elementwise. Returns max |d|, max |d| / max |ref|,
+    rms(d) / rms(ref), atol, the least atol that rtol would need, and the
+    largest |d| over its allowance (worst_over_tol, at most 1)."""
+    rtol, atol = flash_tol(v)
+    g, r = got.float(), ref.float()
+    d, a = (g - r).abs(), r.abs()
+    err = {"max_abs": float(d.max()),
+           "max_abs_over_max": float(d.max() / a.max()),
+           "rms_rel": float(d.square().mean().sqrt()
+                            / a.square().mean().sqrt()),
+           "atol": atol, "atol_needed": float((d - rtol * a).max()),
+           "worst_over_tol": float((d / (atol + rtol * a)).max())}
+    if got.dtype != ref.dtype or got.shape != ref.shape or \
+            not err["worst_over_tol"] <= 1.0 or \
+            not bool(torch.isfinite(got).all()):
+        fail(f"{name}: {err} over rtol={rtol} atol={atol} "
+             f"(or dtype/shape/finite)")
+    return err
+
+
+def planted_faults(name, got, q, k, v, window):
+    """The bf16 tolerance must reject a kernel that is off by one key on
+    long rows only: held against plain versions with the window one key
+    narrower and one wider, or (causal) without key 0, on rows with at
+    least T/2 keys. Returns each fault's largest |d| over its allowance,
+    which must exceed 1."""
+    from repro_torch.kernels import flash_attention as fa
+    rtol, atol = flash_tol(v)
+    T = q.shape[2]
+    if window:
+        faults = {f"window {w}": (got, fa.flash_attention_plain(
+            q, k, v, window=w)) for w in (window - 1, window + 1)}
+    else:
+        h = T // 2
+        faults = {"key 0 dropped": (got[:, :, h:], fa.flash_attention_plain(
+            q[:, :, 1:], k[:, :, 1:], v[:, :, 1:])[:, :, h - 1:])}
+    out = {}
+    for fault, (g, r) in faults.items():
+        d = (g.float() - r.float()).abs()
+        out[fault] = float((d / (atol + rtol * r.float().abs())).max())
+        if not out[fault] > 1.0:
+            fail(f"flash {name}: the bf16 tolerance passes a planted fault "
+                 f"({fault}: {out[fault]} of the allowance)")
+    return out
+
+
+def phase_flash(dev):
+    """Phase 13: the flash kernel against its plain version on the card at
+    the LM path's shapes; its time, the plain version's, the bound, and
+    SDPA's at the causal shape. Returns the kernel row's numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"max_abs_err": 0.0}
+    for name, B, Hq, Hkv, T, dt, window in FLASH_SHAPES:
+        q = torch.randn((B, Hq, T, 128), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, Hkv, T, 128), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v, window=window)
+        ref = fa.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        errs = flash_close(f"flash kernel {name}", got, ref, v)
+        del ref
+        if dt == torch.bfloat16 and name != "ragged-4000":
+            errs["planted_faults_over_tol"] = planted_faults(
+                name, got, q, k, v, window)
+        err = errs["max_abs"]
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window), iters=3, warmup=1)
+        bound_ms, by = flash_bound(B, Hq, Hkv, T, T, 128, dt, True, window)
+        row = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_Dh128", dtype=str(dt),
+                   window=window, **errs, rtol=flash_tol(v)[0],
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                   tflops=4.0 * B * Hq * 128 * live_pairs(T, T, True, window)
+                   / (ms * 1e-3) / 1e12)
+        if name == "qwen3-14b":
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            row["library_ms"] = time_ms(sdpa)
+            row["library_max_abs_err_vs_kernel"] = max_abs_err(
+                sdpa().float(), got.float())
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=by, library_ms=row["library_ms"])
+        log("flash", kernel="flash_attention", case=name,
+            **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
+               for k_, v_ in row.items()})
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def logit_gate(name, got, ref, rel, vocab):
+    """max |got - ref| <= rel * max |ref| over the first `vocab` columns
+    (the padded ones hold -1e30 on both sides); returns (max abs, its
+    ratio to max |ref|)."""
+    got, ref = got[..., :vocab], ref[..., :vocab]
+    err = max_abs_err(got.float(), ref.float())
+    scale = float(ref.float().abs().max())
+    if not (err <= rel * scale) or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: max abs err {err} > {rel} * max|ref| {scale}")
+    return err, err / scale
+
+
+def rms_diff(a, b, vocab):
+    """Root-mean-square difference over the first `vocab` columns."""
+    d = a[..., :vocab].double() - b[..., :vocab].double()
+    return float(d.square().mean().sqrt())
+
+
+def attention_layer_gate(model, cfg, tokens):
+    """The kernel inside the model, apart from what 40 random bf16 layers
+    amplify: along the flash path's forward, each layer's attention output
+    from the kernel against the einsum path (attn_impl="xla") on that
+    layer's own q, k and v, both in bf16, held to flash_tol like phase 13.
+    Returns the worst layer's errors."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers as L
+
+    dtype = getattr(torch, cfg.dtype)
+    x = L.embed_tokens(model, cfg, tokens, dtype)
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device)[None].expand(B, T)
+    window = cfg.sliding_window
+    worst = None
+    for i, blk in enumerate(model.layers):
+        h = L.apply_norm(blk.norm1, x, cfg.norm)
+        q, k, v = L._qkv(blk.attn, cfg, h, positions)
+        got = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True,
+                                   window=window or None)
+        ref = L.attention_scores_xla(q, k, v, window, dtype).transpose(1, 2)
+        err = flash_close(f"layer {i} attention, flash vs xla (bf16)", got,
+                          ref, v)
+        if worst is None or err["worst_over_tol"] > worst["worst_over_tol"]:
+            worst = dict(err, layer=i)
+        del q, k, v, got, ref, h
+        x, _ = blk(cfg, x, positions)
+    return worst
+
+
+def phase_lm(dev, flash):
+    """Phase 14: qwen3-14b at full width through the serving entry points
+    (prefill_step, decode_step, greedy_generate), attention through the
+    flash kernel; four gates. Returns the flash kernel's `kernels` row."""
+    from repro_torch import models as lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counters
+
+    # f32 products in full f32 on both paths (no TF32), as the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH).replace(attn_impl="flash_kernel")
+    B, T, MAX_LEN, STEPS, REL = (LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS,
+                                 LM_REL)
+    t = time.time()
+    model = lm.Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log("lm", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, weight_gib=round(2 * n_params / 2**30, 3),
+        dtype="bfloat16", init_s=round(time.time() - t, 2))
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                              .astype(np.int32)).to(dev)
+
+    # gate 1: one flash launch per layer per prefill (cold, then warm)
+    walls = []
+    for _ in range(2):
+        counters.reset()
+        t = time.time()
+        last, state = lm.prefill_step(model, prompt, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t)
+        n = counters.snapshot()["flash_attention"]
+        if n != cfg.num_layers:
+            fail(f"prefill launched the flash kernel {n} times, not "
+                 f"{cfg.num_layers}")
+    log("lm_prefill", batch=B, prompt=T, max_len=MAX_LEN,
+        flash_launches=n, cold_wall_s=round(walls[0], 4),
+        wall_s=round(walls[1], 4), tokens_per_s=round(B * T / walls[1], 1),
+        last_logits_shape=tuple(last.shape))
+    if last.shape != (B, cfg.padded_vocab) or \
+            not bool(torch.isfinite(last[:, :cfg.vocab_size]).all()):
+        fail("prefill: last-position logits not finite or misshapen")
+
+    # gate 2a: each layer's attention, kernel against the einsum path
+    torch.cuda.synchronize()
+    t = time.time()
+    worst = attention_layer_gate(model, cfg, prompt)
+    torch.cuda.synchronize()
+    log("lm_attention_layers", layers=cfg.num_layers,
+        tol="2^-6 rel + 2^-9 max|v| abs",
+        seconds=round(time.time() - t, 2), **worst)
+
+    # gate 4: prefill on T tokens + one decode step == forward at T + 1
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    got, state = lm.decode_step(model, tok, state)
+    full, _, _ = lm.forward(model, torch.cat([prompt, tok[:, None]], 1))
+    want = full[:, -1].clone()
+    del full
+    d_err, d_rel = logit_gate("decode vs forward at T+1 (bf16)", got, want,
+                              REL, cfg.vocab_size)
+    log("lm_decode_vs_forward", max_abs=d_err, max_abs_over_max=d_rel,
+        rms=rms_diff(got, want, cfg.vocab_size), tol=f"{REL}*max|logit|")
+
+    # decode: 31 more steps from the same state, greedy feedback
+    tok = torch.argmax(got, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    counters.reset()
+    t = time.time()
+    for _ in range(STEPS - 1):
+        logits, state = lm.decode_step(model, tok, state)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    dec_s = (time.time() - t) / (STEPS - 1)
+    log("lm_decode", batch=B, steps=STEPS - 1, cache_len=MAX_LEN,
+        ms_per_token=round(dec_s * 1e3, 4),
+        tokens_per_s=round(B / dec_s, 2),
+        flash_launches=counters.snapshot()["flash_attention"])
+    del state, logits
+
+    # greedy_generate, the serving entry point, on the flash path
+    counters.reset()
+    t = time.time()
+    toks = lm.greedy_generate(model, prompt, STEPS, max_len=MAX_LEN)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    launches = counters.snapshot()["flash_attention"]
+    if launches != cfg.num_layers:
+        fail(f"greedy_generate launched the flash kernel {launches} times")
+    log("lm_generate", steps=STEPS, wall_s=round(gen_s, 4),
+        flash_launches=launches, tokens=toks[:, :8].tolist())
+
+    # gate 2: the einsum path on the same weights; and, reported only, the
+    # chunked einsum path against it: two f32-softmax paths that differ in
+    # summation order, i.e. the bf16 model's own noise floor
+    model.cfg = cfg.replace(attn_impl="xla")
+    last_x, state = lm.prefill_step(model, prompt, max_len=MAX_LEN)
+    del state
+    toks_x = lm.greedy_generate(model, prompt, STEPS, max_len=MAX_LEN)
+    model.cfg = cfg.replace(attn_impl="xla_chunked")
+    last_c, state = lm.prefill_step(model, prompt, max_len=MAX_LEN)
+    del state
+    torch.cuda.synchronize()
+    model.cfg = cfg
+    c_err = max_abs_err(last_c[:, :cfg.vocab_size],
+                        last_x[:, :cfg.vocab_size])
+    log("lm_noise_floor", pair="xla_chunked vs xla", max_abs=c_err,
+        max_abs_over_max=c_err / float(
+            last_x[:, :cfg.vocab_size].abs().max()),
+        rms=rms_diff(last_c, last_x, cfg.vocab_size))
+    e, r = logit_gate("flash vs xla last-position logits (bf16)", last,
+                      last_x, REL, cfg.vocab_size)
+    same = (toks == toks_x)
+    first_diff = [int(np.argmin(row)) if not row.all() else None
+                  for row in same.cpu().numpy()]
+    log("lm_flash_vs_xla", max_abs=e, max_abs_over_max=r,
+        rms=rms_diff(last, last_x, cfg.vocab_size),
+        tol=f"{REL}*max|logit|", argmax_equal=bool(
+            torch.equal(last.argmax(-1), last_x.argmax(-1))),
+        token_agreement=round(float(same.float().mean()), 4),
+        first_differing_step=first_diff)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, last, last_x, last_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate 3: f32, 4 layers at full width, flash against xla at 2e-4
+    cfg4 = cfg.replace(num_layers=4, dtype="float32")
+    model = lm.Transformer(cfg4, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.float32)
+    x = prompt[:1, :LM_F32_TOKENS]
+    counters.reset()
+    a, _, _ = lm.forward(model, x)
+    torch.cuda.synchronize()
+    if counters.snapshot()["flash_attention"] != 4:
+        fail("f32 forward did not launch the flash kernel once per layer")
+    model.cfg = cfg4.replace(attn_impl="xla")
+    b_, _, _ = lm.forward(model, x)
+    err = max_abs_err(a, b_)
+    if not bool((a - b_).abs().le(2e-4 + 2e-4 * b_.abs()).all()):
+        fail(f"f32 flash vs xla logits: max abs err {err} over 2e-4")
+    log("lm_f32", layers=4, tokens=tuple(x.shape), max_abs_err=err,
+        tol="2e-4 abs + 2e-4 rel")
+    del model, a, b_
+    torch.cuda.empty_cache()
+    log("lm_memory", peak_gib=round(peak, 3))
+
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:104",
+            "launches": n, "max_abs_err": flash["max_abs_err"],
+            "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+            "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+            "library_ms": flash["library_ms"]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=int, default=21,
+                    help="RMAT scale (V = 2**scale); 21 is the smoke's size")
+    ap.add_argument("--log2v", type=int, default=21,
+                    help="vertices of the window phase's banded graph "
+                         "(V = 2**log2v); 21 is the smoke's size")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs on a GPU",
+              file=sys.stderr)
+        return 2
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t_all = time.time()
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    print(smi, flush=True)
+    log("device", name=repr(kind), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    # -- 2. build: every CUDA source at once, one nvcc each ---------------------
+    built = build.build_all(["segment_reduce", "flash_attention"])
+    for name, (_, report, secs) in built.items():
+        log("build", kernel=name, route="cuda", seconds=round(secs, 2))
+        for line in build.ptxas_summary(report).splitlines():
+            print("  ptxas:", line, flush=True)
+
+    rows = graph_phases(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("memory", graph_phases_peak_gib=round(
+        torch.cuda.max_memory_allocated() / 2**30, 3),
+        after_free_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
+    torch.cuda.reset_peak_memory_stats()
+    flash = phase_flash(dev)
+    rows.append(phase_lm(dev, flash))
+    log("memory", lm_phases_peak_gib=round(
+        torch.cuda.max_memory_allocated() / 2**30, 3),
+        total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ class into a dict of numpy arrays, and :func:`graph_from_arrays` builds the
 port's graph from such a dict. Vertex records cross as ``{name: ndarray}``
 through :func:`record_to_torch` and :func:`to_numpy`; the [V, Q] leaves
 of a batched run split into Q per-lane records with :func:`split_lanes`
-and stack back with :func:`stack_lanes`.
+and stack back with :func:`stack_lanes`. A language model's parameter
+tree crosses through :func:`model_params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -86,3 +87,45 @@ def stack_lanes(lanes: list) -> dict:
     host = [{k: np.asarray(to_numpy(v)) for k, v in r.items()}
             for r in lanes]
     return {k: np.stack([r[k] for r in host], axis=-1) for k in host[0]}
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def model_params_from_numpy(tree: dict, cfg) -> dict:
+    """The reference's LM parameter tree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) -> a state dict of
+    ``models.Transformer(cfg)`` (CPU tensors, the arrays' dtypes).
+
+    Scanned layouts stack the pattern's blocks ``"groups"/"blk{j}"`` on a
+    leading [n_groups] axis: group g's block j becomes layer
+    ``g * len(pattern) + j``. The unrolled layout's ``"layer{i}"`` is
+    layer i, and the remainder ``"rem{i}"`` follows the body's layers."""
+    pat = cfg.block_pattern
+    n_body = (cfg.num_layers // len(pat)) * len(pat)
+    out = {}
+    for key, val in tree.items():
+        if key == "groups":
+            for j in range(len(pat)):
+                for name, arr in _flatten(val[f"blk{j}"]):
+                    for g in range(arr.shape[0]):
+                        out[f"layers.{g * len(pat) + j}.{name}"] = \
+                            torch.from_numpy(np.array(arr[g]))
+        elif isinstance(val, dict):
+            if key.startswith("layer"):
+                layer = int(key[len("layer"):])
+            elif key.startswith("rem"):
+                layer = n_body + int(key[len("rem"):])
+            else:
+                layer = None
+            prefix = f"layers.{layer}." if layer is not None else f"{key}."
+            for name, arr in _flatten(val):
+                out[prefix + name] = torch.from_numpy(np.array(arr))
+        else:
+            out[key] = torch.from_numpy(np.array(val))
+    return out

@@ -10,6 +10,9 @@
                      windowed
   segment_reduce     Phase-1 message combine over dst-sorted messages, in
                      CUDA C++ (csrc/segment_reduce.cu, built with nvcc)
+  flash_attention    causal GQA attention with an online softmax for the
+                     LM substrate's prefill (sliding window, ragged keys),
+                     in CUDA C++ (csrc/flash_attention.cu, built with nvcc)
 
 Each kernel keeps its plain PyTorch version in the same module; ops.py
 holds the public wrappers and counters.py the launch counts. Nothing here

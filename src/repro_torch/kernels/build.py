@@ -15,6 +15,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -82,6 +84,21 @@ def build(name: str) -> Tuple[ctypes.CDLL, str]:
     lib = ctypes.CDLL(str(lib_path))
     _LOADED[name] = (lib, report)
     return _LOADED[name]
+
+
+def build_all(names) -> Dict[str, Tuple[ctypes.CDLL, str, float]]:
+    """Build several ``csrc/<name>.cu`` at once, one nvcc process each,
+    all started together. Returns name -> (library, ptxas report, seconds
+    from the start to that library's load)."""
+    t0 = time.time()
+
+    def one(name):
+        lib, report = build(name)
+        return lib, report, time.time() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(one, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def import_triton():

@@ -1,0 +1,158 @@
+"""Causal GQA flash attention: q [B, Hq, T, Dh], k/v [B, Hkv, S, Dh].
+
+Replaces the Pallas kernel `repro/kernels/flash_attention.py::
+flash_attention_kernel` with a CUDA C++ kernel (`csrc/flash_attention.cu`,
+built with nvcc for sm_90a and bound with ctypes): one CTA of four warps
+per (batch, q head, 64-row q tile), 64-key K/V tiles double-buffered in
+shared memory with cp.async, `mma.sync` for bf16/fp16 and plain FMA for
+f32. Its work is two matrix products per tile, so on the H100 it is bound
+by operations: at qwen3-14b's prefill (B = 2, Hq = 40, Dh = 128, T = 4096,
+causal, bf16) 343.7 GFLOP, 0.347 ms at 989 TFLOP/s.
+
+Semantics (shared by the kernel and :func:`flash_attention_plain`, and
+those of the Pallas kernel): q head h reads kv head h // (Hq // Hkv);
+scores in f32 times `sm_scale` (default Dh**-0.5); key kpos is live when
+kpos < S, kpos <= qpos if `causal` and kpos > qpos - window if `window` is
+not None, with qpos counted from 0 for the first query row even when
+T != S; masked scores take -1e30; a row with no live key gives 0; the
+output has q's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import counters
+
+NEG_INF = -1e30
+BLOCK_Q = 64
+BLOCK_K = 64
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _live_mask(T: int, S: int, causal: bool, window: int | None, device):
+    qpos = torch.arange(T, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int | None = None,
+                          sm_scale: float | None = None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: full f32 scores per kv
+    head, the kernel's masks and sentinel, softmax, dead rows zeroed."""
+    B, Hq, T, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = Dh ** -0.5
+    mask = _live_mask(T, S, causal, window, q.device)
+    any_live = mask.any(dim=-1)[:, None]
+    out = torch.empty((B, Hkv, G, T, Dh), dtype=torch.float32,
+                      device=q.device)
+    qg = q.reshape(B, Hkv, G, T, Dh)
+    for h in range(Hkv):  # one kv group at a time bounds the f32 scores
+        s = torch.einsum("bgtd,bsd->bgts", qg[:, h].float(),
+                         k[:, h].float()) * sm_scale
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.where(any_live, torch.softmax(s, dim=-1), 0.0)
+        out[:, h] = torch.einsum("bgts,bsd->bgtd", p, v[:, h].float())
+    return out.reshape(B, Hq, T, Dh).to(q.dtype)
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> None:
+    """Raise unless the CUDA kernel takes these operands: one dtype of
+    f32/bf16/fp16, Dh in HEAD_DIMS, q [B, Hq, T, Dh] and k/v
+    [B, Hkv, S, Dh] with Hq % Hkv == 0, the last dim contiguous, every
+    stride and address 16-byte aligned, and the kernel's 64 x 64 tile."""
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(f"flash kernel: tile {block_q}x{block_k} not "
+                         f"supported (only {BLOCK_Q}x{BLOCK_K})")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes one of f32/bf16/fp16 for q, k "
+                        f"and v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash kernel needs q [B,Hq,T,Dh] and k/v "
+                         f"[B,Hkv,S,Dh], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, _, Dh = q.shape
+    if k.shape[0] != B or k.shape[3] != Dh or k.shape[1] == 0 or \
+            Hq % k.shape[1]:
+        raise ValueError(f"flash kernel: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (Hq % Hkv == 0)")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {Dh} not in {HEAD_DIMS}")
+    item = q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(x.stride(i) * item % 16
+                                   for i in range(3)) \
+                or x.data_ptr() % 16:
+            raise ValueError(f"flash kernel: {name} needs a contiguous last "
+                             f"dim and 16-byte aligned strides, got "
+                             f"strides {x.stride()}")
+
+
+def _library():
+    from .build import build
+    lib = build("flash_attention")[0]
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int | None = None,
+                         sm_scale: float | None = None,
+                         block_q: int = BLOCK_Q, block_k: int = BLOCK_K
+                         ) -> torch.Tensor:
+    """Launch the CUDA kernel on q's device, on the current stream,
+    without synchronising. Returns a contiguous [B, Hq, T, Dh] tensor."""
+    if q.device.type != "cuda" or k.device != q.device or \
+            v.device != q.device:
+        raise ValueError(f"flash kernel needs q, k and v on one CUDA device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    check_inputs(q, k, v, block_q, block_k)
+    B, Hq, T, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = Dh ** -0.5
+    out = torch.empty((B, Hq, T, Dh), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 9)(*(x.stride(i) for x in (q, k, v)
+                                     for i in range(3)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, Hq, Hkv, T, S, Dh,
+                     _DTYPE_CODE[q.dtype], strides, float(sm_scale),
+                     int(bool(causal)), int(window is not None),
+                     int(window or 0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
+                           f"error {err}")
+    counters.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    sm_scale: float | None = None, block_q: int = BLOCK_Q,
+                    block_k: int = BLOCK_K) -> torch.Tensor:
+    """q [B,Hq,T,Dh], k/v [B,Hkv,S,Dh] -> [B,Hq,T,Dh]: the kernel for CUDA
+    tensors, the plain version for CPU tensors (where the tile sizes do
+    not matter)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, sm_scale)
+    return flash_attention_cuda(q, k, v, causal, window, sm_scale, block_q,
+                                block_k)

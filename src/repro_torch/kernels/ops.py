@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention  # noqa: F401
 from .fused_gather_emit import gather_emit_combine, tile_bitmap  # noqa: F401
 from .fused_packed import gather_emit_combine_packed  # noqa: F401
 from .segment_reduce import indptr_from_seg_ids

@@ -1,0 +1,57 @@
+"""Prefill / decode entry points (the serving path).
+
+`prefill_step` runs the forward with state collection and assembles the
+decode state (one KV cache per layer, padded to max_len). `decode_step`
+lives in transformer.py.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from . import transformer as T
+
+
+def _kv_to_cache(kv, max_len: int, dtype):
+    """(k, v) [B, T, Hkv, hd] -> cache dict padded with zeros to max_len."""
+    k, v = kv
+    B, T_cur = k.shape[:2]
+    out = {"pos": T_cur}
+    for name, x in (("k", k), ("v", v)):
+        buf = torch.zeros((B, max_len) + tuple(x.shape[2:]), dtype=dtype,
+                          device=x.device)
+        buf[:, :T_cur] = x
+        out[name] = buf
+    return out
+
+
+@torch.no_grad()
+def prefill_step(model: T.Transformer, tokens, max_len: int | None = None,
+                 cache_dtype=torch.bfloat16):
+    """tokens [B,T] (or embeddings [B,T,D]) -> (last_logits [B,V], decode
+    state). max_len defaults to T."""
+    T_in = tokens.shape[1]
+    max_len = max_len or T_in
+    logits, _, states = model(tokens, collect_states=True)
+    state: List[dict] = [_kv_to_cache(st, max_len, cache_dtype)
+                         for st in states]
+    # a copy, so the [B, T, V] logits are freed on return
+    return logits[:, -1].clone(), state
+
+
+@torch.no_grad()
+def greedy_generate(model: T.Transformer, prompt, num_steps: int,
+                    max_len: int | None = None):
+    """Greedy decoding: prompt [B,T0] tokens -> [B, num_steps] int32, the
+    first from the prefill's last position, then one per decode step."""
+    T0 = prompt.shape[1]
+    max_len = max_len or (T0 + num_steps)
+    logits, state = prefill_step(model, prompt, max_len)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks = [tok]
+    for _ in range(num_steps - 1):
+        logits, state = T.decode_step(model, tok, state)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)

@@ -1,0 +1,311 @@
+"""Shared transformer layers: norms, RoPE, GQA attention (three impls and
+decode), gated/plain MLPs, embeddings.
+
+Parameters live in `nn.Module`s named and shaped as the reference's
+parameter tree (`wq [d, Hq, hd]`, `wk`/`wv [d, Hkv, hd]`, `wo [Hq, hd, d]`,
+`q_norm.scale`, `w_gate`/`w_up [d, f]`, `w_down [f, d]`), so converting
+the reference's weights is a copy; the computation is plain functions on
+tensors with the reference's einsum layouts. Every einsum returns the
+activation dtype, as the reference's do; softmax, norms and RoPE run in
+f32. Nothing here builds an autograd graph (parameters do not require
+grad): training comes with a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.graph_device import resolve_device
+from ..kernels import ops as kops
+
+NEG_INF = -1e30
+
+
+def _param(shape, gen, std, device, dtype):
+    """N(0, std^2) from `gen` (in f32, then cast), not requiring grad."""
+    x = torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.float32) * std
+    return nn.Parameter(x.to(dtype), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm (`scale`) or LayerNorm (`scale`, `bias`) over the last dim."""
+
+    def __init__(self, dim: int, kind: str, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype),
+                                  requires_grad=False)
+        if kind == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(dim, device=device,
+                                                 dtype=dtype),
+                                     requires_grad=False)
+
+
+def apply_norm(p: Norm, x, kind: str, eps: float = 1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p.scale.float()
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p.scale.float() \
+            + p.bias.float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x [..., T, H, Dh] (Dh even), positions [..., T] integer; the two
+    halves rotate as a pair (half-split, not interleaved), in f32."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.float()[..., None, None] * freq
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim_)
+        std = 0.02
+        self.wq = _param((d, hq, hd), gen, std, device, dtype)
+        self.wk = _param((d, hkv, hd), gen, std, device, dtype)
+        self.wv = _param((d, hkv, hd), gen, std, device, dtype)
+        self.wo = _param((hq, hd, d), gen, std / math.sqrt(2 * cfg.num_layers),
+                         device, dtype)
+        if cfg.qk_norm:
+            self.q_norm = Norm(hd, "rmsnorm", device, dtype)
+            self.k_norm = Norm(hd, "rmsnorm", device, dtype)
+
+
+def _project(p: Attention, cfg, x):
+    q = torch.einsum("btd,dhk->bthk", x, p.wq.to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", x, p.wk.to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", x, p.wv.to(x.dtype))
+    if cfg.qk_norm:
+        q = apply_norm(p.q_norm, q, "rmsnorm")
+        k = apply_norm(p.k_norm, k, "rmsnorm")
+    return q, k, v
+
+
+def _qkv(p: Attention, cfg, x, positions):
+    """x [B,T,D] -> q [B,T,Hq,hd], k/v [B,T,Hkv,hd] with qk_norm + RoPE."""
+    q, k, v = _project(p, cfg, x)
+    return rope(q, positions, cfg.rope_theta), \
+        rope(k, positions, cfg.rope_theta), v
+
+
+def _mask(T, S, offset, window, device=None):
+    """[T,S] boolean; offset = (global position of q0) - (position of k0)."""
+    qpos = torch.arange(T, device=device)[:, None] + offset
+    kpos = torch.arange(S, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_scores_xla(q, k, v, window: int, out_dtype):
+    """Full-scores einsum attention, GQA-grouped (no kv repeat); the query
+    rows are the last T of S positions. q [B,T,Hq,hd], k/v [B,S,Hkv,hd]
+    -> [B,T,Hq,hd]."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bthgk,bshk->bhgts", qg.float(), k.float()) \
+        * (hd ** -0.5)
+    m = _mask(T, S, S - T, window, q.device)
+    s = torch.where(m, s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bshk->bthgk", pattn, v.float())
+    return o.reshape(B, T, Hq, hd).to(out_dtype)
+
+
+def attention_scores_chunked(q, k, v, window: int, out_dtype,
+                             chunk: int = 1024):
+    """Online softmax over KV chunks: memory linear in S.
+    q [B,T,Hq,hd], k/v [B,S,Hkv,hd]."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    S_pad = n_chunks * chunk
+    if S_pad != S:
+        k = F.pad(k, (0, 0, 0, 0, 0, S_pad - S))
+        v = F.pad(v, (0, 0, 0, 0, 0, S_pad - S))
+    qg = q.reshape(B, T, Hkv, G, hd).float().permute(0, 2, 3, 1, 4)
+    kc = k.float().permute(0, 2, 1, 3).reshape(B, Hkv, n_chunks, chunk, hd)
+    vc = v.float().permute(0, 2, 1, 3).reshape(B, Hkv, n_chunks, chunk, hd)
+    qpos = torch.arange(T, device=q.device) + (S - T)
+
+    m_run = torch.full((B, Hkv, G, T), NEG_INF, device=q.device)
+    l_run = torch.zeros((B, Hkv, G, T), device=q.device)
+    acc = torch.zeros((B, Hkv, G, T, hd), device=q.device)
+    for ci in range(n_chunks):
+        s = torch.einsum("bhgtk,bhsk->bhgts", qg, kc[:, :, ci]) \
+            * (hd ** -0.5)
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S)
+        if window:
+            msk &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        pexp = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgts,bhsk->bhgtk",
+                                                    pexp, vc[:, :, ci])
+        m_run = m_new
+    o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(out_dtype)
+
+
+def attention_fwd(p: Attention, cfg, x, positions, *, window: int = 0,
+                  impl: Optional[str] = None):
+    """Training / prefill attention over the full sequence.
+    Returns (y [B,T,D], (k, v)) for cache construction. `impl`
+    "flash_kernel" runs the CUDA flash kernel on the card (its plain
+    version on the CPU), "xla_chunked" the chunked online softmax, any
+    other the full-scores einsum."""
+    impl = impl or cfg.attn_impl
+    q, k, v = _qkv(p, cfg, x, positions)
+    if impl == "flash_kernel":
+        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 window=window or None)
+        o = o.transpose(1, 2)
+    elif impl == "xla_chunked":
+        o = attention_scores_chunked(q, k, v, window, x.dtype)
+    else:
+        o = attention_scores_xla(q, k, v, window, x.dtype)
+    y = torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype))
+    return y, (k, v)
+
+
+def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0):
+    """Single-token decode against a KV cache.
+
+    x [B,1,D]; cache {"k","v": [B,S,Hkv,hd], "pos": int (tokens already in
+    the cache)}. Writes the new key and value into the cache IN PLACE (the
+    reference returns an updated copy; a copy per step would move the
+    whole cache) and returns (y [B,1,D], the cache with pos + 1). As in
+    the reference, q is rounded to the cache dtype and the products
+    accumulate in f32 (exact products of cache-dtype values, here an f32
+    matmul of the rounded operands), and the softmax is rounded to the
+    cache dtype before the product with V. Only the first pos + 1 cache
+    rows take part: the rest are masked in the reference, and a masked
+    score adds an exact 0.
+    """
+    pos = int(cache["pos"])
+    q, k, v = _project(p, cfg, x)
+    posv = torch.full(x.shape[:1] + (1,), pos, dtype=torch.int32,
+                      device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, pos] = k[:, 0].to(ck.dtype)
+    cv[:, pos] = v[:, 0].to(cv.dtype)
+
+    B, _, Hkv, hd = ck.shape
+    Hq = cfg.num_heads
+    G = Hq // Hkv
+    n = pos + 1
+    qg = q.reshape(B, 1, Hkv, G, hd).to(ck.dtype).float()
+    s = torch.einsum("bthgk,bshk->bhgts", qg, ck[:, :n].float()) \
+        * (hd ** -0.5)
+    if window:
+        kpos = torch.arange(n, device=x.device)
+        s = torch.where(kpos > pos - window, s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bshk->bthgk", pattn.to(cv.dtype).float(),
+                     cv[:, :n].float())
+    o = o.reshape(B, 1, Hq, hd).to(x.dtype)
+    y = torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype))
+    return y, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device="cuda"):
+    """An empty cache of max_len positions on `device` ("cuda" unless the
+    caller asks for "cpu")."""
+    device = resolve_device(device)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    return {"k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
+                             device=device),
+            "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator, device=None,
+                 dtype=torch.float32, d_ff: Optional[int] = None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        std = 0.02
+        if cfg.activation in ("swiglu", "geglu"):
+            self.w_gate = _param((d, f), gen, std, device, dtype)
+        self.w_up = _param((d, f), gen, std, device, dtype)
+        self.w_down = _param((f, d), gen, std / math.sqrt(2 * cfg.num_layers),
+                             device, dtype)
+
+
+def mlp_fwd(p: MLP, cfg, x):
+    """jax.nn.gelu is the tanh approximation, so is this one."""
+    up = torch.einsum("btd,df->btf", x, p.w_up.to(x.dtype))
+    if cfg.activation == "swiglu":
+        g = torch.einsum("btd,df->btf", x, p.w_gate.to(x.dtype))
+        h = F.silu(g) * up
+    elif cfg.activation == "geglu":
+        g = torch.einsum("btd,df->btf", x, p.w_gate.to(x.dtype))
+        h = F.gelu(g, approximate="tanh") * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return torch.einsum("btf,fd->btd", h, p.w_down.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(model, cfg, tokens, dtype):
+    """Rows of the (padded) embedding table, in the activation dtype."""
+    return F.embedding(tokens.long(), model.embedding).to(dtype)
+
+
+def logits_fwd(model, cfg, h):
+    """f32 logits of the product taken in the activation dtype; padded
+    vocabulary columns are set to -1e30 so no argmax picks them."""
+    w = model.embedding.T if cfg.tied_embeddings else model.lm_head
+    logits = torch.einsum("btd,dv->btv", h, w.to(h.dtype)).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits

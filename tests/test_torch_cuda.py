@@ -10,6 +10,7 @@ Tolerances: bitwise for min/max monoids and every integer payload. f32
 sums may differ within rtol=1e-5, atol=1e-6 (order of addition: the
 kernels use fixed trees, the plain versions atomics); f16/bf16 sums round
 an f32 sum to the payload type and may differ by one step (rtol=2**-7).
+Flash attention: see _flash_tol.
 """
 import functools
 import warnings
@@ -19,9 +20,12 @@ import pytest
 import torch
 
 from repro_torch import UniGPS
+from repro_torch import models as lm
+from repro_torch.configs import get_config, smoke
 from repro_torch.core import graph_device, io, operators, vcprog
 from repro_torch.core.engines.common import NonConvergenceWarning
 from repro_torch.kernels import counters
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_gather_emit as fge
 from repro_torch.kernels import segment_reduce as sr
 
@@ -739,3 +743,146 @@ def test_packed_records_vs_perleaf_and_off(cuda, rmat, name, engine):
     assert torch.equal(packed[1], perleaf[1])
     _assert_records(packed[0], perleaf[0], monoids,
                     exact=name == "mixed")
+
+
+# ---------------------------------------------------------------------------
+# flash attention (CUDA C++) and the LM serving path
+# ---------------------------------------------------------------------------
+
+# f32: the kernel sums in another order than the plain version's matmul
+# (the reference's Pallas kernel is held to its oracle at the same 2e-5).
+# bf16/fp16 (unit roundoff u = 2^-8 / 2^-11): both sides round the output,
+# so they may differ by two units in the last place (rtol 4u), and the
+# kernel rounds P to the input type before P @ V, which moves an output
+# by at most u * max|v|; atol is half that, as chip_smoke.flash_tol
+FLASH_UNIT_ROUNDOFF = {"bfloat16": 2**-8, "float16": 2**-11}
+
+
+def _flash_tol(dtype, v):
+    if dtype == "float32":
+        return dict(rtol=2e-5, atol=2e-5)
+    u = FLASH_UNIT_ROUNDOFF[dtype]
+    return dict(rtol=4 * u, atol=u / 2 * float(v.abs().max()))
+
+
+def _qkv(shape_q, shape_kv, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(TDT[dtype]).to(cuda)
+               for s in (shape_q, shape_kv, shape_kv))
+    return q, k, v
+
+
+def _flash_match(q, k, v, dtype, **kw):
+    counters.reset()
+    out = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["flash_attention"] == 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               **_flash_tol(dtype, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("Dh", fa.HEAD_DIMS)
+def test_flash_kernel_vs_plain(cuda, dtype, Dh):
+    """Ragged T = S = 130 (three q and k tiles, the last partly padded),
+    GQA 6/2, causal."""
+    q, k, v = _qkv((2, 6, 130, Dh), (2, 2, 130, Dh), dtype, cuda)
+    _flash_match(q, k, v, dtype, causal=True)
+
+
+FLASH_CASES = {
+    "window1": dict(T=130, S=130, window=1),
+    "window16": dict(T=130, S=130, window=16),
+    "window17": dict(T=130, S=130, window=17),
+    "window100": dict(T=130, S=130, window=100),
+    "window4096": dict(T=300, S=300, window=4096),
+    "window64_long": dict(T=520, S=520, window=64),
+    "causal_T_lt_S": dict(T=64, S=192),        # qpos from 0: keys > 63 dead
+    "causal_T_gt_S": dict(T=200, S=70),        # rows past S see all keys
+    "full_T_ne_S": dict(T=64, S=192, causal=False),
+    "full_window": dict(T=150, S=150, causal=False, window=20),
+    "mqa": dict(T=128, S=128, Hq=8, Hkv=1),
+    "mha": dict(T=96, S=96, Hq=3, Hkv=3),
+    "one_row": dict(T=1, S=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_masks_vs_plain(cuda, dtype, case):
+    c = dict(FLASH_CASES[case])
+    T, S = c.pop("T"), c.pop("S")
+    Hq, Hkv = c.pop("Hq", 4), c.pop("Hkv", 2)
+    q, k, v = _qkv((1, Hq, T, 64), (1, Hkv, S, 64), dtype, cuda, seed=1)
+    _flash_match(q, k, v, dtype, causal=c.get("causal", True),
+                 window=c.get("window"))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_heads(cuda):
+    """The model passes [B, T, H, Dh] projections transposed to
+    [B, H, T, Dh] views; the kernel reads them in place, bit for bit as
+    the contiguous copies."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 100, h, 128))
+                                .astype(np.float32)).to(torch.bfloat16)
+               .to(cuda).transpose(1, 2) for h in (8, 2, 2))
+    a = fa.flash_attention_cuda(q, k, v, window=40)
+    b = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), window=40)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_bad_inputs(cuda):
+    q, k, v = _qkv((1, 2, 8, 64), (1, 1, 8, 64), "float32", cuda)
+    with pytest.raises(ValueError, match="tile"):
+        fa.flash_attention_cuda(q, k, v, block_q=128)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.double(), k.double(), v.double())
+    q48, k48, v48 = _qkv((1, 2, 8, 48), (1, 1, 8, 48), "float32", cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q48, k48, v48)
+    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(shifted, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-7b"])
+def test_lm_flash_path_on_card(cuda, arch):
+    """The smoke model on the card: flash against the einsum path (f32,
+    2e-4 as the reference's test_flash_kernel_attention_matches_xla), one
+    flash launch per layer, and prefill + decode against the forward at
+    the next position (f32 cache: 5e-4 as test_decode_matches_forward)."""
+    cfg = smoke(get_config(arch)).replace(attn_impl="flash_kernel")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = lm.Transformer(cfg, gen, device=cuda)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 34))
+                           .astype(np.int32)).to(cuda)
+    counters.reset()
+    a, _, _ = lm.forward(model, tok[:, :33])
+    torch.cuda.synchronize()
+    assert counters.snapshot()["flash_attention"] == cfg.num_layers
+    model.cfg = cfg.replace(attn_impl="xla")
+    b, _, _ = lm.forward(model, tok[:, :33])
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-4,
+                               atol=2e-4)
+    model.cfg = cfg
+    last, state = lm.prefill_step(model, tok[:, :33], max_len=40,
+                                  cache_dtype=torch.float32)
+    np.testing.assert_allclose(last.cpu().numpy(), a[:, -1].cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    got, _ = lm.decode_step(model, tok[:, 33], state)
+    full, _, _ = lm.forward(model, tok)
+    np.testing.assert_allclose(got.cpu().numpy(), full[:, -1].cpu().numpy(),
+                               rtol=5e-4, atol=5e-4)
