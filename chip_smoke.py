@@ -7,8 +7,10 @@ Phases, one line of numbers each:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build: the CUDA kernels (segment combine, flash attention) with nvcc
      for sm_90a from src/repro_torch/kernels/csrc, one nvcc each, started
-     together (prints ptxas' registers and spills), and the fused Triton
-     kernel once per built-in emit;
+     together (prints ptxas' registers and spills, and fails if the wgmma
+     flash kernel spills), then `cuobjdump -sass` of the flash library
+     must show HGMMA and UTMALDG instructions; and the fused Triton kernel
+     once per built-in emit;
   3. kernel parity at the main path's shapes: each kernel against its plain
      PyTorch version on the same card inputs;
   4. the main path: `UniGPS()` runs pagerank, sssp, connected_components,
@@ -61,22 +63,27 @@ Phases, one line of numbers each:
  13. flash (after phases 2-12 have freed their graphs): the flash
      attention kernel against its plain version in bf16 at qwen3-14b's
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
-     7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000, and
-     in f32 at the first shape cut to T=1024 (tolerances f32 2e-5 abs and
-     rel; bf16 2^-6 rel + 2^-9 * max|v| abs, see flash_tol, and it must
-     reject planted off-by-one-key faults on long rows); its time, the
-     plain version's, the bound and SDPA's at the causal shape;
+     7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000
+     (the wgmma variant), and in f32 at the first shape cut to T=1024 (the
+     mma.sync / FMA variant); tolerances f32 2e-5 abs and rel; bf16 2^-6
+     rel + 2^-9 * max|v| abs, see flash_tol, and it must reject planted
+     off-by-one-key faults on long rows. Each shape also runs on the
+     model's [B, T, H, Dh] projections viewed as [B, H, T, Dh], bitwise
+     equal to the contiguous run; both layouts are timed beside SDPA on
+     the same tensors (with the window's boolean mask at the window
+     shape), with the plain version's time, the bound and its share;
  14. lm: qwen3-14b at full width (40 layers, bf16 weights from
      torch.Generator seed 0) through `prefill_step` on B=2 prompts of 4096
      tokens (numpy seed 0, caches of 4128), `decode_step` and
      `greedy_generate` of 32 tokens, attention through the flash kernel.
-     Gates: 40 flash launches per prefill (counters zeroed just before,
-     read just after); each layer's attention output, kernel against the
-     einsum path on that layer's q/k/v along the flash forward, within
-     phase 13's bf16 tolerance; last-position logits within
-     5e-2 * max|logit| of the einsum path (attn_impl="xla") on the same
-     weights (generated tokens reported, not gated: bf16 may flip a
-     near-tie); the same model cut to 4 layers in f32, flash against xla
+     Gates: 40 launches of the wgmma variant per prefill and none of the
+     other (counters zeroed just before, read just after); each layer's
+     attention output, kernel against the einsum path on that layer's
+     q/k/v along the flash forward, within phase 13's bf16 tolerance;
+     last-position logits within 5e-2 * max|logit| of the einsum path
+     (attn_impl="xla") on the same weights (generated tokens reported,
+     not gated: bf16 may flip a near-tie); the same model cut to 4 layers
+     in f32 (4 launches of the mma.sync / FMA variant), flash against xla
      within 2e-4; prefill on T tokens plus one decode step against the
      forward at T+1 within 5e-2 * max|logit| (bf16). Prints prefill wall,
      decode ms per token and peak memory;
@@ -1562,53 +1569,90 @@ def planted_faults(name, got, q, k, v, window):
     return out
 
 
+def sass_check(lib_path):
+    """The built flash library's SASS must hold the Hopper instructions the
+    wgmma variant is made of: HGMMA (wgmma) and UTMALDG (TMA loads).
+    Returns their counts."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    counts = {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    if out.returncode != 0 or not all(counts.values()):
+        fail(f"flash library SASS lacks HGMMA or UTMALDG: {counts} "
+             f"(cuobjdump exit {out.returncode}: {out.stderr[-500:]})")
+    return counts
+
+
 def phase_flash(dev):
-    """Phase 13: the flash kernel against its plain version on the card at
-    the LM path's shapes; its time, the plain version's, the bound, and
-    SDPA's at the causal shape. Returns the kernel row's numbers."""
+    """Phase 13: both variants of the flash kernel against the plain
+    version on the card at the LM path's shapes. The bf16 shapes run the
+    wgmma variant, on contiguous tensors and on the model's [B, T, H, Dh]
+    projections viewed as [B, H, T, Dh] (bitwise equal outputs); each
+    layout is timed beside SDPA on the same tensors. The f32 shape runs
+    the mma.sync / FMA variant. Returns each variant's row numbers."""
     import torch.nn.functional as F
+    from repro_torch.kernels import counters
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"max_abs_err": 0.0}
+    rows = {"wgmma": {"max_abs_err": 0.0}, "mma_sync": {"max_abs_err": 0.0}}
     for name, B, Hq, Hkv, T, dt, window in FLASH_SHAPES:
-        q = torch.randn((B, Hq, T, 128), generator=gen, device=dev).to(dt)
-        k, v = (torch.randn((B, Hkv, T, 128), generator=gen,
-                            device=dev).to(dt) for _ in range(2))
+        base = [torch.randn((B, T, h, 128), generator=gen,
+                            device=dev).to(dt) for h in (Hq, Hkv, Hkv)]
+        model = [x.transpose(1, 2) for x in base]    # the model's views
+        q, k, v = (x.contiguous() for x in model)
+        var = fa.variant(dt, 128)
+        counters.reset()
         got = fa.flash_attention_cuda(q, k, v, window=window)
+        got_model = fa.flash_attention_cuda(*model, window=window)
+        torch.cuda.synchronize()
+        counter = ("flash_attention_wgmma" if var == "wgmma"
+                   else "flash_attention")
+        if counters.snapshot()[counter] != 2:
+            fail(f"flash {name}: the {var} variant did not launch")
+        if not torch.equal(got, got_model):
+            fail(f"flash {name}: the model's [B, T, H, Dh] views give "
+                 f"another answer than contiguous copies")
         ref = fa.flash_attention_plain(q, k, v, window=window)
         torch.cuda.synchronize()
         errs = flash_close(f"flash kernel {name}", got, ref, v)
-        del ref
+        del ref, got_model
         if dt == torch.bfloat16 and name != "ragged-4000":
             errs["planted_faults_over_tol"] = planted_faults(
                 name, got, q, k, v, window)
-        err = errs["max_abs"]
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window))
+        row = rows[var]
+        row["max_abs_err"] = max(row["max_abs_err"], errs["max_abs"])
+        bound_ms, by = flash_bound(B, Hq, Hkv, T, T, 128, dt, True, window)
+        mask = None if window is None else fa._live_mask(T, T, True, window,
+                                                         dev)
+        times = {}
+        for lname, (x, y, z) in (("", (q, k, v)), ("_model", model)):
+            times["ms" + lname] = time_ms(
+                lambda: fa.flash_attention_cuda(x, y, z, window=window))
+            times["library_ms" + lname] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    x, y, z, is_causal=mask is None, attn_mask=mask,
+                    enable_gqa=True))
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window), iters=3, warmup=1)
-        bound_ms, by = flash_bound(B, Hq, Hkv, T, T, 128, dt, True, window)
-        row = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_Dh128", dtype=str(dt),
-                   window=window, **errs, rtol=flash_tol(v)[0],
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                   tflops=4.0 * B * Hq * 128 * live_pairs(T, T, True, window)
-                   / (ms * 1e-3) / 1e12)
-        if name == "qwen3-14b":
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
-            row["library_ms"] = time_ms(sdpa)
-            row["library_max_abs_err_vs_kernel"] = max_abs_err(
-                sdpa().float(), got.float())
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=by, library_ms=row["library_ms"])
-        log("flash", kernel="flash_attention", case=name,
+        flop = 4.0 * B * Hq * 128 * live_pairs(T, T, True, window)
+        out = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_Dh128", dtype=str(dt),
+                   variant=var, window=window, **errs,
+                   rtol=flash_tol(v)[0], **times, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by,
+                   bound_share=bound_ms / times["ms"],
+                   bound_share_model=bound_ms / times["ms_model"],
+                   tflops=flop / (times["ms"] * 1e-3) / 1e12)
+        if name in ("qwen3-14b", "qwen3-14b-f32"):
+            row.update(ms=times["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=by, library_ms=times["library_ms"])
+        log("flash", kernel=f"flash_attention[{var}]", case=name,
             **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
-               for k_, v_ in row.items()})
-        del q, k, v, got
+               for k_, v_ in out.items()})
+        del q, k, v, got, base, model, mask
     torch.cuda.empty_cache()
-    return out
+    return rows
 
 
 def logit_gate(name, got, ref, rel, vocab):
@@ -1687,7 +1731,8 @@ def phase_lm(dev, flash):
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
                               .astype(np.int32)).to(dev)
 
-    # gate 1: one flash launch per layer per prefill (cold, then warm)
+    # gate 1: one launch of the flash kernel's wgmma variant per layer per
+    # prefill (cold, then warm), none of the other variant
     walls = []
     for _ in range(2):
         counters.reset()
@@ -1695,10 +1740,12 @@ def phase_lm(dev, flash):
         last, state = lm.prefill_step(model, prompt, max_len=MAX_LEN)
         torch.cuda.synchronize()
         walls.append(time.time() - t)
-        n = counters.snapshot()["flash_attention"]
-        if n != cfg.num_layers:
-            fail(f"prefill launched the flash kernel {n} times, not "
-                 f"{cfg.num_layers}")
+        launches = counters.snapshot()
+        n = launches["flash_attention_wgmma"]
+        if n != cfg.num_layers or launches["flash_attention"]:
+            fail(f"prefill launched the wgmma flash kernel {n} times and "
+                 f"the mma.sync one {launches['flash_attention']}, not "
+                 f"{cfg.num_layers} and 0")
     log("lm_prefill", batch=B, prompt=T, max_len=MAX_LEN,
         flash_launches=n, cold_wall_s=round(walls[0], 4),
         wall_s=round(walls[1], 4), tokens_per_s=round(B * T / walls[1], 1),
@@ -1740,7 +1787,7 @@ def phase_lm(dev, flash):
     log("lm_decode", batch=B, steps=STEPS - 1, cache_len=MAX_LEN,
         ms_per_token=round(dec_s * 1e3, 4),
         tokens_per_s=round(B / dec_s, 2),
-        flash_launches=counters.snapshot()["flash_attention"])
+        flash_launches=counters.snapshot()["flash_attention_wgmma"])
     del state, logits
 
     # greedy_generate, the serving entry point, on the flash path
@@ -1749,9 +1796,10 @@ def phase_lm(dev, flash):
     toks = lm.greedy_generate(model, prompt, STEPS, max_len=MAX_LEN)
     torch.cuda.synchronize()
     gen_s = time.time() - t
-    launches = counters.snapshot()["flash_attention"]
+    launches = counters.snapshot()["flash_attention_wgmma"]
     if launches != cfg.num_layers:
-        fail(f"greedy_generate launched the flash kernel {launches} times")
+        fail(f"greedy_generate launched the wgmma flash kernel {launches} "
+             f"times")
     log("lm_generate", steps=STEPS, wall_s=round(gen_s, 4),
         flash_launches=launches, tokens=toks[:, :8].tolist())
 
@@ -1797,8 +1845,10 @@ def phase_lm(dev, flash):
     counters.reset()
     a, _, _ = lm.forward(model, x)
     torch.cuda.synchronize()
-    if counters.snapshot()["flash_attention"] != 4:
-        fail("f32 forward did not launch the flash kernel once per layer")
+    n_f32 = counters.snapshot()["flash_attention"]
+    if n_f32 != 4:
+        fail("f32 forward did not launch the flash kernel's mma.sync / FMA "
+             "variant once per layer")
     model.cfg = cfg4.replace(attn_impl="xla")
     b_, _, _ = lm.forward(model, x)
     err = max_abs_err(a, b_)
@@ -1810,13 +1860,17 @@ def phase_lm(dev, flash):
     torch.cuda.empty_cache()
     log("lm_memory", peak_gib=round(peak, 3))
 
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:104",
-            "launches": n, "max_abs_err": flash["max_abs_err"],
-            "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-            "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-            "library_ms": flash["library_ms"]}
+    # the `kernels` rows: the wgmma variant with the bf16 prefill's
+    # launches, the mma.sync / FMA variant with the f32 cut's
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:104",
+             "launches": launches, **{key: flash[var][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}}
+            for name, var, launches in (
+                ("flash_attention_wgmma", "wgmma", n),
+                ("flash_attention", "mma_sync", n_f32))]
 
 
 def main():
@@ -1850,6 +1904,10 @@ def main():
         log("build", kernel=name, route="cuda", seconds=round(secs, 2))
         for line in build.ptxas_summary(report).splitlines():
             print("  ptxas:", line, flush=True)
+            if "wgmma" in line and not line.endswith("=0/0"):
+                fail(f"the wgmma flash kernel spills: {line}")
+    log("sass", library="flash_attention",
+        **sass_check(built["flash_attention"][0]._name))
 
     rows = graph_phases(args, dev)
     gc.collect()
@@ -1859,7 +1917,7 @@ def main():
         after_free_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
     torch.cuda.reset_peak_memory_stats()
     flash = phase_flash(dev)
-    rows.append(phase_lm(dev, flash))
+    rows.extend(phase_lm(dev, flash))
     log("memory", lm_phases_peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3),
         total_s=round(time.time() - t_all, 1))

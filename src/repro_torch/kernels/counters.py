@@ -14,7 +14,8 @@ LAUNCHES: Dict[str, int] = {
     "gather_emit_combine_skip": 0, "gather_emit_combine_window": 0,
     "tile_bitmap": 0, "gather_emit_combine_packed": 0,
     "gather_emit_combine_packed_skip": 0,
-    "gather_emit_combine_packed_window": 0, "flash_attention": 0}
+    "gather_emit_combine_packed_window": 0, "flash_attention": 0,
+    "flash_attention_wgmma": 0}
 
 
 def reset() -> None:

@@ -20,22 +20,50 @@
 //   * while a row's running max is <= -5e29 its state stays at the
 //     identity (no key seen yet); a row whose sum is 0 writes 0.
 //
-// Design (a first one that is right and simple; wgmma, TMA and warp
-// specialisation are for later):
-//   * one CTA of four warps per (b, q head, 64-row q tile); each warp owns
-//     16 rows. The grid is ordered so the q heads of one kv group are
-//     neighbours (they read the same K/V tiles from L2) and the longest
-//     (last) causal q tiles start first;
-//   * 64-key K/V tiles are double-buffered in dynamic shared memory with
-//     cp.async (rows padded by 16 bytes against bank conflicts); the loop
-//     over key tiles starts and ends at the q tile's live range, so tiles
-//     wholly above the diagonal or outside the window are never read, and
-//     the per-element mask runs only on tiles that cross an edge;
-//   * bf16/fp16: S = Q K^T and O += P V with mma.sync.m16n8k16, f32
-//     accumulation, Q fragments kept in registers, V fragments through
-//     ldmatrix.trans, P rounded to the input type for the second product;
-//   * f32: the same loop with plain FMA (exact f32, no TF32), P staged per
-//     warp in shared memory.
+// Two variants; the wrapper picks one from the dtype and the head dim:
+//
+// 1. wgmma (bf16/fp16, Dh 64 and 128: every full-width config the port
+//    builds), flash_fwd_wgmma_kernel. Persistent: one CTA per SM, three
+//    warpgroups, walking the (b, q head, 128-row q tile) work items
+//    round-robin in decode_tile's order (longest causal rows first, the q
+//    heads of one kv group next to each other, as they read the same K/V
+//    tiles from L2):
+//    * a producer warpgroup (24 registers after setmaxnreg.dec) whose one
+//      thread issues TMA loads: each item's Q (once both consumers are done
+//      with the previous item's), then its K and V tiles of BK keys into a
+//      ring of shared-memory stages with full/empty mbarriers (K and V
+//      apart, so S = Q K^T starts before V lands; the ring runs on across
+//      items). The tensor maps are 4-D (Dh, rows, heads, batch) over the
+//      caller's strides, so the model's [B, T, H, Dh] projections are read
+//      in place; rows past T or S arrive as zeros; tiles land as
+//      128-byte-swizzled 64-column panels, the layout the wgmma
+//      descriptors read;
+//    * two consumer warpgroups (240 registers after setmaxnreg.inc), each
+//      owning 64 rows of the q tile: S = Q K^T with wgmma m64nBKk16 (Q and
+//      K from shared memory, K-major), the online softmax in registers
+//      (each thread holds rows gr and gr + 8 of its warp's 16, as with
+//      mma.sync, so the mask and the quad shuffles carry over; the mask
+//      runs only on tiles that cross the diagonal, the window or S), then
+//      O += P V with wgmma m64nDHk16, P from registers (the f32 S
+//      accumulator rounded in place, whose layout is the A fragment's) and
+//      V from shared memory, MN-major (transposed); O is written from
+//      registers, and those stores drain under the next item's work;
+//    * schedule: named barriers make the two consumers take turns issuing
+//      their GEMMs (ping-pong), so one's softmax runs under the other's
+//      products; and inside each, the next key tile's Q K^T is issued
+//      before this tile's P V, so its own softmax runs under the tensor
+//      cores too.
+//    What bounds it: the tensor cores for the two products, and beside
+//    them the softmax's instruction issue (an exp2, an FMA, a max, an add
+//    per score, the O rescale), which the two warpgroups hide under each
+//    other's GEMMs.
+// 2. mma.sync / FMA (f32 at every head dim; bf16/fp16 at Dh 16 and 32, the
+//    smoke configs), flash_fwd_kernel: four warps per 64-row q tile, 64-key
+//    K/V tiles double-buffered with cp.async, mma.sync m16n8k16 for
+//    bf16/fp16 and plain FMA for f32 (exact f32: parity at 2e-5 rules out
+//    TF32, and wgmma has no f32 inputs). wgmma's k step is 16 and its
+//    smallest swizzled panel 32 bytes, so head dims 16 and 32 stay here;
+//    they run only in the smoke models.
 //
 // Bound on the H100 at the smoke's qwen3-14b prefill shape (B = 2, Hq = 40,
 // Dh = 128, T = S = 4096, causal, bf16): operations. 4 * B * Hq * Dh *
@@ -43,12 +71,20 @@
 // (q, k, v read once, out written once: ~0.2 GB) take 0.06 ms.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper_sm90.cuh"
+
 namespace {
+
+// ===========================================================================
+// Variant 2: mma.sync / FMA (f32; bf16/fp16 at Dh 16 and 32), and the
+// helpers both variants share
+// ===========================================================================
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -450,21 +486,577 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, void* o,
     case 32:
       return launch<T, 32>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
                            sm_scale, causal, has_window, window, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                           sm_scale, causal, has_window, window, s);
+    case 64:  // bf16/fp16 at Dh 64 and 128 are the wgmma variant's
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 64>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
+                             sm_scale, causal, has_window, window, s);
+      break;
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                            sm_scale, causal, has_window, window, s);
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 128>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
+                              sm_scale, causal, has_window, window, s);
+      break;
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  return cudaErrorInvalidValue;
+}
+
+// ===========================================================================
+// Variant 1: wgmma + TMA, warp-specialised (bf16/fp16, Dh 64 and 128)
+// ===========================================================================
+
+constexpr int kWgBlockQ = 128;    // two consumer warpgroups x 64 rows
+constexpr int kWgThreads = 384;   // producer warpgroup + two consumers
+constexpr int kPanelBytes = 128;  // one swizzled row of a 64-column panel
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH, int BK>
+struct WgCfg {
+  static constexpr int kPanels = DH / 64;
+  static constexpr int kQPanel = kWgBlockQ * kPanelBytes;  // bytes
+  static constexpr int kKVPanel = BK * kPanelBytes;
+  static constexpr int kQBytes = kQPanel * kPanels;
+  static constexpr int kKVBytes = kKVPanel * kPanels;  // one K or V tile
+  // as many K/V stages as shared memory holds, up to four (three at
+  // Dh 128, BK 128: 224 KB)
+  static constexpr int kFit = (232448 - 2048 - kQBytes) / (2 * kKVBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "a K/V ring needs two stages");
+  // byte offsets from the 1024-aligned base of dynamic shared memory
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+  // barriers: full_q, empty_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
+  static constexpr int kBars = 2 + 4 * kStages;
+  static constexpr int kSmem = kOffBar + 8 * kBars + 1024;  // + alignment
+  static_assert(kSmem <= 232448, "over the SM's shared memory");
+};
+
+// one TMA box of 64 columns of a 4-D map whose dims 1..3 hold (row, head,
+// batch) in the order `order` says: bits [0,2) the row's dim, [2,4) the
+// head's, [4,6) the batch's
+__device__ __forceinline__ void load_panel(void* dst, const CUtensorMap* tm,
+                                           uint64_t* bar, int col, int row,
+                                           int head, int batch, int order) {
+  const int pr = order & 3, ph = (order >> 2) & 3;
+  sm90::tma_load_4d(dst, tm, bar, col, pr == 1 ? row : ph == 1 ? head : batch,
+                    pr == 2 ? row : ph == 2 ? head : batch,
+                    pr == 3 ? row : ph == 3 ? head : batch);
+}
+
+// S (64 x BK, this warpgroup's rows) = Q K^T over the head dim
+template <typename T, int DH, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint64_t dq,
+                                         uint64_t dk) {
+  using C = WgCfg<DH, BK>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    // 16-deep k step: 32 bytes along a row, a new panel every four
+    const uint64_t oq = ((kk / 4) * C::kQPanel + (kk % 4) * 32) >> 4;
+    const uint64_t ok = ((kk / 4) * C::kKVPanel + (kk % 4) * 32) >> 4;
+    if constexpr (BK == 64) {
+      sm90::wgmma_ss_n64<T>(s, dq + oq, dk + ok, kk > 0);
+    } else {
+      sm90::wgmma_ss_n128<T>(s, dq + oq, dk + ok, kk > 0);
+    }
+  }
+}
+
+// O (64 x DH) += P V over the tile's keys; P as A fragments
+template <typename T, int DH, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t ov = (kk * 16 * kPanelBytes) >> 4;  // 16 key rows
+    if constexpr (DH == 64) {
+      sm90::wgmma_rs_n64<T>(o, p[kk], dv + ov);
+    } else {
+      sm90::wgmma_rs_n128<T>(o, p[kk], dv + ov);
+    }
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale and mask one tile of scores in place, fold it into the running
+// max and sum of rows gr and gr + 8, and turn it into probabilities.
+// Returns through `alpha` the factor by which O must be rescaled.
+// Element 4j + e of s is row gr + 8 (e >> 1), key k0 + 8j + 2tg + (e & 1).
+// `edge` tiles (those that cross a mask's edge, and every tile when
+// sm_scale <= 0) are scaled and masked element by element; the others keep
+// raw scores, take the max on them and fold sm_scale into the exponent's
+// one FMA (max(s) * sm_scale is the max of the scaled scores).
+template <int BK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BK / 2], float (&m_run)[2], float (&l_part)[2],
+    float (&alpha)[2], int k0, bool edge, const int (&qpos)[2], int tg,
+    float sm_scale, int S_len, int causal, int has_window, int window) {
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = k0 + 8 * (i / 4) + 2 * tg + (i & 1);
+      const int qp = qpos[(i >> 1) & 1];
+      bool live = kpos < S_len;
+      if (causal) live = live && kpos <= qp;
+      if (has_window) live = live && kpos > qp - window;
+      s[i] = live ? s[i] * sm_scale : kNegBig;
+    }
+  }
+  const float scale = edge ? 1.f : sm_scale;  // still to apply to s
+  const float scale_l2 = scale * kLog2e;
+  // the two rows' max and sum in four independent chains each: two warps
+  // share a scheduler, so a chain of BK / 4 dependent ops would stall
+  constexpr int kA = 4;
+  float mx[2][kA], sum[2][kA], m_l2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int a = 0; a < kA; ++a) mx[r][a] = kNegBig, sum[r][a] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1, a = ((i >> 2) * 2 + (i & 1)) % kA;
+    mx[r][a] = fmaxf(mx[r][a], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = mx[r][0];
+#pragma unroll
+    for (int a = 1; a < kA; ++a) m = fmaxf(m, mx[r][a]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[r], m * scale);
+    const bool dead = m_new <= kDeadMax;
+    // a dead row subtracts +inf: every p is exp2(-inf) = 0, no select
+    m_l2[r] = dead ? __int_as_float(0x7f800000) : m_new * kLog2e;
+    alpha[r] = dead ? 1.f : fast_exp2(fmaf(m_run[r], kLog2e, -m_l2[r]));
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1, a = ((i >> 2) * 2 + (i & 1)) % kA;
+    s[i] = fast_exp2(fmaf(s[i], scale_l2, -m_l2[r]));
+    sum[r][a] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = sum[r][0];
+#pragma unroll
+    for (int a = 1; a < kA; ++a) t += sum[r][a];
+    l_part[r] = l_part[r] * alpha[r] + t;
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void rescale(float (&o)[DH / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// probabilities (f32 accumulator layout) -> A fragments of P V, rounded to
+// the input type: keys 16kk + 2tg (+8) of rows gr and gr + 8
+template <typename T, int BK>
+__device__ __forceinline__ void to_fragments(const float (&s)[BK / 2],
+                                             uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The q tiles in the order the persistent CTAs take them, round-robin:
+// longest first across all heads (causal rows grow with the q tile), and
+// within one q tile the q heads of a kv group next to each other (they
+// read the same K/V tiles from L2).
+struct Tile {
+  int qt, b, hk, h;
+};
+__device__ __forceinline__ Tile decode_tile(int idx, int n_qt, int B,
+                                            int Hkv, int G) {
+  const int gm = idx % G;
+  idx /= G;
+  const int hk = idx % Hkv;
+  idx /= Hkv;
+  const int b = idx % B;
+  return {n_qt - 1 - idx / B, b, hk, hk * G + gm};
+}
+
+template <typename T, int DH, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o, int B,
+    int Hq, int Hkv, int T_len, int S_len, float sm_scale, int causal,
+    int has_window, int window, int q_order, int k_order, int v_order) {
+  using C = WgCfg<DH, BK>;
+  constexpr int ST = C::kStages;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = sm90::smem_u32(wg_smem);
+  unsigned char* base = wg_smem + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* sQ = base;
+  unsigned char* sK = base + C::kOffK;
+  unsigned char* sV = base + C::kOffV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::kOffBar);
+  uint64_t* full_q = bars;
+  uint64_t* empty_q = bars + 1;
+  uint64_t* full_k = bars + 2;
+  uint64_t* full_v = bars + 2 + ST;
+  uint64_t* empty_k = bars + 2 + 2 * ST;
+  uint64_t* empty_v = bars + 2 + 3 * ST;
+
+  const int G = Hq / Hkv;
+  const int n_qt = (T_len + kWgBlockQ - 1) / kWgBlockQ;
+  const int n_total = B * Hkv * G * n_qt;
+  // the key tiles [t_begin, t_begin + n) that q tile qt needs
+  auto key_tiles = [&](int qt, int& t_begin) {
+    const int q_lo = qt * kWgBlockQ;
+    const int q_hi = min(q_lo + kWgBlockQ, T_len) - 1;
+    int k_end = S_len;  // exclusive
+    if (causal) k_end = min(k_end, q_hi + 1);
+    int k_begin = 0;
+    if (has_window) k_begin = max(0, q_lo - window + 1);
+    t_begin = k_begin / BK;
+    return max((k_end + BK - 1) / BK - t_begin, 0);
+  };
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(full_q, 1);
+    sm90::mbar_init(empty_q, 8);  // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full_k + s, 1);
+      sm90::mbar_init(full_v + s, 1);
+      sm90::mbar_init(empty_k + s, 8);
+      sm90::mbar_init(empty_v + s, 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup index read from lane 0, so the compiler sees it is
+  // warp-uniform and keeps the descriptor arithmetic in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight, across the
+    // CTA's q tiles (the K/V ring runs on; Q waits for the consumers'
+    // last Q K^T of the previous tile) ------------------------------------
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int kv_it = 0, q_it = 0;
+      for (int idx = blockIdx.x; idx < n_total; idx += gridDim.x) {
+        const Tile tl = decode_tile(idx, n_qt, B, Hkv, G);
+        int t_begin;
+        const int n = key_tiles(tl.qt, t_begin);
+        if (n == 0) continue;
+        sm90::mbar_wait(empty_q, (q_it++ & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full_q, C::kQBytes);
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+          load_panel(sQ + p * C::kQPanel, &tm_q, full_q, 64 * p,
+                     tl.qt * kWgBlockQ, tl.h, tl.b, q_order);
+        for (int i = 0; i < n; ++i, ++kv_it) {
+          const int s = kv_it % ST;
+          const uint32_t parity = ((kv_it / ST) & 1) ^ 1;
+          const int row = (t_begin + i) * BK;
+          sm90::mbar_wait(empty_k + s, parity);
+          sm90::mbar_arrive_expect_tx(full_k + s, C::kKVBytes);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p)
+            load_panel(sK + s * C::kKVBytes + p * C::kKVPanel, &tm_k,
+                       full_k + s, 64 * p, row, tl.hk, tl.b, k_order);
+          sm90::mbar_wait(empty_v + s, parity);
+          sm90::mbar_arrive_expect_tx(full_v + s, C::kKVBytes);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p)
+            load_panel(sV + s * C::kKVBytes + p * C::kKVPanel, &tm_v,
+                       full_v + s, 64 * p, row, tl.hk, tl.b, v_order);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows 64c .. 64c + 63 of each q tile ---
+  sm90::regs_alloc<240>();
+  const int c = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int gr = lane >> 2, tg = lane & 3;
+  // descriptors of this warpgroup's 64 Q rows and of stage 0's K and V
+  const uint64_t dq =
+      sm90::make_desc(sm90::smem_u32(sQ + 64 * c * kPanelBytes), 16, 1024);
+  const uint64_t dk0 = sm90::make_desc(sm90::smem_u32(sK), 16, 1024);
+  const uint64_t dv0 = sm90::make_desc(sm90::smem_u32(sV), C::kKVPanel, 1024);
+  auto dk = [&](int st) { return dk0 + ((st * C::kKVBytes) >> 4); };
+  auto dv = [&](int st) { return dv0 + ((st * C::kKVBytes) >> 4); };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(bar);
+  };
+  // ping-pong: warpgroup c issues its GEMMs between a sync on barrier 1 + c
+  // and an arrival at the other's; consumer 1 lets 0 go first, and 0
+  // absorbs 1's last arrival at the end, so no phase is left open
+  const int bar_mine = 1 + c, bar_other = 2 - c;
+  if (c == 1) sm90::named_arrive(1, 256);
+
+  int kv_it = 0, q_it = 0;
+  for (int idx = blockIdx.x; idx < n_total; idx += gridDim.x) {
+    const Tile tl = decode_tile(idx, n_qt, B, Hkv, G);
+    int t_begin;
+    const int n = key_tiles(tl.qt, t_begin);
+    const int q_lo_c = tl.qt * kWgBlockQ + 64 * c;
+    const int qpos[2] = {q_lo_c + 16 * warp + gr,
+                         q_lo_c + 16 * warp + gr + 8};
+    auto is_edge = [&](int k0) {
+      return k0 + BK > S_len || (causal && k0 + BK - 1 > q_lo_c) ||
+             (has_window && k0 <= q_lo_c + 63 - window) ||
+             !(sm_scale > 0.f);
+    };
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {kNegBig, kNegBig};
+    float l_part[2] = {0.f, 0.f};  // this thread's columns; quad-summed
+
+    if (n > 0) {
+      float s[BK / 2];
+      uint32_t p[BK / 16][4];
+      float alpha[2];
+      sm90::mbar_wait(full_q, q_it++ & 1);
+      // key tile 0: S only; P V of tile i - 1 is issued after S of i
+      {
+        const int st = kv_it % ST;
+        sm90::mbar_wait(full_k + st, (kv_it / ST) & 1);
+        sm90::named_sync(bar_mine, 256);
+        sm90::wgmma_fence();
+        issue_qk<T, DH, BK>(s, dq, dk(st));
+        sm90::wgmma_commit();
+        sm90::named_arrive(bar_other, 256);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        release(empty_k + st);
+        if (n == 1) release(empty_q);
+        const int k0 = t_begin * BK;
+        online_softmax<BK>(s, m_run, l_part, alpha, k0, is_edge(k0), qpos,
+                           tg, sm_scale, S_len, causal, has_window, window);
+        to_fragments<T, BK>(s, p);
+      }
+      for (int i = 1; i < n; ++i) {
+        const int it = kv_it + i;
+        const int st = it % ST, sp = (it - 1) % ST;
+        sm90::mbar_wait(full_k + st, (it / ST) & 1);
+        sm90::mbar_wait(full_v + sp, ((it - 1) / ST) & 1);
+        sm90::fence_regs(acc);
+        sm90::fence_regs(p);
+        sm90::named_sync(bar_mine, 256);
+        sm90::wgmma_fence();
+        issue_qk<T, DH, BK>(s, dq, dk(st));
+        sm90::wgmma_commit();
+        // O takes the previous tile's max under this tile's Q K^T
+        rescale<DH>(acc, alpha);
+        sm90::wgmma_fence();
+        issue_pv<T, DH, BK>(acc, p, dv(sp));
+        sm90::wgmma_commit();
+        sm90::named_arrive(bar_other, 256);
+        sm90::wgmma_wait<1>();  // S of tile i is in; P V still running
+        sm90::fence_regs(s);
+        release(empty_k + st);
+        if (i == n - 1) release(empty_q);
+        const int k0 = (t_begin + i) * BK;
+        online_softmax<BK>(s, m_run, l_part, alpha, k0, is_edge(k0), qpos,
+                           tg, sm_scale, S_len, causal, has_window, window);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        release(empty_v + sp);
+        to_fragments<T, BK>(s, p);
+      }
+      const int it = kv_it + n - 1, sl = it % ST;
+      sm90::mbar_wait(full_v + sl, (it / ST) & 1);
+      rescale<DH>(acc, alpha);
+      sm90::fence_regs(acc);
+      sm90::fence_regs(p);
+      sm90::wgmma_fence();
+      issue_pv<T, DH, BK>(acc, p, dv(sl));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      release(empty_v + sl);
+      kv_it += n;
+    }
+
+    // ---- epilogue: out = acc / l (0 for a row with no live key), straight
+    // from registers; the stores drain under the next tile's work
+    T* ob = o + ((int64_t)(tl.b * Hq + tl.h) * T_len) * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_part[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+      const int row = qpos[r];
+      if (row < T_len) {
+        T* orow = ob + (int64_t)row * DH + 2 * tg;
+#pragma unroll
+        for (int nn = 0; nn < DH / 8; ++nn)
+          store2(orow + 8 * nn, acc[4 * nn + 2 * r] * inv,
+                 acc[4 * nn + 2 * r + 1] * inv);
+      }
+    }
+  }
+  if (c == 0) sm90::named_sync(1, 256);
+}
+
+// ---- host: tensor maps and launch of the wgmma variant ---------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the library links nothing but the runtime
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (Dh, rows, heads, batch) over [batch, heads, rows, Dh] at the
+// given element strides, boxes of 64 columns x box_rows rows, 128-byte
+// swizzle, zeros outside. Dims 1..3 are ordered by ascending stride (a
+// size-1 dim last), so the [B, T, H, Dh] views the model passes map as
+// well as contiguous tensors; *order says where each one went (see
+// load_panel). Returns 0 or a CUDA error.
+int make_map(CUtensorMap* map, int dtype, const void* ptr, int Dh, int rows,
+             int heads, int batch, int64_t st_batch, int64_t st_head,
+             int64_t st_row, int box_rows, int* order) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  struct Dim {
+    uint64_t size, stride;
+    int which;  // 0 row, 1 head, 2 batch
+  } d[3] = {{(uint64_t)rows, (uint64_t)st_row, 0},
+            {(uint64_t)heads, (uint64_t)st_head, 1},
+            {(uint64_t)batch, (uint64_t)st_batch, 2}};
+  auto key = [](const Dim& x) {
+    return x.size == 1 ? ~0ull : x.stride;
+  };
+  for (int i = 0; i < 3; ++i)  // three elements: insertion sort
+    for (int j = i; j > 0 && key(d[j]) < key(d[j - 1]); --j) {
+      Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  cuuint64_t gdim[4] = {(cuuint64_t)Dh, d[0].size, d[1].size, d[2].size};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  *order = 0;
+  uint64_t extent = (uint64_t)Dh * 2;
+  for (int i = 0; i < 3; ++i) {
+    // a size-1 dim's stride is never stepped: give it a legal one
+    gstride[i] = d[i].size == 1 ? extent : d[i].stride * 2;
+    extent = gstride[i] * d[i].size;
+    if (d[i].which == 0) box[1 + i] = box_rows;
+    *order |= (1 + i) << (2 * d[i].which);
+  }
+  CUresult r = encode(
+      map,
+      dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(ptr), gdim, gstride, box, estride,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+template <typename T, int DH, int BK>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hq, int Hkv, int T_len, int S_len, int dtype,
+                 const int64_t* st, float sm_scale, int causal,
+                 int has_window, int window, cudaStream_t stream) {
+  using C = WgCfg<DH, BK>;
+  const int64_t tiles =
+      (int64_t)B * Hq * ((T_len + kWgBlockQ - 1) / kWgBlockQ);
+  if (tiles == 0) return cudaSuccess;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (S_len == 0)  // no key at all: every row writes 0
+    return cudaMemsetAsync(o, 0, (size_t)B * Hq * T_len * DH * sizeof(T),
+                           stream);
+  CUtensorMap tq, tk, tv;
+  int oq, ok, ov, err;
+  if ((err = make_map(&tq, dtype, q, DH, T_len, Hq, B, st[0], st[1], st[2],
+                      kWgBlockQ, &oq)) ||
+      (err = make_map(&tk, dtype, k, DH, S_len, Hkv, B, st[3], st[4], st[5],
+                      BK, &ok)) ||
+      (err = make_map(&tv, dtype, v, DH, S_len, Hkv, B, st[6], st[7], st[8],
+                      BK, &ov)))
+    return err;
+  // persistent: one CTA per SM (the shared memory allows one), each walking
+  // the q tiles round-robin
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  auto kern = flash_fwd_wgmma_kernel<T, DH, BK>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::kSmem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kern<<<grid, kWgThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), B, Hq, Hkv, T_len, S_len, sm_scale,
+      causal, has_window, window, oq, ok, ov);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgmma_dh(int Dh, int block_k, const void* q, const void* k,
+                    const void* v, void* o, int B, int Hq, int Hkv, int T_len,
+                    int S_len, int dtype, const int64_t* st, float sm_scale,
+                    int causal, int has_window, int window, cudaStream_t s) {
+#define FLASH_WG_CASE(DH_, BK_)                                              \
+  if (Dh == DH_ && block_k == BK_)                                           \
+    return launch_wgmma<T, DH_, BK_>(q, k, v, o, B, Hq, Hkv, T_len, S_len,   \
+                                     dtype, st, sm_scale, causal, has_window, \
+                                     window, s);
+  FLASH_WG_CASE(64, 64)
+  FLASH_WG_CASE(64, 128)
+  FLASH_WG_CASE(128, 64)
+  FLASH_WG_CASE(128, 128)
+#undef FLASH_WG_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // strides: q (batch, head, row), k (batch, head, row), v (batch, head, row),
 // in elements. Returns the CUDA error of the launch (0 on success).
+// The mma.sync / FMA variant: f32 at Dh 16..128, bf16/fp16 at Dh 16 and 32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Hq,
                                    int Hkv, int T_len, int S_len, int Dh,
@@ -486,6 +1078,30 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       return launch_dh<__nv_bfloat16>(Dh, q, k, v, o, B, Hq, Hkv, T_len,
                                       S_len, strides, sm_scale, causal,
                                       has_window, window, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The wgmma variant: bf16/fp16 at Dh 64 and 128, key tiles of block_k (64
+// or 128). Same strides and return as flash_attention_fwd.
+extern "C" int flash_attention_fwd_wgmma(
+    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    int Hkv, int T_len, int S_len, int Dh, int dtype, const int64_t* strides,
+    float sm_scale, int causal, int has_window, int window, int block_k,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF16:
+      return launch_wgmma_dh<__half>(Dh, block_k, q, k, v, o, B, Hq, Hkv,
+                                     T_len, S_len, dtype, strides, sm_scale,
+                                     causal, has_window, window, s);
+    case kBF16:
+      return launch_wgmma_dh<__nv_bfloat16>(Dh, block_k, q, k, v, o, B, Hq,
+                                            Hkv, T_len, S_len, dtype, strides,
+                                            sm_scale, causal, has_window,
+                                            window, s);
     default:
       return cudaErrorInvalidValue;
   }

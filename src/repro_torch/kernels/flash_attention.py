@@ -2,14 +2,27 @@
 
 Replaces the Pallas kernel `repro/kernels/flash_attention.py::
 flash_attention_kernel` with a CUDA C++ kernel (`csrc/flash_attention.cu`,
-built with nvcc for sm_90a and bound with ctypes): one CTA of four warps
-per (batch, q head, 64-row q tile), 64-key K/V tiles double-buffered in
-shared memory with cp.async, `mma.sync` for bf16/fp16 and plain FMA for
-f32. Its work is two matrix products per tile, so on the H100 it is bound
-by operations: at qwen3-14b's prefill (B = 2, Hq = 40, Dh = 128, T = 4096,
+built with nvcc for sm_90a and bound with ctypes) in two variants, picked
+from the dtype and the head dim (:func:`variant`):
+
+* ``"wgmma"`` (bf16/fp16 at Dh 64 and 128, every full-width config): one
+  persistent CTA of three warpgroups per SM walks the (batch, q head,
+  128-row q tile) items; a producer warpgroup feeds Q, K and V by TMA
+  into a ring of shared-memory stages, two consumer warpgroups run both
+  products on `wgmma` with the online softmax in registers, ping-ponged
+  so one's softmax runs under the other's GEMMs. Reads the model's
+  [B, T, H, Dh] views in place. Launches count as
+  ``flash_attention_wgmma``.
+* ``"mma_sync"`` (f32 at every head dim, exact: no TF32; bf16/fp16 at
+  Dh 16 and 32, the smoke configs): four warps per 64-row q tile, 64-key
+  K/V tiles double-buffered with cp.async, `mma.sync` for bf16/fp16 and
+  plain FMA for f32. Launches count as ``flash_attention``.
+
+Its work is two matrix products per tile, so on the H100 it is bound by
+operations: at qwen3-14b's prefill (B = 2, Hq = 40, Dh = 128, T = 4096,
 causal, bf16) 343.7 GFLOP, 0.347 ms at 989 TFLOP/s.
 
-Semantics (shared by the kernel and :func:`flash_attention_plain`, and
+Semantics (shared by both variants and :func:`flash_attention_plain`, and
 those of the Pallas kernel): q head h reads kv head h // (Hq // Hkv);
 scores in f32 times `sm_scale` (default Dh**-0.5); key kpos is live when
 kpos < S, kpos <= qpos if `causal` and kpos > qpos - window if `window` is
@@ -26,9 +39,12 @@ import torch
 from . import counters
 
 NEG_INF = -1e30
-BLOCK_Q = 64
-BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the wgmma variant (bf16/fp16)
+WGMMA_HEAD_DIMS = (64, 128)
+#: (q rows, keys) tiles of each variant; the first is its default (the
+#: wgmma variant's from tools/sweep_flash.py)
+TILES = {"wgmma": ((128, 128), (128, 64)), "mma_sync": ((64, 64),)}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -67,15 +83,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Hq, T, Dh).to(q.dtype)
 
 
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel variant that serves (dtype, head dim): "wgmma" or
+    "mma_sync"."""
+    if dtype in (torch.bfloat16, torch.float16) and \
+            head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _tile(q: torch.Tensor, block_q: int | None, block_k: int | None):
+    """(variant, (block_q, block_k)) for q, the variant's default tile
+    filling in a None; raises for a tile the variant does not have."""
+    name = variant(q.dtype, q.shape[-1])
+    tiles = TILES[name]
+    tile = (block_q or tiles[0][0], block_k or tiles[0][1])
+    if tile not in tiles:
+        raise ValueError(f"flash kernel: tile {tile[0]}x{tile[1]} not "
+                         f"supported by the {name} variant for "
+                         f"{q.dtype} at Dh {q.shape[-1]} (tiles {tiles})")
+    return name, tile
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> None:
+                 block_q: int | None = None,
+                 block_k: int | None = None) -> None:
     """Raise unless the CUDA kernel takes these operands: one dtype of
     f32/bf16/fp16, Dh in HEAD_DIMS, q [B, Hq, T, Dh] and k/v
     [B, Hkv, S, Dh] with Hq % Hkv == 0, the last dim contiguous, every
-    stride and address 16-byte aligned, and the kernel's 64 x 64 tile."""
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(f"flash kernel: tile {block_q}x{block_k} not "
-                         f"supported (only {BLOCK_Q}x{BLOCK_K})")
+    stride and address 16-byte aligned, and a tile of the variant that
+    serves them (TILES; None takes its default)."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes one of f32/bf16/fp16 for q, k "
@@ -91,6 +128,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} (Hq % Hkv == 0)")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {Dh} not in {HEAD_DIMS}")
+    _tile(q, block_q, block_k)
     item = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(x.stride(i) * item % 16
@@ -102,29 +140,35 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _library():
+    """The built library's two entry points, typed."""
     from .build import build
     lib = build("flash_attention")[0]
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    sync, wg = lib.flash_attention_fwd, lib.flash_attention_fwd_wgmma
+    head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]
+    if sync.argtypes is None:
+        sync.argtypes = head + [ctypes.c_void_p]
+        sync.restype = ctypes.c_int
+        wg.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
+        wg.restype = ctypes.c_int
+    return sync, wg
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None,
                          sm_scale: float | None = None,
-                         block_q: int = BLOCK_Q, block_k: int = BLOCK_K
-                         ) -> torch.Tensor:
-    """Launch the CUDA kernel on q's device, on the current stream,
-    without synchronising. Returns a contiguous [B, Hq, T, Dh] tensor."""
+                         block_q: int | None = None,
+                         block_k: int | None = None) -> torch.Tensor:
+    """Launch the variant that serves q's dtype and head dim on q's
+    device, on the current stream, without synchronising. Returns a
+    contiguous [B, Hq, T, Dh] tensor."""
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
         raise ValueError(f"flash kernel needs q, k and v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
     check_inputs(q, k, v, block_q, block_k)
+    name, (_, bk) = _tile(q, block_q, block_k)
     B, Hq, T, Dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if sm_scale is None:
@@ -133,22 +177,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_int64 * 9)(*(x.stride(i) for x in (q, k, v)
                                      for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B, Hq, Hkv, T, S, Dh,
-                     _DTYPE_CODE[q.dtype], strides, float(sm_scale),
-                     int(bool(causal)), int(window is not None),
-                     int(window or 0), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            Hkv, T, S, Dh, _DTYPE_CODE[q.dtype], strides, float(sm_scale),
+            int(bool(causal)), int(window is not None), int(window or 0))
+    sync, wg = _library()
+    if name == "wgmma":
+        err = wg(*args, bk, stream)
+        counter = "flash_attention_wgmma"
+    else:
+        err = sync(*args, stream)
+        counter = "flash_attention"
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
-                           f"error {err}")
-    counters.LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"flash_attention ({name}) kernel launch failed "
+                           f"with CUDA error {err}")
+    counters.LAUNCHES[counter] += 1
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
-                    sm_scale: float | None = None, block_q: int = BLOCK_Q,
-                    block_k: int = BLOCK_K) -> torch.Tensor:
+                    sm_scale: float | None = None,
+                    block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """q [B,Hq,T,Dh], k/v [B,Hkv,S,Dh] -> [B,Hq,T,Dh]: the kernel for CUDA
     tensors, the plain version for CPU tensors (where the tile sizes do
     not matter)."""

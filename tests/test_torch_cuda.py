@@ -773,13 +773,23 @@ def _qkv(shape_q, shape_kv, dtype, cuda, seed=0):
     return q, k, v
 
 
+FLASH_COUNTER = {"wgmma": "flash_attention_wgmma",
+                 "mma_sync": "flash_attention"}
+
+
 def _flash_match(q, k, v, dtype, **kw):
+    """One launch of the variant that serves q, held to the plain version
+    within _flash_tol; the launch counts on that variant's counter only."""
     counters.reset()
     out = fa.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert counters.snapshot()["flash_attention"] == 1
+    name = FLASH_COUNTER[fa.variant(q.dtype, q.shape[-1])]
+    launches = counters.snapshot()
+    assert launches[name] == 1
+    assert sum(launches[n] for n in FLASH_COUNTER.values()) == 1
     assert out.dtype == q.dtype and out.shape == q.shape
-    ref = fa.flash_attention_plain(q, k, v, **kw)
+    ref = fa.flash_attention_plain(q, k, v, **{
+        key: kw[key] for key in ("causal", "window", "sm_scale") if key in kw})
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(),
                                **_flash_tol(dtype, v))
@@ -839,6 +849,81 @@ def test_flash_kernel_reads_strided_heads(cuda):
     assert torch.equal(a, b)
 
 
+# the wgmma variant at its 128-row q tile's edges (bf16, Dh 128, GQA 6/2
+# unless a case says otherwise): rows and keys one short of, at, and one
+# past a tile; windows around a tile; T != S at tile multiples
+WGMMA_EDGES = {
+    **{f"T{t}": dict(T=t, S=t) for t in (1, 127, 128, 129, 255, 257, 4000)},
+    **{f"window{w}": dict(T=520, S=520, window=w) for w in (127, 128, 129)},
+    "T128_S384": dict(T=128, S=384),
+    "T384_S128": dict(T=384, S=128),
+    "full_T128_S384": dict(T=128, S=384, causal=False),
+    "group1": dict(T=300, S=300, Hq=2, Hkv=2),
+    "group5": dict(T=300, S=300, Hq=10, Hkv=2),
+    "group8": dict(T=300, S=300, Hq=8, Hkv=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_EDGES))
+def test_flash_wgmma_tile_edges(cuda, case):
+    c = dict(WGMMA_EDGES[case])
+    T, S = c.pop("T"), c.pop("S")
+    Hq, Hkv = c.pop("Hq", 6), c.pop("Hkv", 2)
+    B = 1 if T >= 4000 else 2
+    q, k, v = _qkv((B, Hq, T, 128), (B, Hkv, S, 128), "bfloat16", cuda,
+                   seed=T + S)
+    assert fa.variant(q.dtype, 128) == "wgmma"
+    _flash_match(q, k, v, "bfloat16", causal=c.get("causal", True),
+                 window=c.get("window"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("Dh", fa.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("case", ["T129", "T257", "window129", "T384_S128",
+                                  "group5"])
+def test_flash_wgmma_dtypes_and_head_dims(cuda, dtype, Dh, case):
+    c = dict(WGMMA_EDGES[case])
+    T, S = c.pop("T"), c.pop("S")
+    Hq, Hkv = c.pop("Hq", 6), c.pop("Hkv", 2)
+    q, k, v = _qkv((2, Hq, T, Dh), (2, Hkv, S, Dh), dtype, cuda, seed=Dh)
+    _flash_match(q, k, v, dtype, causal=c.get("causal", True),
+                 window=c.get("window"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_k", [128, 64])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("Dh", fa.WGMMA_HEAD_DIMS)
+def test_flash_wgmma_key_tiles(cuda, block_k, window, Dh):
+    """Both key tiles the sweep times give the plain version's answer, at
+    a ragged causal shape."""
+    q, k, v = _qkv((2, 6, 300, Dh), (2, 2, 300, Dh), "bfloat16", cuda,
+                   seed=block_k)
+    _flash_match(q, k, v, "bfloat16", window=window, block_k=block_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("Dh", fa.WGMMA_HEAD_DIMS)
+def test_flash_wgmma_reads_model_layout_in_place(cuda, dtype, Dh):
+    """[B, T, H, Dh] projections viewed as [B, H, T, Dh] go through the
+    TMA maps in place, bit for bit as their contiguous copies, through
+    the wgmma variant."""
+    rng = np.random.default_rng(Dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 257, h, Dh))
+                                .astype(np.float32)).to(TDT[dtype])
+               .to(cuda).transpose(1, 2) for h in (10, 2, 2))
+    counters.reset()
+    a = fa.flash_attention_cuda(q, k, v, window=129)
+    b = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), window=129)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["flash_attention_wgmma"] == 2
+    assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_bad_inputs(cuda):
     q, k, v = _qkv((1, 2, 8, 64), (1, 1, 8, 64), "float32", cuda)
@@ -854,6 +939,9 @@ def test_flash_kernel_refuses_bad_inputs(cuda):
         fa.flash_attention_cuda(shifted, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, k.cpu(), v)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    with pytest.raises(ValueError, match="tile"):
+        fa.flash_attention_cuda(qb, kb, vb, block_k=32)
 
 
 @pytest.mark.cuda
@@ -886,3 +974,30 @@ def test_lm_flash_path_on_card(cuda, arch):
     full, _, _ = lm.forward(model, tok)
     np.testing.assert_allclose(got.cpu().numpy(), full[:, -1].cpu().numpy(),
                                rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-7b"])
+def test_lm_wgmma_path_on_card(cuda, arch):
+    """The smoke model at the full configs' head dim (128) in bf16: one
+    launch per layer of the wgmma variant, none of the other, and logits
+    within 5e-2 * max|logit| of the einsum path (the lm phase of
+    chip_smoke.py holds the full model to the same bound)."""
+    cfg = smoke(get_config(arch)).replace(
+        head_dim=128, dtype="bfloat16", attn_impl="flash_kernel")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = lm.Transformer(cfg, gen, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 257))
+                           .astype(np.int32)).to(cuda)
+    counters.reset()
+    a, _, _ = lm.forward(model, tok)
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    assert launches["flash_attention_wgmma"] == cfg.num_layers
+    assert launches["flash_attention"] == 0
+    model.cfg = cfg.replace(attn_impl="xla")
+    b, _, _ = lm.forward(model, tok)
+    a, b = a[..., :cfg.vocab_size].float(), b[..., :cfg.vocab_size].float()
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())

@@ -45,6 +45,8 @@ def _both(q, k, v, jdtype=jnp.float32, tdtype=torch.float32, **kw):
     (1, 8, 1, 128, 128, 128),     # MQA
     (2, 6, 2, 96, 96, 64),        # non-pow2 heads
     (1, 2, 2, 64, 192, 64),       # T != S (full attention, as the reference)
+    (1, 4, 2, 129, 129, 128),     # one row past a 128-row tile
+    (1, 2, 1, 128, 384, 64),      # T != S at tile multiples
 ])
 def test_plain_matches_pallas_shapes(B, Hq, Hkv, T, S, Dh):
     q, k, v = _inputs((B, Hq, T, Dh), (B, Hkv, S, Dh), seed=T + S)
@@ -109,6 +111,42 @@ def test_wrapper_runs_plain_on_cpu():
     b = fa.flash_attention_plain(q, k, v, window=8)
     assert torch.equal(a, b)
     assert counters.snapshot()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype,Dh,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.float16, 16, "mma_sync"),
+    (torch.float32, 128, "mma_sync"), (torch.float32, 64, "mma_sync"),
+])
+def test_variant_by_dtype_and_head_dim(dtype, Dh, want):
+    """bf16/fp16 at Dh 64 and 128 take the wgmma variant; f32 (exact, no
+    TF32) and the smoke configs' Dh 16/32 the mma.sync / FMA one."""
+    assert fa.variant(dtype, Dh) == want
+
+
+@pytest.mark.parametrize("dtype,Dh,tile,ok", [
+    (torch.bfloat16, 128, (None, None), True),
+    (torch.bfloat16, 128, (128, 128), True),
+    (torch.bfloat16, 128, (128, 64), True),
+    (torch.float16, 64, (None, 64), True),
+    (torch.bfloat16, 128, (64, 64), False),
+    (torch.bfloat16, 64, (128, 32), False),
+    (torch.float32, 128, (64, 64), True),
+    (torch.float32, 128, (128, 128), False),
+    (torch.bfloat16, 32, (None, None), True),
+    (torch.bfloat16, 32, (128, 128), False),
+])
+def test_check_inputs_tiles_per_variant(dtype, Dh, tile, ok):
+    """Each variant takes its own tiles (TILES; None its default) and
+    refuses the others before any launch."""
+    q = torch.zeros(1, 4, 8, Dh, dtype=dtype)
+    k = torch.zeros(1, 2, 8, Dh, dtype=dtype)
+    if ok:
+        fa.check_inputs(q, k, k, *tile)
+    else:
+        with pytest.raises(ValueError, match="tile"):
+            fa.check_inputs(q, k, k, *tile)
 
 
 @pytest.mark.parametrize("case,exc,match", [

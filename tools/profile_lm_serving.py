@@ -32,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
+    if "flash_fwd" in low:
         return "flash"
     if any(m in low for m in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul"
