@@ -12,7 +12,10 @@ Phases, one line of numbers each:
      must show HGMMA and UTMALDG instructions; and the fused Triton kernel
      once per built-in emit;
   3. kernel parity at the main path's shapes: each kernel against its plain
-     PyTorch version on the same card inputs;
+     PyTorch version on the same card inputs; then a graph without edges
+     (V = 7), one vertex alone and one with a self-loop through K1, K2 and
+     the packed kernel (bitwise against the plain versions) and sssp
+     against kernel="off";
   4. the main path: `UniGPS()` runs pagerank, sssp, connected_components,
      bfs, degrees, personalized_pagerank and the quickstart's user
      program (pushpull engine, kernels on) on rmat_graph(21, 16, seed=0,
@@ -45,13 +48,17 @@ Phases, one line of numbers each:
      every lane bitwise against its sequential kernel-on run (PPR
      included) and against the kernel="off" batched run (bitwise for min
      and integers, SUM_RTOL for PPR); the packed kernel against its plain
-     version and against Q single-leaf launches, timed beside them;
+     version and against Q single-leaf launches, timed beside them (with
+     its registers and spills), and its share of the batched sssp and
+     PPR calls (kernel ms x launches over the operator wall);
   9. lanes-frontier: `UniGPS(frontier="auto").sssp(sources=...)` runs the
      packed block-skip shape and equals the dense batched result bitwise;
-     the shape against its plain version and the resident one;
+     the shape against its plain version and the resident one at a 1 %
+     and an empty union frontier;
  10. lanes-window: a batched SSSP on phase 7's RCM-relabeled banded graph
      runs the packed windowed shape and equals prefetch="off" bitwise;
-     the shape against its plain version and the resident one;
+     the shape against its plain version and the resident one, and the
+     bytes of the slab pair one CTA stages and reads;
  11. records: torch twins of the JAX tests' MixedStats, UniformTriple and
      VecStats, each with a Triton emit, on the phase-4 graph: kernels on
      against kernel="off", and at the plane multileaf="auto" (packed)
@@ -780,7 +787,20 @@ def phase_lanes(ctx):
             q_single_leaf_ms=k1_ms)
         times[name]["per_query_ms"] = times[name]["ms"] / Q
         log("packed_kernel", emit=name, Q=Q, slab_width=graph_device.
-            lane_slab_width(Q), **times[name])
+            lane_slab_width(Q), heavy_blocks=int(fp.heavy_blocks(
+                cv.in_indptr).shape[0]), **times[name])
+        for kname, regs, spills in compiled_report(fp._kernel(
+                fp._kernel_layout(plan, monoids, pack), False)):
+            log("packed_build", emit=name, kernel=kname, registers=regs,
+                spills=spills)
+    # the kernel's share of a batched operator: its time at the mid-run
+    # state, times the launches the operator made, over the operator wall
+    for name, op in (("sssp", "sssp"), ("ppr", "personalized_pagerank")):
+        total = times[name]["ms"] * per_call[op]
+        log("lanes_share", operator=op, Q=Q, packed_ms=times[name]["ms"],
+            launches=per_call[op], kernel_ms_total=total,
+            wall_s=round(wall[op], 4),
+            kernel_share=total / (wall[op] * 1e3))
     # bound, SSSP emit at Q=8: indptr, src and weight once; distance and
     # _lane_act [V, Q] and the union frontier once; the m and _lane_msg
     # slabs [V, W] and has_msg written once; an add, a compare and a min
@@ -795,6 +815,18 @@ def phase_lanes(ctx):
              "max_abs_err": err, "ms": times["sssp"]["ms"],
              "plain_ms": times["sssp"]["plain_ms"], "bound_ms": b,
              "bound_by": by, "library_ms": None}]
+
+
+def compiled_report(mod):
+    """(kernel, registers, spills) of every compiled kernel of a generated
+    packed module, as Triton's compile cache holds them."""
+    out = []
+    for name in ("packed_kernel", "packed_finish", "packed_window_kernel"):
+        fn = getattr(mod, name, None)
+        for cache in getattr(fn, "device_caches", {}).values():
+            for ck in cache[0].values():
+                out.append((name, ck.n_regs, ck.n_spills))
+    return out
 
 
 def records_leaves(rec):
@@ -887,6 +919,12 @@ def phase_lanes_frontier(ctx):
                             ctx["rng"], "skip", bitmap=bm)
     log("packed_skip_kernel", Q=Q, density=0.01, live_tile_share=share,
         **row)
+    # an empty union frontier: every tile dead
+    empty = torch.zeros(V, dtype=torch.bool, device=gdev.device)
+    _, row0 = packed_shape("block-skip, empty frontier", prog, gdev,
+                           "distance", empty, ctx["rng"], "skip",
+                           bitmap=fge.tile_bitmap_triton(empty, tables, 0))
+    log("packed_skip_kernel", Q=Q, density=0.0, live_tile_share=0.0, **row0)
     # indptr, tile_ptr and the bitmap once; of src and weight and of the
     # gathered rows (distance and _lane_act [V, Q], the frontier) the
     # live tiles' share; the two [V, W] slabs and has_msg written once
@@ -914,6 +952,8 @@ def phase_lanes_window(ctx):
     from repro_torch.core import graph_device, operators, vcprog
     from repro_torch.core.engines.common import NonConvergenceWarning
     from repro_torch.kernels import counters
+    from repro_torch.kernels import fused_gather_emit as fge
+    from repro_torch.kernels import fused_packed as fp
 
     gb, gw = ctx["gb"], ctx["gw"]
     V, E = gb.num_vertices, gb.num_edges
@@ -947,6 +987,20 @@ def phase_lanes_window(ctx):
     err, row = packed_shape("windowed", prog, gw, "distance", act,
                             ctx["rng"], "window")
     log("packed_window_kernel", Q=Q, W=tables.window, **row)
+    # what one windowed CTA stages: the slab pair of the frontier flag
+    # (int32) in registers, gathered with tl.gather; of the [V, Q] leaves
+    # the pair is read through L1; the rule counts both
+    vp = batched_state(prog, gw, ctx["rng"], "distance")
+    plan = fp.packed_plan(prog, vp, gw.canonical.eprops, V, E)
+    reads = fp.read_leaves(plan, vp)
+    pair = 2 * tables.window
+    log("packed_window_staging", Q=Q, W=tables.window,
+        slab_pair_bytes=pair * fp.slab_row_bytes(reads, plan.ncol),
+        staged_bytes=pair * (4 + sum(t.element_size() for t in reads
+                                     if t.ndim == 1)),
+        budget_bytes=fp.PACKED_WINDOW_SLAB_BYTES,
+        single_leaf_budget_bytes=fge.WINDOW_SLAB_BYTES,
+        windowed=fp.window_usable(tables, V, reads, plan.ncol))
     # the SSSP emit reads the ids it is handed (src_ids/dst_ids exist on
     # a reordered graph but the emit ignores them, so they are not
     # counted): indptr, src, weight once; distance and _lane_act [V, Q]
@@ -1261,6 +1315,69 @@ def phase_compaction(ctx):
             ws_vals, "sum", lengths=lengths, axis=0, unsafe=True)))
 
 
+def degenerate_parity(dev):
+    """Phase 3's edge cases: a graph without edges (V = 7), one vertex
+    without edges and one vertex with a self-loop through K1, K2 and the
+    packed kernel (resident and block-skip, SSSP lanes), each bitwise
+    against its plain version on the card, and the operators against
+    kernel="off"."""
+    from repro_torch import UniGPS
+    from repro_torch.core import graph_device, operators, vcprog
+    from repro_torch.core.graph import from_edges
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import fused_gather_emit as fge
+    from repro_torch.kernels import fused_packed as fp
+    from repro_torch.kernels import segment_reduce as sr
+
+    for V, E in ((7, 0), (1, 0), (1, 1)):
+        g = from_edges(np.zeros(E, np.int32), np.zeros(E, np.int32), V,
+                       edge_props={"weight": np.ones(E, np.float32)})
+        gdev = graph_device.build_device_graph(g, device=dev)
+        cv, t = gdev.canonical, gdev.canonical.fused_tables
+        act = torch.ones(V, dtype=torch.bool, device=dev)
+        prog = operators.SSSPProgram(0)
+        vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V)
+        out, hm = fge.gather_emit_combine_triton(
+            prog, "min", cv.in_indptr, cv.src, vp, cv.eprops, act, V)
+        ref, rhm = fge.gather_emit_combine_plain(
+            prog, "min", cv.src, cv.dst, vp, cv.eprops, act, V)
+        check(f"gather_emit_combine V={V} E={E}", out["distance"],
+              ref["distance"], False)
+        vals = torch.ones((E, 2), dtype=torch.float32, device=dev)
+        for monoid in ("sum", "min", "max"):
+            check(f"segment_combine V={V} E={E} {monoid}",
+                  sr.segment_combine_cuda(vals, cv.in_indptr, V, monoid),
+                  sr.segment_combine_plain(vals, cv.in_indptr, V, monoid),
+                  False)
+        lanes = vcprog.as_batched([operators.SSSPProgram(r)
+                                   for r in range(3)])
+        vp = vcprog.init_vertices(lanes, gdev.vprops_in, gdev.out_degree, V)
+        monoids = leaf_monoids(lanes, vcprog.empty_record(lanes, dev))
+        plan = fp.packed_plan(lanes, vp, cv.eprops, V, E)
+        pack = fp.make_pack_spec(lanes, monoids, vp, cv.eprops)
+        ref, rhm2 = fp.gather_emit_combine_packed_plain(
+            lanes, monoids, cv.src, cv.dst, vp, cv.eprops, act, V)
+        for bm in (None, fge.tile_bitmap_triton(act, t, E)):
+            slabs, phm = fp.gather_emit_combine_packed_triton(
+                lanes, monoids, cv.in_indptr, cv.src, vp, cv.eprops, act,
+                V, plan=plan, pack=pack, tables=t, bitmap=bm)
+            for a, b in zip(records_leaves(fp._unpack(plan, pack, slabs)),
+                            records_leaves(ref)):
+                check(f"packed V={V} E={E}", a, b, False)
+            if not torch.equal(phm, rhm2):
+                fail(f"packed V={V} E={E}: has_msg differs")
+        if not (torch.equal(hm, rhm) and bool(hm.any()) == (E > 0)):
+            fail(f"gather_emit_combine V={V} E={E}: has_msg")
+        U = UniGPS()
+        for kw in ({"root": 0}, {"sources": [0, V - 1]}):
+            check(f"sssp V={V} E={E} {kw}", torch.from_numpy(
+                U.sssp(g, **kw)[0]), torch.from_numpy(
+                U.sssp(g, kernel="off", **kw)[0]), False)
+        log("parity", case="degenerate", V=V, E=E,
+            kernels="gather_emit_combine,segment_combine,packed",
+            bitwise=True)
+
+
 def graph_phases(args, dev):
     """Phases 2-12 on the RMAT-21 and Banded-21 graphs; returns their
     `kernels` rows. Every graph tensor is local to this call, so the
@@ -1361,6 +1478,7 @@ def graph_phases(args, dev):
         errs["gather_emit_combine"] = max(errs["gather_emit_combine"], e)
         log("parity", kernel="gather_emit_combine", emit=name,
             monoid=prog.monoid, dtype=str(out[key].dtype), max_abs_err=e)
+    degenerate_parity(dev)
     torch.cuda.synchronize()
 
     # -- 4. the main path through the user's entry points -----------------------

@@ -175,8 +175,11 @@ class VCProgram:
     def triton_emit(self):
         """The `@triton.jit` twin of :meth:`emit_message`, or None.
 
-        Every argument is a [BV, BK] tile of edges. Two protocols, chosen
-        by the number of leaves of the message record:
+        Every argument is a tile of edges, all of one shape ([BV, BK] in
+        the single-leaf kernel, [BV, SUM_LANES, columns] in the packed
+        one), so results built from an argument's shape have the tile's
+        shape. Two protocols, chosen by the number of leaves of the
+        message record:
 
           one leaf:  ``emit(sid, did, a, b, w, HAS_W) -> (is_emit, msg)``;
                      `a`/`b` are the vertex-property leaves named in
@@ -192,12 +195,13 @@ class VCProgram:
         when absent) and HAS_W (constexpr) whether the graph has it.
 
         Vector leaves ([V, D] properties, [D] message leaves) are handled
-        a column at a time: the kernel calls the emit once per column c
-        with column c of every vector leaf it reads, and folds its
-        results into column c of every vector message leaf (scalar
-        message leaves are taken from column 0). So the emit may only
-        combine a column with the same column of other leaves and with
-        scalar leaves, and its `is_emit` must not depend on the column;
+        column by column: along the packed kernel's column axis, column c
+        of a tile holds column c of every vector leaf it reads (a scalar
+        leaf broadcast), and its results fold into column c of every
+        vector message leaf (scalar message leaves are taken from column
+        0). So the emit may only combine a column with the same column of
+        other leaves and with scalar leaves, and its `is_emit` must not
+        depend on the column;
         an emit that mixes the columns of a vector leaf offers no Triton
         emit and runs unfused. A :class:`BatchedProgram` reuses its base
         program's emit per lane, which therefore sees no per-lane

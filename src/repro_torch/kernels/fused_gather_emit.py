@@ -253,6 +253,17 @@ def _plain_emit(program, src, dst, vprops, eprops, active, num_vertices,
     dst segment ids, has_msg) of the three-pass plain versions."""
     V = int(num_vertices)
     device = src.device
+    if src.shape[0] == 0:
+        # vmap refuses a zero-length batch: empty leaves of the emit's
+        # schema (found on a one-edge probe), no message anywhere
+        from .fused_packed import emit_schema
+        _, leaves, spec = emit_schema(program, vprops, eprops)
+        msgs = records.tree_unflatten(
+            [torch.empty((0,) + s.shape[1:], dtype=s.dtype, device=device)
+             for s in leaves], spec)
+        none = torch.zeros(0, dtype=torch.bool, device=device)
+        return (msgs, none, dst.long(),
+                torch.zeros(V, dtype=torch.bool, device=device))
     src_l = src.long()
     src_prop = records.tree_gather(vprops, src_l)
     is_emit, msgs = record_vmap(program.emit_message, (0, 0, 0, 0), device)(

@@ -18,7 +18,9 @@ device and has no counterpart here).
 Bound on the H100: bytes. Each input is read once (indptr, src, the edge
 leaf the emit reads, the union frontier and each vertex leaf it reads)
 and each output written once (every message slab, has_msg); the emit is a
-few operations per edge and column.
+few operations per edge and column. What a kernel reads beyond that is
+the gather's sector waste (a 32-byte sector per source row) and, per
+edge, its source's frontier flag.
 
 Design:
   * Host side, :class:`PackSpec` groups message leaves by (dtype, monoid)
@@ -26,42 +28,64 @@ Design:
     takes D consecutive columns) exactly as the reference does, and the
     kernel writes each leaf's columns into its group's slab. Vertex
     properties are not packed: the kernel gathers from each leaf the emit
-    reads in place (a [V, D] leaf at row stride D). The reference's
-    per-dtype vertex slabs exist because a TPU kernel stages whole blocks
-    in VMEM; on the card packing them would cost a [V, W] copy every
-    superstep for no gain. `PackSpec.vp_groups` is still computed, so the
-    table equals the reference's.
-  * One program owns BV destination rows and ONE column c of the record:
-    the (flat) grid is row blocks x columns, columns = the width D shared
-    by every vector leaf (Q for batched lanes; 1 for scalar records), the
-    column varying fastest. The
-    program walks its rows' in-edge ranges in [BV, BK] tiles as the
-    single-leaf kernel does, gathers column c of each vector leaf the
-    emit reads, calls the emit once, and folds every message leaf's
-    column c with the shared fold (`_fold_acc`): an f32 sum adds edge
-    column k of a row into partial k % SUM_LANES and adds the partials
-    as a fixed tree once per row. So lane q of a batched run folds
-    exactly as the single-leaf kernel folds lane q's own sequential run,
-    and each lane is bitwise equal to it, sums included.
-    The cost: each column re-walks its rows' tiles, re-reads indptr, src
-    and the edge leaf and makes its own gathers, so a pass is linear in
-    Q (a row block's columns are neighbouring programs, which measured a
-    few percent faster than ordering the grid by column; PERF.md). In
-    exchange a hub row's long walk is split over Q programs instead of
-    lengthened Q-fold in one, no program holds a lane slab in registers,
-    and the windowed shape stages one column of each leaf (its slab-pair
-    limit is the single-leaf kernel's).
-  * Batched lanes: the kernel calls the BASE program's Triton emit per
-    column on that lane's gathered leaves, ANDs its is_emit with the
-    lane's `_lane_act` bit, and writes the lane's `_lane_msg` column as
-    1 where the lane kept an emission, else 0 (max with identity 0); a
-    lane that does not emit folds the exact identity.
-  * has_msg is any kept emission over all columns: each program writes
-    its column's row of a [columns, V] byte table and the wrapper ORs
-    the rows (one pass over Q·V bytes).
-  * Scalar message leaves of a record that also has vector leaves are
-    folded by every column and stored from column 0 (the emit's scalar
-    results do not depend on the column).
+    reads in place. The reference's per-dtype vertex slabs exist because
+    a TPU kernel stages whole blocks in VMEM; on the card packing them
+    would cost a [V, W] copy every superstep for no gain.
+    `PackSpec.vp_groups` is still computed, so the table equals the
+    reference's.
+  * Lane slabs. The record's C columns (Q for batched lanes, D for a
+    vector record, 1 for a scalar one) are padded to a power of two CP
+    under a mask, and one program owns BLOCK_V destination rows and EVERY
+    column, as the reference's kernel gathers whole [BE, Wg] slab rows.
+    It walks its rows' in-edges a chunk of SUM_LANES edges at a time:
+    indptr, src, the edge leaf, valid, the ids and active[src] are read
+    once per chunk for all columns; a [V] vertex leaf is gathered once
+    and broadcast over the columns; a [V, D] leaf is gathered as
+    contiguous rows (neighbouring threads take neighbouring columns of one
+    source's row: one 32-byte sector for a Q = 8 f32 row). The user's emit
+    runs on [BV, SUM_LANES, CC] tiles whose every argument has the full
+    shape (sid, did and the edge leaf broadcast), CC = min(CP, COL_CHUNK)
+    columns at a time; a wider record loops over column chunks on the same
+    edge data. Scalar message leaves of a record with vector leaves fold
+    column 0 only and are stored from it.
+  * The bits. Each column folds in the single-leaf kernel's exact order:
+    an f32 sum keeps [BV, SUM_LANES, CC] partials, chunk c's edge k of a
+    row adding into partial k elementwise (edge order per partial), and
+    adds the partials as the fixed pairwise tree (`_lane_tree`); min, max
+    and integer sums reduce each chunk, exact in any order. So lane q of
+    a batched run is bitwise equal to its own single-leaf run, PPR's f32
+    sums included.
+  * Heavy rows. A block whose longest row spans more than HEAVY_CHUNKS
+    chunks is not walked by one program: SUM_LANES split programs take it,
+    program g the edge g of every chunk (sum lane g, in edge order), NS
+    chunks a step. Each writes its [BV, CP] partials to a scratch row; a
+    finishing kernel (`packed_finish`, one program per heavy block) adds
+    the SUM_LANES partials of an f32 sum by the same pairwise tree and
+    combines the rest by their monoid, so the split changes no bit. The
+    heavy block list is built on the device once per layout
+    (:func:`heavy_blocks`); the split programs run first in the grid.
+  * Block-skip (`SKIP`) keeps the single-leaf kernel's tile grid: one
+    bitmap bit per BLOCK_V x BLOCK_K tile through `tile_ptr`; a light
+    program tests a tile's bit before walking its chunks, a split program
+    skips a step whose chunks all lie in dead tiles.
+  * Windowed. A CTA owns WINDOW_ROWS rows and the slab pair
+    [q·W, (q+2)·W) of the single-leaf kernel's `window_table`; it stages
+    the pair of the frontier flag and of each [V] leaf once and gathers
+    from it with `tl.gather` (as the single-leaf windowed kernel), and
+    reads the [V, D] leaves' rows from the pair, which stays in L1 while
+    the CTA walks its rows' edges once for all columns. Staging the
+    [2W, CP] rows themselves for `tl.gather` re-stores the whole slab in
+    shared memory at every gather, which was slower than the resident
+    kernel (PERF.md).
+    :func:`window_usable` counts every padded column against
+    PACKED_WINDOW_SLAB_BYTES.
+  * Batched lanes: the kernel calls the BASE program's Triton emit on
+    every lane's column, ANDs its is_emit with the lane's `_lane_act`
+    bit, and writes the lane's `_lane_msg` column as 1 where the lane kept
+    an emission, else 0 (max with identity 0); a lane that does not emit
+    folds the exact identity.
+  * has_msg, any kept emission over all columns, is reduced over the
+    columns in registers and stored once as [V].
 
 The kernel body is generated per record layout (which leaves are read,
 which message leaf goes to which slab column under which monoid) from
@@ -75,6 +99,7 @@ message column at a time. The wrapper takes it for CPU tensors only.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import importlib.util
 import os
@@ -425,8 +450,118 @@ def gather_emit_combine_packed_window_plain(program, monoids, src, dst,
 
 
 # ---------------------------------------------------------------------------
-# The Triton kernel, generated per record layout
+# The Triton kernels, generated per record layout
 # ---------------------------------------------------------------------------
+
+#: a row block is heavy when its longest row spans more than HEAVY_CHUNKS
+#: chunks of SUM_LANES edges (4,096 edges): SUM_LANES split programs then
+#: walk it, program g taking edge g of every chunk. The tuned values below
+#: come from `tools/tune_packed.py` on RMAT-21 and Banded-21 (PERF.md)
+HEAVY_CHUNKS = 128
+
+#: chunks one split program takes a step; a layout with an f32 sum takes
+#: fewer, since it folds a step's chunks one masked reduction at a time
+SPLIT_CHUNKS = 32
+SPLIT_FSUM_CHUNKS = 4
+
+#: most columns one register tile holds; a wider record walks its columns
+#: in chunks of this width inside the program, on the same edge data. A
+#: layout with an f32 sum keeps [BV, SUM_LANES, columns] partials of every
+#: chunk live, so it takes wider chunks (narrow ones spill)
+COL_CHUNK = 8
+FSUM_COL_CHUNK = 32
+
+#: elements of a [rows, SUM_LANES, columns] tile each thread holds; the
+#: resident launch takes as many warps as that needs (at least 4)
+TILE_PER_THREAD = 16
+
+#: most bytes of the slab pair (2W rows) one windowed CTA reads: the
+#: frontier flag as int32 and every padded column of each leaf the emit
+#: reads. The flag and the [V] leaves are staged in registers; the
+#: [V, D] leaves' rows are read from the pair while it stays in the SM's
+#: L1 (256 KB, shared with the gathers' shared memory, for two or three
+#: resident CTAs). A wider pair runs the resident kernel
+PACKED_WINDOW_SLAB_BYTES = 80 * 1024
+
+#: the windowed CTA's walk: WINDOW_CHUNK edges a row a step where no leaf
+#: is an f32 sum (min, max and integer sums fold in any order; an f32 sum
+#: takes SUM_LANES), tiles of WINDOW_TILE elements and at most
+#: WINDOW_MAX_ROWS rows, WINDOW_WARPS warps: the fastest setting for SSSP
+#: lanes on Banded-21, whose rows hold ~16 edges (the resident kernel
+#: walks SUM_LANES edges a step)
+WINDOW_CHUNK = 8
+WINDOW_TILE = 4096
+WINDOW_MAX_ROWS = 64
+WINDOW_WARPS = 4
+
+
+def _columns(ncol: int, fsum: bool = False):
+    """(CP, CC): the record's columns padded to a power of two, and the
+    width of one column chunk (`fsum`: a leaf is an f32 sum)."""
+    cp = 1 << max(int(ncol) - 1, 0).bit_length()
+    return cp, min(cp, FSUM_COL_CHUNK if fsum else COL_CHUNK)
+
+
+def _fsum(slots) -> bool:
+    return any(sl.fsum for sl in slots)
+
+
+def _resident_warps(cc: int) -> int:
+    return max(4, fge.BLOCK_V * fge.SUM_LANES * cc // (32 * TILE_PER_THREAD))
+
+
+def _window_rows(cc: int, lanes: int) -> int:
+    """Rows of one windowed tile: WINDOW_TILE elements, at most
+    WINDOW_MAX_ROWS rows."""
+    return max(1, min(WINDOW_MAX_ROWS, WINDOW_TILE // (lanes * cc)))
+
+
+def window_usable(tables, num_vertices: int, leaves, ncol: int) -> bool:
+    """Does the packed windowed kernel run for these tables and the vertex
+    leaves the emit reads? The reference's rule (2W < ceil8(V)) plus the
+    slab pair, every padded column of a [V, D] leaf counted, fitting
+    PACKED_WINDOW_SLAB_BYTES."""
+    if tables is None or tables.window <= 0:
+        return False
+    w = int(tables.window)
+    if 2 * w >= -(-int(num_vertices) // 8) * 8:
+        return False
+    return 2 * w * slab_row_bytes(leaves, ncol) <= PACKED_WINDOW_SLAB_BYTES
+
+
+def slab_row_bytes(leaves, ncol: int) -> int:
+    """Bytes of one slab-pair row: the frontier flag as int32 and each
+    leaf's padded columns."""
+    cp, _ = _columns(ncol)
+    return 4 + sum(t.element_size() * (cp if t.ndim == 2 else 1)
+                   for t in leaves)
+
+
+#: id(indptr) -> (weak reference to it, its heavy blocks); a tensor is no
+#: weak dictionary key (its == is elementwise)
+_HEAVY: dict = {}
+
+
+def heavy_blocks(indptr) -> torch.Tensor:
+    """[n] int32 ids of the BLOCK_V-row blocks whose longest row spans more
+    than HEAVY_CHUNKS chunks of SUM_LANES edges, ascending; built on
+    `indptr`'s device the first time a layout's row pointers are seen,
+    then cached while they live."""
+    key = id(indptr)
+    hit = _HEAVY.get(key)
+    if hit is not None and hit[0]() is indptr:
+        return hit[1]
+    V = int(indptr.shape[0]) - 1
+    P = max(-(-V // fge.BLOCK_V), 1)
+    ip = indptr.long()
+    deg = torch.zeros(P * fge.BLOCK_V, dtype=torch.int64, device=ip.device)
+    deg[:V] = ip[1:] - ip[:-1]
+    chunks = -(-deg.view(P, fge.BLOCK_V).amax(dim=1) // fge.SUM_LANES)
+    out = torch.nonzero(chunks > HEAVY_CHUNKS).flatten().to(torch.int32)
+    _HEAVY[key] = (weakref.ref(indptr, lambda _: _HEAVY.pop(key, None)),
+                   out)
+    return out
+
 
 #: the generated module's first lines: triton is imported there, at
 #: first launch, never by this module
@@ -436,40 +571,116 @@ _HEADER = "\n".join([
     "import triton",
     "import triton.language as tl",
     "",
-    "from {helpers} import _acc_init, _finish_acc, _fold_acc, _tile_ids_w",
+    "from {helpers} import _tile_ids_w",
+    "from {module} import _lane_tree",
     "", "", ""])
 
-_RESIDENT = '''\
+_CONST = ("EMIT: tl.constexpr, HAS_W: tl.constexpr, HAS_VALID: tl.constexpr, "
+          "HAS_IDS: tl.constexpr, SKIP: tl.constexpr, BV: tl.constexpr, "
+          "BK: tl.constexpr, LANES: tl.constexpr, LOG_LANES: tl.constexpr, "
+          "CC: tl.constexpr, HEAVY: tl.constexpr, NS: tl.constexpr")
+_PASS = ("EMIT, HAS_W, HAS_VALID, HAS_IDS, SKIP, BV, BK, LANES, LOG_LANES, "
+         "CC, HEAVY, NS")
+_PTRS = ("indptr_ptr, src_ptr, w_ptr, act_ptr, valid_ptr, sid_ptr, did_ptr, "
+         "tile_ptr_ptr, bitmap_ptr, heavy_ptr, hm_ptr, gs_ptr")
+
+# a light row block: one program walks its rows a chunk of SUM_LANES edges
+# at a time, every column at once; acc{j}_{c} is slot j's accumulator on
+# column chunk c ([BV, LANES, CC] partial sums of an f32 sum, [BV, CC]
+# otherwise)
+_LIGHT = '''\
 @triton.jit
-def packed_kernel(indptr_ptr, src_ptr, w_ptr, act_ptr, valid_ptr, sid_ptr,
-                  did_ptr, tile_ptr_ptr, bitmap_ptr, hm_ptr, {args}
-                  num_vertices, EMIT: tl.constexpr, HAS_W: tl.constexpr,
-                  HAS_VALID: tl.constexpr, HAS_IDS: tl.constexpr,
-                  SKIP: tl.constexpr, BV: tl.constexpr, BK: tl.constexpr,
-                  LANES: tl.constexpr, LOG_LANES: tl.constexpr):
-    # the columns of one row block are neighbouring programs
-    pid = tl.program_id(0) // {ncol}
-    col = tl.program_id(0) % {ncol}
-    rows = pid * BV + tl.arange(0, BV)
+def _light_block(%(ptrs)s, {args}
+                 num_vertices, blk, %(const)s):
+    rows = blk * BV + tl.arange(0, BV)
     rmask = rows < num_vertices
     lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
     hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
     max_deg = tl.max(hi - lo, axis=0)
+    if tl.cdiv(max_deg, LANES) <= HEAVY:
+{cols}
 {init}
-    got = tl.zeros([BV], tl.int32)
+        if SKIP:
+            t0 = tl.load(tile_ptr_ptr + blk)
+        for k0 in range(0, max_deg, BK):
+            live = True
+            if SKIP:
+                # a dead tile holds only vetoed emissions
+                live = tl.load(bitmap_ptr + t0 + k0 // BK) != 0
+            if live:
+                for k in range(k0, tl.minimum(k0 + BK, max_deg), LANES):
+                    e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
+                    emask = e < hi[:, None]
+                    s = tl.load(src_ptr + e, mask=emask, other=0)
+                    eok = emask & (tl.load(act_ptr + s, mask=emask,
+                                           other=0) != 0)
+{body}
+{finish}
+{store}
+''' % dict(ptrs=_PTRS, const=_CONST)
+
+# one sum lane g of a heavy row block: edge g of every chunk, NS chunks a
+# step (the chunk axis of the tile), written to the scratch partials
+_SPLIT = '''\
+@triton.jit
+def _split_lane(%(ptrs)s, {args}
+                num_vertices, pid, %(const)s):
+    blk = tl.load(heavy_ptr + pid // LANES)
+    g = pid %% LANES
+    rows = blk * BV + tl.arange(0, BV)
+    rmask = rows < num_vertices
+    lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+    hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+    max_deg = tl.max(hi - lo, axis=0)
+    chunk = tl.arange(0, NS)[None, :, None]
+{cols}
+{init}
     if SKIP:
-        t0 = tl.load(tile_ptr_ptr + pid)
-    for k in range(0, max_deg, BK):
+        t0 = tl.load(tile_ptr_ptr + blk)
+    for c0 in range(0, tl.cdiv(max_deg, LANES), NS):
+        k = (c0 + tl.arange(0, NS)) * LANES + g
+        e = lo[:, None] + k[None, :]
+        emask = e < hi[:, None]
         live = True
         if SKIP:
-            # a dead tile holds only vetoed emissions
-            live = tl.load(bitmap_ptr + t0 + k // BK) != 0
+            alive = tl.load(bitmap_ptr + t0 + k // BK, mask=k < max_deg,
+                            other=0) != 0
+            emask = emask & alive[None, :]
+            live = tl.max(alive.to(tl.int32), axis=0) != 0
         if live:
-            e = lo[:, None] + k + tl.arange(0, BK)[None, :]
-            emask = e < hi[:, None]
             s = tl.load(src_ptr + e, mask=emask, other=0)
-            ok = emask & (tl.load(act_ptr + s, mask=emask, other=0) != 0)
-{gather}
+            eok = emask & (tl.load(act_ptr + s, mask=emask, other=0) != 0)
+{body}
+    part = (pid * BV + tl.arange(0, BV))[:, None] * {cp}
+{store}
+''' % dict(ptrs=_PTRS, const=_CONST)
+
+_RESIDENT = '''\
+@triton.jit
+def packed_kernel(%(ptrs)s, {args}
+                  num_vertices, n_split, %(const)s):
+    # the heavy blocks' split programs first, then one program per block
+    pid = tl.program_id(0)
+    if pid < n_split:
+        _split_lane(%(ptrs)s, {args}
+                    num_vertices, pid, %(pass)s)
+    else:
+        _light_block(%(ptrs)s, {args}
+                     num_vertices, pid - n_split, %(pass)s)
+''' % dict(ptrs=_PTRS, const=_CONST, **{"pass": _PASS})
+
+# a heavy block's rows from its LANES split programs' partials
+_FINISH = '''\
+@triton.jit
+def packed_finish(heavy_ptr, hm_ptr, gs_ptr, {args}
+                  num_vertices, BV: tl.constexpr, LANES: tl.constexpr,
+                  LOG_LANES: tl.constexpr, CC: tl.constexpr):
+    i = tl.program_id(0)
+    rows = tl.load(heavy_ptr + i) * BV + tl.arange(0, BV)
+    rmask = rows < num_vertices
+    part = ((i * LANES + tl.arange(0, LANES))[None, :, None] * BV
+            + tl.arange(0, BV)[:, None, None]) * {cp}
+{cols}
 {body}
 {store}
 '''
@@ -482,11 +693,12 @@ def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, w_ptr, act_ptr,
                          HAS_W: tl.constexpr, HAS_VALID: tl.constexpr,
                          HAS_IDS: tl.constexpr, W: tl.constexpr,
                          ROWS: tl.constexpr, BV: tl.constexpr,
-                         BK: tl.constexpr, LANES: tl.constexpr,
-                         LOG_LANES: tl.constexpr):
-    cta = tl.program_id(0) // {ncol}
-    col = tl.program_id(0) % {ncol}
-    # stage the slab pair [q*W, (q+2)*W) of column `col` of every leaf
+                         LANES: tl.constexpr, LOG_LANES: tl.constexpr,
+                         CC: tl.constexpr):
+    cta = tl.program_id(0)
+{cols}
+    # stage the slab pair [q*W, (q+2)*W) of the frontier flag and of each
+    # [V] leaf once; a [V, D] leaf's rows are read from the pair through L1
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
@@ -499,18 +711,17 @@ def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, w_ptr, act_ptr,
         hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
         max_deg = tl.max(hi - lo, axis=0)
 {init}
-        got = tl.zeros([BV], tl.int32)
-        for k in range(0, max_deg, BK):
-            e = lo[:, None] + k + tl.arange(0, BK)[None, :]
+        for k in range(0, max_deg, LANES):
+            e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
             emask = e < hi[:, None]
             s = tl.load(src_ptr + e, mask=emask, other=0)
             idx = s - base
             in_win = (idx >= 0) & (idx < 2 * W)
-            flat = tl.reshape(tl.where(in_win, idx, 0), [BV * BK])
-            act = tl.reshape(tl.gather(act_s, flat, 0), [BV, BK])
-            ok = emask & in_win & (act != 0)
-{gather}
+            flat = tl.reshape(tl.where(in_win, idx, 0), [BV * LANES])
+            act = tl.reshape(tl.gather(act_s, flat, 0), [BV, LANES])
+            eok = emask & in_win & (act != 0)
 {body}
+{finish}
 {store}
 '''
 
@@ -553,86 +764,269 @@ def _kernel_layout(plan: PackedPlan, monoids, pack: PackSpec,
             len(pack.msg_groups), tuple(slots))
 
 
-def _source(layout, window: bool) -> str:
-    """Triton source of the packed kernel for one layout."""
-    read_vec, lane_read, proto_one, n_base, ncol, n_groups, slots = layout
-    n_read = len(read_vec)
-    ind = " " * 12
-    args = "".join(f"r{i}_ptr, " for i in range(n_read)) \
-        + "".join(f"o{g}_ptr, " for g in range(n_groups))
-    col_of = lambda vec: f" * {ncol} + col" if vec else ""
-    if window:
-        stage = "\n".join(
-            f"    x{i}_s = tl.load(r{i}_ptr + slab{col_of(v)}, mask=smask, "
-            f"other=0)" for i, v in enumerate(read_vec))
-        gather = "\n".join(
-            f"{ind}x{i} = tl.reshape(tl.gather(x{i}_s, flat, 0), [BV, BK])"
-            for i in range(n_read))
-    else:
-        stage = ""
-        gather = "\n".join(
-            f"{ind}x{i} = tl.load(r{i}_ptr + s{col_of(v)}, mask=emask, "
-            f"other=0)" for i, v in enumerate(read_vec))
-    user = [f"x{i}" for i in range(n_read) if i != lane_read]
-    body = [f"{ind}sid, did, w = _tile_ids_w(e, emask, s, rows, w_ptr, "
-            "sid_ptr, did_ptr, HAS_W, HAS_IDS, BV, BK)"]
-    if proto_one:
-        ab = (user + ["tl.zeros([BV, BK], tl.float32)"] * 2)[:2]
-        body.append(f"{ind}is_emit, m0 = EMIT(sid, did, {ab[0]}, {ab[1]}, "
-                    "w, HAS_W)")
-    else:
-        body.append(f"{ind}is_emit, msgs = EMIT(sid, did, "
-                    f"({''.join(u + ', ' for u in user)}), w, HAS_W)")
-        body += [f"{ind}m{j} = msgs[{j}]" for j in range(n_base)]
-    body.append(f"{ind}ok = ok & (is_emit != 0)")
-    if lane_read >= 0:
-        body.append(f"{ind}ok = ok & (x{lane_read} != 0)")
-    body += [f"{ind}if HAS_VALID:",
-             f"{ind}    ok = ok & (tl.load(valid_ptr + e, mask=emask, "
-             "other=0) != 0)"]
-    a_ind = " " * (8 if window else 4)
-    init, store = [], []
-    for j, sl in enumerate(slots):
-        if sl.source == _LANE:
-            val = "got"
+def _folds(slots, c: int):
+    """(j, slot) of the slots folded on column chunk c: every vector
+    leaf's, a scalar leaf's on chunk 0 only (stored from column 0)."""
+    return [(j, sl) for j, sl in enumerate(slots)
+            if sl.source != _LANE and (sl.vector or c == 0)]
+
+
+def _init_lines(slots, ncc: int, split: bool, ind: str):
+    out = []
+    for c in range(ncc):
+        for j, sl in _folds(slots, c):
+            if sl.fsum and not split:
+                out.append(f"{ind}acc{j}_{c} = tl.zeros([BV, LANES, CC], "
+                           "tl.float32)")
+            else:
+                ty = "tl.int32" if sl.acc_int else "tl.float32"
+                out.append(f"{ind}acc{j}_{c} = tl.full([BV, CC], "
+                           f"{sl.ident!r}, {ty})")
+        out.append(f"{ind}got{c} = tl.zeros([BV, CC], tl.int32)")
+    return out
+
+
+def _fold_lines(sl: _Slot, acc: str, msg: str, split: bool, ind: str):
+    """Fold one [BV, LANES, CC] message tile into `acc`; vetoed entries
+    fold the identity. An f32 sum keeps K1's order: edge k of a row adds
+    into partial k % LANES in edge order (a light tile's lane axis is
+    that partial; a split tile's chunk axis is taken one chunk at a time,
+    a sum of one value and zeros being that value)."""
+    ty = "tl.int32" if sl.acc_int else "tl.float32"
+    if sl.fsum and split:
+        return [f"{ind}xs = tl.where(ok, {msg}.to(tl.float32), 0.0)",
+                f"{ind}for jj in tl.static_range(NS):",
+                f"{ind}    {acc} = {acc} + tl.sum(tl.where(chunk == jj, xs, "
+                "0.0), axis=1)"]
+    if sl.fsum:
+        return [f"{ind}{acc} = {acc} + tl.where(ok, {msg}.to(tl.float32), "
+                "0.0)"]
+    red, op = {0: ("tl.sum", "{a} + {r}"), 1: ("tl.min", "tl.minimum({a}, {r})"),
+               2: ("tl.max", "tl.maximum({a}, {r})")}[sl.monoid]
+    r = f"{red}(tl.where(ok, {msg}.to({ty}), {sl.ident!r}), axis=1)"
+    return [f"{ind}{acc} = " + op.format(a=acc, r=r)]
+
+
+def _col_lines(ncol: int, ncc: int, ind: str):
+    out = []
+    for c in range(ncc):
+        out.append(f"{ind}col{c} = {c} * CC + tl.arange(0, CC)")
+        out.append(f"{ind}cm{c} = col{c} < {ncol}")
+    return out
+
+
+def _body_lines(layout, path: str, ind: str):
+    """One edge tile ([BV, LANES]: e, emask, s, eok) of every path: the
+    gathers, the emit on full [BV, LANES, CC] tiles of each column chunk,
+    the veto and the folds. `path` is "light", "split" or "window"."""
+    read_vec, lane_read, proto_one, n_base, ncol, _, slots = layout
+    cp, cc = _columns(ncol, _fsum(slots))
+    ncc = cp // cc
+    window, split = path == "window", path == "split"
+    mid = "NS" if split else "LANES"
+    full = f"[BV, {mid}, CC]"
+    out = [f"{ind}if HAS_VALID:",
+           f"{ind}    eok = eok & (tl.load(valid_ptr + e, mask=emask, "
+           "other=0) != 0)",
+           f"{ind}sid, did, w = _tile_ids_w(e, emask, s, rows, w_ptr, "
+           f"sid_ptr, did_ptr, HAS_W, HAS_IDS, BV, {mid})"]
+    # a [V] leaf is gathered once for every column
+    for i, vec in enumerate(read_vec):
+        if vec:
+            continue
+        if window:
+            out.append(f"{ind}x{i} = tl.reshape(tl.gather(x{i}_s, flat, 0), "
+                       "[BV, LANES])")
         else:
-            init.append(f"{a_ind}acc{j} = _acc_init({sl.ident!r}, "
-                        f"{sl.acc_int}, {sl.fsum}, BV, LANES)")
-            body.append(f"{ind}acc{j} = _fold_acc(acc{j}, m{sl.source}, ok, "
-                        f"{sl.monoid}, {sl.ident!r}, {sl.acc_int}, "
-                        f"{sl.fsum}, BV, BK, LANES)")
-            store.append(f"{a_ind}acc{j} = _finish_acc(acc{j}, {sl.fsum}, "
-                         "BV, LANES, LOG_LANES)")
-            val = f"acc{j}"
-        o = f"o{sl.group}_ptr"
-        ptr = f"{o} + rows * {sl.width} + {sl.offset}" \
-            + (" + col" if sl.vector else "")
-        mask = "rmask" if sl.vector else "rmask & (col == 0)"
-        store.append(f"{a_ind}tl.store({ptr}, "
-                     f"{val}.to({o}.dtype.element_ty), mask={mask})")
-    body.append(f"{ind}got = tl.maximum(got, tl.max(ok.to(tl.int32), "
-                "axis=1))")
-    store.append(f"{a_ind}tl.store(hm_ptr + col * num_vertices + rows, "
-                 "got.to(tl.uint8), mask=rmask)")
-    template = _WINDOW if window else _RESIDENT
-    return _HEADER.format(module=__name__, helpers=fge.__name__) \
-        + template.format(
-        args=args, init="\n".join(init), gather=gather,
-        body="\n".join(body), store="\n".join(store), stage=stage,
-        ncol=ncol)
+            out.append(f"{ind}x{i} = tl.load(r{i}_ptr + s, mask=eok, "
+                       "other=0)")
+    bcast = lambda x: f"tl.broadcast_to({x}[:, :, None], {full})"
+    out += [f"{ind}sid3 = {bcast('sid')}", f"{ind}did3 = {bcast('did')}",
+            f"{ind}w3 = {bcast('w')}"]
+    user = [f"v{i}" for i in range(len(read_vec)) if i != lane_read]
+    for c in range(ncc):
+        out.append(f"{ind}ok = eok[:, :, None] & cm{c}[None, None, :]")
+        for i, vec in enumerate(read_vec):
+            if not vec:
+                out.append(f"{ind}v{i} = {bcast(f'x{i}')}")
+            else:
+                # a [V, D] leaf's row: neighbouring threads read
+                # neighbouring columns of one source's row (the windowed
+                # shape's rows lie in its slab pair, which L1 holds)
+                out.append(f"{ind}v{i} = tl.load(r{i}_ptr + s[:, :, None] * "
+                           f"{ncol} + col{c}[None, None, :], mask=ok, "
+                           "other=0)")
+        if proto_one:
+            ab = (user + [f"tl.zeros({full}, tl.float32)"] * 2)[:2]
+            out.append(f"{ind}is_emit, m0 = EMIT(sid3, did3, {ab[0]}, "
+                       f"{ab[1]}, w3, HAS_W)")
+        else:
+            out.append(f"{ind}is_emit, msgs = EMIT(sid3, did3, "
+                       f"({''.join(u + ', ' for u in user)}), w3, HAS_W)")
+            out += [f"{ind}m{j} = msgs[{j}]" for j in range(n_base)]
+        out.append(f"{ind}ok = ok & (is_emit != 0)")
+        if lane_read >= 0:
+            out.append(f"{ind}ok = ok & (v{lane_read} != 0)")
+        for j, sl in _folds(slots, c):
+            out += _fold_lines(sl, f"acc{j}_{c}", f"m{sl.source}", split,
+                               ind)
+        out.append(f"{ind}got{c} = tl.maximum(got{c}, tl.max(ok.to(tl.int32)"
+                   ", axis=1))")
+    return out
+
+
+def _finish_lines(slots, ncc: int, ind: str):
+    """A light tile's f32 partial sums, added as K1's fixed pairwise
+    tree."""
+    return [f"{ind}acc{j}_{c} = _lane_tree(acc{j}_{c}, BV, LANES, "
+            "LOG_LANES, CC)"
+            for c in range(ncc) for j, sl in _folds(slots, c) if sl.fsum]
+
+
+def _store_lines(slots, ncc: int, ind: str):
+    """Every slot's [BV, CC] rows of each column chunk into its slab (a
+    scalar leaf from column 0; `_lane_msg` is got), then has_msg, the OR
+    over every column, once."""
+    out = []
+    for c in range(ncc):
+        for j, sl in enumerate(slots):
+            if not (sl.vector or c == 0):
+                continue
+            val = f"got{c}" if sl.source == _LANE else f"acc{j}_{c}"
+            o = f"o{sl.group}_ptr"
+            if sl.vector:
+                ptr = (f"{o} + rows[:, None] * {sl.width} + {sl.offset} + "
+                       f"col{c}[None, :]")
+                mask = f"rmask[:, None] & cm{c}[None, :]"
+            else:
+                ptr = (f"{o} + rows[:, None] * {sl.width} + {sl.offset} + "
+                       f"col{c}[None, :] * 0")
+                mask = f"rmask[:, None] & (col{c} == 0)[None, :]"
+            out.append(f"{ind}tl.store({ptr}, {val}.to({o}.dtype."
+                       f"element_ty), mask={mask})")
+    out.append(f"{ind}hit = tl.max(got0, axis=1)")
+    out += [f"{ind}hit = tl.maximum(hit, tl.max(got{c}, axis=1))"
+            for c in range(1, ncc)]
+    out.append(f"{ind}tl.store(hm_ptr + rows, hit.to(tl.uint8), mask=rmask)")
+    return out
+
+
+def _split_store_lines(slots, ncc: int, ind: str):
+    """A split program's [BV, CC] partials of each column chunk into the
+    scratch rows of its lane (`part`)."""
+    out = []
+    for c in range(ncc):
+        at = f"part + col{c}[None, :]"
+        for j, sl in _folds(slots, c):
+            out.append(f"{ind}tl.store(sc{j}_ptr + {at}, acc{j}_{c})")
+        out.append(f"{ind}tl.store(gs_ptr + {at}, got{c})")
+    return out
+
+
+def _finish_body_lines(slots, ncc: int, ind: str):
+    """Combine a heavy block's LANES partials ([BV, LANES, CC] from the
+    scratch): f32 sums by the fixed pairwise tree, the rest by their
+    monoid (exact in any order)."""
+    out = []
+    for c in range(ncc):
+        at = f"part + col{c}[None, None, :]"
+        out.append(f"{ind}got{c} = tl.max(tl.load(gs_ptr + {at}), axis=1)")
+        for j, sl in _folds(slots, c):
+            p = f"tl.load(sc{j}_ptr + {at})"
+            if sl.fsum:
+                out.append(f"{ind}acc{j}_{c} = _lane_tree({p}, BV, LANES, "
+                           "LOG_LANES, CC)")
+            else:
+                red = {0: "tl.sum", 1: "tl.min", 2: "tl.max"}[sl.monoid]
+                out.append(f"{ind}acc{j}_{c} = {red}({p}, axis=1)")
+    return out
+
+
+def _source(layout, window: bool) -> str:
+    """Triton source of the packed kernels for one layout: the windowed
+    kernel, or the resident / block-skip kernel with its light-block and
+    split-lane parts and the heavy blocks' finishing kernel."""
+    read_vec, _, _, _, ncol, n_groups, slots = layout
+    cp, cc = _columns(ncol, _fsum(slots))
+    ncc = cp // cc
+    reads = "".join(f"r{i}_ptr, " for i in range(len(read_vec)))
+    outs = "".join(f"o{g}_ptr, " for g in range(n_groups))
+    scratch = "".join(f"sc{j}_ptr, " for j, sl in enumerate(slots)
+                      if sl.source != _LANE)
+    head = _HEADER.format(module=__name__, helpers=fge.__name__)
+    if window:
+        stage = []
+        for i, vec in enumerate(read_vec):
+            if not vec:
+                stage.append(f"    x{i}_s = tl.load(r{i}_ptr + slab, "
+                             "mask=smask, other=0)")
+        return head + _WINDOW.format(
+            args=reads + outs, cols="\n".join(_col_lines(ncol, ncc, "    ")),
+            stage="\n".join(stage),
+            init="\n".join(_init_lines(slots, ncc, False, " " * 8)),
+            body="\n".join(_body_lines(layout, "window", " " * 12)),
+            finish="\n".join(_finish_lines(slots, ncc, " " * 8)),
+            store="\n".join(_store_lines(slots, ncc, " " * 8)))
+    args = reads + outs + scratch
+    light = _LIGHT.format(
+        args=args, cols="\n".join(_col_lines(ncol, ncc, " " * 8)),
+        init="\n".join(_init_lines(slots, ncc, False, " " * 8)),
+        body="\n".join(_body_lines(layout, "light", " " * 20)),
+        finish="\n".join(_finish_lines(slots, ncc, " " * 8)),
+        store="\n".join(_store_lines(slots, ncc, " " * 8)))
+    split = _SPLIT.format(
+        args=args, cols="\n".join(_col_lines(ncol, ncc, "    ")), cp=cp,
+        init="\n".join(_init_lines(slots, ncc, True, "    ")),
+        body="\n".join(_body_lines(layout, "split", " " * 12)),
+        store="\n".join(_split_store_lines(slots, ncc, "    ")))
+    finish = _FINISH.format(
+        args=outs + scratch, cp=cp,
+        cols="\n".join(_col_lines(ncol, ncc, "    ")),
+        body="\n".join(_finish_body_lines(slots, ncc, "    ")),
+        store="\n".join(_store_lines(slots, ncc, "    ")))
+    return head + "\n\n\n".join(
+        [light, split, _RESIDENT.format(args=args), finish])
+
+
+def _lane_tree(acc, BV: "tl.constexpr", LANES: "tl.constexpr",
+               LOG_LANES: "tl.constexpr", CC: "tl.constexpr"):
+    # [BV, LANES, CC] partial sums -> [BV, CC], lanes 2i and 2i+1 added at
+    # each level: K1's fixed pairwise tree (_finish_acc) on every column
+    for lvl in tl.static_range(LOG_LANES):
+        x = tl.permute(tl.reshape(acc, [BV, LANES >> (lvl + 1), 2, CC]),
+                       (0, 1, 3, 2))
+        x0, x1 = tl.split(x)
+        acc = x0 + x1
+    return tl.reshape(acc, [BV, CC])
+
+
+#: triton.language, bound by _jit_helpers() at first launch
+tl = None
+
+
+@functools.cache
+def _jit_helpers():
+    """Import triton and jit this module's device helpers (first launch
+    only; the generated kernels import them by name)."""
+    global tl, _lane_tree
+    triton, _ = fge._triton()  # binds fge.tl, jits the shared helpers
+    tl = fge.tl
+    _lane_tree = triton.jit(_lane_tree)
+    return triton
 
 
 _KERNELS = {}
 
 
 def _kernel(layout, window: bool):
-    """The jitted packed kernel of a layout: its source is written under
-    build/triton_packed (named by its hash) and imported once."""
+    """The generated module of a layout (its kernels as attributes): the
+    source is written under build/triton_packed (named by its hash) and
+    imported once."""
     key = (layout, window)
     if key in _KERNELS:
         return _KERNELS[key]
     from .build import BUILD_ROOT
-    fge._triton()  # binds tl and jits the shared helpers first
+    _jit_helpers()
     src = _source(layout, window)
     digest = hashlib.sha256(src.encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / "triton_packed"
@@ -648,9 +1042,8 @@ def _kernel(layout, window: bool):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    _KERNELS[key] = getattr(mod, "packed_window_kernel" if window
-                            else "packed_kernel")
-    return _KERNELS[key]
+    _KERNELS[key] = mod
+    return mod
 
 
 def require_tuples():
@@ -676,8 +1069,10 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
                                       valid=None, src_ids=None, dst_ids=None,
                                       tables=None, bitmap=None, leaves=None):
     """Launch the packed kernel (resident, block-skip with `bitmap`, or
-    windowed) on the current stream. Returns (message slabs, one per
-    group of `pack`, has_msg [V] bool)."""
+    windowed) on the current stream; the resident and block-skip shapes
+    also launch the heavy blocks' finishing kernel when the layout has
+    heavy blocks. Returns (message slabs, one per group of `pack`,
+    has_msg [V] bool)."""
     V, E = int(num_vertices), int(src.shape[0])
     dev = src.device
     if dev.type != "cuda":
@@ -720,12 +1115,15 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
                             f"{t.dtype}")
     layout = _kernel_layout(plan, monoids, pack, leaves)
     window = variant == "window"
-    kernel = _kernel(layout, window)
+    mod = _kernel(layout, window)
+    fsum = _fsum(layout[-1])
+    cp, cc = _columns(plan.ncol, fsum)
     slabs = [torch.empty((V, g.width), dtype=getattr(torch, g.dtype),
                          device=dev) for g in pack.msg_groups]
-    hm = torch.empty((plan.ncol, V), dtype=torch.uint8, device=dev)
+    hm = torch.empty(V, dtype=torch.uint8, device=dev)
+    lanes = fge._lanes(fge.SUM_LANES)
     const = dict(EMIT=emit, HAS_W=w is not None, HAS_VALID=valid is not None,
-                 HAS_IDS=has_ids)
+                 HAS_IDS=has_ids, CC=cc, **lanes)
     common = (src if w is None else w, fge._u8(active),
               src if valid is None else fge._u8(valid),
               src_ids if has_ids else src, dst_ids if has_ids else src)
@@ -736,27 +1134,42 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
         if q.device != dev or tuple(q.shape) != (C,):
             raise ValueError(f"packed windowed kernel: window_q must be "
                              f"({C},) on {dev}")
-        kernel[(C * plan.ncol,)](
+        if not fsum:
+            const.update(fge._lanes(WINDOW_CHUNK))
+        mod.packed_window_kernel[(C,)](
             indptr, src, q, *common, hm, *reads, *slabs, V, **const,
-            W=int(tables.window), ROWS=fge.WINDOW_ROWS, BV=fge.WINDOW_BV,
-            BK=fge.WINDOW_BK, **fge._lanes(fge.WINDOW_BK), num_warps=4)
+            W=int(tables.window), ROWS=fge.WINDOW_ROWS,
+            BV=_window_rows(cc, const["LANES"]), num_warps=WINDOW_WARPS)
         counters.LAUNCHES["gather_emit_combine_packed_window"] += 1
-    else:
-        skip = bitmap is not None
-        if skip and (bitmap.dtype != torch.uint8 or bitmap.device != dev
-                     or tuple(bitmap.shape) != (tables.num_tiles,)):
-            raise ValueError(f"packed block-skip kernel: bitmap must be "
-                             f"uint8 ({tables.num_tiles},) on {dev}")
-        P = max(-(-V // fge.BLOCK_V), 1)
-        kernel[(P * plan.ncol,)](
-            indptr, src, *common, tables.tile_ptr if skip else src,
-            bitmap if skip else src, hm, *reads, *slabs, V, **const,
-            SKIP=skip, BV=fge.BLOCK_V, BK=fge.BLOCK_K,
-            **fge._lanes(fge.BLOCK_K), num_warps=4)
-        counters.LAUNCHES["gather_emit_combine_packed_skip" if skip
-                          else "gather_emit_combine_packed"] += 1
-    has_msg = hm[0] if plan.ncol == 1 else hm.amax(dim=0)
-    return slabs, has_msg.view(torch.bool)
+        return slabs, hm.view(torch.bool)
+    skip = bitmap is not None
+    if skip and (bitmap.dtype != torch.uint8 or bitmap.device != dev
+                 or tuple(bitmap.shape) != (tables.num_tiles,)):
+        raise ValueError(f"packed block-skip kernel: bitmap must be "
+                         f"uint8 ({tables.num_tiles},) on {dev}")
+    heavy = heavy_blocks(indptr)
+    n_split = int(heavy.shape[0]) * fge.SUM_LANES
+    # each split program's [BV, CP] partials, per accumulated slot
+    part = (max(n_split, 1), fge.BLOCK_V, cp)
+    scratch = [torch.empty(part, dtype=torch.int32 if sl.acc_int
+                           else torch.float32, device=dev)
+               for sl in layout[-1] if sl.source != _LANE]
+    gs = torch.empty(part, dtype=torch.int32, device=dev)
+    P = max(-(-V // fge.BLOCK_V), 1)
+    heavy_arg = heavy if n_split else src
+    mod.packed_kernel[(n_split + P,)](
+        indptr, src, *common, tables.tile_ptr if skip else src,
+        bitmap if skip else src, heavy_arg, hm, gs, *reads, *slabs,
+        *scratch, V, n_split, **const, SKIP=skip, BV=fge.BLOCK_V,
+        BK=fge.BLOCK_K, HEAVY=HEAVY_CHUNKS, num_warps=_resident_warps(cc),
+        NS=SPLIT_FSUM_CHUNKS if fsum else SPLIT_CHUNKS)
+    if n_split:
+        mod.packed_finish[(int(heavy.shape[0]),)](
+            heavy, hm, gs, *slabs, *scratch, V, BV=fge.BLOCK_V, CC=cc,
+            **lanes, num_warps=_resident_warps(cc))
+    counters.LAUNCHES["gather_emit_combine_packed_skip" if skip
+                      else "gather_emit_combine_packed"] += 1
+    return slabs, hm.view(torch.bool)
 
 
 def _unpack(plan: PackedPlan, pack: PackSpec, slabs, leaves=None):
@@ -788,7 +1201,7 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
     `variant` is "resident", "skip" (block-skip over `tables`; the bitmap
     is built from the frontier, `num_active_edges` its out-edge count) or
     "window" (the windowed kernel, or the resident one where
-    `fused_gather_emit.window_usable` says no). `leaves` (flat indices)
+    :func:`window_usable` says no). `leaves` (flat indices)
     computes only those message leaves and returns {index: leaf}.
     Returns (inbox, has_msg [V] bool); every variant gives the same bits.
     """
@@ -803,8 +1216,8 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
     plan = packed_plan(program, vprops, eprops, V, int(src.shape[0]))
     if pack is None:
         pack = make_pack_spec(program, monoids, vprops, eprops)
-    if variant == "window" and not fge.window_usable(
-            tables, V, read_leaves(plan, vprops)):
+    if variant == "window" and not window_usable(
+            tables, V, read_leaves(plan, vprops), plan.ncol):
         variant = "resident"
     if indptr is None:
         from .segment_reduce import indptr_from_seg_ids

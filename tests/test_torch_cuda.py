@@ -139,6 +139,11 @@ def _mixed_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
                       val * 0.5)
 
 
+def _triple_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
+    a = vps[0]
+    return tl.full(a.shape, 1, tl.int1), (a, vps[1], vps[2])
+
+
 def _vec_emit(sid, did, vps, w, HAS_W: "tl.constexpr"):
     emb = vps[0]
     val = vps[1]
@@ -153,7 +158,7 @@ def _test_triton_emits():
     triton, tl = import_triton()
     return {"filtered": triton.jit(_filtered_emit),
             "ids": triton.jit(_ids_emit), "mixed": triton.jit(_mixed_emit),
-            "vec": triton.jit(_vec_emit)}
+            "triple": triton.jit(_triple_emit), "vec": triton.jit(_vec_emit)}
 
 
 class _EmitProgram(vcprog.VCProgram):
@@ -594,6 +599,34 @@ class _Vec(vcprog.VCProgram):
                                   "cnt": 1}
 
 
+class _Triple(vcprog.VCProgram):
+    """Three leaves (two int32, one f32) under one min monoid."""
+
+    monoid = "min"
+    triton_emit_reads = (("a", "b", "c"), ())
+
+    def triton_emit(self):
+        return _test_triton_emits()["triple"]
+
+    def init_vertex(self, vid, out_degree, vprop):
+        return {"a": vid.to(torch.int32), "b": (vid * 2).to(torch.int32),
+                "c": (vid % 5).to(torch.float32)}
+
+    def empty_message(self):
+        return {"a": 2**31 - 1, "b": 2**31 - 1, "c": 3.4e38}
+
+    def merge_message(self, a, b):
+        return {k: torch.minimum(a[k], b[k]) for k in a}
+
+    def vertex_compute(self, prop, msg, it):
+        new = {k: torch.minimum(prop[k], msg[k]) for k in prop}
+        changed = (new["a"] < prop["a"]) | (new["b"] < prop["b"])
+        return new, (it == 1) | changed
+
+    def emit_message(self, src, dst, sp, ep):
+        return True, dict(sp)
+
+
 PACKED = {
     "sssp_lanes": lambda V: vcprog.as_batched(
         [operators.SSSPProgram(r) for r in (0, 3, 17, 40, 99)]),
@@ -604,6 +637,7 @@ PACKED = {
         [operators.BFSProgram(r) for r in range(8)]),
     "mixed": lambda V: _Mixed(),
     "vec": lambda V: _Vec(),
+    "triple": lambda V: _Triple(),
 }
 
 
@@ -650,7 +684,11 @@ def _assert_records(out, ref, monoids, exact=False):
 def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
     """The packed kernel's three shapes against their plain versions
     (bitwise for min/max/int, f32 sums within tolerance), and the
-    block-skip and windowed shapes bitwise against the resident one."""
+    block-skip and windowed shapes bitwise against the resident one. A
+    record whose slab pair exceeds the packed windowed budget (every
+    column counted: the 9 PPR lanes here) runs the resident kernel through
+    the wrapper; its windowed kernel is then launched directly and held
+    to the same checks."""
     from repro_torch.kernels import fused_packed as fp
     g = banded if shape == "window" else rmat
     gdev = graph_device.build_device_graph(
@@ -661,6 +699,11 @@ def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
     active = _frontier(V, 0.05 if shape == "skip" else 0.6, cuda)
     args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
     ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    ran = shape
+    if shape == "window" and not fp.window_usable(
+            t, V, fp.read_leaves(plan, vp), plan.ncol):
+        ran = "resident"
     counters.reset()
     out, hm = fp.gather_emit_combine_packed(
         *args, indptr=cv.in_indptr, variant=shape, tables=t,
@@ -668,7 +711,7 @@ def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
     torch.cuda.synchronize()
     key = {"resident": "gather_emit_combine_packed",
            "skip": "gather_emit_combine_packed_skip",
-           "window": "gather_emit_combine_packed_window"}[shape]
+           "window": "gather_emit_combine_packed_window"}[ran]
     assert counters.snapshot()[key] == 1
     if shape == "skip":
         bm = fge.tile_bitmap_walk_plain(active, t)
@@ -677,6 +720,13 @@ def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
     elif shape == "window":
         ref, rhm = fp.gather_emit_combine_packed_window_plain(*args, t,
                                                               **ids)
+        if ran != "window":
+            pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+            slabs, hm = fp.gather_emit_combine_packed_triton(
+                prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, active,
+                V, plan=plan, pack=pack, variant="window", tables=t,
+                dst=cv.dst, **ids)
+            out = fp._unpack(plan, pack, slabs)
     else:
         ref, rhm = fp.gather_emit_combine_packed_plain(*args, **ids)
     assert torch.equal(hm, rhm)
@@ -743,6 +793,222 @@ def test_packed_records_vs_perleaf_and_off(cuda, rmat, name, engine):
     assert torch.equal(packed[1], perleaf[1])
     _assert_records(packed[0], perleaf[0], monoids,
                     exact=name == "mixed")
+
+
+# ---------------------------------------------------------------------------
+# the packed kernel's lane-slab programs: any lane count, heavy rows, the
+# windowed staging budget
+# ---------------------------------------------------------------------------
+
+SHAPE_COUNTER = {"resident": "gather_emit_combine_packed",
+                 "skip": "gather_emit_combine_packed_skip",
+                 "window": "gather_emit_combine_packed_window"}
+
+
+def _lanes(name, Q, V):
+    if name == "sssp":
+        return vcprog.as_batched([operators.SSSPProgram(r)
+                                  for r in range(Q)])
+    return vcprog.as_batched([operators.PersonalizedPageRankProgram(V, 20, r)
+                              for r in range(Q)])
+
+
+def _lane_state(prog, gdev, seed):
+    """_packed_state, with random ranks for PPR lanes (so every f32 sum
+    adds many distinct terms)."""
+    vp, monoids = _packed_state(prog, gdev, seed)
+    if "rank" in vp["p"]:
+        rng = np.random.default_rng(seed)
+        shape = tuple(vp["p"]["rank"].shape)
+        vp["p"]["rank"] = torch.from_numpy(
+            rng.random(shape).astype(np.float32)).to(gdev.device)
+    return vp, monoids
+
+
+def _packed_run(prog, gdev, vp, monoids, active, shape):
+    """The wrapper on the card in `shape`, its plain version, and the
+    resident shape; checks the launch counter of the shape that ran."""
+    from repro_torch.kernels import fused_packed as fp
+    cv, t = gdev.canonical, gdev.canonical.fused_tables
+    V = gdev.num_vertices
+    args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    ran = shape
+    if shape == "window" and not fp.window_usable(
+            t, V, fp.read_leaves(plan, vp), plan.ncol):
+        ran = "resident"
+    counters.reset()
+    out, hm = fp.gather_emit_combine_packed(
+        *args, indptr=cv.in_indptr, variant=shape, tables=t,
+        num_active_edges=_active_edges(gdev, active), **ids)
+    torch.cuda.synchronize()
+    assert counters.snapshot()[SHAPE_COUNTER[ran]] == 1
+    if shape == "skip":
+        ref = fp.gather_emit_combine_packed_skip_plain(
+            *args, cv.in_indptr, t, fge.tile_bitmap_walk_plain(active, t),
+            **ids)
+    elif shape == "window" and ran == "window":
+        ref = fp.gather_emit_combine_packed_window_plain(*args, t, **ids)
+    else:
+        ref = fp.gather_emit_combine_packed_plain(*args, **ids)
+    res = fp.gather_emit_combine_packed(*args, indptr=cv.in_indptr, **ids)
+    return (out, hm), ref, res
+
+
+def _lanes_vs_single_leaf(prog, gdev, vp, active, inbox, key):
+    """Each lane bitwise against one single-leaf kernel launch on the
+    lane's own state and frontier (PPR's f32 sums included)."""
+    cv = gdev.canonical
+    base = prog.base_program()
+    for q in range(prog.num_lanes):
+        lane_vp = {k: v[:, q].contiguous() for k, v in vp["p"].items()}
+        lane_act = active & (vp["_lane_act"][:, q] > 0)
+        one, hit = fge.gather_emit_combine_triton(
+            base, base.monoid, cv.in_indptr, cv.src, lane_vp, cv.eprops,
+            lane_act, gdev.num_vertices)
+        assert torch.equal(inbox["m"][key][:, q].contiguous(), one[key]), q
+        assert torch.equal(inbox["_lane_msg"][:, q] > 0, hit), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["resident", "skip", "window"])
+@pytest.mark.parametrize("Q", [1, 2, 3, 8, 13, 32])
+@pytest.mark.parametrize("name", ["sssp", "ppr"])
+def test_packed_lane_counts_vs_plain_and_single_leaf(cuda, rmat, banded,
+                                                     name, Q, shape):
+    """Any lane count (Q not a power of two, Q = 1, Q = 32): the packed
+    kernel against its plain version (bitwise for min, f32 sums within
+    tolerance), the block-skip and windowed shapes bitwise against the
+    resident one, and every resident lane bitwise against a single-leaf
+    launch on its own state. The windowed case runs the resident kernel
+    where the staged slab pair exceeds the budget (Q >= 13 here)."""
+    g = banded if shape == "window" else rmat
+    gdev = graph_device.build_device_graph(
+        g, reorder="rcm" if shape == "window" else "none", device=cuda)
+    prog = _lanes(name, Q, g.num_vertices)
+    vp, monoids = _lane_state(prog, gdev, seed=Q)
+    active = _frontier(g.num_vertices, 0.05 if shape == "skip" else 0.6,
+                       cuda)
+    (out, hm), (ref, rhm), (res, reshm) = _packed_run(
+        prog, gdev, vp, monoids, active, shape)
+    assert torch.equal(hm, rhm) and torch.equal(hm, reshm)
+    _assert_records(out, ref, monoids)
+    _assert_records(out, res, monoids, exact=True)
+    if shape == "resident":
+        _lanes_vs_single_leaf(prog, gdev, vp, active, out,
+                              "distance" if name == "sssp" else "rank")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hub", [1000, 1024, 1025, 50_000])
+@pytest.mark.parametrize("name", ["sssp", "ppr"])
+def test_packed_heavy_row_split_keeps_the_bits(cuda, name, hub):
+    """A star whose hub (vertex 3) has an in-degree below, at and far
+    above the heavy-row threshold (HEAVY_CHUNKS chunks of SUM_LANES
+    edges): its block is split over SUM_LANES programs only above it, and
+    every lane stays bitwise equal to a single-leaf launch, f32 sums
+    included; block-skip equals resident bitwise."""
+    from repro_torch.core.graph import from_edges
+    from repro_torch.kernels import fused_packed as fp
+    rng = np.random.default_rng(hub)
+    V = hub + 64
+    # the hub hears from vertices 64.. ; random edges land in blocks >= 1
+    src = np.concatenate([np.arange(64, V), rng.integers(0, V, 6000)])
+    dst = np.concatenate([np.full(hub, 3), rng.integers(8, V, 6000)])
+    w = (rng.random(src.shape[0]) * 9 + 1).astype(np.float32)
+    g = from_edges(src, dst, V, edge_props={"weight": w})
+    gdev = graph_device.build_device_graph(g, device=cuda)
+    heavy = fp.heavy_blocks(gdev.canonical.in_indptr).tolist()
+    limit = fp.HEAVY_CHUNKS * fge.SUM_LANES
+    assert (0 in heavy) == (hub > limit)
+    prog = _lanes(name, 8, V)
+    vp, monoids = _lane_state(prog, gdev, seed=hub)
+    active = _frontier(V, 0.9, cuda)
+    (out, hm), (ref, rhm), (res, _) = _packed_run(
+        prog, gdev, vp, monoids, active, "resident")
+    assert torch.equal(hm, rhm)
+    _assert_records(out, ref, monoids)
+    _lanes_vs_single_leaf(prog, gdev, vp, active, out,
+                          "distance" if name == "sssp" else "rank")
+    (skip, shm), _, _ = _packed_run(prog, gdev, vp, monoids,
+                                    _frontier(V, 0.3, cuda), "skip")
+    (res3, rhm3), _, _ = _packed_run(prog, gdev, vp, monoids,
+                                     _frontier(V, 0.3, cuda), "resident")
+    assert torch.equal(shm, rhm3)
+    _assert_records(skip, res3, monoids, exact=True)
+
+
+@pytest.mark.cuda
+def test_packed_window_past_the_single_leaf_budget(cuda, banded):
+    """Batched SSSP at Q = 8 with W = 512 reads a slab pair of
+    2·512·(4 + 32 + 32) bytes, over the single-leaf kernel's
+    WINDOW_SLAB_BYTES: the packed rule counts every column and still takes
+    the windowed shape, which equals the resident one bitwise."""
+    from repro_torch.kernels import fused_packed as fp
+    gdev = graph_device.build_device_graph(banded, reorder="rcm",
+                                           device=cuda)
+    V, cv = banded.num_vertices, gdev.canonical
+    t = cv.fused_tables
+    prog = _lanes("sssp", 8, V)
+    vp, monoids = _lane_state(prog, gdev, seed=8)
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    reads = fp.read_leaves(plan, vp)
+    assert 2 * t.window * fp.slab_row_bytes(reads, plan.ncol) \
+        > fge.WINDOW_SLAB_BYTES
+    assert fp.window_usable(t, V, reads, plan.ncol)
+    active = _frontier(V, 0.6, cuda)
+    (out, hm), (ref, rhm), (res, reshm) = _packed_run(
+        prog, gdev, vp, monoids, active, "window")
+    assert torch.equal(hm, rhm) and torch.equal(hm, reshm)
+    _assert_records(out, res, monoids, exact=True)
+    _assert_records(out, ref, monoids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,E", [(7, 0), (1, 0), (1, 1)])
+def test_kernels_on_edgeless_and_single_vertex_graphs(cuda, V, E):
+    """E = 0 and V = 1 through K1, K2 and the packed kernel on the card:
+    the identity inbox and no message where nothing arrives, as the plain
+    versions and kernel="off" give."""
+    from repro_torch.core.graph import from_edges
+    from repro_torch.kernels import fused_packed as fp
+    g = from_edges([0] * E, [0] * E, V,
+                   edge_props={"weight": np.ones(E, np.float32)})
+    gdev = graph_device.build_device_graph(g, device=cuda)
+    cv = gdev.canonical
+    active = torch.ones(V, dtype=torch.bool, device=cuda)
+    sssp = operators.SSSPProgram(0)
+    vp = vcprog.init_vertices(sssp, gdev.vprops_in, gdev.out_degree, V)
+    counters.reset()
+    out, hm = fge.gather_emit_combine_triton(
+        sssp, "min", cv.in_indptr, cv.src, vp, cv.eprops, active, V)
+    ref, rhm = fge.gather_emit_combine_plain(
+        sssp, "min", cv.src, cv.dst, vp, cv.eprops, active, V)
+    assert torch.equal(out["distance"], ref["distance"])
+    assert torch.equal(hm, rhm) and bool(hm.any()) == (E > 0)
+    vals = torch.arange(2 * E, dtype=torch.float32, device=cuda).view(E, 2)
+    for monoid in ("sum", "min", "max"):
+        assert torch.equal(sr.segment_combine_cuda(vals, cv.in_indptr, V,
+                                                   monoid),
+                           sr.segment_combine_plain(vals, cv.in_indptr, V,
+                                                    monoid))
+    launched = counters.snapshot()
+    assert launched["gather_emit_combine"] == 1
+    assert launched["segment_combine"] == 3
+    prog = _lanes("sssp", 3, V)
+    vp, monoids = _lane_state(prog, gdev, seed=0)
+    for shape in ("resident", "skip"):
+        (out, hm), (ref, rhm), _ = _packed_run(prog, gdev, vp, monoids,
+                                               active, shape)
+        assert torch.equal(hm, rhm)
+        _assert_records(out, ref, monoids, exact=True)
+    U = UniGPS()
+    for kw in ({"root": 0}, {"sources": [0, V - 1]}):
+        np.testing.assert_array_equal(U.sssp(g, **kw)[0],
+                                      U.sssp(g, kernel="off", **kw)[0])
+        np.testing.assert_array_equal(U.bfs(g, **kw)[0],
+                                      U.bfs(g, kernel="off", **kw)[0])
 
 
 # ---------------------------------------------------------------------------

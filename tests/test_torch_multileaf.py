@@ -34,6 +34,7 @@ from repro_torch import VCProgram, convert, run_vcprog  # noqa: E402
 from repro_torch.core import graph_device as tgd  # noqa: E402
 from repro_torch.core import message_plane as tmp  # noqa: E402
 from repro_torch.core import records as trec  # noqa: E402
+from repro_torch.core import operators as tops  # noqa: E402
 from repro_torch.core import vcprog as tvc  # noqa: E402
 from repro_torch.core.graph import from_edges  # noqa: E402
 from repro_torch.kernels import fused_gather_emit as fge  # noqa: E402
@@ -489,9 +490,12 @@ def _batched_sssp():
 @pytest.mark.parametrize("name", sorted(PROGRAMS) + ["batched_sssp"])
 def test_generated_kernel_source_is_python(dgraphs, name, window):
     """The packed kernel's source, generated per record layout, parses as
-    Python with one accumulator and one store per message leaf (Triton
-    compiles it on the card)."""
+    Python with one accumulator fold and one store per message leaf in
+    each part (Triton compiles it on the card): the windowed kernel; or
+    the resident kernel's light-block and split-lane parts, its entry and
+    the heavy blocks' finishing kernel, which stores every leaf again."""
     import ast
+    import re
     _, tdg = dgraphs
     prog = _batched_sssp() if name == "batched_sssp" else PROGRAMS[name]()
     empty, vp, _ = _setup(prog, tdg)
@@ -502,13 +506,116 @@ def test_generated_kernel_source_is_python(dgraphs, name, window):
     pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
     src = fp._source(fp._kernel_layout(plan, monoids, pack), window)
     tree = ast.parse(src)
-    (fn,) = [n for n in tree.body if isinstance(n, ast.FunctionDef)]
-    assert fn.name == ("packed_window_kernel" if window else "packed_kernel")
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    entry = "packed_window_kernel" if window else "packed_kernel"
+    parts = 1 if window else 2  # stores: light + finish; folds: light + split
+    assert set(fns) == ({entry} if window else
+                        {entry, "_light_block", "_split_lane",
+                         "packed_finish"})
     n_msg = len(monoids)
-    assert src.count("tl.store(o") == n_msg
+    assert plan.ncol <= fp.COL_CHUNK  # one column chunk: one fold per leaf
+    assert src.count("tl.store(o") == parts * n_msg
     lanes = int(name == "batched_sssp")  # `_lane_msg` stores `got`
-    assert src.count("= _fold_acc(") == n_msg - lanes
-    assert "import triton" in src and fn.args.args[0].arg == "indptr_ptr"
+    folds = re.findall(r"(acc\d+_0) = (?:\1 \+|tl\.minimum\(\1|"
+                       r"tl\.maximum\(\1)", src)
+    assert len(folds) == parts * (n_msg - lanes)
+    assert src.count("tl.store(sc") == (0 if window else n_msg - lanes)
+    assert "import triton" in src and fns[entry].args.args[0].arg \
+        == "indptr_ptr"
+
+
+def _heavy_numpy(deg, block_v, lanes, limit):
+    """Blocks of `block_v` rows whose longest row spans more than `limit`
+    chunks of `lanes` edges, by a loop over the blocks."""
+    out = []
+    for b in range(max(-(-len(deg) // block_v), 1)):
+        rows = deg[b * block_v:(b + 1) * block_v]
+        longest = max(rows) if len(rows) else 0
+        if -(-longest // lanes) > limit:
+            out.append(b)
+    return np.asarray(out, np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "edges_of_the_threshold",
+                                  "one_vertex", "no_edges"])
+def test_heavy_blocks_match_numpy(case):
+    """The packed kernel's heavy-row table (built with torch on the
+    layout's device) against a loop in numpy: rows at, one past and far
+    past HEAVY_CHUNKS chunks of SUM_LANES edges, V not a multiple of
+    BLOCK_V, V = 1 and E = 0."""
+    limit = fp.HEAVY_CHUNKS * fge.SUM_LANES
+    rng = np.random.default_rng(7)
+    deg = {"random": lambda: rng.integers(0, 3 * limit, 203) * (
+               rng.random(203) < 0.1),
+           "edges_of_the_threshold": lambda: np.array(
+               [limit, 0, 0, 0, 0, 0, 0, 0, limit + 1, 3, limit - 1, 0, 0, 0,
+                0, 0, 0, 50 * limit, 1]),
+           "one_vertex": lambda: np.array([limit + 5]),
+           "no_edges": lambda: np.zeros(11, np.int64)}[case]()
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                              .astype(np.int32))
+    got = fp.heavy_blocks(indptr)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), _heavy_numpy(deg, fge.BLOCK_V, fge.SUM_LANES,
+                                  fp.HEAVY_CHUNKS))
+    assert fp.heavy_blocks(indptr) is got  # built once per row pointers
+    if case == "edges_of_the_threshold":
+        np.testing.assert_array_equal(got.numpy(), [1, 2])
+
+
+class _Tables:
+    def __init__(self, window):
+        self.window = window
+
+
+def test_packed_window_rule_counts_every_column():
+    """The packed windowed rule counts the frontier flag as int32 and every
+    padded column of each leaf (the single-leaf rule counts one column a
+    leaf): batched SSSP at Q = 8 and W = 512 reads 69,632 bytes
+    (windowed, past the single-leaf 48 KB), PPR's three
+    [V, 8] leaves 102,400 (resident); the reference's 2W < ceil8(V) rule
+    still holds."""
+    V = 1 << 21
+    f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    sssp = [f32(4, 8), i32(4, 8)]
+    ppr = [f32(4, 8), f32(4, 8), i32(4, 8)]
+    assert fp.slab_row_bytes(sssp, 8) == 68
+    assert 2 * 512 * fp.slab_row_bytes(sssp, 8) == 69_632
+    assert 69_632 > fge.WINDOW_SLAB_BYTES  # the single-leaf budget
+    assert fp.window_usable(_Tables(512), V, sssp, 8)
+    assert 2 * 512 * fp.slab_row_bytes(ppr, 8) == 102_400
+    assert not fp.window_usable(_Tables(512), V, ppr, 8)
+    # Q = 3 pads to 4 columns; a [V] leaf counts once
+    assert fp.slab_row_bytes([f32(4, 3), f32(4)], 3) == 4 + 16 + 4
+    assert not fp.window_usable(_Tables(0), V, sssp, 8)
+    assert not fp.window_usable(_Tables(512), 1024, sssp, 8)
+    assert not fp.window_usable(None, V, sssp, 8)
+
+
+@pytest.mark.parametrize("ncol,fsum,cp,cc", [
+    (1, False, 1, 1), (2, False, 2, 2), (3, False, 4, 4), (8, False, 8, 8),
+    (13, False, 16, 8), (32, False, 32, 8), (13, True, 16, 16),
+    (32, True, 32, 32), (40, True, 64, 32)])
+def test_packed_column_geometry(ncol, fsum, cp, cc):
+    """Columns pad to a power of two; a record wider than a column chunk
+    (COL_CHUNK, FSUM_COL_CHUNK with an f32 sum leaf) walks its columns in
+    chunks inside the program, one fold per chunk."""
+    assert fp._columns(ncol, fsum) == (cp, cc)
+    prog = tvc.as_batched([tops.SSSPProgram(r) for r in range(ncol)])
+    V = 12
+    src = torch.tensor([0, 3, 5, 5, 7], dtype=torch.int32)
+    dst = torch.tensor([1, 1, 2, 9, 9], dtype=torch.int32)
+    vp = tvc.init_vertices(prog, {}, torch.ones(V, dtype=torch.int32), V)
+    monoids = tmp.leaf_monoids(prog, tvc.empty_record(prog, "cpu"))
+    plan = fp.packed_plan(prog, vp, {}, V, 5)
+    pack = fp.make_pack_spec(prog, monoids, vp, {})
+    src_text = fp._source(fp._kernel_layout(plan, monoids, pack), False)
+    n_chunks = fp._columns(ncol)[0] // fp._columns(ncol)[1]
+    assert src_text.count("acc1_%d = tl.minimum(acc1_%d" % (n_chunks - 1,
+                                                            n_chunks - 1)) \
+        == 2  # the light block's fold and the split lane's
 
 
 def test_packed_launcher_refuses_cpu_tensors(dgraphs):

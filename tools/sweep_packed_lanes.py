@@ -2,6 +2,7 @@
 
     python3 tools/sweep_packed_lanes.py [--scale 21] [--qs 1,2,4,8,16,32]
         [--src OTHER_TREE/src] [--graph-cache build/rmat21.npz]
+    python3 tools/sweep_packed_lanes.py --window [--log2v 21] [--qs ...]
 
 For the SSSP and PPR emits, builds a mid-run batched vertex state of Q
 lanes (random finite values on half the vertices, a random `_lane_act`)
@@ -11,6 +12,12 @@ warm-up launches) beside the single-leaf kernel on lane 0's own state,
 which Q sequential queries would launch Q times. Each packed result's
 lane 0 is checked bitwise against that single-leaf launch. Prints one
 line per (emit, Q).
+
+`--window` runs the packed windowed shape instead, on the smoke's window
+graph (one banded community under scrambled ids, relabeled by RCM), beside
+the single-leaf windowed kernel; each line also says whether the packed
+windowed rule of the imported tree takes that Q (`window_usable=`, "n/a"
+for a tree without the rule); the shape is timed either way.
 
 `--src` imports `repro_torch` from another checkout's src/, so two
 versions are compared on one GPU by running this script once for each;
@@ -39,13 +46,18 @@ def main():
                     help="the src/ directory to import repro_torch from")
     ap.add_argument("--graph-cache", default=None,
                     help=".npz to load the graph from, or save it to")
+    ap.add_argument("--window", action="store_true",
+                    help="the windowed shape on the RCM-relabeled banded "
+                         "graph")
+    ap.add_argument("--log2v", type=int, default=21,
+                    help="vertices of the banded graph (V = 2**log2v)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
-    from chip_smoke import batched_state, time_ms
+    from chip_smoke import banded_graph, batched_state, time_ms
     from repro_torch.core import graph, graph_device, io, operators, vcprog
     from repro_torch.core.message_plane import leaf_monoids
     from repro_torch.kernels import fused_gather_emit as fge
@@ -57,7 +69,9 @@ def main():
     print(f"repro_torch from {pathlib.Path(fp.__file__).parents[2]}",
           flush=True)
     cache = pathlib.Path(args.graph_cache) if args.graph_cache else None
-    if cache is not None and cache.exists():
+    if args.window:
+        g = banded_graph(args.log2v)
+    elif cache is not None and cache.exists():
         z = np.load(cache)
         g = graph.from_edges(z["src"], z["dst"], int(z["V"]),
                              edge_props={"weight": z["weight"]})
@@ -68,8 +82,15 @@ def main():
             np.savez(cache, src=g.src, dst=g.dst, V=g.num_vertices,
                      weight=g.edge_props["weight"])
     V, E = g.num_vertices, g.num_edges
-    gdev = graph_device.build_device_graph(g, device="cuda")
+    gdev = graph_device.build_device_graph(
+        g, reorder="rcm" if args.window else "none", device="cuda")
     cv = gdev.canonical
+    tables = cv.fused_tables
+    shape = {}
+    if args.window:
+        print(f"window W={tables.window}", flush=True)
+        shape = dict(variant="window", tables=tables, dst=cv.dst,
+                     src_ids=cv.src_ids, dst_ids=cv.dst_ids)
     make = {"sssp": (lambda r: operators.SSSPProgram(r), "distance"),
             "ppr": (lambda r: operators.PersonalizedPageRankProgram(
                 V, 20, r), "rank")}
@@ -84,12 +105,18 @@ def main():
             pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
             run = lambda: fp.gather_emit_combine_packed_triton(
                 prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, act, V,
-                plan=plan, pack=pack)
+                plan=plan, pack=pack, **shape)
             base = prog.base_program()
             lane_vp = {k: v[:, 0].contiguous() for k, v in vp["p"].items()}
-            k1 = lambda: fge.gather_emit_combine_triton(
-                base, base.monoid, cv.in_indptr, cv.src, lane_vp, cv.eprops,
-                act & (vp["_lane_act"][:, 0] > 0), V)
+            lane_act = act & (vp["_lane_act"][:, 0] > 0)
+            if args.window:
+                k1 = lambda: fge.gather_emit_combine_window_triton(
+                    base, base.monoid, cv.in_indptr, cv.src, lane_vp,
+                    cv.eprops, lane_act, V, tables, dst=cv.dst)
+            else:
+                k1 = lambda: fge.gather_emit_combine_triton(
+                    base, base.monoid, cv.in_indptr, cv.src, lane_vp,
+                    cv.eprops, lane_act, V)
             slabs, _ = run()
             inbox = fp._unpack(plan, pack, slabs)
             one, _ = k1()
@@ -99,9 +126,17 @@ def main():
                 return 1
             ms = time_ms(run, iters=10, warmup=2)
             k1_ms = time_ms(k1, iters=10, warmup=2)
+            usable = ""
+            if args.window:
+                try:  # the rule counts every column in trees that have it
+                    usable = fp.window_usable(
+                        tables, V, fp.read_leaves(plan, vp), plan.ncol)
+                except (AttributeError, TypeError):
+                    usable = "n/a"
+                usable = f" window_usable={usable}"
             print(f"emit={name} Q={q} packed_ms={ms:.4f} "
                   f"per_query_ms={ms / q:.4f} single_leaf_ms={k1_ms:.4f} "
-                  f"q_single_leaf_ms={q * k1_ms:.4f}", flush=True)
+                  f"q_single_leaf_ms={q * k1_ms:.4f}{usable}", flush=True)
     return 0
 
 
