@@ -20,8 +20,12 @@ Phases, one line of numbers each:
      bfs, degrees, personalized_pagerank and the quickstart's user
      program (pushpull engine, kernels on) on rmat_graph(21, 16, seed=0,
      weighted=True); launch counters are zeroed just before and read just
-     after; each result is then held against kernel="off" on the card;
-  5. kernel times at the main path's shapes;
+     after (K1, its heavy blocks' finishing kernel and the segment kernel
+     must have run); each result is then held against kernel="off" on the
+     card;
+  5. kernel times at the main path's shapes: K1 for each built-in emit
+     beside the packed kernel's one-column launch of the same emit, with
+     K1's schedule (light programs, heavy blocks, split programs);
   6. frontier: `UniGPS(frontier="auto")` runs sssp, bfs,
      connected_components, the quickstart program and pagerank on the same
      graph (counters zeroed just before, read just after; the block-skip
@@ -39,7 +43,8 @@ Phases, one line of numbers each:
      read just after; the windowed kernel must have run); every result is
      held against prefetch="off" and against reorder="none" on the same
      graph; the windowed kernel is held against its plain version and
-     timed beside the resident kernel;
+     timed beside the resident kernel and the packed kernel's one-column
+     windowed launch of the same emit;
   8. lanes: sssp, bfs and personalized_pagerank with sources= (8 roots
      from a seed, vertex 0 among them) and landmark_distances (16
      landmarks, lane_chunk=8) on the phase-4 graph through
@@ -66,7 +71,9 @@ Phases, one line of numbers each:
      against its plain version;
  12. compaction: an unfused f32-sum program under frontier="sparse" takes
      the compaction arm through the segment kernel and equals
-     frontier="dense" bitwise;
+     frontier="dense" bitwise; the segment kernel with dense-row offsets
+     on a 10 % workset is held to the dense rows and timed (its own
+     `kernels` row);
  13. flash (after phases 2-12 have freed their graphs): the flash
      attention kernel against its plain version in bf16 at qwen3-14b's
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
@@ -225,6 +232,18 @@ def quickstart_program(VCProgram):
     return UniSSSP
 
 
+def packed_one_column(prog, cv, vp, active, V, **kw):
+    """A launcher of the packed kernel's one-column launch of a single-leaf
+    program's emit (`kw`: its shape), on the same inputs as K1's."""
+    from repro_torch.kernels import fused_packed as fp
+    monoids = (prog.monoid,)
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+    return lambda: fp.gather_emit_combine_packed_triton(
+        prog, monoids, cv.in_indptr, cv.src, vp, cv.eprops, active, V,
+        plan=plan, pack=pack, **kw)
+
+
 def random_frontier(V, dens, rng, dev):
     if 0 < dens < 1:
         return torch.from_numpy(rng.random(V) < dens).to(dev)
@@ -292,7 +311,8 @@ def phase_frontier(ctx):
         message_plane._sparse_emit_combine = real_arm
     launches = counters.snapshot()
     log("frontier_path", launches=json.dumps(launches, separators=(",", ":")))
-    for k in ("gather_emit_combine_skip", "tile_bitmap"):
+    for k in ("gather_emit_combine_skip", "tile_bitmap",
+              "gather_emit_combine_finish"):
         if launches[k] <= 0:
             fail(f"the frontier path never launched {k}")
     q = per_call["vcprog_quickstart"]
@@ -577,12 +597,16 @@ def phase_window(ctx):
                 prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V,
                 tables, **ids), iters=3, warmup=1),
             resident_ms=time_ms(lambda: fge.gather_emit_combine_triton(
-                *args, dst=cv.dst, **ids)))
+                *args, dst=cv.dst, **ids)),
+            packed_one_column_ms=time_ms(packed_one_column(
+                prog, cv, vp, active, V, variant="window", tables=tables,
+                dst=cv.dst, **ids)))
         log("window_kernel", emit=name, monoid=prog.monoid, **times[name])
     # PageRank's emit reads no ids: indptr, src and the rows of active,
     # rank and out_degree once each; out and has_msg written once; max,
-    # divide and add per edge. (The kernel itself stages 2W rows per CTA,
-    # C * 2W rows in all: its design's traffic, not the bound's.)
+    # divide and add per edge. (Each CTA reads its slab pair's 2W rows
+    # through L1, C * 2W rows in all: its design's traffic, not the
+    # bound's.)
     w_bound, w_by = bound(4 * (V + 1) + 4 * E + V * (1 + 4 + 4)
                           + 4 * V + V, 3 * E)
     log("window_bound", bound_ms=w_bound, slab_rows=-(-V // fge.WINDOW_ROWS)
@@ -1230,7 +1254,8 @@ def phase_records(ctx):
 def phase_compaction(ctx):
     """Phase 12: an unfused f32-sum program (no Triton emit) under
     frontier="sparse" takes the compaction arm through the segment
-    kernel with dense-row offsets and equals frontier="dense" bitwise."""
+    kernel with dense-row offsets and equals frontier="dense" bitwise.
+    Returns the JSON row of that call of the segment kernel (2r)."""
     import repro_torch
     from repro_torch import run_vcprog
     from repro_torch.kernels import counters
@@ -1272,6 +1297,7 @@ def phase_compaction(ctx):
     log("compaction", wall_s=round(wall, 4), supersteps=info["iterations"],
         segment_launches=launches["segment_combine"],
         max_abs_err_vs_dense=e, bitwise=True)
+    n_arm = launches["segment_combine"]
 
     # the segment kernel on a 10 % workset of the graph's rows: with the
     # dense-row offsets (the compaction arm's call) against the dense rows
@@ -1302,9 +1328,11 @@ def phase_compaction(ctx):
           lib, got, True)
     # bound: the values and offsets read, indptr read, out written once
     n = int(pos.numel())
-    log("segment_workset", kept=n, bound_ms=bound(
-        8 * n + 4 * (V + 1) + 4 * V, n)[0], dense_ms=time_ms(
-        lambda: sr.segment_combine_cuda(dense_vals, cv.in_indptr, V, "sum")),
+    b, by = bound(8 * n + 4 * (V + 1) + 4 * V, n)
+    ws = dict(
+        kept=n, bound_ms=b, dense_ms=time_ms(
+            lambda: sr.segment_combine_cuda(dense_vals, cv.in_indptr, V,
+                                            "sum")),
         ordered_ms=time_ms(lambda: sr.segment_combine_cuda(
             ws_vals, ws_ip, V, "sum", offsets)),
         unordered_ms=time_ms(lambda: sr.segment_combine_cuda(
@@ -1313,6 +1341,16 @@ def phase_compaction(ctx):
             ws_vals, ws_ip, V, "sum", offsets), iters=5),
         library_ms=time_ms(lambda: torch.segment_reduce(
             ws_vals, "sum", lengths=lengths, axis=0, unsafe=True)))
+    log("segment_workset", **ws)
+    # row 2r: the segment kernel with dense-row offsets, the compaction
+    # arm's call (its launches are the arm's in the run above)
+    return [{"name": "segment_combine_compaction", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
+             "replaces": "src/repro/kernels/segment_reduce.py:123",
+             "launches": n_arm, "max_abs_err": max_abs_err(got, want),
+             "ms": ws["ordered_ms"], "plain_ms": ws["plain_ms"],
+             "bound_ms": b, "bound_by": by,
+             "library_ms": ws["library_ms"]}]
 
 
 def degenerate_parity(dev):
@@ -1506,7 +1544,8 @@ def graph_phases(args, dev):
         wall[name] = time.time() - t
     launches = counters.snapshot()
     log("main_path", launches=json.dumps(launches, separators=(",", ":")))
-    for name in ("segment_combine", "gather_emit_combine"):
+    for name in ("segment_combine", "gather_emit_combine",
+                 "gather_emit_combine_finish"):
         if launches[name] <= 0:
             fail(f"the main path never launched {name}")
     for name, fn in calls.items():
@@ -1543,18 +1582,33 @@ def graph_phases(args, dev):
         "max_abs_err": errs["segment_combine"], "ms": seg_ms,
         "plain_ms": seg_plain, "bound_ms": seg_bound, "bound_by": seg_by,
         "library_ms": seg_lib})
+    # K1 (its heavy blocks' finishing kernel included) beside the packed
+    # kernel's one-column launch of the same emit, the yardstick it must
+    # not lose to
+    ordered = fge.orders_rows(cv.in_indptr)
+    heavy = fge.heavy_blocks(cv.in_indptr, ordered=ordered)
+    log("k1_schedule", rows=fge.LIGHT_ROWS, degree_ordered=ordered,
+        heavy_chunks=fge.HEAVY_CHUNKS, heavy_blocks=int(heavy.shape[0]),
+        split_programs=int(heavy.shape[0]) * fge.SUM_LANES,
+        light_programs=-(-V // fge.LIGHT_ROWS))
     per_emit = {}
-    for name in programs:
+    for name, prog in programs.items():
+        packed = packed_one_column(prog, cv, vstate[name], active, V)
         per_emit[name] = (time_ms(lambda: fused(name)),
                           time_ms(lambda: fused(name, plain=True), iters=5))
         log("timing", kernel="gather_emit_combine", emit=name,
-            ms=per_emit[name][0], plain_ms=per_emit[name][1])
+            ms=per_emit[name][0], packed_one_column_ms=time_ms(packed),
+            plain_ms=per_emit[name][1])
     log("timing", kernel="segment_combine", monoid="min", ms=seg_ms,
         plain_ms=seg_plain, library_ms=seg_lib)
     # pagerank's emit: indptr, src, rank, out_degree, active read once;
-    # out and has_msg written once; max, divide and add per edge
+    # out and has_msg written once; max, divide and add per edge. (The
+    # kernel gathers active, rank and out_degree per edge, a 32-byte L2
+    # sector each: its design's traffic, not the bound's.)
     ge_bound, ge_by = bound(
         4 * (V + 1) + 4 * E + 4 * V + 4 * V + V + 4 * V + V, 3 * E)
+    log("k1_bound", bound_ms=ge_bound, bound_by=ge_by,
+        design_gather_bytes=3 * 32 * E, streamed_bytes=4 * (V + 1) + 4 * E)
     rows.append({
         "name": "gather_emit_combine", "route": "triton",
         "source": "src/repro_torch/kernels/fused_gather_emit.py",
@@ -1572,7 +1626,7 @@ def graph_phases(args, dev):
     rows += phase_lanes_frontier(ctx)
     rows += phase_lanes_window(ctx)
     phase_records(ctx)
-    phase_compaction(ctx)
+    rows += phase_compaction(ctx)
     return rows
 
 

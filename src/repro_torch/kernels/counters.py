@@ -11,7 +11,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "segment_combine": 0, "gather_emit_combine": 0,
-    "gather_emit_combine_skip": 0, "gather_emit_combine_window": 0,
+    "gather_emit_combine_skip": 0, "gather_emit_combine_finish": 0,
+    "gather_emit_combine_window": 0,
     "tile_bitmap": 0, "gather_emit_combine_packed": 0,
     "gather_emit_combine_packed_skip": 0,
     "gather_emit_combine_packed_window": 0, "flash_attention": 0,

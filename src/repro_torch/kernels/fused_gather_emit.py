@@ -8,59 +8,90 @@ gather_emit_combine` with Triton kernels, one per shape of the Pallas
   block-skip ``blockskip=True``: tiles whose sources are all off the
              frontier are skipped (the Pallas ``_block_active`` bitmap);
   windowed   ``window > 0``: each block gathers its sources from one
-             staged slab pair instead of the whole [V] property array.
+             slab pair instead of the whole [V] property array.
 
 Triton is the route because the kernel's body is the *user's* per-edge
 emit function: a `@triton.jit` emit passed as a constexpr argument is
 inlined, so each program gets its own fused kernel without generating C++
-per program. The work is an elementwise pass fused with a reduction, with
-no tensor-core work.
+per program. The work is a gather pass fused with a reduction, with no
+tensor-core work.
 
 Bound on the H100: bytes. Per edge the kernel reads its src id, gathers
 the src vertex's active flag and property leaves, reads at most one edge
 property, and writes one message leaf and one has-msg flag per vertex;
-the emit itself is a few operations per edge.
+the emit itself is a few operations per edge. The gathers are random
+32-byte sectors of [V] arrays that L2 holds, so what a design can cut is
+the lanes it wastes and the length of its longest serial walk.
 
-Resident design: the Pallas kernel tests every (vertex block × edge
-block) grid cell for overlap. Here the dst-sorted order makes each
-vertex's in-edges the contiguous range ``in_indptr[v]:in_indptr[v+1]``, so
-one program owns a block of BV vertices and walks their ranges in
-[BV, BK] tiles up to the block's largest in-degree: it gathers
-`vprop[src]` and `active[src]`, calls the emit, vetoes invalid emissions
-with `where` before the reduction (never by multiplying, because inf*0 is
-NaN) and reduces along the edge axis. There are no atomics and the result
-is the same on every run. A block holding a hub walks the hub's whole
-range alone, so on power-law graphs one block runs far longer than the
-rest (PERF.md records this imbalance).
+Resident design (the schedule of the packed kernel, :mod:`.fused_packed`,
+for one scalar leaf). The dst-sorted order makes each vertex's in-edges
+the contiguous range ``in_indptr[v]:in_indptr[v+1]``:
+
+  * light programs: one program owns a block of LIGHT_ROWS rows and walks
+    their ranges a chunk of SUM_LANES edges at a time, up to the block's
+    longest row. Each [rows, SUM_LANES] chunk gathers `vprop[src]` and
+    `active[src]`, calls the emit, vetoes invalid emissions with `where`
+    (never by multiplying: inf*0 is NaN) and folds elementwise into
+    [rows, SUM_LANES] accumulators, reduced once per row at the end;
+  * row order: on a power-law graph a block of consecutive ids pairs
+    short rows with long ones and walks them all to the longest. Where
+    it cuts the lanes walked by ORDER_GAIN (:func:`orders_rows`, once per
+    layout), the blocks are consecutive entries of the rows sorted by
+    in-degree (:func:`degree_order`), longest first: a block's rows have
+    like lengths, the longest blocks start first and empty rows fill
+    blocks that exit at once. A locality-ordered graph keeps id order;
+  * heavy blocks: a block whose longest row spans more than HEAVY_CHUNKS
+    chunks (a power-law graph's hubs, ~10^5 in-edges on RMAT-21) is not
+    walked by one program: SUM_LANES split programs take it, program g
+    the edge g of every chunk, SPLIT_CHUNKS chunks a step, and write their
+    [rows] partials to scratch; a finishing kernel (one program per heavy
+    block) adds the partials of an f32 sum by the pairwise tree below and
+    combines the rest by the monoid. The block list is built on the device
+    once per layout (:func:`heavy_blocks`); the split programs come first
+    in the grid.
+
+There are no atomics, and the result is the same on every run.
 
 Block-skip design: the Pallas bitmap has one bit per 512-edge block; the
-counterpart here is one bit per (program, tile), flat through a
-``tile_ptr`` table built once per layout (:class:`FusedTables`). The
-bitmap is built from the frontier by a second Triton kernel that walks only the active
-vertices' out-edges (``_mark_tiles_kernel``: O(V) prefix sum plus O(active
-out-edges) same-value stores, no atomics), and the kernel tests a tile's
-bit before any gather or emit. Skipped tiles hold only vetoed emissions,
-so the bits equal the resident pass's.
+counterpart here is one bit per BLOCK_V x BLOCK_K tile (8 rows x 256
+edge columns), flat through a ``tile_ptr`` table built once per layout
+(:class:`FusedTables`). The bitmap is built from the frontier by a second
+Triton kernel that walks only the active vertices' out-edges
+(``_mark_tiles_kernel``: O(V) prefix sum plus O(active out-edges)
+same-value stores, no atomics). A light program tests the bit of each of
+its 8-row groups before a 256-edge tile's chunks; a split program drops
+the edges of dead tiles and skips a step whose edges are all dead.
+Skipped tiles hold only vetoed emissions, so the bits equal the resident
+pass's.
 
 Windowed design: on a TPU the variant exists because VMEM cannot hold
-[V]. Here one CTA owns ``WINDOW_ROWS`` vertices (not one 8-row program:
-staging 2W rows for ~100 edges would move more bytes than the resident
-gather through L2), loads the slab pair ``[q·W, (q+2)·W)`` of the active
-flag and of each property leaf the emit reads once, and gathers from it
-with `tl.gather` (Triton lowers it through shared memory). The per-CTA
-slab index table is built once per layout (:func:`window_table`); an edge whose
-src falls outside the pair is vetoed (the Pallas ``in_win``), which the
-table's construction makes impossible. W = 0 (the slab pair would reach
-the vertex range, or exceed ``WINDOW_SLAB_BYTES``) runs the resident
-kernel, as the reference does.
+[V]. Here one CTA owns ``WINDOW_ROWS`` vertices and the slab pair
+``[q·W, (q+2)·W)`` of :func:`window_table` (built once per layout);
+every edge's source lies in that pair by the table's construction, and
+an edge whose source falls outside it is vetoed all the same (the Pallas
+``in_win``). The CTA loads the pair of the frontier flag and of each
+property leaf the emit reads once, with coalesced loads, and gathers
+from it with `tl.gather` (Triton lowers it through shared memory, and
+stores the staged pair there again at every call, so fewer, larger
+tiles pay less). Locality-ordered graphs have short rows (~14 in-edges
+on Banded-21), so the CTA walks its rows as one tile of WINDOW_BV rows
+in narrow steps of WINDOW_STEP edges, where a resident chunk would leave
+most lanes masked. Reading the pair through L1 instead of staging it
+(the same walk with every gather a load from device memory) measured
+slower (tools/sweep_window_tiles.py, PERF.md). W = 0 (the slab pair
+would reach the vertex range, or exceed ``WINDOW_SLAB_BYTES``) runs the
+resident kernel, as the reference does.
 
-The three shapes share one tile body (`_fold_tile`) and give the same
-bits: min/max and integer sums do not depend on the order of their terms,
-and an f32 sum adds column c of a row into partial sum c % SUM_LANES, in
-column order, and adds the SUM_LANES partials as a fixed pairwise tree
-once per row. That order is the same for every tile width that is a
-multiple of SUM_LANES, which Triton's own `tl.sum` (whose order follows
-the compiler's register layout) does not promise across shapes.
+The bits. Min/max and integer sums do not depend on the order of their
+terms. An f32 sum adds edge c of a row (counting from the row's first
+in-edge) into partial c % SUM_LANES, each partial in edge order, and adds
+the SUM_LANES partials as a fixed pairwise tree (`_finish_acc`) once per
+row. Every shape keeps that order: a light chunk adds its column j into
+partial j; a split program is one partial; a windowed step of S edges at
+column k adds into partials k % SUM_LANES ... k % SUM_LANES + S - 1. So
+block-skip, windowed and each packed lane give the resident bits, which
+Triton's own `tl.sum` (whose order follows the compiler's register
+layout) would not promise across shapes.
 
 Each shape has a plain version beside it (the ``*_plain`` functions: the
 three-pass gather → vmap(emit_message) → combine of the reference's
@@ -70,6 +101,7 @@ tensors only.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import torch
 
@@ -82,28 +114,49 @@ from ..core.vcprog import record_vmap
 _MONOID_CODE = {"sum": 0, "min": 1, "max": 2}
 _REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 
-#: vertex rows per program and edge columns per tile of the resident and
-#: block-skip kernels; 8 x 256 was the fastest of six shapes for every
-#: built-in emit on the scale-21 RMAT graph (tools/sweep_fused_tiles.py,
-#: PERF.md). The block-skip bitmap has one bit per such tile.
+#: the block-skip bitmap's tile: one bit per BLOCK_V rows x BLOCK_K edge
+#: columns (`FusedTables.tile_ptr`). The bitmap kernel and the packed
+#: kernel read the same grid; it sets no kernel's walk
 BLOCK_V = 8
 BLOCK_K = 256
 
-#: vertex rows per CTA of the windowed kernel (one slab pair each), and
-#: the [BV, BK] tile it walks them in: locality-ordered graphs have short
-#: rows, so the tile is narrower than the resident kernel's
-WINDOW_ROWS = 256
-WINDOW_BV = 32
-WINDOW_BK = 32
-
-#: most bytes one CTA's staged slab pair (active flag + property leaves,
-#: 2W rows each) may take; a wider window runs the resident kernel
-WINDOW_SLAB_BYTES = 48 * 1024
-
-#: partial sums per row of an f32 sum: column c adds into partial
-#: c % SUM_LANES in column order, so tiles of any width that is a multiple
-#: of it give the same bits
+#: partial sums per row of an f32 sum, and the width of one chunk of the
+#: resident walk: edge c of a row adds into partial c % SUM_LANES in edge
+#: order, so every walk that keeps that map gives the same bits
 SUM_LANES = 32
+
+#: the resident and block-skip walk (tools/sweep_fused_tiles.py, PERF.md):
+#: rows per light program; a block whose longest row spans more than
+#: HEAVY_CHUNKS chunks goes to SUM_LANES split programs, which take
+#: SPLIT_CHUNKS chunks a step (SPLIT_FSUM_CHUNKS under an f32 sum, whose
+#: split program adds a step's chunks one masked reduction at a time);
+#: warps per program
+LIGHT_ROWS = 16
+HEAVY_CHUNKS = 128
+SPLIT_CHUNKS = 32
+SPLIT_FSUM_CHUNKS = 8
+RESIDENT_WARPS = 2
+
+#: the resident walk takes its row blocks in in-degree order when that
+#: cuts the chunk lanes its light programs walk by this factor
+#: (:func:`orders_rows`): a block's rows then have like lengths, the
+#: longest blocks start first and empty rows share blocks that exit at
+#: once (RMAT-21), while a locality-ordered graph keeps id order
+ORDER_GAIN = 1.5
+
+#: vertex rows per windowed CTA (one slab pair each; the packed windowed
+#: kernel reads the same table). The CTA walks them in tiles of WINDOW_BV
+#: rows, WINDOW_STEP edges a step (a divisor of SUM_LANES; f32 sums too),
+#: with WINDOW_WARPS warps (tools/sweep_window_tiles.py, PERF.md)
+WINDOW_ROWS = 256
+WINDOW_BV = 256
+WINDOW_STEP = 8
+WINDOW_WARPS = 8
+
+#: most bytes one CTA's staged slab pair (active flag as int32 + property
+#: leaves, 2W rows each) may take; a wider window runs the resident
+#: kernel. It decides the route, not the speed
+WINDOW_SLAB_BYTES = 48 * 1024
 
 #: active out-edges per program of the bitmap kernel
 MARK_BLOCK = 1024
@@ -230,6 +283,83 @@ def window_usable(tables: FusedTables | None, num_vertices: int,
         return False
     row_bytes = 4 + sum(t.element_size() for t in leaves)
     return 2 * w * row_bytes <= WINDOW_SLAB_BYTES
+
+
+#: id(indptr) -> (weak reference to it, {key: table}) of the resident
+#: walk's tables; a tensor is no weak dictionary key (its == is
+#: elementwise)
+_TABLES: dict = {}
+
+
+def _layout_tables(indptr) -> dict:
+    key = id(indptr)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0]() is not indptr:
+        hit = (weakref.ref(indptr, lambda _: _TABLES.pop(key, None)), {})
+        _TABLES[key] = hit
+    return hit[1]
+
+
+def _block_chunks(deg, rows: int) -> torch.Tensor:
+    """[P] SUM_LANES-edge chunks of the longest row of each `rows`-row
+    block of the row lengths `deg`."""
+    V = int(deg.shape[0])
+    P = max(-(-V // rows), 1)
+    d = torch.zeros(P * rows, dtype=torch.int64, device=deg.device)
+    d[:V] = deg
+    return -(-d.view(P, rows).amax(dim=1) // SUM_LANES)
+
+
+def _degrees(indptr) -> torch.Tensor:
+    ip = indptr.long()
+    return ip[1:] - ip[:-1]
+
+
+def heavy_blocks(indptr, rows: int = LIGHT_ROWS, chunks: int = HEAVY_CHUNKS,
+                 ordered: bool = False) -> torch.Tensor:
+    """[n] int32 ids of the `rows`-row blocks (of consecutive ids, or with
+    `ordered` of :func:`degree_order`) whose longest row spans more than
+    `chunks` chunks of SUM_LANES edges, ascending. Built on `indptr`'s
+    device the first time a layout's row pointers are seen with these
+    settings, then cached while they live."""
+    tables = _layout_tables(indptr)
+    key = ("heavy", rows, chunks, ordered)
+    if key not in tables:
+        deg = _degrees(indptr)
+        if ordered:
+            deg = deg[degree_order(indptr).long()]
+        tables[key] = torch.nonzero(_block_chunks(deg, rows) > chunks) \
+            .flatten().to(torch.int32)
+    return tables[key]
+
+
+def degree_order(indptr) -> torch.Tensor:
+    """[V] int32 row ids by in-degree, longest first (ties in id order).
+    Cached per layout."""
+    tables = _layout_tables(indptr)
+    if "order" not in tables:
+        tables["order"] = torch.sort(_degrees(indptr), descending=True,
+                                     stable=True).indices.to(torch.int32)
+    return tables["order"]
+
+
+def orders_rows(indptr, rows: int = LIGHT_ROWS) -> bool:
+    """Does the resident walk take its blocks from :func:`degree_order`?
+    Yes when that cuts the chunk lanes its light programs walk by
+    ORDER_GAIN or more (power-law in-degrees); rows of like lengths
+    (a locality-ordered layout) keep id order and its locality. Decided
+    once per layout and `rows`."""
+    tables = _layout_tables(indptr)
+    key = ("orders", rows)
+    if key not in tables:
+        # the chunks the light programs walk (x rows lanes each), in id
+        # order and in degree order
+        deg = _degrees(indptr)
+        ids = int(_block_chunks(deg, rows).sum())
+        by_degree = int(_block_chunks(deg[degree_order(indptr).long()],
+                                      rows).sum())
+        tables[key] = ids >= ORDER_GAIN * by_degree
+    return tables[key]
 
 
 # ---------------------------------------------------------------------------
@@ -374,149 +504,292 @@ def gather_emit_combine_window_plain(program, monoid: str, src, dst, vprops,
 # Triton kernels (plain functions; jitted by _triton() at first launch)
 # ---------------------------------------------------------------------------
 
-def _acc_init(IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
-              FSUM: "tl.constexpr", BV: "tl.constexpr",
-              LANES: "tl.constexpr"):
-    # an f32 sum keeps LANES partial sums per row (see _fold_tile)
-    if FSUM:
-        acc = tl.zeros([BV, LANES], tl.float32)
-    elif ACC_INT:
-        acc = tl.full([BV], IDENT, tl.int32)
-    else:
-        acc = tl.full([BV], IDENT, tl.float32)
-    return acc
-
-
-def _tile_ids_w(e, emask, s, rows, w_ptr, sid_ptr, did_ptr,
-                HAS_W: "tl.constexpr", HAS_IDS: "tl.constexpr",
-                BV: "tl.constexpr", BK: "tl.constexpr"):
-    # the emit's endpoint ids and edge-property leaf for one tile
+def _edge_ids_w(e, emask, s, did, w_ptr, sid_ptr, did_ptr,
+                HAS_W: "tl.constexpr", HAS_IDS: "tl.constexpr"):
+    # the emit's endpoint ids and edge-property leaf for edges `e` (any
+    # shape; `did` is the dst row of each, `s` its src)
     if HAS_W:
         w = tl.load(w_ptr + e, mask=emask, other=0)
     else:
-        w = tl.zeros([BV, BK], tl.float32)
+        w = tl.zeros(e.shape, tl.float32)
     if HAS_IDS:
         sid = tl.load(sid_ptr + e, mask=emask, other=0)
         did = tl.load(did_ptr + e, mask=emask, other=0)
     else:
         sid = s
-        did = rows[:, None] + tl.zeros([BV, BK], tl.int32)
     return sid, did, w
 
 
-def _fold_acc(acc, msg, ok, MONOID: "tl.constexpr", IDENT: "tl.constexpr",
-              ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
-              BV: "tl.constexpr", BK: "tl.constexpr",
-              LANES: "tl.constexpr"):
-    # fold one [BV, BK] tile of one message column into the rows'
-    # accumulators; vetoed entries (`ok` False) fold the identity
-    if ACC_INT:
-        m = msg.to(tl.int32)
-    else:
-        m = msg.to(tl.float32)
-    if FSUM:
-        # column c of a row adds into lane c % LANES, each lane in column
-        # order, whatever the tile: the tile's LANES-wide chunks are taken
-        # one at a time (a sum of one value and zeros is that value)
-        x = tl.reshape(tl.where(ok, m, 0.0), [BV, BK // LANES, LANES])
-        chunk = tl.arange(0, BK // LANES)[None, :, None]
-        for j in tl.static_range(BK // LANES):
-            acc += tl.sum(tl.where(chunk == j, x, 0.0), axis=1)
-    elif MONOID == 0:
-        acc += tl.sum(tl.where(ok, m, 0), axis=1)
-    elif MONOID == 1:
-        acc = tl.minimum(acc, tl.min(tl.where(ok, m, IDENT), axis=1))
-    else:
-        acc = tl.maximum(acc, tl.max(tl.where(ok, m, IDENT), axis=1))
-    return acc
-
-
-def _finish_acc(acc, FSUM: "tl.constexpr", BV: "tl.constexpr",
-                LANES: "tl.constexpr", LOG_LANES: "tl.constexpr"):
-    if FSUM:
-        # the lanes' partial sums, added as a fixed pairwise tree
-        for lvl in tl.static_range(LOG_LANES):
-            x0, x1 = tl.split(tl.reshape(acc, [BV, LANES >> (lvl + 1), 2]))
-            acc = x0 + x1
-        acc = tl.reshape(acc, [BV])
-    return acc
-
-
-def _fold_tile(acc, got, e, emask, ok, s, rows, a, b, w_ptr, valid_ptr,
-               sid_ptr, did_ptr, EMIT: "tl.constexpr",
-               MONOID: "tl.constexpr", IDENT: "tl.constexpr",
-               ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
-               HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
-               HAS_IDS: "tl.constexpr", BV: "tl.constexpr",
-               BK: "tl.constexpr", LANES: "tl.constexpr"):
-    # one [BV, BK] tile of every shape: the emit on the gathered source
-    # leaves `a`, `b`, the veto (`ok` holds the shape's edge mask and the
-    # frontier flag) and the fold into the rows' accumulators
-    sid, did, w = _tile_ids_w(e, emask, s, rows, w_ptr, sid_ptr, did_ptr,
-                              HAS_W, HAS_IDS, BV, BK)
+def _emit_staged(e, emask, s, did, ok, a, b, w_ptr, valid_ptr, sid_ptr,
+                 did_ptr, EMIT: "tl.constexpr", HAS_W: "tl.constexpr",
+                 HAS_VALID: "tl.constexpr", HAS_IDS: "tl.constexpr"):
+    # run the emit on gathered source leaves `a`, `b` and veto: returns
+    # (message, kept) for edges `e`; `ok` holds the shape's edge mask and
+    # the frontier flag
+    sid, did, w = _edge_ids_w(e, emask, s, did, w_ptr, sid_ptr, did_ptr,
+                              HAS_W, HAS_IDS)
     is_emit, msg = EMIT(sid, did, a, b, w, HAS_W)
     ok = ok & (is_emit != 0)
     if HAS_VALID:
         ok = ok & (tl.load(valid_ptr + e, mask=emask, other=0) != 0)
-    acc = _fold_acc(acc, msg, ok, MONOID, IDENT, ACC_INT, FSUM, BV, BK,
-                    LANES)
-    got = tl.maximum(got, tl.max(ok.to(tl.int32), axis=1))
+    return msg, ok
+
+
+def _emit_edges(e, emask, s, did, ok, a_ptr, b_ptr, w_ptr, valid_ptr,
+                sid_ptr, did_ptr, EMIT: "tl.constexpr", N_VP: "tl.constexpr",
+                HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+                HAS_IDS: "tl.constexpr"):
+    # gather the source leaves from device memory, then _emit_staged
+    if N_VP > 0:
+        a = tl.load(a_ptr + s, mask=emask, other=0)
+    else:
+        a = tl.zeros(e.shape, tl.float32)
+    if N_VP > 1:
+        b = tl.load(b_ptr + s, mask=emask, other=0)
+    else:
+        b = tl.zeros(e.shape, tl.float32)
+    return _emit_staged(e, emask, s, did, ok, a, b, w_ptr, valid_ptr,
+                        sid_ptr, did_ptr, EMIT, HAS_W, HAS_VALID, HAS_IDS)
+
+
+def _fold(acc, got, msg, ok, MONOID: "tl.constexpr", IDENT: "tl.constexpr",
+          ACC_INT: "tl.constexpr"):
+    # fold messages elementwise into accumulators of their shape; vetoed
+    # entries fold the identity (an f32 sum's partials start at +0.0, so
+    # adding 0.0 keeps their bits)
+    if ACC_INT:
+        m = msg.to(tl.int32)
+    else:
+        m = msg.to(tl.float32)
+    if MONOID == 0:
+        acc = acc + tl.where(ok, m, 0)
+    elif MONOID == 1:
+        acc = tl.minimum(acc, tl.where(ok, m, IDENT))
+    else:
+        acc = tl.maximum(acc, tl.where(ok, m, IDENT))
+    got = tl.maximum(got, ok.to(tl.int32))
     return acc, got
 
 
-def _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got,
-                FSUM: "tl.constexpr", BV: "tl.constexpr",
-                LANES: "tl.constexpr", LOG_LANES: "tl.constexpr"):
-    acc = _finish_acc(acc, FSUM, BV, LANES, LOG_LANES)
-    tl.store(out_ptr + rows, acc.to(out_ptr.dtype.element_ty), mask=rmask)
-    tl.store(hm_ptr + rows, got.to(tl.uint8), mask=rmask)
+def _finish_acc(acc, BV: "tl.constexpr", LANES: "tl.constexpr",
+                LOG_LANES: "tl.constexpr"):
+    # [BV, LANES] partial sums -> [BV]: lanes 2i and 2i+1 added at each
+    # level, a fixed pairwise tree
+    for lvl in tl.static_range(LOG_LANES):
+        x0, x1 = tl.split(tl.reshape(acc, [BV, LANES >> (lvl + 1), 2]))
+        acc = x0 + x1
+    return tl.reshape(acc, [BV])
+
+
+def _reduce_rows(acc, MONOID: "tl.constexpr", FSUM: "tl.constexpr",
+                 BV: "tl.constexpr", LANES: "tl.constexpr",
+                 LOG_LANES: "tl.constexpr"):
+    # [BV, X] elementwise accumulators -> [BV] (an f32 sum's X is LANES)
+    if FSUM:
+        out = _finish_acc(acc, BV, LANES, LOG_LANES)
+    elif MONOID == 0:
+        out = tl.sum(acc, axis=1)
+    elif MONOID == 1:
+        out = tl.min(acc, axis=1)
+    else:
+        out = tl.max(acc, axis=1)
+    return out
+
+
+def _light_chunk(acc, got, lo, hi, k, live, did, src_ptr, a_ptr, b_ptr,
+                 w_ptr, act_ptr, valid_ptr, sid_ptr, did_ptr,
+                 EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+                 IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                 N_VP: "tl.constexpr", HAS_W: "tl.constexpr",
+                 HAS_VALID: "tl.constexpr", HAS_IDS: "tl.constexpr",
+                 LANES: "tl.constexpr"):
+    # edges k .. k + LANES - 1 of each row (`live` rows only): column j
+    # folds into accumulator column j, which is partial j of an f32 sum
+    e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
+    emask = (e < hi[:, None]) & live[:, None]
+    s = tl.load(src_ptr + e, mask=emask, other=0)
+    ok = emask & (tl.load(act_ptr + s, mask=emask, other=0) != 0)
+    msg, ok = _emit_edges(e, emask, s, did, ok, a_ptr, b_ptr, w_ptr,
+                          valid_ptr, sid_ptr, did_ptr, EMIT, N_VP, HAS_W,
+                          HAS_VALID, HAS_IDS)
+    return _fold(acc, got, msg, ok, MONOID, IDENT, ACC_INT)
+
+
+def _block_rows(order_ptr, blk, num_vertices, BV: "tl.constexpr",
+                ORDERED: "tl.constexpr"):
+    # the rows of block `blk`: BV consecutive ids, or BV consecutive
+    # entries of the row order
+    pos = blk * BV + tl.arange(0, BV)
+    rmask = pos < num_vertices
+    if ORDERED:
+        rows = tl.load(order_ptr + pos, mask=rmask, other=0)
+    else:
+        rows = pos
+    return rows, rmask
+
+
+def _light_block(indptr_ptr, src_ptr, a_ptr, b_ptr, w_ptr, act_ptr,
+                 valid_ptr, sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr,
+                 order_ptr, out_ptr, hm_ptr, num_vertices, blk,
+                 EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+                 IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                 FSUM: "tl.constexpr", N_VP: "tl.constexpr",
+                 HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+                 HAS_IDS: "tl.constexpr", SKIP: "tl.constexpr",
+                 BV: "tl.constexpr", BK: "tl.constexpr",
+                 GROUP: "tl.constexpr", HEAVY: "tl.constexpr",
+                 ORDERED: "tl.constexpr", LANES: "tl.constexpr",
+                 LOG_LANES: "tl.constexpr"):
+    # one light row block; a heavy one is left to its split programs
+    rows, rmask = _block_rows(order_ptr, blk, num_vertices, BV, ORDERED)
+    lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+    hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+    max_deg = tl.max(hi - lo, axis=0)
+    if tl.cdiv(max_deg, LANES) <= HEAVY:
+        if ACC_INT:
+            acc = tl.full([BV, LANES], IDENT, tl.int32)
+        else:
+            acc = tl.full([BV, LANES], IDENT, tl.float32)
+        got = tl.zeros([BV, LANES], tl.int32)
+        did = rows[:, None] + tl.zeros([BV, LANES], tl.int32)
+        if SKIP:
+            # the bit of each row's GROUP-row group, per BK-edge tile; a
+            # dead tile holds only vetoed emissions
+            t0 = tl.load(tile_ptr_ptr + rows // GROUP, mask=rmask, other=0)
+            for k0 in range(0, max_deg, BK):
+                live = tl.load(bitmap_ptr + t0 + k0 // BK,
+                               mask=k0 < hi - lo, other=0) != 0
+                if tl.max(live.to(tl.int32), axis=0) != 0:
+                    for k in range(k0, tl.minimum(k0 + BK, max_deg), LANES):
+                        acc, got = _light_chunk(
+                            acc, got, lo, hi, k, live, did, src_ptr, a_ptr,
+                            b_ptr, w_ptr, act_ptr, valid_ptr, sid_ptr,
+                            did_ptr, EMIT, MONOID, IDENT, ACC_INT, N_VP,
+                            HAS_W, HAS_VALID, HAS_IDS, LANES)
+        else:
+            for k in range(0, max_deg, LANES):
+                acc, got = _light_chunk(
+                    acc, got, lo, hi, k, rmask, did, src_ptr, a_ptr, b_ptr,
+                    w_ptr, act_ptr, valid_ptr, sid_ptr, did_ptr, EMIT,
+                    MONOID, IDENT, ACC_INT, N_VP, HAS_W, HAS_VALID, HAS_IDS,
+                    LANES)
+        out = _reduce_rows(acc, MONOID, FSUM, BV, LANES, LOG_LANES)
+        tl.store(out_ptr + rows, out.to(out_ptr.dtype.element_ty),
+                 mask=rmask)
+        tl.store(hm_ptr + rows, tl.max(got, axis=1).to(tl.uint8),
+                 mask=rmask)
+
+
+def _split_lane(indptr_ptr, src_ptr, a_ptr, b_ptr, w_ptr, act_ptr,
+                valid_ptr, sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr,
+                order_ptr, heavy_ptr, part_ptr, gs_ptr, num_vertices, pid,
+                EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+                IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                FSUM: "tl.constexpr", N_VP: "tl.constexpr",
+                HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+                HAS_IDS: "tl.constexpr", SKIP: "tl.constexpr",
+                BV: "tl.constexpr", BK: "tl.constexpr",
+                GROUP: "tl.constexpr", ORDERED: "tl.constexpr",
+                LANES: "tl.constexpr", NS: "tl.constexpr"):
+    # sum lane g of a heavy block: edge g of every chunk, a [BV, NS] tile
+    # of NS chunks a step, its [BV] partials written to the scratch rows
+    # of `pid`
+    blk = tl.load(heavy_ptr + pid // LANES)
+    g = pid % LANES
+    rows, rmask = _block_rows(order_ptr, blk, num_vertices, BV, ORDERED)
+    lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+    hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+    n_chunks = tl.cdiv(tl.max(hi - lo, axis=0), LANES)
+    if SKIP:
+        t0 = tl.load(tile_ptr_ptr + rows // GROUP, mask=rmask, other=0)
+    if FSUM:
+        acc = tl.zeros([BV], tl.float32)
+        chunk = tl.arange(0, NS)[None, :]
+    elif ACC_INT:
+        acc = tl.full([BV, NS], IDENT, tl.int32)
+    else:
+        acc = tl.full([BV, NS], IDENT, tl.float32)
+    got = tl.zeros([BV, NS], tl.int32)
+    did = rows[:, None] + tl.zeros([BV, NS], tl.int32)
+    for c0 in range(0, n_chunks, NS):
+        k = (c0 + tl.arange(0, NS)) * LANES + g
+        e = lo[:, None] + k[None, :]
+        emask = e < hi[:, None]
+        live = True
+        if SKIP:
+            # drop the edges of dead tiles; skip a step that has none left
+            emask = emask & (tl.load(
+                bitmap_ptr + t0[:, None] + k[None, :] // BK, mask=emask,
+                other=0) != 0)
+            live = tl.max(tl.max(emask.to(tl.int32), axis=1), axis=0) != 0
+        if live:
+            s = tl.load(src_ptr + e, mask=emask, other=0)
+            ok = emask & (tl.load(act_ptr + s, mask=emask, other=0) != 0)
+            msg, ok = _emit_edges(e, emask, s, did, ok, a_ptr, b_ptr,
+                                  w_ptr, valid_ptr, sid_ptr, did_ptr, EMIT,
+                                  N_VP, HAS_W, HAS_VALID, HAS_IDS)
+            if FSUM:
+                # the step's chunks one at a time, in chunk order (a sum
+                # of one value and zeros is that value): the partial's
+                # edge order
+                x = tl.where(ok, msg.to(tl.float32), 0.0)
+                for j in tl.static_range(NS):
+                    acc = acc + tl.sum(tl.where(chunk == j, x, 0.0), axis=1)
+                got = tl.maximum(got, ok.to(tl.int32))
+            else:
+                acc, got = _fold(acc, got, msg, ok, MONOID, IDENT, ACC_INT)
+    if not FSUM:
+        acc = _reduce_rows(acc, MONOID, False, BV, LANES, 0)
+    part = pid * BV + tl.arange(0, BV)
+    tl.store(part_ptr + part, acc)
+    tl.store(gs_ptr + part, tl.max(got, axis=1))
 
 
 def _gather_emit_combine_kernel(
         indptr_ptr, src_ptr, a_ptr, b_ptr, w_ptr, act_ptr, valid_ptr,
-        sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr, out_ptr, hm_ptr,
-        num_vertices,
+        sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr, order_ptr, heavy_ptr,
+        part_ptr, gs_ptr, out_ptr, hm_ptr, num_vertices, n_split,
         EMIT: "tl.constexpr", MONOID: "tl.constexpr", IDENT: "tl.constexpr",
         ACC_INT: "tl.constexpr", FSUM: "tl.constexpr", N_VP: "tl.constexpr",
         HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
         HAS_IDS: "tl.constexpr", SKIP: "tl.constexpr", BV: "tl.constexpr",
-        BK: "tl.constexpr", LANES: "tl.constexpr",
+        BK: "tl.constexpr", GROUP: "tl.constexpr", HEAVY: "tl.constexpr",
+        ORDERED: "tl.constexpr", NS: "tl.constexpr", LANES: "tl.constexpr",
         LOG_LANES: "tl.constexpr"):
+    # the heavy blocks' split programs first, then one program per block
     pid = tl.program_id(0)
-    rows = pid * BV + tl.arange(0, BV)
-    rmask = rows < num_vertices
-    lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
-    hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
-    max_deg = tl.max(hi - lo, axis=0)
-    acc = _acc_init(IDENT, ACC_INT, FSUM, BV, LANES)
-    got = tl.zeros([BV], tl.int32)
-    if SKIP:
-        t0 = tl.load(tile_ptr_ptr + pid)
-    for k in range(0, max_deg, BK):
-        live = True
-        if SKIP:
-            # a dead tile holds only vetoed emissions: skip it before any
-            # gather or emit
-            live = tl.load(bitmap_ptr + t0 + k // BK) != 0
-        if live:
-            e = lo[:, None] + k + tl.arange(0, BK)[None, :]
-            emask = e < hi[:, None]
-            s = tl.load(src_ptr + e, mask=emask, other=0)
-            act = tl.load(act_ptr + s, mask=emask, other=0) != 0
-            if N_VP > 0:
-                a = tl.load(a_ptr + s, mask=emask, other=0)
-            else:
-                a = tl.zeros([BV, BK], tl.float32)
-            if N_VP > 1:
-                b = tl.load(b_ptr + s, mask=emask, other=0)
-            else:
-                b = tl.zeros([BV, BK], tl.float32)
-            acc, got = _fold_tile(
-                acc, got, e, emask, emask & act, s, rows, a, b, w_ptr,
-                valid_ptr, sid_ptr, did_ptr, EMIT, MONOID, IDENT, ACC_INT,
-                FSUM, HAS_W, HAS_VALID, HAS_IDS, BV, BK, LANES)
-    _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got, FSUM, BV, LANES,
-                LOG_LANES)
+    if pid < n_split:
+        _split_lane(indptr_ptr, src_ptr, a_ptr, b_ptr, w_ptr, act_ptr,
+                    valid_ptr, sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr,
+                    order_ptr, heavy_ptr, part_ptr, gs_ptr, num_vertices,
+                    pid, EMIT, MONOID, IDENT, ACC_INT, FSUM, N_VP, HAS_W,
+                    HAS_VALID, HAS_IDS, SKIP, BV, BK, GROUP, ORDERED, LANES,
+                    NS)
+    else:
+        _light_block(indptr_ptr, src_ptr, a_ptr, b_ptr, w_ptr, act_ptr,
+                     valid_ptr, sid_ptr, did_ptr, tile_ptr_ptr, bitmap_ptr,
+                     order_ptr, out_ptr, hm_ptr, num_vertices, pid - n_split,
+                     EMIT, MONOID, IDENT, ACC_INT, FSUM, N_VP, HAS_W,
+                     HAS_VALID, HAS_IDS, SKIP, BV, BK, GROUP, HEAVY, ORDERED,
+                     LANES, LOG_LANES)
+
+
+def _finish_kernel(order_ptr, heavy_ptr, part_ptr, gs_ptr, out_ptr, hm_ptr,
+                   num_vertices, MONOID: "tl.constexpr",
+                   FSUM: "tl.constexpr", BV: "tl.constexpr",
+                   ORDERED: "tl.constexpr", LANES: "tl.constexpr",
+                   LOG_LANES: "tl.constexpr"):
+    # a heavy block's rows from its LANES split programs' partials
+    i = tl.program_id(0)
+    rows, rmask = _block_rows(order_ptr, tl.load(heavy_ptr + i),
+                              num_vertices, BV, ORDERED)
+    part = (i * LANES + tl.arange(0, LANES))[None, :] * BV \
+        + tl.arange(0, BV)[:, None]
+    out = _reduce_rows(tl.load(part_ptr + part), MONOID, FSUM, BV, LANES,
+                       LOG_LANES)
+    tl.store(out_ptr + rows, out.to(out_ptr.dtype.element_ty), mask=rmask)
+    tl.store(hm_ptr + rows, tl.max(tl.load(gs_ptr + part), axis=1)
+             .to(tl.uint8), mask=rmask)
 
 
 def _window_kernel(
@@ -526,10 +799,11 @@ def _window_kernel(
         ACC_INT: "tl.constexpr", FSUM: "tl.constexpr", N_VP: "tl.constexpr",
         HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
         HAS_IDS: "tl.constexpr", W: "tl.constexpr", ROWS: "tl.constexpr",
-        BV: "tl.constexpr", BK: "tl.constexpr", LANES: "tl.constexpr",
+        BV: "tl.constexpr", STEP: "tl.constexpr", LANES: "tl.constexpr",
         LOG_LANES: "tl.constexpr"):
+    # stage the slab pair [q·W, (q+2)·W) of the frontier flag and of each
+    # gathered leaf once; every gather is a tl.gather from it
     cta = tl.program_id(0)
-    # stage the slab pair [q·W, (q+2)·W) of every gathered leaf once
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
@@ -538,36 +812,61 @@ def _window_kernel(
         a_s = tl.load(a_ptr + slab, mask=smask, other=0)
     if N_VP > 1:
         b_s = tl.load(b_ptr + slab, mask=smask, other=0)
+    NG: tl.constexpr = LANES // STEP
     for sub in range(0, ROWS, BV):
         rows = cta * ROWS + sub + tl.arange(0, BV)
         rmask = rows < num_vertices
         lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
         hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
         max_deg = tl.max(hi - lo, axis=0)
-        acc = _acc_init(IDENT, ACC_INT, FSUM, BV, LANES)
-        got = tl.zeros([BV], tl.int32)
-        for k in range(0, max_deg, BK):
-            e = lo[:, None] + k + tl.arange(0, BK)[None, :]
+        if FSUM:
+            # partial g * STEP + i of a row: [BV, NG, STEP]
+            acc = tl.zeros([BV, NG, STEP], tl.float32)
+            grp = tl.arange(0, NG)[None, :, None]
+        elif ACC_INT:
+            acc = tl.full([BV, STEP], IDENT, tl.int32)
+        else:
+            acc = tl.full([BV, STEP], IDENT, tl.float32)
+        got = tl.zeros([BV, STEP], tl.int32)
+        did = rows[:, None] + tl.zeros([BV, STEP], tl.int32)
+        for k in range(0, max_deg, STEP):
+            e = lo[:, None] + k + tl.arange(0, STEP)[None, :]
             emask = e < hi[:, None]
             s = tl.load(src_ptr + e, mask=emask, other=0)
             idx = s - base
-            in_win = (idx >= 0) & (idx < 2 * W)
-            flat = tl.reshape(tl.where(in_win, idx, 0), [BV * BK])
-            act = tl.reshape(tl.gather(act_s, flat, 0), [BV, BK]) != 0
+            win = emask & (idx >= 0) & (idx < 2 * W)
+            flat = tl.reshape(tl.where(win, idx, 0), [BV * STEP])
+            ok = win & (tl.reshape(tl.gather(act_s, flat, 0), [BV, STEP])
+                        != 0)
             if N_VP > 0:
-                a = tl.reshape(tl.gather(a_s, flat, 0), [BV, BK])
+                a = tl.reshape(tl.gather(a_s, flat, 0), [BV, STEP])
             else:
-                a = tl.zeros([BV, BK], tl.float32)
+                a = tl.zeros([BV, STEP], tl.float32)
             if N_VP > 1:
-                b = tl.reshape(tl.gather(b_s, flat, 0), [BV, BK])
+                b = tl.reshape(tl.gather(b_s, flat, 0), [BV, STEP])
             else:
-                b = tl.zeros([BV, BK], tl.float32)
-            acc, got = _fold_tile(
-                acc, got, e, emask, emask & in_win & act, s, rows, a, b,
-                w_ptr, valid_ptr, sid_ptr, did_ptr, EMIT, MONOID, IDENT,
-                ACC_INT, FSUM, HAS_W, HAS_VALID, HAS_IDS, BV, BK, LANES)
-        _store_rows(out_ptr, hm_ptr, rows, rmask, acc, got, FSUM, BV, LANES,
-                    LOG_LANES)
+                b = tl.zeros([BV, STEP], tl.float32)
+            msg, ok = _emit_staged(e, emask, s, did, ok, a, b, w_ptr,
+                                   valid_ptr, sid_ptr, did_ptr, EMIT, HAS_W,
+                                   HAS_VALID, HAS_IDS)
+            if FSUM:
+                # columns k .. k + STEP - 1 add into partials
+                # k % LANES .. k % LANES + STEP - 1
+                x = tl.where(ok, msg.to(tl.float32), 0.0)
+                acc = tl.where(grp == (k // STEP) % NG, acc + x[:, None, :],
+                               acc)
+                got = tl.maximum(got, ok.to(tl.int32))
+            else:
+                acc, got = _fold(acc, got, msg, ok, MONOID, IDENT, ACC_INT)
+        if FSUM:
+            out = _finish_acc(tl.reshape(acc, [BV, LANES]), BV, LANES,
+                              LOG_LANES)
+        else:
+            out = _reduce_rows(acc, MONOID, False, BV, LANES, 0)
+        tl.store(out_ptr + rows, out.to(out_ptr.dtype.element_ty),
+                 mask=rmask)
+        tl.store(hm_ptr + rows, tl.max(got, axis=1).to(tl.uint8),
+                 mask=rmask)
 
 
 def _mark_tiles_kernel(cum_ptr, out_indptr_ptr, out_tile_ptr, bitmap_ptr,
@@ -590,6 +889,11 @@ def _mark_tiles_kernel(cum_ptr, out_indptr_ptr, out_tile_ptr, bitmap_ptr,
     tl.store(bitmap_ptr + t, tl.full([BLOCK], 1, tl.uint8), mask=m)
 
 
+_HELPERS = ("_edge_ids_w", "_emit_staged", "_emit_edges", "_fold",
+            "_finish_acc", "_reduce_rows", "_light_chunk", "_block_rows",
+            "_light_block", "_split_lane")
+
+
 @functools.cache
 def _triton():
     """Import triton and jit the kernels (first launch only). Returns
@@ -597,23 +901,20 @@ def _triton():
     global tl
     from .build import import_triton
     triton, tl = import_triton()
-    # the shared device functions are looked up by name when a kernel
-    # compiles, so they are bound as jitted functions first
-    global _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile
-    global _store_rows
-    _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile, \
-        _store_rows = (triton.jit(f) for f in (
-            _acc_init, _tile_ids_w, _fold_acc, _finish_acc, _fold_tile,
-            _store_rows))
+    # the device functions are looked up by name when a kernel compiles,
+    # so they are bound as jitted functions first
+    for name in _HELPERS:
+        globals()[name] = triton.jit(globals()[name])
     return triton, {"resident": triton.jit(_gather_emit_combine_kernel),
+                    "finish": triton.jit(_finish_kernel),
                     "window": triton.jit(_window_kernel),
                     "mark": triton.jit(_mark_tiles_kernel)}
 
 
 def require_gather():
-    """The windowed kernel gathers from its staged slab with `tl.gather`
-    (Triton >= 3.2); raise, naming the installed version, if the
-    installed Triton cannot."""
+    """The windowed kernels gather from their staged slab pair with
+    `tl.gather` (Triton >= 3.2); raise, naming the installed version, if
+    the installed Triton cannot."""
     triton, _ = _triton()
     parts = tuple(int(p) for p in triton.__version__.split(".")[:2])
     if parts < (3, 2) or not hasattr(tl, "gather"):
@@ -627,16 +928,23 @@ def require_gather():
 # Launchers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _lanes(block_k: int) -> dict:
-    """The f32 sum's partials per row for a tile `block_k` wide:
-    SUM_LANES, or the tile's width when it is narrower (a tile sweep's
-    shape; such tiles do not promise the other shapes' bits)."""
-    c = min(SUM_LANES, int(block_k))
+def _lanes(width: int) -> dict:
+    """LANES and its log for a walk `width` edges wide (at most
+    SUM_LANES)."""
+    c = min(SUM_LANES, int(width))
     return {"LANES": c, "LOG_LANES": c.bit_length() - 1}
 
 
 def _u8(t):
     return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _pow2(name: str, x: int, most: int) -> int:
+    x = int(x)
+    if x < 1 or x & (x - 1) or x > most:
+        raise ValueError(f"fused kernel: {name} must be a power of two "
+                         f"<= {most}, got {x}")
+    return x
 
 
 def _launch_args(program, monoid, indptr, src, vprops, eprops, active, V,
@@ -708,14 +1016,21 @@ def gather_emit_combine_triton(program, monoid: str, indptr, src, vprops,
                                eprops, active, num_vertices: int, *,
                                dst=None, valid=None, src_ids=None,
                                dst_ids=None, tables: FusedTables | None = None,
-                               bitmap=None, block_v: int = BLOCK_V,
-                               block_k: int = BLOCK_K):
+                               bitmap=None, rows: int = LIGHT_ROWS,
+                               heavy: int = HEAVY_CHUNKS,
+                               split_chunks: int | None = None,
+                               num_warps: int = RESIDENT_WARPS,
+                               ordered: bool | None = None):
     """Launch the resident kernel, or with `bitmap` (a [num_tiles] uint8
     tile bitmap over `tables`) the block-skip kernel, on the current
-    stream. Returns (inbox record [V] of the program's single message
-    leaf, has_msg [V] bool). `block_v` x `block_k` is the resident tile
-    (powers of two); the block-skip kernel runs the tile its tables were
-    built for."""
+    stream, and the heavy blocks' finishing kernel when the layout has
+    heavy blocks. Returns (inbox record [V] of the program's single
+    message leaf, has_msg [V] bool). `rows` (rows per program), `heavy`
+    (chunks past which a block is split), `split_chunks` (chunks a split
+    program takes a step; the default depends on the monoid),
+    `num_warps` (powers of two) and `ordered` (blocks of
+    :func:`degree_order`; None = :func:`orders_rows`) set the walk; every
+    setting gives the same bits."""
     V = int(num_vertices)
     key, msg_dtype, p, const = _launch_args(
         program, monoid, indptr, src, vprops, eprops, active, V, dst, valid,
@@ -729,18 +1044,41 @@ def gather_emit_combine_triton(program, monoid: str, indptr, src, vprops,
                 or tuple(bitmap.shape) != (tables.num_tiles,)):
             raise ValueError(f"block-skip kernel: bitmap must be uint8 "
                              f"({tables.num_tiles},) on {src.device}")
-        block_v, block_k = BLOCK_V, BLOCK_K
+    rows = _pow2("rows", rows, 1024)
+    if split_chunks is None:
+        split_chunks = SPLIT_FSUM_CHUNKS if const["FSUM"] else SPLIT_CHUNKS
+    split_chunks = _pow2("split_chunks", split_chunks, 1024)
     _, kernels = _triton()
-    out = torch.empty(V, dtype=msg_dtype, device=src.device)
-    hm = torch.empty(V, dtype=torch.uint8, device=src.device)
-    grid = (max(-(-V // block_v), 1),)
-    kernels["resident"][grid](
+    dev = src.device
+    out = torch.empty(V, dtype=msg_dtype, device=dev)
+    hm = torch.empty(V, dtype=torch.uint8, device=dev)
+    if ordered is None:
+        ordered = orders_rows(indptr, rows)
+    order = degree_order(indptr) if ordered else src
+    hb = heavy_blocks(indptr, rows, int(heavy), ordered)
+    n_heavy = int(hb.shape[0])
+    n_split = n_heavy * SUM_LANES
+    # each split program's [rows] partials and has-msg flags
+    part = torch.empty(max(n_split, 1) * rows, device=dev,
+                       dtype=torch.int32 if const["ACC_INT"]
+                       else torch.float32)
+    gs = torch.empty(max(n_split, 1) * rows, dtype=torch.int32, device=dev)
+    lanes = _lanes(SUM_LANES)
+    kernels["resident"][(n_split + max(-(-V // rows), 1),)](
         indptr, src, p["a"], p["b"], p["w"], p["act"], p["valid"], p["sid"],
-        p["did"], tables.tile_ptr if skip else src,
-        bitmap if skip else src, out, hm, V, **const, SKIP=skip,
-        BV=block_v, BK=block_k, **_lanes(block_k), num_warps=4)
+        p["did"], tables.tile_ptr if skip else src, bitmap if skip else src,
+        order, hb if n_heavy else src, part, gs, out, hm, V, n_split,
+        **const, SKIP=skip, BV=rows, BK=BLOCK_K, GROUP=BLOCK_V,
+        HEAVY=int(heavy), ORDERED=ordered, NS=split_chunks, **lanes,
+        num_warps=num_warps)
     counters.LAUNCHES["gather_emit_combine_skip" if skip
                       else "gather_emit_combine"] += 1
+    if n_heavy:
+        kernels["finish"][(n_heavy,)](
+            order, hb, part, gs, out, hm, V, MONOID=const["MONOID"],
+            FSUM=const["FSUM"], BV=rows, ORDERED=ordered, **lanes,
+            num_warps=4)
+        counters.LAUNCHES["gather_emit_combine_finish"] += 1
     return {key: out}, hm.view(torch.bool)
 
 
@@ -748,12 +1086,14 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
                                       vprops, eprops, active,
                                       num_vertices: int, tables: FusedTables,
                                       *, dst=None, valid=None, src_ids=None,
-                                      dst_ids=None, block_v: int = WINDOW_BV,
-                                      block_k: int = WINDOW_BK):
+                                      dst_ids=None, rows: int = WINDOW_BV,
+                                      step: int = WINDOW_STEP,
+                                      num_warps: int = WINDOW_WARPS):
     """Launch the windowed kernel on the current stream (the caller has
     checked :func:`window_usable`). Returns (inbox record [V], has_msg [V]
-    bool). `block_v` x `block_k` is the tile each CTA walks its
-    WINDOW_ROWS rows in (powers of two, block_v dividing WINDOW_ROWS)."""
+    bool). Each CTA walks its WINDOW_ROWS rows in tiles of `rows` rows,
+    `step` edges a step (a divisor of SUM_LANES), with `num_warps` warps;
+    every setting gives the same bits."""
     V = int(num_vertices)
     key, msg_dtype, p, const = _launch_args(
         program, monoid, indptr, src, vprops, eprops, active, V, dst, valid,
@@ -763,6 +1103,8 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     if q.device != src.device or tuple(q.shape) != (C,):
         raise ValueError(f"windowed kernel: window_q must be ({C},) on "
                          f"{src.device}")
+    rows = _pow2("rows", rows, WINDOW_ROWS)
+    step = _pow2("step", step, SUM_LANES)
     require_gather()
     _, kernels = _triton()
     out = torch.empty(V, dtype=msg_dtype, device=src.device)
@@ -770,8 +1112,8 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     kernels["window"][(C,)](
         indptr, src, q, p["a"], p["b"], p["w"], p["act"], p["valid"],
         p["sid"], p["did"], out, hm, V, **const, W=int(tables.window),
-        ROWS=WINDOW_ROWS, BV=block_v, BK=block_k, **_lanes(block_k),
-        num_warps=4)
+        ROWS=WINDOW_ROWS, BV=rows, STEP=step, **_lanes(SUM_LANES),
+        num_warps=num_warps)
     counters.LAUNCHES["gather_emit_combine_window"] += 1
     return {key: out}, hm.view(torch.bool)
 

@@ -63,7 +63,9 @@ Design:
     the SUM_LANES partials of an f32 sum by the same pairwise tree and
     combines the rest by their monoid, so the split changes no bit. The
     heavy block list is built on the device once per layout
-    (:func:`heavy_blocks`); the split programs run first in the grid.
+    (:func:`heavy_blocks`, the single-leaf kernel's table at this
+    kernel's threshold); the split programs run first in the grid. The
+    single-leaf kernel runs the same schedule for one scalar leaf.
   * Block-skip (`SKIP`) keeps the single-leaf kernel's tile grid: one
     bitmap bit per BLOCK_V x BLOCK_K tile through `tile_ptr`; a light
     program tests a tile's bit before walking its chunks, a split program
@@ -537,30 +539,11 @@ def slab_row_bytes(leaves, ncol: int) -> int:
                    for t in leaves)
 
 
-#: id(indptr) -> (weak reference to it, its heavy blocks); a tensor is no
-#: weak dictionary key (its == is elementwise)
-_HEAVY: dict = {}
-
-
 def heavy_blocks(indptr) -> torch.Tensor:
-    """[n] int32 ids of the BLOCK_V-row blocks whose longest row spans more
-    than HEAVY_CHUNKS chunks of SUM_LANES edges, ascending; built on
-    `indptr`'s device the first time a layout's row pointers are seen,
-    then cached while they live."""
-    key = id(indptr)
-    hit = _HEAVY.get(key)
-    if hit is not None and hit[0]() is indptr:
-        return hit[1]
-    V = int(indptr.shape[0]) - 1
-    P = max(-(-V // fge.BLOCK_V), 1)
-    ip = indptr.long()
-    deg = torch.zeros(P * fge.BLOCK_V, dtype=torch.int64, device=ip.device)
-    deg[:V] = ip[1:] - ip[:-1]
-    chunks = -(-deg.view(P, fge.BLOCK_V).amax(dim=1) // fge.SUM_LANES)
-    out = torch.nonzero(chunks > HEAVY_CHUNKS).flatten().to(torch.int32)
-    _HEAVY[key] = (weakref.ref(indptr, lambda _: _HEAVY.pop(key, None)),
-                   out)
-    return out
+    """The packed kernel's heavy blocks: the BLOCK_V-row blocks past its
+    own HEAVY_CHUNKS (:func:`.fused_gather_emit.heavy_blocks`, cached per
+    layout)."""
+    return fge.heavy_blocks(indptr, fge.BLOCK_V, HEAVY_CHUNKS)
 
 
 #: the generated module's first lines: triton is imported there, at
@@ -571,7 +554,7 @@ _HEADER = "\n".join([
     "import triton",
     "import triton.language as tl",
     "",
-    "from {helpers} import _tile_ids_w",
+    "from {helpers} import _edge_ids_w",
     "from {module} import _lane_tree",
     "", "", ""])
 
@@ -828,8 +811,9 @@ def _body_lines(layout, path: str, ind: str):
     out = [f"{ind}if HAS_VALID:",
            f"{ind}    eok = eok & (tl.load(valid_ptr + e, mask=emask, "
            "other=0) != 0)",
-           f"{ind}sid, did, w = _tile_ids_w(e, emask, s, rows, w_ptr, "
-           f"sid_ptr, did_ptr, HAS_W, HAS_IDS, BV, {mid})"]
+           f"{ind}sid, did, w = _edge_ids_w(e, emask, s, rows[:, None] + "
+           f"tl.zeros([BV, {mid}], tl.int32), w_ptr, sid_ptr, did_ptr, "
+           "HAS_W, HAS_IDS)"]
     # a [V] leaf is gathered once for every column
     for i, vec in enumerate(read_vec):
         if vec:

@@ -421,6 +421,200 @@ def test_window_kernel_vs_plain(cuda, banded, name):
     assert torch.equal(out[key], res[key])  # f32 sums too: one sum order
 
 
+def _random_state(prog, gdev, seed):
+    """The program's init with random values in every vertex leaf (f32
+    in [0, 50), int32 in [0, 6)), so every edge emits a distinct term."""
+    V = gdev.num_vertices
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V,
+                              vids=gdev.vertex_perm)
+    rng = np.random.default_rng(seed)
+    for k, x in vp.items():
+        new = rng.random(V) * 50 if x.dtype == torch.float32 \
+            else rng.integers(0, 6, V)
+        vp[k] = torch.from_numpy(new).to(x.dtype).to(x.device)
+    return vp
+
+
+def _hub_graph(cuda, hub=50_000):
+    """A star whose hub (vertex 3) hears from `hub` vertices, the last
+    vertex (a partial row block: V = hub + 61 is no multiple of 8) from
+    5,000, and 6,000 random edges: two blocks past the single-leaf
+    kernel's heavy threshold."""
+    from repro_torch.core.graph import from_edges
+    V = hub + 61
+    rng = np.random.default_rng(17)
+    src = np.concatenate([np.arange(61, V), rng.integers(0, V, 5000),
+                          rng.integers(0, V, 6000)])
+    dst = np.concatenate([np.full(hub, 3), np.full(5000, V - 1),
+                          rng.integers(8, V, 6000)])
+    w = (rng.random(src.shape[0]) * 9 + 1).astype(np.float32)
+    g = from_edges(src, dst, V, edge_props={"weight": w})
+    gdev = graph_device.build_device_graph(g, device=cuda)
+    heavy = fge.heavy_blocks(gdev.canonical.in_indptr).tolist()
+    assert heavy == [0, (V - 1) // fge.LIGHT_ROWS]
+    return gdev
+
+
+def _fsum(prog, out):
+    return prog.monoid == "sum" and out.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "valid_ids"])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_k1_hub_split_matches_order_and_packed(cuda, name, case):
+    """K1 on a graph with two heavy blocks (split programs + finishing
+    kernel), every built-in emit, with and without `valid` and the id
+    arguments: bitwise equal to the kernels' order emulation (an f32 sum)
+    or to the plain version (the rest), and to the packed kernel's
+    one-column launch."""
+    from repro_torch.kernels import fused_packed as fp
+    from test_torch_fused_order import kernel_order_fsum
+    gdev = _hub_graph(cuda)
+    V, cv = gdev.num_vertices, gdev.canonical
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=len(name))
+    rng = np.random.default_rng(3)
+    active = torch.from_numpy(rng.random(V) < 0.8).to(cuda)
+    kw = {}
+    if case == "valid_ids":
+        kw = {"valid": torch.from_numpy(rng.random(cv.num_edges) < 0.6)
+              .to(cuda), "src_ids": cv.src + 1000, "dst_ids": cv.dst + 2000}
+    args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
+            V)
+    counters.reset()
+    out, hm = fge.gather_emit_combine_triton(*args, dst=cv.dst, **kw)
+    torch.cuda.synchronize()
+    launched = counters.snapshot()
+    assert launched["gather_emit_combine"] == 1
+    assert launched["gather_emit_combine_finish"] == 1
+    (key,) = out.keys()
+    ref, rhm = fge.gather_emit_combine_plain(
+        prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V, **kw)
+    assert torch.equal(hm, rhm)
+    if _fsum(prog, out[key]):
+        msgs, ok, _, _ = fge._plain_emit(
+            prog, cv.src, cv.dst, vp, cv.eprops, active, V, kw.get("valid"),
+            kw.get("src_ids"), kw.get("dst_ids"))
+        want = kernel_order_fsum(msgs[key].cpu(), ok.cpu(),
+                                 cv.in_indptr.cpu())
+        assert torch.equal(out[key].cpu(), want)
+    else:
+        assert torch.equal(out[key], ref[key])
+    monoids = (prog.monoid,)
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
+    slabs, phm = fp.gather_emit_combine_packed_triton(
+        *args[:1], monoids, *args[2:], plan=plan, pack=pack, dst=cv.dst,
+        **kw)
+    assert torch.equal(phm, hm)
+    assert torch.equal(fp._unpack(plan, pack, slabs)[key], out[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.001, 1.0])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_skip_kernel_with_a_hub(cuda, name, dens):
+    """Block-skip on a graph with heavy blocks: bitwise equal to the
+    resident kernel, and to its plain version within the stated
+    tolerance; the heavy blocks' finishing kernel runs at every
+    density."""
+    gdev = _hub_graph(cuda)
+    V, cv, t = gdev.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=5)
+    active = _frontier(V, dens, cuda)
+    args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
+            V)
+    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    counters.reset()
+    out, hm = fge.gather_emit_combine_triton(*args, tables=t, bitmap=bm)
+    torch.cuda.synchronize()
+    launched = counters.snapshot()
+    assert launched["gather_emit_combine_skip"] == 1
+    assert launched["gather_emit_combine_finish"] == 1
+    res, rhm = fge.gather_emit_combine_triton(*args)
+    (key,) = out.keys()
+    assert torch.equal(hm, rhm) and torch.equal(out[key], res[key])
+    ref, phm = fge.gather_emit_combine_skip_plain(
+        prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V,
+        cv.in_indptr, t, bm)
+    assert torch.equal(hm, phm)
+    _assert_match(out[key], ref[key], "float32" if out[key].dtype
+                  == torch.float32 else "int32", prog.monoid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 8, 16, 32])
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_k1_walk_settings_keep_the_bits(cuda, name, rows):
+    """Rows per program, the heavy threshold and the split step set the
+    walk, not the bits: resident and block-skip at each setting equal the
+    default launch bitwise."""
+    gdev = _hub_graph(cuda)
+    V, cv, t = gdev.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=rows)
+    active = _frontier(V, 0.3, cuda)
+    args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
+            V)
+    base, bhm = fge.gather_emit_combine_triton(*args)
+    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    (key,) = base.keys()
+    for heavy, ns in ((2, 2), (fge.HEAVY_CHUNKS, None), (10**6, None)):
+        for kw in ({}, {"tables": t, "bitmap": bm}):
+            for ordered in (True, False):
+                out, hm = fge.gather_emit_combine_triton(
+                    *args, rows=rows, heavy=heavy, split_chunks=ns,
+                    ordered=ordered, **kw)
+                assert torch.equal(hm, bhm)
+                assert torch.equal(out[key], base[key]), (heavy, ns, kw)
+
+
+@pytest.fixture(scope="module")
+def banded_long():
+    """A banded community with ~43 in-edges a row (some past 64), so the
+    windowed steps wrap around the 32 partials."""
+    return io.part_community_graph(1, 2**13, degree=48, band=4,
+                                   cross_edges=0, seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [8, 16, 32])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_window_steps_match_resident(cuda, banded_long, name, step):
+    """The windowed kernel at each step width, every built-in emit, on
+    rows longer than 32 edges: bitwise equal to the resident kernel (an
+    f32 sum's step of S edges at column k adds into partials k % 32 ..
+    k % 32 + S - 1), and to its plain version within the stated
+    tolerance."""
+    g = banded_long
+    gdev = graph_device.build_device_graph(g, reorder="rcm", device=cuda)
+    V, cv, t = g.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=step)
+    reads = [vp[n] for n in prog.triton_emit_reads[0]]
+    assert fge.window_usable(t, V, reads)
+    active = _frontier(V, 0.7, cuda)
+    args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
+            V)
+    ids = dict(dst=cv.dst, src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    counters.reset()
+    out, hm = fge.gather_emit_combine_window_triton(*args, t, step=step,
+                                                    **ids)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_window"] == 1
+    res, rhm = fge.gather_emit_combine_triton(*args, **ids)
+    (key,) = out.keys()
+    assert torch.equal(hm, rhm) and torch.equal(out[key], res[key])
+    ref, phm = fge.gather_emit_combine_window_plain(
+        prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V, t,
+        src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    assert torch.equal(hm, phm)
+    _assert_match(out[key], ref[key], "float32" if out[key].dtype
+                  == torch.float32 else "int32", prog.monoid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["pushpull", "pregel", "gas"])
 @pytest.mark.parametrize("name", ["sssp", "cc", "bfs", "pagerank"])

@@ -3,6 +3,7 @@
     python3 tools/sweep_packed_lanes.py [--scale 21] [--qs 1,2,4,8,16,32]
         [--src OTHER_TREE/src] [--graph-cache build/rmat21.npz]
     python3 tools/sweep_packed_lanes.py --window [--log2v 21] [--qs ...]
+    python3 tools/sweep_packed_lanes.py --skip 0.01 [--qs ...]
 
 For the SSSP and PPR emits, builds a mid-run batched vertex state of Q
 lanes (random finite values on half the vertices, a random `_lane_act`)
@@ -18,6 +19,10 @@ graph (one banded community under scrambled ids, relabeled by RCM), beside
 the single-leaf windowed kernel; each line also says whether the packed
 windowed rule of the imported tree takes that Q (`window_usable=`, "n/a"
 for a tree without the rule); the shape is timed either way.
+
+`--skip DENSITY` runs the packed block-skip shape instead, on the RMAT
+graph with the union frontier cut to a seeded random DENSITY share of the
+vertices, beside the single-leaf block-skip kernel on lane 0's frontier.
 
 `--src` imports `repro_torch` from another checkout's src/, so two
 versions are compared on one GPU by running this script once for each;
@@ -51,6 +56,9 @@ def main():
                          "graph")
     ap.add_argument("--log2v", type=int, default=21,
                     help="vertices of the banded graph (V = 2**log2v)")
+    ap.add_argument("--skip", type=float, default=None,
+                    help="the block-skip shape at this union frontier "
+                         "density")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -100,6 +108,12 @@ def main():
             prog = vcprog.as_batched([ctor(r) for r in range(q)])
             vp = batched_state(prog, gdev, rng, key)
             act = (vp["_lane_act"] > 0).any(1)
+            if args.skip is not None:
+                act = act & (torch.from_numpy(rng.random(V) < args.skip)
+                             .to(act.device))
+                shape = dict(tables=tables, bitmap=fge.tile_bitmap_triton(
+                    act, tables, int(torch.where(act, gdev.out_degree, 0)
+                                     .sum())))
             monoids = leaf_monoids(prog, vcprog.empty_record(prog, "cuda"))
             plan = fp.packed_plan(prog, vp, cv.eprops, V, E)
             pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
@@ -114,9 +128,14 @@ def main():
                     base, base.monoid, cv.in_indptr, cv.src, lane_vp,
                     cv.eprops, lane_act, V, tables, dst=cv.dst)
             else:
+                kw = {}
+                if args.skip is not None:
+                    kw = dict(tables=tables, bitmap=fge.tile_bitmap_triton(
+                        lane_act, tables, int(torch.where(
+                            lane_act, gdev.out_degree, 0).sum())))
                 k1 = lambda: fge.gather_emit_combine_triton(
                     base, base.monoid, cv.in_indptr, cv.src, lane_vp,
-                    cv.eprops, lane_act, V)
+                    cv.eprops, lane_act, V, **kw)
             slabs, _ = run()
             inbox = fp._unpack(plan, pack, slabs)
             one, _ = k1()
