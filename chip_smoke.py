@@ -5,12 +5,12 @@
 
 Phases, one line of numbers each:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build: the CUDA kernels (segment combine, flash attention) with nvcc
-     for sm_90a from src/repro_torch/kernels/csrc, one nvcc each, started
-     together (prints ptxas' registers and spills, and fails if the wgmma
-     flash kernel spills), then `cuobjdump -sass` of the flash library
-     must show HGMMA and UTMALDG instructions; and the fused Triton kernel
-     once per built-in emit;
+  2. build: the CUDA kernels (segment combine, tile bitmap, flash
+     attention) with nvcc for sm_90a from src/repro_torch/kernels/csrc,
+     one nvcc each, started together (prints ptxas' registers and spills,
+     and fails if the wgmma flash kernel spills), then `cuobjdump -sass`
+     of the flash library must show HGMMA and UTMALDG instructions; and
+     the fused Triton kernel once per built-in emit;
   3. kernel parity at the main path's shapes: each kernel against its plain
      PyTorch version on the same card inputs; then a graph without edges
      (V = 7), one vertex alone and one with a self-loop through K1, K2 and
@@ -23,9 +23,13 @@ Phases, one line of numbers each:
      after (K1, its heavy blocks' finishing kernel and the segment kernel
      must have run); each result is then held against kernel="off" on the
      card;
-  5. kernel times at the main path's shapes: K1 for each built-in emit
-     beside the packed kernel's one-column launch of the same emit, with
-     K1's schedule (light programs, heavy blocks, split programs);
+  5. kernel times at the main path's shapes: K2 (f32 min over [E, 1],
+     the kernels row; then its schedule — tile size, thread, warp and
+     heavy rows — and f32 sum and int32 sum over [E, 1] and f32 sum over
+     an [E, 8] leaf, each against its plain version); K1 for each
+     built-in emit beside the packed kernel's one-column launch of the
+     same emit, with K1's schedule (light programs, heavy blocks, split
+     programs);
   6. frontier: `UniGPS(frontier="auto")` runs sssp, bfs,
      connected_components, the quickstart program and pagerank on the same
      graph (counters zeroed just before, read just after; the block-skip
@@ -33,8 +37,9 @@ Phases, one line of numbers each:
      the segment kernel must have run), each result held against phase 4's
      dense one; then SSSP's first supersteps are replayed to print each
      frontier's live-tile share and the kernels' times on it, and the
-     block-skip kernel and its bitmap are held against their plain versions
-     and timed at frontier densities 0, 0.001, 0.01, 0.1 and 1;
+     block-skip kernel and its bitmap kernel (CUDA) are held against their
+     plain versions and timed at frontier densities 0, 0.001, 0.01, 0.1
+     and 1;
   7. window: one banded community under scrambled ids
      (part_community_graph(1, 2**21, degree=16, band=4, cross_edges=0)),
      relabeled by RCM in one DeviceGraph; the six operators and the
@@ -72,8 +77,8 @@ Phases, one line of numbers each:
  12. compaction: an unfused f32-sum program under frontier="sparse" takes
      the compaction arm through the segment kernel and equals
      frontier="dense" bitwise; the segment kernel with dense-row offsets
-     on a 10 % workset is held to the dense rows and timed (its own
-     `kernels` row);
+     on a 10 % workset is held to the dense rows and timed beside its
+     plain version and torch.segment_reduce (its own `kernels` row);
  13. flash (after phases 2-12 have freed their graphs): the flash
      attention kernel against its plain version in bf16 at qwen3-14b's
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
@@ -107,6 +112,9 @@ Phases, one line of numbers each:
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line; without a CUDA device the script exits 2 at once.
 
+Times are CUDA-event means with the launches queued behind a spin kernel
+(`time_ms`), so they are the device's, not the host's launch rate.
+
 Tolerances: bitwise for min monoids and integer payloads, and for every
 comparison of two kernel paths that fold in one order (a batched lane
 against its sequential run, block-skip or windowed against resident,
@@ -134,6 +142,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 SUM_RTOL = 1e-4
+SPIN_CYCLES = 4_000_000     # ~2 ms at the H100's clock: time_ms's queue
 
 
 def log(phase, **kw):
@@ -154,12 +163,17 @@ def nvidia_smi():
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
+    """Mean device time of fn() over `iters` launches (CUDA events). The
+    launches queue behind a spin kernel of SPIN_CYCLES, so the events time
+    the device, not the host's launch rate (a kernel of a few microseconds
+    launches slower than it runs); a function that waits on the device
+    inside is timed on the wall all the same."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -347,13 +361,13 @@ def phase_frontier(ctx):
         n_act = active_edges(gdev, active)
         if n_act == 0:
             break
-        bm = fge.tile_bitmap_triton(active, tables, n_act)
+        bm = fge.tile_bitmap_cuda(active, tables)
         live = int(bm.sum())
         log("sssp_superstep", it=it, frontier=int(active.sum()),
             active_edges=n_act, below_crossover=n_act <= cap,
             live_tiles=live, live_tile_share=live / tables.num_tiles,
-            bitmap_ms=time_ms(lambda: fge.tile_bitmap_triton(
-                active, tables, n_act), iters=5, warmup=1),
+            bitmap_ms=time_ms(lambda: fge.tile_bitmap_cuda(active, tables),
+                              iters=5, warmup=1),
             skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
                 *skip_args(vp, active), tables=tables, bitmap=bm), iters=5,
                 warmup=1),
@@ -370,7 +384,7 @@ def phase_frontier(ctx):
     for dens in (0.0, 0.001, 0.01, 0.1, 1.0):
         act = random_frontier(V, dens, rng, dev)
         n_act = active_edges(gdev, act)
-        bm = fge.tile_bitmap_triton(act, tables, n_act)
+        bm = fge.tile_bitmap_cuda(act, tables)
         for ref_bm, how in ((fge.tile_bitmap_plain(act, cv.src, cv.dst,
                                                    cv.in_indptr, tables),
                              "edge-wide"),
@@ -396,8 +410,7 @@ def phase_frontier(ctx):
         sweep[dens] = dict(
             active_edges=n_act, live_tiles=live,
             live_tile_share=live / tables.num_tiles,
-            bitmap_ms=time_ms(lambda: fge.tile_bitmap_triton(
-                act, tables, n_act)),
+            bitmap_ms=time_ms(lambda: fge.tile_bitmap_cuda(act, tables)),
             bitmap_plain_ms=time_ms(lambda: fge.tile_bitmap_plain(
                 act, cv.src, cv.dst, cv.in_indptr, tables), iters=5),
             skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
@@ -430,8 +443,8 @@ def phase_frontier(ctx):
          "max_abs_err": err_skip, "ms": at["skip_ms"],
          "plain_ms": at["skip_plain_ms"], "bound_ms": skip_bound,
          "bound_by": skip_by, "library_ms": None},
-        {"name": "tile_bitmap", "route": "triton",
-         "source": "src/repro_torch/kernels/fused_gather_emit.py",
+        {"name": "tile_bitmap", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tile_bitmap.cu",
          "replaces": "src/repro/kernels/fused_gather_emit.py:260",
          "launches": launches["tile_bitmap"], "max_abs_err": 0.0,
          "ms": at["bitmap_ms"], "plain_ms": at["bitmap_plain_ms"],
@@ -937,7 +950,7 @@ def phase_lanes_frontier(ctx):
     tables = gdev.canonical.fused_tables
     prog = vcprog.as_batched([operators.SSSPProgram(r) for r in roots])
     act = random_frontier(V, 0.01, ctx["rng"], gdev.device)
-    bm = fge.tile_bitmap_triton(act, tables, active_edges(gdev, act))
+    bm = fge.tile_bitmap_cuda(act, tables)
     share = int(bm.sum()) / tables.num_tiles
     err, row = packed_shape("block-skip", prog, gdev, "distance", act,
                             ctx["rng"], "skip", bitmap=bm)
@@ -947,7 +960,7 @@ def phase_lanes_frontier(ctx):
     empty = torch.zeros(V, dtype=torch.bool, device=gdev.device)
     _, row0 = packed_shape("block-skip, empty frontier", prog, gdev,
                            "distance", empty, ctx["rng"], "skip",
-                           bitmap=fge.tile_bitmap_triton(empty, tables, 0))
+                           bitmap=fge.tile_bitmap_cuda(empty, tables))
     log("packed_skip_kernel", Q=Q, density=0.0, live_tile_share=0.0, **row0)
     # indptr, tile_ptr and the bitmap once; of src and weight and of the
     # gathered rows (distance and _lane_act [V, Q], the frontier) the
@@ -1353,6 +1366,41 @@ def phase_compaction(ctx):
              "library_ms": ws["library_ms"]}]
 
 
+def segment_shapes(x, xi, ip, V, rng):
+    """Phase 5's other K2 shapes on the main path's rows (the kernels row
+    keeps f32 min [E, 1]): its schedule (tile size, rows per path, the
+    heavy rows), then f32 sum [E, 1], int32 sum [E, 1] and f32 sum over
+    an [E, 8] leaf, each against its plain version and timed beside it
+    and its bound."""
+    from repro_torch.kernels import segment_reduce as sr
+    E = int(x.shape[0])
+    K, per, sb = sr.tile_plan(1, torch.float32, False)
+    cls = sr.row_classes(ip, 1, torch.float32, "min")
+    log("k2_schedule", tile_items=K, ring_stage_entries=per,
+        stage_bytes=sb, tiles=-(-(V + E) // K),
+        thread_rows=int((cls == 0).sum()), warp_rows=int((cls == 1).sum()),
+        heavy_rows=int((cls == 2).sum()),
+        heavy_entries=int((ip[1:] - ip[:-1])[cls == 2].sum()))
+    x8 = torch.from_numpy((rng.random((E, 8)) * 10).astype(
+        np.float32)).to(x.device)
+    for name, vals, monoid in (("f32_sum", x, "sum"),
+                               ("int32_sum", xi, "sum"),
+                               ("f32x8_sum", x8, "sum")):
+        out = sr.segment_combine_cuda(vals, ip, V, monoid)
+        e = check(f"segment_combine {name}", out,
+                  sr.segment_combine_plain(vals, ip, V, monoid),
+                  vals.dtype.is_floating_point)
+        D, size = int(vals.shape[1]), vals.element_size()
+        b, by = bound(size * E * D + 4 * (V + 1) + size * V * D, E * D)
+        log("timing", kernel="segment_combine", shape=name,
+            ms=time_ms(lambda: sr.segment_combine_cuda(vals, ip, V,
+                                                       monoid)),
+            plain_ms=time_ms(lambda: sr.segment_combine_plain(
+                vals, ip, V, monoid), iters=3, warmup=1),
+            bound_ms=b, bound_by=by, max_abs_err=e)
+    del x8
+
+
 def degenerate_parity(dev):
     """Phase 3's edge cases: a graph without edges (V = 7), one vertex
     without edges and one vertex with a self-loop through K1, K2 and the
@@ -1395,7 +1443,7 @@ def degenerate_parity(dev):
         pack = fp.make_pack_spec(lanes, monoids, vp, cv.eprops)
         ref, rhm2 = fp.gather_emit_combine_packed_plain(
             lanes, monoids, cv.src, cv.dst, vp, cv.eprops, act, V)
-        for bm in (None, fge.tile_bitmap_triton(act, t, E)):
+        for bm in (None, fge.tile_bitmap_cuda(act, t)):
             slabs, phm = fp.gather_emit_combine_packed_triton(
                 lanes, monoids, cv.in_indptr, cv.src, vp, cv.eprops, act,
                 V, plan=plan, pack=pack, tables=t, bitmap=bm)
@@ -1601,6 +1649,7 @@ def graph_phases(args, dev):
             plain_ms=per_emit[name][1])
     log("timing", kernel="segment_combine", monoid="min", ms=seg_ms,
         plain_ms=seg_plain, library_ms=seg_lib)
+    segment_shapes(x, seg_inputs[torch.int32], ip, V, rng)
     # pagerank's emit: indptr, src, rank, out_degree, active read once;
     # out and has_msg written once; max, divide and add per edge. (The
     # kernel gathers active, rank and out_degree per edge, a 32-byte L2
@@ -2071,7 +2120,8 @@ def main():
         torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- 2. build: every CUDA source at once, one nvcc each ---------------------
-    built = build.build_all(["segment_reduce", "flash_attention"])
+    built = build.build_all(["segment_reduce", "tile_bitmap",
+                             "flash_attention"])
     for name, (_, report, secs) in built.items():
         log("build", kernel=name, route="cuda", seconds=round(secs, 2))
         for line in build.ptxas_summary(report).splitlines():

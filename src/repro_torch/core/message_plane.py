@@ -510,7 +510,7 @@ def _fused_emit_combine(program: VCProgram, layout: EdgeLayout, vprops,
     mask = frontier_mask(active)
     kw = dict(indptr=layout.in_indptr, valid=layout.valid_mask,
               src_ids=layout.src_ids, dst_ids=layout.dst_ids,
-              variant=variant, tables=tables, num_active_edges=n_act)
+              variant=variant, tables=tables)
     plan = _packed_plan(program, layout, vprops)
     if multileaf == "perleaf" and len(monoids) > 1:
         inbox, has_msg = _per_leaf_fused(program, layout, vprops, mask,

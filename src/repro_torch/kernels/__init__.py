@@ -3,7 +3,8 @@
   fused_gather_emit  the message plane (gather src props -> emit ->
                      combine at dst) as ONE pass, in Triton, with the
                      program's Triton emit inlined: resident, block-skip
-                     (plus its frontier bitmap kernel) and windowed
+                     (its frontier bitmap kernel in CUDA C++,
+                     csrc/tile_bitmap.cu) and windowed
   fused_packed       the same pass for a whole multi-leaf record
                      (mixed monoids, vector leaves, batched query lanes)
                      in ONE launch, in Triton: resident, block-skip and

@@ -55,10 +55,14 @@ There are no atomics, and the result is the same on every run.
 Block-skip design: the Pallas bitmap has one bit per 512-edge block; the
 counterpart here is one bit per BLOCK_V x BLOCK_K tile (8 rows x 256
 edge columns), flat through a ``tile_ptr`` table built once per layout
-(:class:`FusedTables`). The bitmap is built from the frontier by a second
-Triton kernel that walks only the active vertices' out-edges
-(``_mark_tiles_kernel``: O(V) prefix sum plus O(active out-edges)
-same-value stores, no atomics). A light program tests the bit of each of
+(:class:`FusedTables`). The bitmap is built from the frontier by a CUDA
+C++ kernel (`csrc/tile_bitmap.cu`, :func:`tile_bitmap_cuda`) that walks
+only the active vertices' out-edges in one pass: a warp ballots its
+frontier flags (8 a lane, one load), walks a vertex of few out-edges in
+its own lane and a longer one with the whole warp, and the layout's hub
+pieces (``FusedTables.out_hubs``) take the hubs, one warp each;
+same-value stores, no atomics, no prefix sum. A light program tests the
+bit of each of
 its 8-row groups before a 256-edge tile's chunks; a split program drops
 the edges of dead tiles and skips a step whose edges are all dead.
 Skipped tiles hold only vetoed emissions, so the bits equal the resident
@@ -100,6 +104,7 @@ tensors only.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import weakref
 
@@ -158,8 +163,10 @@ WINDOW_WARPS = 8
 #: kernel. It decides the route, not the speed
 WINDOW_SLAB_BYTES = 48 * 1024
 
-#: active out-edges per program of the bitmap kernel
-MARK_BLOCK = 1024
+#: the bitmap kernel walks a vertex of more than TILE_HUB out-edges as
+#: pieces of TILE_HUB_PIECE edges, one warp each (`FusedTables.out_hubs`)
+TILE_HUB = 1024
+TILE_HUB_PIECE = 2048
 
 #: triton.language, bound by _triton() at first launch (this module must
 #: import on hosts without triton)
@@ -182,6 +189,9 @@ class FusedTables:
       out_indptr: [V+1] int32 CSR row pointers of the src-sorted edges.
       out_tile:   [E] int32 bitmap index of each src-sorted edge's tile.
       num_tiles:  bitmap length.
+      out_hubs:   [H, 3] int32 (vertex, first edge, end) pieces of
+                  TILE_HUB_PIECE src-sorted edges of every vertex of more
+                  than TILE_HUB out-edges (the bitmap kernel's hubs).
       window_q:   [C] int32 slab index per windowed CTA (C = ceil(V /
                   WINDOW_ROWS)): CTA c stages rows [q·W, (q+2)·W).
       window:     W, a power of two; 0 = no usable window (resident).
@@ -219,6 +229,20 @@ class FusedTables:
         out_tile[self._perm] = _edge_tiles(self._dst, self._indptr,
                                            tile_ptr).to(torch.int32)
         return tile_ptr.to(torch.int32), out_tile, int(tile_ptr[-1])
+
+    @functools.cached_property
+    def out_hubs(self):
+        ip = self.out_indptr.long()
+        deg = ip[1:] - ip[:-1]
+        hubs = torch.nonzero(deg > TILE_HUB).flatten()
+        n = -(-deg[hubs] // TILE_HUB_PIECE)
+        vert = torch.repeat_interleave(hubs, n)
+        k = torch.arange(vert.numel(), device=ip.device) \
+            - torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+        lo = ip[vert] + k * TILE_HUB_PIECE
+        hi = torch.minimum(lo + TILE_HUB_PIECE, ip[vert + 1])
+        return torch.stack([vert, lo, hi], dim=1).to(torch.int32) \
+            .contiguous()
 
     @property
     def tile_ptr(self):
@@ -869,26 +893,6 @@ def _window_kernel(
                  mask=rmask)
 
 
-def _mark_tiles_kernel(cum_ptr, out_indptr_ptr, out_tile_ptr, bitmap_ptr,
-                       num_active_edges, num_vertices, n_steps,
-                       BLOCK: "tl.constexpr"):
-    # i-th active out-edge: its vertex u is the largest with cum[u] <= i
-    # (cum = prefix sum of the active vertices' out-degrees)
-    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    m = i < num_active_edges
-    lo = tl.zeros([BLOCK], tl.int32)
-    hi = tl.zeros([BLOCK], tl.int32) + num_vertices
-    for _ in range(n_steps):
-        mid = (lo + hi) // 2
-        go = tl.load(cum_ptr + mid, mask=m, other=0) <= i
-        lo = tl.where(go, mid, lo)
-        hi = tl.where(go, hi, mid)
-    e = tl.load(out_indptr_ptr + lo, mask=m, other=0) \
-        + (i - tl.load(cum_ptr + lo, mask=m, other=0))
-    t = tl.load(out_tile_ptr + e, mask=m, other=0)
-    tl.store(bitmap_ptr + t, tl.full([BLOCK], 1, tl.uint8), mask=m)
-
-
 _HELPERS = ("_edge_ids_w", "_emit_staged", "_emit_edges", "_fold",
             "_finish_acc", "_reduce_rows", "_light_chunk", "_block_rows",
             "_light_block", "_split_lane")
@@ -907,8 +911,7 @@ def _triton():
         globals()[name] = triton.jit(globals()[name])
     return triton, {"resident": triton.jit(_gather_emit_combine_kernel),
                     "finish": triton.jit(_finish_kernel),
-                    "window": triton.jit(_window_kernel),
-                    "mark": triton.jit(_mark_tiles_kernel)}
+                    "window": triton.jit(_window_kernel)}
 
 
 def require_gather():
@@ -1118,27 +1121,36 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     return {key: out}, hm.view(torch.bool)
 
 
-def tile_bitmap_triton(active, tables: FusedTables,
-                       num_active_edges: int) -> torch.Tensor:
-    """Launch the bitmap kernel: [num_tiles] uint8, 1 where a tile holds an
-    out-edge of an active vertex. `num_active_edges` is the sum of the
-    active vertices' out-degrees (the host already read it)."""
-    if active.device.type != "cuda" or tables.out_tile.device != \
-            active.device or active.dtype != torch.bool:
-        raise ValueError("bitmap kernel needs a bool frontier and its "
-                         "tables on one CUDA device")
+def tile_bitmap_cuda(active, tables: FusedTables) -> torch.Tensor:
+    """Launch the bitmap kernel (`csrc/tile_bitmap.cu`) on the current
+    stream: [num_tiles] uint8, 1 where a tile holds an out-edge of an
+    active vertex. The layout's hub pieces are built on first use."""
     V = int(active.shape[0])
-    ip = tables.out_indptr
-    deg = torch.where(active, ip[1:] - ip[:-1], 0)
-    cum = torch.zeros(V + 1, dtype=torch.int32, device=active.device)
-    torch.cumsum(deg, 0, dtype=torch.int32, out=cum[1:])
-    bm = torch.zeros(tables.num_tiles, dtype=torch.uint8,
+    if (active.device.type != "cuda" or active.dtype != torch.bool
+            or not active.is_contiguous()
+            or tables.out_tile.device != active.device
+            or tuple(tables.out_indptr.shape) != (V + 1,)):
+        raise ValueError("bitmap kernel needs a contiguous [V] bool frontier "
+                         "and its tables on one CUDA device")
+    if active.data_ptr() % 8:  # the kernel reads 8 flags a load
+        active = active.clone()
+    from .build import build
+    fn = build("tile_bitmap")[0].tile_bitmap
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]\
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    hubs = tables.out_hubs
+    bm = torch.empty(tables.num_tiles, dtype=torch.uint8,
                      device=active.device)
-    n = int(num_active_edges)
-    _, kernels = _triton()
-    kernels["mark"][(max(-(-n // MARK_BLOCK), 1),)](
-        cum, ip, tables.out_tile, bm, n, V, max(V, 1).bit_length(),
-        BLOCK=MARK_BLOCK, num_warps=4)
+    stream = torch.cuda.current_stream(active.device).cuda_stream
+    err = fn(active.data_ptr(), tables.out_indptr.data_ptr(),
+             tables.out_tile.data_ptr(), hubs.data_ptr(),
+             int(hubs.shape[0]), bm.data_ptr(), tables.num_tiles, V,
+             TILE_HUB, stream)
+    if err != 0:
+        raise RuntimeError(f"tile_bitmap kernel launch failed with CUDA "
+                           f"error {err}")
     counters.LAUNCHES["tile_bitmap"] += 1
     return bm
 
@@ -1147,33 +1159,26 @@ def tile_bitmap_triton(active, tables: FusedTables,
 # Wrappers: the kernel for CUDA tensors, the plain version for CPU tensors
 # ---------------------------------------------------------------------------
 
-def tile_bitmap(active, tables: FusedTables,
-                num_active_edges: int | None = None) -> torch.Tensor:
+def tile_bitmap(active, tables: FusedTables) -> torch.Tensor:
     """The block-skip tile bitmap of a [V] bool frontier: the bitmap
-    kernel for CUDA tensors (needs `num_active_edges`), the plain frontier
-    walk for CPU tensors."""
+    kernel for CUDA tensors, the plain frontier walk for CPU tensors."""
     if active.device.type == "cpu":
         return tile_bitmap_walk_plain(active, tables)
-    if num_active_edges is None:
-        raise ValueError("the bitmap kernel needs the frontier's active "
-                         "out-edge count")
-    return tile_bitmap_triton(active, tables, num_active_edges)
+    return tile_bitmap_cuda(active, tables)
 
 
 def gather_emit_combine(program, monoid: str, src, dst, vprops, eprops,
                         active, num_vertices: int, *, indptr=None,
                         valid=None, src_ids=None, dst_ids=None,
                         variant: str = "resident",
-                        tables: FusedTables | None = None,
-                        num_active_edges: int | None = None):
+                        tables: FusedTables | None = None):
     """One pass of gather(src props) → emit → combine at dst over
     combine-ordered (dst-sorted) edges: the Triton kernels for CUDA
     tensors, the plain versions for CPU tensors. `indptr` ([V+1] int32
     row pointers of `dst`) is derived when not given.
 
     variant: "resident"; "skip" (block-skip over `tables`, bitmap built
-    from the frontier; `num_active_edges` is the frontier's out-edge
-    count); "window" (the windowed kernel over `tables`, or the resident
+    from the frontier); "window" (the windowed kernel over `tables`, or the resident
     one where :func:`window_usable` says no, as the reference falls back).
     Every variant gives the same bits."""
     if variant not in ("resident", "skip", "window"):
@@ -1210,7 +1215,7 @@ def gather_emit_combine(program, monoid: str, src, dst, vprops, eprops,
             num_vertices, tables, dst=dst, **kw)
     bitmap = None
     if variant == "skip":
-        bitmap = tile_bitmap(active, tables, num_active_edges)
+        bitmap = tile_bitmap(active, tables)
     return gather_emit_combine_triton(
         program, monoid, indptr, src, vprops, eprops, active, num_vertices,
         dst=dst, tables=tables, bitmap=bitmap, **kw)

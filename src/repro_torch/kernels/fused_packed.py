@@ -1174,7 +1174,6 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
                                valid=None, src_ids=None, dst_ids=None,
                                pack: PackSpec | None = None,
                                variant: str = "resident", tables=None,
-                               num_active_edges: int | None = None,
                                leaves=None):
     """One packed pass of gather → emit → combine at dst over
     combine-ordered edges, for a whole multi-leaf record: the Triton
@@ -1183,7 +1182,7 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
     `monoids` is the per-leaf monoid table (flattened leaf order), `pack`
     an optional prebuilt :class:`PackSpec` (derived when absent).
     `variant` is "resident", "skip" (block-skip over `tables`; the bitmap
-    is built from the frontier, `num_active_edges` its out-edge count) or
+    is built from the frontier) or
     "window" (the windowed kernel, or the resident one where
     :func:`window_usable` says no). `leaves` (flat indices)
     computes only those message leaves and returns {index: leaf}.
@@ -1225,7 +1224,7 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
         return inbox, hm
     bitmap = None
     if variant == "skip":
-        bitmap = fge.tile_bitmap(active, tables, num_active_edges)
+        bitmap = fge.tile_bitmap(active, tables)
     slabs, hm = gather_emit_combine_packed_triton(
         program, monoids, indptr, src, vprops, eprops, active, V, plan=plan,
         pack=pack, variant=variant, dst=dst, tables=tables, bitmap=bitmap,

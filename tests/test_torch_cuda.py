@@ -113,6 +113,135 @@ def test_segment_kernel_refuses_bad_inputs(cuda):
         sr.segment_combine_cuda(t.cpu(), ip, 2, "sum")
 
 
+#: rows at every edge of K2's walks: empty, one entry, a thread row's
+#: last, one past it, one of 4,097 entries (a heavy row at [E, 70]) and a
+#: hub of 10^5 (heavy at every width); with random short rows between
+K2_DEGREES = [0, 1, 31, 32, 33, 4097, 100_000, 2, 3, 4]
+
+
+def _k2_rows(D, dtype, seed, neg_zero=True):
+    """Rows of K2_DEGREES and random short ones, shuffled; float values
+    with some -0.0 among them where `neg_zero` (sums: a partial lifts -0.0
+    to +0.0)."""
+    rng = np.random.default_rng(seed)
+    deg = np.concatenate([K2_DEGREES, rng.integers(0, 70, 200)])
+    rng.shuffle(deg)
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    E = int(ip[-1])
+    if dtype.startswith("int"):
+        lim = 100 if dtype == "int8" else 1000
+        vals = rng.integers(-lim, lim, (E, D)).astype(np.int32)
+    else:
+        vals = (rng.normal(size=(E, D)) * 10).astype(np.float32)
+        if neg_zero:
+            vals[rng.random((E, D)) < 0.01] = -0.0
+    return torch.from_numpy(ip), torch.from_numpy(vals).to(TDT[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 70])
+@pytest.mark.parametrize("dtype", sorted(TDT))
+@pytest.mark.parametrize("monoid", ["sum", "min", "max"])
+def test_segment_kernel_walks_keep_the_bits(cuda, D, dtype, monoid):
+    """K2 on rows of 0, 1, 31, 32, 33 and 4,097 entries and a 10^5 hub
+    (thread, warp and heavy rows): float sums bitwise equal to the CPU
+    emulation of the stated order (rounded once to the payload dtype),
+    min, max and integer sums bitwise equal to the plain version."""
+    from test_torch_segment_order import segment_order_fsum
+    ip, vals = _k2_rows(D, dtype, seed=D, neg_zero=monoid == "sum")
+    V = ip.numel() - 1
+    out = sr.segment_combine_cuda(vals.to(cuda), ip.to(cuda), V, monoid)
+    torch.cuda.synchronize()
+    if monoid == "sum" and vals.dtype.is_floating_point:
+        want = segment_order_fsum(vals, ip).to(vals.dtype)
+    else:
+        want = sr.segment_combine_plain(vals, ip, V, monoid)
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("keep", [0.02, 0.1, 0.5, 1.0])
+def test_segment_kernel_compaction_arm_bitwise_to_dense(cuda, D, keep):
+    """The compaction arm on a hub graph's rows (worksets of 2-100 % of
+    the entries, with their dense-row offsets) bitwise equal to the dense
+    arm with the dropped entries at 0.0, and to the order's emulation."""
+    from test_torch_segment_order import segment_order_fsum
+    ip, vals = _k2_rows(D, "float32", seed=7)
+    V, E = ip.numel() - 1, int(ip[-1])
+    rng = np.random.default_rng(int(keep * 100))
+    kept = torch.from_numpy(rng.random(E) < keep)
+    pos = torch.nonzero(kept).flatten()
+    row = torch.repeat_interleave(torch.arange(V), (ip[1:] - ip[:-1]).long())
+    ws_ip = sr.indptr_from_seg_ids(row[pos].to(torch.int32), V)
+    offsets = (pos - ip.long()[row[pos]]).to(torch.int32)
+    dense = torch.where(kept[:, None], vals, 0.0)
+    to = lambda t: t.contiguous().to(cuda)
+    got = sr.segment_combine_cuda(to(vals[pos]), to(ws_ip), V, "sum",
+                                  to(offsets))
+    want = sr.segment_combine_cuda(to(dense), to(ip), V, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), segment_order_fsum(vals[pos], ws_ip,
+                                                     offsets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_bytes", [4096, 16384, 65536])
+def test_segment_kernel_tile_sizes_keep_the_bits(cuda, stage_bytes,
+                                                 monkeypatch):
+    """The staging (and so the tile size K and the heavy threshold) sets
+    the walk, not the bits: dense and compacted f32 sums and a min equal
+    the default tile's."""
+    ip, vals = _k2_rows(1, "float32", seed=11, neg_zero=False)
+    V = ip.numel() - 1
+    vals, ip = vals.to(cuda), ip.to(cuda)
+    base = {m: sr.segment_combine_cuda(vals, ip, V, m) for m in ("sum",
+                                                                 "min")}
+    offsets = (torch.arange(int(ip[-1]), device=cuda)
+               - torch.repeat_interleave(ip[:-1], (ip[1:] - ip[:-1]).long())
+               ).to(torch.int32)
+    monkeypatch.setattr(sr, "STAGE_BYTES", stage_bytes)
+    for m in ("sum", "min"):
+        assert torch.equal(sr.segment_combine_cuda(vals, ip, V, m), base[m])
+    assert torch.equal(sr.segment_combine_cuda(vals, ip, V, "sum", offsets),
+                       base["sum"])
+
+
+@pytest.mark.cuda
+def test_segment_tile_plan_matches_the_library(cuda):
+    """The Python tile plan (row classes, heavy-row counts) is the
+    kernel's: the library's tile size at every payload and width."""
+    import ctypes
+    from repro_torch.kernels.build import build
+    fn = build("segment_reduce")[0].segment_tile_items
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    for dtype in TDT.values():
+        size = torch.empty((), dtype=dtype).element_size()
+        for D in (1, 3, 8, 70):
+            for offs in (False, True):
+                K, _, sb = sr.tile_plan(D, dtype, offs)
+                assert fn(D, size, int(offs), sb) == K
+
+
+@pytest.mark.cuda
+def test_segment_kernel_equals_the_fused_kernel(cuda, rmat):
+    """K2 folds PageRank's messages (vetoed ones at 0.0) into K1's bits."""
+    gdev = graph_device.build_device_graph(rmat, device=cuda)
+    V, cv = gdev.num_vertices, gdev.canonical
+    prog = BUILTINS["pagerank"](V)
+    vp = _random_state(prog, gdev, seed=4)
+    active = _frontier(V, 0.7, cuda)
+    out, _ = fge.gather_emit_combine_triton(
+        prog, "sum", cv.in_indptr, cv.src, vp, cv.eprops, active, V)
+    msgs, ok, _, _ = fge._plain_emit(prog, cv.src, cv.dst, vp, cv.eprops,
+                                     active, V, None, None, None)
+    x = torch.where(ok, msgs["rank"], 0.0)[:, None].contiguous()
+    got = sr.segment_combine_cuda(x, cv.in_indptr, V, "sum")
+    assert torch.equal(got[:, 0], out["rank"])
+
+
 # ---------------------------------------------------------------------------
 # fused gather–emit–combine
 # ---------------------------------------------------------------------------
@@ -329,8 +458,27 @@ def _frontier(V, dens, cuda, seed=3):
     return torch.full((V,), bool(dens), device=cuda)
 
 
-def _active_edges(gdev, active):
-    return int(torch.where(active, gdev.out_degree, 0).sum())
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.01, 1.0])
+def test_tile_bitmap_kernel_on_a_hub_graph(cuda, dens):
+    """The bitmap kernel on out-degrees around its lane, warp and hub
+    walks (hub pieces included) equal to both plain versions, at an empty,
+    a partial (the hubs on it) and a full frontier."""
+    from test_torch_segment_order import _hub_graph
+    gdev = _hub_graph(2, device=cuda)
+    cv, t = gdev.canonical, gdev.canonical.fused_tables
+    V = gdev.num_vertices
+    active = _frontier(V, dens, cuda)
+    if dens == 0.01:
+        active[[11, 14]] = True
+    counters.reset()
+    bm = fge.tile_bitmap(active, t)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["tile_bitmap"] == 1
+    assert t.out_hubs.shape[0] > 0
+    assert torch.equal(bm, fge.tile_bitmap_walk_plain(active, t))
+    assert torch.equal(bm, fge.tile_bitmap_plain(active, cv.src, cv.dst,
+                                                 cv.in_indptr, t))
 
 
 @pytest.mark.cuda
@@ -342,7 +490,7 @@ def test_tile_bitmap_kernel_vs_plain(cuda, rmat, dens):
     cv, t = gdev.canonical, gdev.canonical.fused_tables
     active = _frontier(rmat.num_vertices, dens, cuda)
     counters.reset()
-    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    bm = fge.tile_bitmap(active, t)
     torch.cuda.synchronize()
     assert counters.snapshot()["tile_bitmap"] == 1
     assert torch.equal(bm, fge.tile_bitmap_walk_plain(active, t))
@@ -365,8 +513,7 @@ def test_skip_kernel_vs_plain(cuda, rmat, name, dens):
     args = (prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V)
     counters.reset()
     out, hm = fge.gather_emit_combine(
-        *args, indptr=cv.in_indptr, variant="skip", tables=cv.fused_tables,
-        num_active_edges=_active_edges(gdev, active))
+        *args, indptr=cv.in_indptr, variant="skip", tables=cv.fused_tables)
     torch.cuda.synchronize()
     assert counters.snapshot()["gather_emit_combine_skip"] == 1
     base, bhm = fge.gather_emit_combine(*args, indptr=cv.in_indptr)
@@ -526,7 +673,7 @@ def test_skip_kernel_with_a_hub(cuda, name, dens):
     active = _frontier(V, dens, cuda)
     args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
             V)
-    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    bm = fge.tile_bitmap(active, t)
     counters.reset()
     out, hm = fge.gather_emit_combine_triton(*args, tables=t, bitmap=bm)
     torch.cuda.synchronize()
@@ -559,7 +706,7 @@ def test_k1_walk_settings_keep_the_bits(cuda, name, rows):
     args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, active,
             V)
     base, bhm = fge.gather_emit_combine_triton(*args)
-    bm = fge.tile_bitmap(active, t, _active_edges(gdev, active))
+    bm = fge.tile_bitmap(active, t)
     (key,) = base.keys()
     for heavy, ns in ((2, 2), (fge.HEAVY_CHUNKS, None), (10**6, None)):
         for kw in ({}, {"tables": t, "bitmap": bm}):
@@ -900,8 +1047,7 @@ def test_packed_kernel_vs_plain(cuda, rmat, banded, name, shape):
         ran = "resident"
     counters.reset()
     out, hm = fp.gather_emit_combine_packed(
-        *args, indptr=cv.in_indptr, variant=shape, tables=t,
-        num_active_edges=_active_edges(gdev, active), **ids)
+        *args, indptr=cv.in_indptr, variant=shape, tables=t, **ids)
     torch.cuda.synchronize()
     key = {"resident": "gather_emit_combine_packed",
            "skip": "gather_emit_combine_packed_skip",
@@ -1034,8 +1180,7 @@ def _packed_run(prog, gdev, vp, monoids, active, shape):
         ran = "resident"
     counters.reset()
     out, hm = fp.gather_emit_combine_packed(
-        *args, indptr=cv.in_indptr, variant=shape, tables=t,
-        num_active_edges=_active_edges(gdev, active), **ids)
+        *args, indptr=cv.in_indptr, variant=shape, tables=t, **ids)
     torch.cuda.synchronize()
     assert counters.snapshot()[SHAPE_COUNTER[ran]] == 1
     if shape == "skip":

@@ -62,6 +62,16 @@ def load_graph(scale, cache_path):
     return g
 
 
+def frontier_bitmap(fge, active, tables, out_degree):
+    """The tree's bitmap kernel on a frontier: the one-pass CUDA kernel,
+    or in trees before it the Triton kernel, which takes the frontier's
+    out-edge count."""
+    if hasattr(fge, "tile_bitmap_cuda"):
+        return fge.tile_bitmap_cuda(active, tables)
+    return fge.tile_bitmap_triton(
+        active, tables, int(torch.where(active, out_degree, 0).sum()))
+
+
 def builtin_programs(V, names):
     """{name: program} of the built-in emits named (comma-separated)."""
     from repro_torch.core import operators
@@ -192,8 +202,7 @@ def main():
             act = torch.from_numpy(rng.random(V) < dens).to("cuda") \
                 if 0 < dens < 1 else torch.full((V,), bool(dens),
                                                 device="cuda")
-            n_act = int(torch.where(act, gdev.out_degree, 0).sum())
-            bm = fge.tile_bitmap_triton(act, tables, n_act)
+            bm = frontier_bitmap(fge, act, tables, gdev.out_degree)
             skip_args = (prog, prog.monoid, cv.in_indptr, cv.src, vp,
                          cv.eprops, act, V)
             skip = lambda: fge.gather_emit_combine_triton(

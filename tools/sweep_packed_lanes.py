@@ -66,6 +66,7 @@ def main():
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
     from chip_smoke import banded_graph, batched_state, time_ms
+    from sweep_fused_tiles import frontier_bitmap
     from repro_torch.core import graph, graph_device, io, operators, vcprog
     from repro_torch.core.message_plane import leaf_monoids
     from repro_torch.kernels import fused_gather_emit as fge
@@ -111,9 +112,8 @@ def main():
             if args.skip is not None:
                 act = act & (torch.from_numpy(rng.random(V) < args.skip)
                              .to(act.device))
-                shape = dict(tables=tables, bitmap=fge.tile_bitmap_triton(
-                    act, tables, int(torch.where(act, gdev.out_degree, 0)
-                                     .sum())))
+                shape = dict(tables=tables, bitmap=frontier_bitmap(
+                    fge, act, tables, gdev.out_degree))
             monoids = leaf_monoids(prog, vcprog.empty_record(prog, "cuda"))
             plan = fp.packed_plan(prog, vp, cv.eprops, V, E)
             pack = fp.make_pack_spec(prog, monoids, vp, cv.eprops)
@@ -130,9 +130,8 @@ def main():
             else:
                 kw = {}
                 if args.skip is not None:
-                    kw = dict(tables=tables, bitmap=fge.tile_bitmap_triton(
-                        lane_act, tables, int(torch.where(
-                            lane_act, gdev.out_degree, 0).sum())))
+                    kw = dict(tables=tables, bitmap=frontier_bitmap(
+                        fge, lane_act, tables, gdev.out_degree))
                 k1 = lambda: fge.gather_emit_combine_triton(
                     base, base.monoid, cv.in_indptr, cv.src, lane_vp,
                     cv.eprops, lane_act, V, **kw)
