@@ -79,7 +79,7 @@ Phases, one line of numbers each:
      frontier="dense" bitwise; the segment kernel with dense-row offsets
      on a 10 % workset is held to the dense rows and timed beside its
      plain version and torch.segment_reduce (its own `kernels` row);
- 13. flash (after phases 2-12 have freed their graphs): the flash
+ 13. flash (after phases 2-12 and 15 have freed their graphs): the flash
      attention kernel against its plain version in bf16 at qwen3-14b's
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
      7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000
@@ -106,7 +106,32 @@ Phases, one line of numbers each:
      within 2e-4; prefill on T tokens plus one decode step against the
      forward at T+1 within 5e-2 * max|logit| (bf16). Prints prefill wall,
      decode ms per token and peak memory;
- 15. one JSON line {"kernels": [...]}: launches on each kernel's path,
+ 15. distributed (after phase 12, before 13): (a) P = 1 in a nccl group
+     of one on phase 4's RMAT-21 (one ShardedGraph reused): pagerank,
+     sssp(frontier="auto") and connected_components under allgather,
+     ring and push, each held against phase 4's single-device result
+     (bitwise; pagerank to SUM_RTOL), counters zeroed before each
+     schedule (K1 and its block-skip shape must run per bucket), then
+     one `UniGPS(engine="distributed").pagerank`; (b) the windowed
+     block-skip shapes (single-leaf for each built-in emit, packed for 8
+     SSSP lanes) against their plain versions and bitwise against the
+     resident shape on Banded-21 under RCM at a 1 % frontier, and both
+     on a P = 4 bucket with 4,096 sentinel pads against the same bucket
+     unpadded; (c) P = 4: four ranks of this script (`--dist-rank`) in a
+     gloo group sharing cuda:0 (exchange staged through pinned host
+     memory) load phase 7's RCM-relabeled Banded-21 from a file in a
+     temporary directory and run, under each schedule, pagerank
+     (prefetch="on"), sssp(frontier="auto"), sssp(sources=8), the
+     quickstart program (no Triton emit: K2 per bucket) and pagerank
+     under exchange="fp16" and "q8ef" (frontier="sparse"); rank 0 prints
+     the counters summed over the ranks (the windowed, windowed
+     block-skip, packed windowed block-skip and segment kernels must
+     have run on buckets) and the parent holds every result against the
+     single-device engine on the card (bitwise; pagerank to SUM_RTOL;
+     the lossy codecs to tests/test_wire.py's 2e-3 and to LOSSY_REL of
+     max|rank|, a bound that a codec decoding zeros, run by the ranks
+     after the counted runs, must break) and prints the phase's seconds;
+ 16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -873,9 +898,9 @@ def records_leaves(rec):
 
 def packed_shape(name, prog, gdev, key, act, rng, variant, **kw):
     """A batched mid-run state of `prog` on `gdev`; the packed kernel in
-    the block-skip (`bitmap=` in kw) or windowed shape against its plain
-    version and, bitwise, against the resident shape, then all three
-    timed. Returns (max abs err vs plain, {ms, plain_ms, resident_ms})."""
+    the block-skip (`bitmap=` in kw), windowed or windowed block-skip
+    (`bitmap=` in kw) shape against its plain version and, bitwise,
+    against the resident shape, then all three timed. Returns (max abs err vs plain, {ms, plain_ms, resident_ms})."""
     from repro_torch.core import vcprog
     from repro_torch.core.message_plane import leaf_monoids
     from repro_torch.kernels import fused_packed as fp
@@ -894,10 +919,14 @@ def packed_shape(name, prog, gdev, key, act, rng, variant, **kw):
     if variant == "skip":
         plain = lambda: fp.gather_emit_combine_packed_skip_plain(
             *plain_args, cv.in_indptr, tables, kw["bitmap"], **ids)
+    elif variant == "window_skip":
+        plain = lambda: fp.gather_emit_combine_packed_window_skip_plain(
+            *plain_args, cv.in_indptr, tables, kw["bitmap"], **ids)
     else:
         plain = lambda: fp.gather_emit_combine_packed_window_plain(
             *plain_args, tables, **ids)
-    shape = lambda: launch(variant=variant, **kw)
+    shape = lambda: launch(
+        variant="window" if variant == "window_skip" else variant, **kw)
     slabs, hm = shape()
     rslabs, rhm = launch()
     ref, phm = plain()
@@ -1676,6 +1705,523 @@ def graph_phases(args, dev):
     rows += phase_lanes_window(ctx)
     phase_records(ctx)
     rows += phase_compaction(ctx)
+    rows += phase_distributed(ctx)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the distributed engine
+# ---------------------------------------------------------------------------
+
+DIST_RUNS = ("pagerank", "sssp", "sssp_sources", "quickstart",
+             "pagerank_fp16", "pagerank_q8ef")
+DIST_ITERS = 50      # supersteps of the SSSP-like runs on Banded-21
+# a lossy PageRank's max abs error against the single-device exact run,
+# as a share of max|rank|. Sound runs on Banded-21 read fp16 0.0943 and
+# q8ef 0.0091-0.0122 (ranks ~1e-6 are fp16 subnormals); the negative
+# control, the same runs with a codec that decodes zeros, must exceed it
+LOSSY_REL = {"fp16": 0.2, "q8ef": 0.03}
+LOSSY_ATOL = 2e-3    # tests/test_wire.py's bound on a lossy PageRank
+WIRE_FIELDS = ("per_superstep", "exact_per_superstep", "dense_per_superstep")
+
+
+def dist_runs(graph, roots, user_prog, **kw):
+    """Phase 15b's runs of one schedule: name -> fn() returning (result
+    array, info). `kw` carries the engine and the partition."""
+    from repro_torch.core import operators
+    it = DIST_ITERS
+    return {
+        "pagerank": lambda: operators.pagerank(graph, 20, prefetch="on",
+                                               **kw),
+        "sssp": lambda: operators.sssp(graph, roots[0], it,
+                                       frontier="auto", **kw),
+        "sssp_sources": lambda: operators.sssp(
+            graph, sources=roots, max_iter=it, frontier="auto", **kw),
+        "quickstart": lambda: (lambda r: (r[0]["distance"].cpu().numpy(),
+                                          r[1]))(
+            operators.run_vcprog(user_prog(roots[0]), graph, it, **kw)),
+        "pagerank_fp16": lambda: operators.pagerank(
+            graph, 20, frontier="sparse", exchange="fp16", **kw),
+        "pagerank_q8ef": lambda: operators.pagerank(
+            graph, 20, frontier="sparse", exchange="q8ef", **kw),
+    }
+
+
+def dist_rank_main(args):
+    """One rank of phase 15b (`--dist-rank`): joins the gloo group of
+    `--dist-world` ranks sharing cuda:0, loads the relabeled Banded-21
+    from `--dist-dir`, runs DIST_RUNS under each schedule, and rank 0
+    writes the results, the counters summed over the ranks and each run's
+    numbers there."""
+    import warnings
+
+    import torch.distributed as dist
+
+    import repro_torch
+    from repro_torch.core.engines.common import NonConvergenceWarning
+    from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
+    from repro_torch.core.graph import from_edges
+    from repro_torch.distributed.collectives import Comm, init_rank
+    from repro_torch.kernels import counters
+
+    out_dir = pathlib.Path(args.dist_dir)
+    dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
+                    device=torch.device("cuda", 0))
+    t = time.time()
+    data = np.load(out_dir / "graph.npz")
+    g = from_edges(data["src"], data["dst"], int(data["V"]),
+                   edge_props={"weight": data["weight"]}, directed=True)
+    roots = [int(r) for r in data["roots"]]
+    load_s = time.time() - t
+    t = time.time()
+    sg = ShardedGraph(g, args.dist_world)
+    user_prog = quickstart_program(repro_torch.VCProgram)
+    res, meta = {}, {"load_s": load_s, "rank": args.dist_rank,
+                     "windows": sg.prefetch_windows().tolist()}
+    counters.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", NonConvergenceWarning)
+        for sch in SCHEDULES:
+            runs = dist_runs(g, roots, user_prog, engine="distributed",
+                             gdev=sg, schedule=sch, device=dev)
+            for name, fn in runs.items():
+                t0 = time.time()
+                out, info = fn()
+                torch.cuda.synchronize()
+                res[f"{name}/{sch}"] = np.asarray(out)
+                meta[f"{name}/{sch}"] = {
+                    "wall_s": time.time() - t0,
+                    "supersteps": info["iterations"],
+                    "prefetch_windows": info["prefetch_windows"],
+                    "bytes": {k: info["bytes_exchanged"][k]
+                              for k in WIRE_FIELDS},
+                    "comm": info["comm"]}
+    meta["runs_s"] = time.time() - t
+    names = sorted(counters.LAUNCHES)
+    total = Comm("cpu").psum(torch.tensor(
+        [counters.LAUNCHES[n] for n in names], dtype=torch.int64))
+    meta["launches"] = dict(zip(names, total.tolist()))
+    # negative control for the lossy bound, after the counted runs: the
+    # lossy PageRank runs again under ring with a codec whose decode
+    # returns zeros for every float value
+    from repro_torch.core import records
+    from repro_torch.distributed import wire
+    decode = wire.decode_delta
+
+    def decode_zeros(codec, w, template, v_pp):
+        idx, vals = decode(codec, w, template, v_pp)
+        return idx, records.tree_map(
+            lambda v: torch.zeros_like(v) if v.is_floating_point() else v,
+            vals)
+
+    wire.decode_delta = decode_zeros
+    try:
+        runs = dist_runs(g, roots, user_prog, engine="distributed", gdev=sg,
+                         schedule="ring", device=dev)
+        for name in ("pagerank_fp16", "pagerank_q8ef"):
+            res[f"{name}/zeros"] = np.asarray(runs[name]()[0])
+    finally:
+        wire.decode_delta = decode
+    if args.dist_rank == 0:
+        print("phase=distributed_ranks launches=" + json.dumps(
+            meta["launches"], separators=(",", ":")), flush=True)
+        np.savez(out_dir / "results.npz", **res)
+        (out_dir / "meta.json").write_text(json.dumps(meta))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(world, tmp, timeout):
+    """Start `world` rank processes of this script on phase 15b and wait;
+    every process is stopped before this returns."""
+    from repro_torch.distributed.collectives import free_port
+    from repro_torch.envutil import subprocess_env
+
+    port = free_port()
+    env = subprocess_env(threads=2, base=os.environ)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", str(r),
+         "--dist-world", str(world), "--dist-port", str(port),
+         "--dist-dir", str(tmp)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        for line in so.splitlines():
+            print(f"  rank{r}: {line}", flush=True)
+        if p.returncode != 0:
+            fail(f"phase 15b rank {r} exited {p.returncode}: {se[-3000:]}")
+
+
+def dist_bucket(sg, rank, b, pad, dev, windows):
+    """Bucket (rank, b) of a ShardedGraph as the reference lays it out:
+    `pad` sentinel slots (dst = v_pp, src 0, invalid) after the valid
+    ones, with its valid mask, as an EdgeLayout on `dev`; and the same
+    bucket without padding."""
+    from repro_torch.core import graph_device, vcprog
+    bk = sg.bucket(rank, b)
+    v_pp = sg.v_per_part
+    n = bk["dst_local"].shape[0]
+    t = lambda a, dt=None: torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, dt)
+
+    def padded(a, fill):
+        return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+    q, wins = windows
+    meta = vcprog.SegmentMeta(last_edge=t(bk["last_edge"], torch.int32),
+                              has_edge=t(bk["has_edge"]))
+    out = []
+    for p, mask in ((pad, np.arange(n + pad) < n), (0, None)):
+        cut = (lambda a, fill: padded(a, fill)) if p else (lambda a, _: a)
+        out.append(graph_device.bucket_layout(
+            src_local=t(cut(bk["src_local"], 0), torch.int32),
+            src_global=t(cut(bk["src_uid"], 0), torch.int32),
+            dst_local=t(cut(bk["dst_local"], v_pp), torch.int32),
+            dst_global=t(cut(bk["dst_uid"], 0), torch.int32),
+            eprops={"weight": t(cut(bk["eprops"]["weight"], 0.0))},
+            mask=None if mask is None else t(mask), seg_meta=meta,
+            v_per_part=v_pp, window=(t(q[rank, b], torch.int32), wins[b])))
+    return out
+
+
+def window_skip_parity(ctx, dev):
+    """The windowed block-skip shapes, single-leaf and packed, against
+    their plain versions (and bitwise against the resident shape) on
+    Banded-21 under RCM at a 1 % frontier and on a P = 4 bucket with
+    sentinel pads. Returns the `kernels` rows 4s and 5d (launches filled
+    in by the caller)."""
+    from repro_torch.core import graph_device, operators, vcprog
+    from repro_torch.core.engines.distributed import ShardedGraph
+    from repro_torch.kernels import fused_gather_emit as fge
+
+    gw, rng = ctx["gw"], ctx["rng"]
+    cv, tables = gw.canonical, gw.canonical.fused_tables
+    V, E = gw.num_vertices, gw.num_edges
+    act = random_frontier(V, 0.01, rng, dev)
+    bm = fge.tile_bitmap_cuda(act, tables)
+    share = int(bm.sum()) / tables.num_tiles
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    programs = {"pagerank": operators.PageRankProgram(V, 20),
+                "sssp": operators.SSSPProgram(0),
+                "cc": operators.CCProgram(), "bfs": operators.BFSProgram(0),
+                "degrees": operators.DegreeProgram()}
+    err, times = 0.0, {}
+    for name, prog in programs.items():
+        vp = vcprog.init_vertices(prog, gw.vprops_in, gw.out_degree, V,
+                                  vids=gw.vertex_perm)
+        if name == "sssp":  # a mid-run state: finite distances around
+            d = torch.from_numpy(rng.random(V).astype(np.float32) * 50)
+            vp["distance"] = torch.where(act.cpu(), d, vp["distance"].cpu()
+                                         ).to(dev)
+        args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, act,
+                V)
+        launch = lambda: fge.gather_emit_combine_window_triton(
+            *args, tables, dst=cv.dst, bitmap=bm, **ids)
+        plain = lambda: fge.gather_emit_combine_window_skip_plain(
+            prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, act, V,
+            cv.in_indptr, tables, bm, **ids)
+        (o, hm), (r, rhm) = launch(), plain()
+        d, dhm = fge.gather_emit_combine_triton(*args, dst=cv.dst, **ids)
+        if not (torch.equal(hm, rhm) and torch.equal(hm, dhm)):
+            fail(f"windowed block-skip kernel {name}: has_msg differs")
+        (key,) = o.keys()
+        err = max(err, check(f"windowed block-skip kernel {name} vs plain",
+                             o[key], r[key], prog.monoid == "sum"))
+        check(f"windowed block-skip kernel {name} vs resident", o[key],
+              d[key], False)
+        times[name] = dict(
+            ms=time_ms(launch), plain_ms=time_ms(plain, iters=3, warmup=1),
+            window_ms=time_ms(lambda: fge.gather_emit_combine_window_triton(
+                *args, tables, dst=cv.dst, **ids)),
+            skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
+                *args, dst=cv.dst, tables=tables, bitmap=bm, **ids)))
+        log("window_skip_kernel", emit=name, density=0.01,
+            live_tile_share=share, W=tables.window, **times[name])
+    Q = 8
+    roots = lane_roots(V, Q, seed=3)
+    bprog = vcprog.as_batched([operators.SSSPProgram(r) for r in roots])
+    perr, prow = packed_shape("windowed block-skip", bprog, gw, "distance",
+                              act, rng, "window_skip", bitmap=bm)
+    log("packed_window_skip_kernel", Q=Q, density=0.01,
+        live_tile_share=share, **prow)
+
+    # an SSSP wavefront (the vertices superstep 40 from vertex 0 improved,
+    # in gw's ids) instead of a random frontier: its live tiles cluster in
+    # few CTAs
+    perm = gw.vertex_perm.long().cpu()
+    d = [torch.from_numpy(operators.sssp(ctx["gb"], 0, k, gdev=gw)[0])
+         for k in (39, 40)]
+    wave = (d[1] < d[0])[perm].to(dev)
+    wbm = fge.tile_bitmap_cuda(wave, tables)
+    prog = operators.SSSPProgram(0)
+    vp = {"distance": torch.where(torch.isinf(d[1]), 3.4e38, d[1])[perm]
+          .to(dev, torch.float32).contiguous()}
+    args = (prog, "min", cv.in_indptr, cv.src, vp, cv.eprops, wave, V)
+    o, _ = fge.gather_emit_combine_window_triton(*args, tables, dst=cv.dst,
+                                                 bitmap=wbm, **ids)
+    r, _ = fge.gather_emit_combine_window_triton(*args, tables, dst=cv.dst,
+                                                 **ids)
+    check("windowed block-skip kernel on an SSSP wavefront vs windowed",
+          o["distance"], r["distance"], False)
+    _, wrow = packed_shape("windowed block-skip, SSSP wavefront", bprog, gw,
+                           "distance", wave, rng, "window_skip", bitmap=wbm)
+    log("window_skip_wavefront", frontier=int(wave.sum()),
+        live_tile_share=int(wbm.sum()) / tables.num_tiles,
+        ms=time_ms(lambda: fge.gather_emit_combine_window_triton(
+            *args, tables, dst=cv.dst, bitmap=wbm, **ids)),
+        window_ms=time_ms(lambda: fge.gather_emit_combine_window_triton(
+            *args, tables, dst=cv.dst, **ids)),
+        skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
+            *args, dst=cv.dst, tables=tables, bitmap=wbm, **ids)),
+        packed_q8_ms=wrow["ms"], packed_q8_resident_ms=wrow["resident_ms"])
+
+    # one P = 4 bucket with sentinel pads: the diagonal bucket of part 1
+    sg = ctx["banded_sharded"]
+    q, wins = sg.prefetch_tables(False, False)
+    bpad, bcut = dist_bucket(sg, 1, 1, 4096, dev, (q, wins))
+    v_pp = sg.v_per_part
+    bact = random_frontier(v_pp, 0.01, rng, dev)
+    sprog = operators.SSSPProgram(0)
+    bvp = {"distance": torch.from_numpy(
+        rng.random(v_pp).astype(np.float32) * 50).to(dev)}
+    for name in ("single-leaf", "packed"):
+        outs = []
+        for lay in (bpad, bcut):
+            bbm = fge.tile_bitmap_cuda(bact, lay.fused_tables)
+            k = dict(indptr=lay.in_indptr, valid=lay.valid_mask,
+                     src_ids=lay.src_ids, dst_ids=lay.dst_ids,
+                     tables=lay.fused_tables)
+            if name == "packed":
+                from repro_torch.kernels import fused_packed as fp
+                plain = fp.gather_emit_combine_packed_window_skip_plain(
+                    sprog, ("min",), lay.src, lay.dst, bvp, lay.eprops,
+                    bact, v_pp, lay.in_indptr, lay.fused_tables, bbm,
+                    valid=lay.valid_mask, src_ids=lay.src_ids,
+                    dst_ids=lay.dst_ids)
+                got = fp.gather_emit_combine_packed(
+                    sprog, ("min",), lay.src, lay.dst, bvp, lay.eprops,
+                    bact, v_pp, variant="window_skip", **k)
+            else:
+                plain = fge.gather_emit_combine_window_skip_plain(
+                    sprog, "min", lay.src, lay.dst, bvp, lay.eprops, bact,
+                    v_pp, lay.in_indptr, lay.fused_tables, bbm,
+                    valid=lay.valid_mask, src_ids=lay.src_ids,
+                    dst_ids=lay.dst_ids)
+                got = fge.gather_emit_combine(
+                    sprog, "min", lay.src, lay.dst, bvp, lay.eprops, bact,
+                    v_pp, variant="window_skip", **k)
+            if not torch.equal(got[1], plain[1]):
+                fail(f"{name} windowed block-skip on a padded bucket: "
+                     "has_msg differs")
+            check(f"{name} windowed block-skip on a P=4 bucket vs plain",
+                  got[0]["distance"], plain[0]["distance"], False)
+            outs.append(got[0]["distance"])
+        check(f"{name} windowed block-skip, padded vs unpadded bucket",
+              outs[0], outs[1], False)
+    log("window_skip_bucket", part=1, bucket=1, slots=bpad.num_edges,
+        valid=bcut.num_edges, sentinel_pads=4096, W=wins[1],
+        windowed=fge.window_usable(bpad.fused_tables, v_pp,
+                                   [bvp["distance"]]))
+
+    # Bounds (1 % frontier): the single-leaf shape must read indptr,
+    # tile_ptr, the window table and the bitmap, write out and has_msg,
+    # and of the edge streams (src, weight) and the gathered leaves
+    # (distance, active) the live tiles' share; the packed shape the same
+    # with [V, Q] leaves and two [V, W] slabs written
+    P = -(-V // fge.BLOCK_V)
+    C = -(-V // fge.WINDOW_ROWS)
+    fixed = 4 * (V + 1) + 4 * (P + 1) + 4 * C + tables.num_tiles
+    b4, by4 = bound(fixed + 4 * V + V + share * (8 * E + 5 * V),
+                    2 * share * E)
+    W = graph_device.lane_slab_width(Q)
+    b5, by5 = bound(fixed + share * (8 * E + 8 * V * Q + V) + 8 * V * W + V,
+                    3 * share * E * Q)
+    return [
+        {"name": "gather_emit_combine_window_skip", "route": "triton",
+         "source": "src/repro_torch/kernels/fused_gather_emit.py",
+         "replaces": "src/repro/kernels/fused_gather_emit.py:411",
+         "launches": 0, "max_abs_err": err, "ms": times["sssp"]["ms"],
+         "plain_ms": times["sssp"]["plain_ms"], "bound_ms": b4,
+         "bound_by": by4, "library_ms": None},
+        {"name": "gather_emit_combine_packed_window_skip",
+         "route": "triton", "source": PACKED_SRC,
+         "replaces": PACKED_REPLACES, "launches": 0, "max_abs_err": perr,
+         "ms": prow["ms"], "plain_ms": prow["plain_ms"], "bound_ms": b5,
+         "bound_by": by5, "library_ms": None}]
+
+
+def phase_distributed(ctx):
+    """Phase 15 (module docstring). Returns the `kernels` rows of the
+    windowed block-skip shapes."""
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch import UniGPS
+    from repro_torch.core import operators
+    from repro_torch.core.engines.common import NonConvergenceWarning
+    from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
+    from repro_torch.core.graph import from_edges
+    from repro_torch.distributed.collectives import free_port, init_rank
+    from repro_torch.kernels import counters
+
+    t_phase = time.time()
+    g, results = ctx["g"], ctx["results"]
+
+    # -- 15a: P = 1, a nccl group of one, on phase 4's RMAT graph ----------
+    dev = init_rank(0, 1, free_port(), "nccl")
+    t = time.time()
+    sg1 = ShardedGraph(g, 1)
+    sg1.bucket(0, 0)
+    log("distributed_graph", P=1, graph="rmat", shard_s=round(
+        time.time() - t, 2))
+    calls = {
+        "pagerank": lambda **kw: operators.pagerank(g, 20, **kw),
+        "sssp": lambda **kw: operators.sssp(g, 0, frontier="auto", **kw),
+        "connected_components":
+            lambda **kw: operators.connected_components(g, **kw),
+    }
+    for sch in SCHEDULES:
+        torch.cuda.synchronize()
+        counters.reset()
+        for name, fn in calls.items():
+            t = time.time()
+            out, info = fn(engine="distributed", gdev=sg1, schedule=sch,
+                           device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            e = check(f"distributed P=1 {sch} {name} vs single device",
+                      torch.from_numpy(np.asarray(out)),
+                      torch.from_numpy(np.asarray(results[name])),
+                      name == "pagerank")
+            log("distributed", P=1, backend=info["comm"]["backend"],
+                schedule=sch, name=name, wall_s=round(wall, 4),
+                supersteps=info["iterations"],
+                bytes_exchanged=info["bytes_exchanged"]["per_superstep"],
+                collectives=info["comm"]["collectives"],
+                max_abs_err_vs_single_device=e)
+        launches = counters.snapshot()
+        log("distributed_path", P=1, schedule=sch, launches=json.dumps(
+            launches, separators=(",", ":")))
+        for k in ("gather_emit_combine", "gather_emit_combine_skip"):
+            if launches[k] <= 0:
+                fail(f"distributed P=1 {sch}: never launched {k}")
+    # once through the session facade, which builds its own partition
+    t = time.time()
+    out, info = UniGPS(engine="distributed").pagerank(g, num_iters=20)
+    torch.cuda.synchronize()
+    e = check("UniGPS(engine=distributed).pagerank vs single device",
+              torch.from_numpy(out), torch.from_numpy(results["pagerank"]),
+              True)
+    log("distributed", P=1, name="unigps_pagerank", schedule="ring",
+        wall_s=round(time.time() - t, 4), max_abs_err_vs_single_device=e)
+    dist.destroy_process_group()
+    del sg1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15b: P = 4 under gloo, four ranks sharing cuda:0, on Banded-21 ----
+    gb, gw = ctx["gb"], ctx["gw"]
+    cv = gw.canonical
+    V = gb.num_vertices
+    perm = gw.vertex_perm.cpu().numpy().astype(np.int64)  # new -> old id
+    # the relabeled graph: gw's canonical layout in new ids
+    src = cv.src.cpu().numpy()
+    dst = cv.dst.cpu().numpy()
+    weight = cv.eprops["weight"].cpu().numpy()
+    roots = lane_roots(V, 8, seed=5)
+    gr = from_edges(src, dst, V, edge_props={"weight": weight},
+                    directed=True)
+    ctx["banded_sharded"] = ShardedGraph(gr, 4)
+    rows = window_skip_parity(ctx, torch.device("cuda"))
+    # the single-device references on gw, in new ids (roots mapped to old)
+    refs = {}
+    user_prog = ctx["user_prog"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", NonConvergenceWarning)
+        old = [int(perm[r]) for r in roots]
+        it = DIST_ITERS
+        refs["pagerank"] = operators.pagerank(gb, 20, gdev=gw)[0][perm]
+        refs["sssp"] = operators.sssp(gb, old[0], it, gdev=gw)[0][perm]
+        refs["sssp_sources"] = operators.sssp(
+            gb, sources=old, max_iter=it, gdev=gw)[0][:, perm]
+        refs["quickstart"] = operators.run_vcprog(
+            user_prog(old[0]), gb, it, gdev=gw)[0]["distance"].cpu().numpy(
+            )[perm]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        np.savez(tmp / "graph.npz", src=src, dst=dst, weight=weight, V=V,
+                 roots=np.asarray(roots))
+        t = time.time()
+        spawn_ranks(4, tmp, timeout=600)
+        spawn_s = time.time() - t
+        meta = json.loads((tmp / "meta.json").read_text())
+        got = dict(np.load(tmp / "results.npz"))
+    launches = meta["launches"]
+    log("distributed_path", P=4, backend="gloo", ranks_share="cuda:0",
+        launches=json.dumps(launches, separators=(",", ":")))
+    for k in ("gather_emit_combine_window", "gather_emit_combine_window_skip",
+              "gather_emit_combine_packed_window_skip", "segment_combine"):
+        if launches[k] <= 0:
+            fail(f"distributed P=4: no bucket launched {k}")
+    wins = np.asarray(meta["windows"])
+    log("distributed_windows", P=4, per_bucket=json.dumps(wins.tolist()),
+        usable=int((wins > 0).sum()), zero=int((wins == 0).sum()))
+    if not ((wins > 0).any() and (wins == 0).any()):
+        fail(f"distributed P=4: expected buckets with a usable window and "
+             f"with window 0, got {wins.tolist()}")
+    for sch in SCHEDULES:
+        for name in DIST_RUNS:
+            key = f"{name}/{sch}"
+            a = torch.from_numpy(got[key])
+            base = name.split("_")[0] if name.startswith("pagerank") \
+                else name
+            b = torch.from_numpy(np.asarray(refs[base]))
+            if name in ("pagerank_fp16", "pagerank_q8ef"):
+                e = max_abs_err(a, b)
+                bound = LOSSY_REL[name.split("_")[1]]
+                if not (e < LOSSY_ATOL and e / float(b.abs().max()) < bound):
+                    fail(f"distributed P=4 {key}: max abs err {e} is not "
+                         f"below {LOSSY_ATOL} and {bound} of max|rank|")
+            else:
+                e = check(f"distributed P=4 {key} vs single device", a, b,
+                          name == "pagerank")
+            m = meta[key]
+            log("distributed", P=4, schedule=sch, name=name,
+                wall_s=round(m["wall_s"], 4), supersteps=m["supersteps"],
+                windows=m["prefetch_windows"],
+                bytes_exchanged=m["bytes"]["per_superstep"],
+                host_staged_bytes=m["comm"]["host_staged_bytes"],
+                collectives=m["comm"]["collectives"],
+                max_abs_err_vs_single_device=e,
+                rel_err=e / max(float(b.abs().max()), 1e-30))
+    b = torch.from_numpy(np.asarray(refs["pagerank"]))
+    for name in ("pagerank_fp16", "pagerank_q8ef"):
+        bound = LOSSY_REL[name.split("_")[1]]
+        rel = max_abs_err(torch.from_numpy(got[f"{name}/zeros"]), b) \
+            / float(b.abs().max())
+        log("distributed_lossy_control", P=4, schedule="ring", name=name,
+            codec="decodes zeros", rel_err=rel, bound=bound)
+        if not rel >= bound:
+            fail(f"distributed P=4 {name}: a codec decoding zeros reads "
+                 f"{rel} of max|rank|, inside the bound {bound}")
+    log("distributed_ranks", P=4, spawn_s=round(spawn_s, 2),
+        graph_load_s=round(meta["load_s"], 2),
+        runs_s=round(meta["runs_s"], 2))
+    rows[0]["launches"] = launches["gather_emit_combine_window_skip"]
+    rows[1]["launches"] = launches["gather_emit_combine_packed_window_skip"]
+    del ctx["banded_sharded"]
+    log("distributed_phase", seconds=round(time.time() - t_phase, 2))
     return rows
 
 
@@ -2101,6 +2647,14 @@ def main():
     ap.add_argument("--log2v", type=int, default=21,
                     help="vertices of the window phase's banded graph "
                          "(V = 2**log2v); 21 is the smoke's size")
+    # phase 15b starts this script once per rank with these
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-world", type=int, default=4,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2109,6 +2663,8 @@ def main():
         return 2
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
+    if args.dist_rank is not None:
+        return dist_rank_main(args)
     from repro_torch.kernels import build
 
     t_all = time.time()

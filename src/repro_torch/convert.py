@@ -7,8 +7,12 @@ class into a dict of numpy arrays, and :func:`graph_from_arrays` builds the
 port's graph from such a dict. Vertex records cross as ``{name: ndarray}``
 through :func:`record_to_torch` and :func:`to_numpy`; the [V, Q] leaves
 of a batched run split into Q per-lane records with :func:`split_lanes`
-and stack back with :func:`stack_lanes`. A language model's parameter
-tree crosses through :func:`model_params_from_numpy`.
+and stack back with :func:`stack_lanes`. A distributed partition (the
+`build_sharded_graph` dict of either package) becomes the port's
+:class:`~repro_torch.core.engines.distributed.ShardedGraph`, whose
+per-rank device tensors the engine builds, with
+:func:`sharded_graph_from_arrays`. A language model's parameter tree
+crosses through :func:`model_params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -53,6 +57,25 @@ def graph_from_arrays(fields: dict) -> PropertyGraph:
         else:
             kw[name] = v
     return PropertyGraph(**kw)
+
+
+def sharded_graph_from_arrays(fields: dict, reorder: str = "none"):
+    """The port's ShardedGraph of a `build_sharded_graph` dict of either
+    package (arrays copied to numpy): pass it as `gdev=` to run the
+    port's distributed engine on that exact partition, or take one
+    rank's device tensors with `.part(rank, device, schedule,
+    prefetch_on)`. `reorder` names the relabeling the dict was built
+    with (its `vertex_perm` / `inv_perm` carry it)."""
+    from .core.engines.distributed import ShardedGraph
+
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: np.array(a) for k, a in v.items()}
+        if v is None or isinstance(v, (int, np.integer)):
+            return v
+        return np.array(v)
+    return ShardedGraph.from_arrays({k: copy(v) for k, v in fields.items()},
+                                    reorder=reorder)
 
 
 def record_to_torch(record: dict, device="cpu") -> dict:

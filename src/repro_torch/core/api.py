@@ -9,7 +9,11 @@ Mirrors the paper's API shape:
     ranks, info = unigps.pagerank(g, engine="pushpull")
     unigps.save_vertex_table({"rank": ranks}, "result.tsv")
 
-Every call takes `engine=` to pick the backend: pregel | gas | pushpull.
+Every call takes `engine=` to pick the backend: pregel | gas | pushpull |
+distributed. The distributed engine runs one part per rank of the
+`torch.distributed` group (a world of one in process without one) and
+takes the per-call `num_parts=`, `schedule=` ("ring" default,
+"allgather", "push") and `overlap=` (default True).
 """
 from __future__ import annotations
 
@@ -58,10 +62,13 @@ class UniGPS:
     `batch=`, `landmark_distances`) wider than that many lanes into
     sub-batches, bitwise equal to one batch.
 
+    exchange ("exact"|"fp16"|"q8ef") is the distributed engine's wire
+    codec (inert on the single-device engines).
+
     lint defaults to "off": the port has no linter yet, and the other
-    values raise. exchange, checkpoint_dir, checkpoint_every and guards
-    keep the reference's names; values whose machinery is a later slice
-    raise NotImplementedError when a run starts.
+    values raise. checkpoint_dir, checkpoint_every and guards keep the
+    reference's names; values whose machinery is a later slice raise
+    NotImplementedError when a run starts.
     """
 
     def __init__(self, engine: str = DEFAULT_ENGINE, kernel: str = "auto",
@@ -127,6 +134,9 @@ class UniGPS:
                "guards": kw.pop("guards", self.guards),
                "faults": kw.pop("faults", ()),
                "lane_chunk": kw.pop("lane_chunk", self.lane_chunk),
+               "num_parts": kw.pop("num_parts", None),
+               "schedule": kw.pop("schedule", "ring"),
+               "overlap": kw.pop("overlap", True),
                "device": kw.pop("device", self.device)}
         if kw:
             raise TypeError(f"unexpected keyword argument(s): {sorted(kw)}")

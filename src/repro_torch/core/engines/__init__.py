@@ -10,7 +10,11 @@ dataflow — the analogue of the paper's Giraph/GraphX/Gemini backends:
   pushpull  Gemini-style adaptive: sparse push or dense pull, chosen on
             frontier density each superstep.
 
+  distributed  one part per rank of a `torch.distributed` group
+            (engines/distributed.py): allgather, ring or push schedules
+            over per-bucket planes.
+
 Every engine is a thin schedule over `core/message_plane.py`. The
-callback and distributed engines come with later slices (ROADMAP.md).
+callback engine comes with a later slice (ROADMAP.md).
 """
 from .common import ENGINES, prepare_device_graph, run_vcprog  # noqa: F401

@@ -17,10 +17,11 @@ from ..graph import PropertyGraph
 from ..graph_device import (DeviceGraph, build_device_graph,
                             resolve_lane_chunk)
 from ..knobs import knob_error, not_ported
+from ...distributed import wire
 
-#: wire codec names of the distributed exchange (copied from the
-#: reference's registry so `info["bytes_exchanged"]` has the same keys)
-CODECS = ("exact", "fp16", "q8ef")
+#: wire codec names of the distributed exchange (so the single-device
+#: `info["bytes_exchanged"]` has the distributed engine's keys)
+CODECS = tuple(wire.CODECS)
 
 
 class NonConvergenceWarning(UserWarning):
@@ -95,13 +96,7 @@ def _refuse_later_slices(engine, exchange, checkpoint_dir,
     their ROADMAP.md Queue A entry."""
     if engine == "callback":
         raise not_ported("engine", engine, "item 4b: the callback engine")
-    if engine == "distributed":
-        raise not_ported("engine", engine, "item 8: the distributed engine")
-    if exchange not in CODECS:
-        raise knob_error("exchange", exchange, CODECS)
-    if exchange != "exact":
-        raise not_ported("exchange", exchange,
-                         "item 8: the distributed wire codecs")
+    wire.resolve_exchange_mode(exchange)
     if checkpoint_dir or int(checkpoint_every or 0) > 0:
         raise not_ported("checkpoint_dir", checkpoint_dir,
                          "item 9: checkpoint and faults")
@@ -121,7 +116,7 @@ def _run_lane_chunked(program: vcprog.BatchedProgram, graph, max_iter,
     """Run a wide batch as `chunk_width`-lane sub-batches on one device
     graph and concatenate them on the trailing lane axis: bitwise equal
     to the unchunked run (lanes never interact)."""
-    if gdev is None:
+    if gdev is None and kw.get("engine") != "distributed":
         gdev = prepare_device_graph(graph, reorder=reorder, device=device)
     outs, infos = [], []
     for sub in program.split(chunk_width):
@@ -148,8 +143,16 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
                checkpoint_dir: str | None = None, checkpoint_every: int = 0,
                resume: str = "auto", guards: str | bool = "off",
                faults=(), warm_start=None, lane_chunk=None,
-               device="cuda"):
+               num_parts=None, schedule: str = "ring", device="cuda"):
     """Execute a VCProg program (paper Algorithm 1). Returns (vprops, info).
+
+    engine: "pushpull" (default), "pregel", "gas" or "distributed". The
+    distributed engine (engines/distributed.py) runs one part per rank of
+    the `torch.distributed` group (in process without one): `num_parts`
+    (default the group's size), `schedule` ("ring" default, "allgather",
+    "push"), `overlap` and `exchange` are its knobs, and `gdev` may be a
+    `distributed.ShardedGraph` (the partition kept across calls); the
+    single-device engines ignore `num_parts` and `schedule`.
 
     device: "cuda" (default) or "cpu". The run raises when CUDA is asked
     for and absent. `gdev`, when given, carries its own device.
@@ -191,9 +194,9 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
     them on the lane axis; bitwise equal to the unchunked run, with
     `info["lane_chunks"]` reporting the split.
 
-    overlap and resume are inert on this single-device path.
-    exchange != "exact", checkpointing, guards, faults, warm_start and
-    the callback/distributed engines belong to later slices and raise
+    exchange ("exact"|"fp16"|"q8ef"), overlap and resume are inert on the
+    single-device engines. Checkpointing, guards, faults, warm_start and
+    the callback engine belong to later slices and raise
     NotImplementedError.
     """
     frontier = message_plane.resolve_frontier_mode(frontier)
@@ -210,7 +213,14 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
             program, graph, max_iter, chunk_width, gdev, reorder, device,
             engine=engine, kernel=kernel, use_kernel=use_kernel,
             frontier=frontier, prefetch=prefetch, exchange=exchange,
-            overlap=overlap)
+            overlap=overlap, num_parts=num_parts, schedule=schedule)
+    if engine == "distributed":
+        from .distributed import run_vcprog_distributed
+        return run_vcprog_distributed(
+            program, graph, max_iter, num_parts=num_parts,
+            schedule=schedule, kernel=kernel, use_kernel=use_kernel,
+            reorder=reorder, frontier=frontier, prefetch=prefetch,
+            exchange=exchange, overlap=overlap, gdev=gdev, device=device)
     from . import gas, pregel, pushpull  # noqa: F401 (registration)
     eng = ENGINES[engine]
     if gdev is None:

@@ -338,3 +338,38 @@ def build_device_graph(g: PropertyGraph, reorder: str = "none",
         inv_perm=None if inv_np is None
         else _tensor(inv_np, device, torch.int32),
         num_vertices=V, num_edges=E)
+
+
+def bucket_layout(src_local, src_global, dst_local, dst_global, eprops,
+                  mask, seg_meta, v_per_part: int, in_indptr=None,
+                  window=None) -> EdgeLayout:
+    """EdgeLayout over ONE distributed src-owner bucket of local in-edges
+    (tensors on one device).
+
+    The bucket is combine-ordered already: `dst_local` ascending, its
+    padded slots (where `mask` is False, all after the valid ones) holding
+    the sentinel `v_per_part`; `src_local` indexes the owner part's
+    [v_per_part] rows; the emit sees `src_global`/`dst_global` (None where
+    they equal the local ids). `mask` may be None for a bucket without
+    padding. `in_indptr` ([v_per_part+1] int32 row pointers of the valid
+    slots) is derived when not given. The fused kernels' tables cover the
+    valid slots and are built on the device at first use; `window` =
+    (q [C] int32, W) presets their windowed table, in the port's
+    WINDOW_ROWS-row form, from `engines.distributed.ShardedGraph.
+    prefetch_tables` (W = 0: the resident kernel); None lets the
+    tables compute the bucket's own.
+    """
+    from ..kernels.fused_gather_emit import FusedTables
+    from ..kernels.segment_reduce import indptr_from_seg_ids
+
+    V = int(v_per_part)
+    if in_indptr is None:
+        in_indptr = indptr_from_seg_ids(dst_local, V)
+    n = int(in_indptr[-1]) if V else 0
+    return EdgeLayout(
+        src=src_local, dst=dst_local, eprops=eprops, seg_meta=seg_meta,
+        in_indptr=in_indptr, valid_mask=mask, src_ids=src_global,
+        dst_ids=dst_global,
+        fused_tables=FusedTables(src_local[:n], dst_local[:n], in_indptr,
+                                 window=window),
+        num_segments=V, num_edges=int(dst_local.shape[0]))

@@ -13,9 +13,9 @@ dispatcher reads its fields and the program's monoid to pick between
   * the fused gather–emit–combine kernel (Triton; one pass, messages never
     touch device memory) for programs with one message leaf under a named
     monoid and a Triton emit (:meth:`VCProgram.triton_emit`) — resident,
-    windowed (a locality-ordered graph's slab pairs) or block-skip (a thin
-    frontier's live tiles),
-  * the packed fused kernel (Triton, the same three shapes) for records
+    windowed (a locality-ordered graph's slab pairs), block-skip (a thin
+    frontier's live tiles) or both of the last two together,
+  * the packed fused kernel (Triton, the same four shapes) for records
     with several leaves, a per-leaf monoid table, vector leaves or the
     query lanes of a batched program: one launch per pass whatever the
     record,
@@ -492,21 +492,22 @@ def _fused_emit_combine(program: VCProgram, layout: EdgeLayout, vprops,
     runs the single-leaf kernel. The kernel's shape follows the
     reference's dispatch: block-skip when the frontier mode is sparse
     ("sparse", or "auto" below the crossover; the bitmap comes from the
-    union frontier), otherwise the windowed kernel when `use_prefetch`
-    and the layout's tables carry a usable window, otherwise the
-    resident one. Layouts without tables run the resident kernel (same
-    bits)."""
+    union frontier), windowed when `use_prefetch` and the layout's tables
+    carry a usable window, both together (the windowed block-skip shape)
+    when both hold, otherwise the resident one. The kernel wrappers drop
+    the window where it is not usable. Layouts without tables run the
+    resident kernel (same bits)."""
     from ..kernels import ops as kops
     monoids = leaf_monoids(program, empty)
     tables = layout.fused_tables
-    variant, n_act = "resident", None
+    variant = "resident"
     if frontier != "dense" and tables is not None:
         n_act = frontier_edge_count(active, layout)
         if frontier == "sparse" or n_act <= workset_capacity(
                 layout.num_edges):
             variant = "skip"
-    if variant == "resident" and use_prefetch and tables is not None:
-        variant = "window"  # resident where the window is not usable
+    if use_prefetch and tables is not None:
+        variant = "window" if variant == "resident" else "window_skip"
     mask = frontier_mask(active)
     kw = dict(indptr=layout.in_indptr, valid=layout.valid_mask,
               src_ids=layout.src_ids, dst_ids=layout.dst_ids,

@@ -183,6 +183,32 @@ def resolve_permutation(strategy: str, src, dst,
     return best_perm
 
 
+def partitioned_rcm_permutation(src, dst, num_vertices: int,
+                                num_parts: int) -> np.ndarray:
+    """Block-diagonal RCM for the distributed partitioner
+    (`reorder="rcm:part"`): every vertex stays in its contiguous part
+    range [p·v_pp, (p+1)·v_pp), so part ownership and the bucket
+    structure are unchanged, but ids within each part are RCM-ordered
+    over the part-induced subgraph, which bands each bucket's src runs in
+    the part's local id space. The ranges use `graph.partition_graph`'s
+    ceil(V/P) stride; cross-part edges do not influence the order."""
+    V, P = int(num_vertices), int(num_parts)
+    if V == 0:
+        return np.zeros((0,), np.int64)
+    v_pp = -(-V // P)
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    perm = np.arange(V, dtype=np.int64)
+    for p in range(P):
+        lo, hi = p * v_pp, min((p + 1) * v_pp, V)
+        if lo >= hi:
+            break
+        keep = (src >= lo) & (src < hi) & (dst >= lo) & (dst < hi)
+        local = rcm_permutation(src[keep] - lo, dst[keep] - lo, hi - lo)
+        perm[lo:hi] = local + lo
+    return perm
+
+
 def apply_permutation(g: PropertyGraph, perm: np.ndarray
                       ) -> Tuple[PropertyGraph, Optional[np.ndarray],
                                  Optional[np.ndarray]]:

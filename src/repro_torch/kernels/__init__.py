@@ -4,11 +4,11 @@
                      combine at dst) as ONE pass, in Triton, with the
                      program's Triton emit inlined: resident, block-skip
                      (its frontier bitmap kernel in CUDA C++,
-                     csrc/tile_bitmap.cu) and windowed
+                     csrc/tile_bitmap.cu), windowed and windowed
+                     block-skip
   fused_packed       the same pass for a whole multi-leaf record
                      (mixed monoids, vector leaves, batched query lanes)
-                     in ONE launch, in Triton: resident, block-skip and
-                     windowed
+                     in ONE launch, in Triton: the same four shapes
   segment_reduce     Phase-1 message combine over dst-sorted messages, in
                      CUDA C++ (csrc/segment_reduce.cu, built with nvcc)
   flash_attention    causal GQA attention with an online softmax for the

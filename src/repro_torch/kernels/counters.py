@@ -12,10 +12,11 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "segment_combine": 0, "gather_emit_combine": 0,
     "gather_emit_combine_skip": 0, "gather_emit_combine_finish": 0,
-    "gather_emit_combine_window": 0,
+    "gather_emit_combine_window": 0, "gather_emit_combine_window_skip": 0,
     "tile_bitmap": 0, "gather_emit_combine_packed": 0,
     "gather_emit_combine_packed_skip": 0,
-    "gather_emit_combine_packed_window": 0, "flash_attention": 0,
+    "gather_emit_combine_packed_window": 0,
+    "gather_emit_combine_packed_window_skip": 0, "flash_attention": 0,
     "flash_attention_wgmma": 0}
 
 

@@ -8,7 +8,8 @@ gather_emit_combine` with Triton kernels, one per shape of the Pallas
   block-skip ``blockskip=True``: tiles whose sources are all off the
              frontier are skipped (the Pallas ``_block_active`` bitmap);
   windowed   ``window > 0``: each block gathers its sources from one
-             slab pair instead of the whole [V] property array.
+             slab pair instead of the whole [V] property array;
+  windowed block-skip ``window > 0, blockskip=True``: both together.
 
 Triton is the route because the kernel's body is the *user's* per-edge
 emit function: a `@triton.jit` emit passed as a constexpr argument is
@@ -85,6 +86,16 @@ most lanes masked. Reading the pair through L1 instead of staging it
 slower (tools/sweep_window_tiles.py, PERF.md). W = 0 (the slab pair
 would reach the vertex range, or exceed ``WINDOW_SLAB_BYTES``) runs the
 resident kernel, as the reference does.
+
+Windowed block-skip design: the windowed kernel with the block-skip
+bitmap read before anything is staged. A CTA first scans the bitmap
+range of its rows' tiles (one contiguous range, since the tiles follow
+the rows in id order); with no live tile it stages nothing (every load of
+the slab pair masked off) and walks no edge. A live CTA stages its pair
+and drops, step by step, the edges whose tile is dead; a row whose edges
+all lie in its group's dead first tile walks none. A distributed bucket
+runs every shape over its valid edges: its sentinel-padded slots lie past
+the last row pointer, so no walk reaches them.
 
 The bits. Min/max and integer sums do not depend on the order of their
 terms. An f32 sum adds edge c of a row (counting from the row's first
@@ -168,6 +179,9 @@ WINDOW_SLAB_BYTES = 48 * 1024
 TILE_HUB = 1024
 TILE_HUB_PIECE = 2048
 
+#: the kernel shapes a fused pass may ask for (`variant=`)
+VARIANTS = ("resident", "skip", "window", "window_skip")
+
 #: triton.language, bound by _triton() at first launch (this module must
 #: import on hosts without triton)
 tl = None
@@ -198,16 +212,26 @@ class FusedTables:
 
     `src`, `dst`, `in_indptr` are the layout's tensors, `perm` maps its
     canonical edges to their src-sorted positions and `out_degree` is the
-    graph's [V] out-degree, all on one device.
+    graph's [V] out-degree, all on one device. A distributed bucket
+    passes its valid edges only (a prefix of its padded slots), leaves
+    `perm` and `out_degree` to be derived from `src` on first use, and
+    presets `window` = (q, W) from its part's window tables
+    (`engines.distributed.ShardedGraph.prefetch_tables`).
     """
 
-    def __init__(self, src, dst, in_indptr, perm, out_degree):
+    def __init__(self, src, dst, in_indptr, perm=None, out_degree=None,
+                 window=None):
         self._src, self._dst, self._indptr = src, dst, in_indptr
         self._perm, self._out_degree = perm, out_degree
+        if window is not None:
+            self._window = window
 
     @functools.cached_property
     def out_indptr(self):
         deg = self._out_degree
+        if deg is None:
+            deg = torch.bincount(self._src.long(),
+                                 minlength=int(self._indptr.shape[0]) - 1)
         ptr = torch.zeros(int(deg.shape[0]) + 1, dtype=torch.int32,
                           device=deg.device)
         torch.cumsum(deg, 0, dtype=torch.int32, out=ptr[1:])
@@ -226,8 +250,13 @@ class FusedTables:
                      out=tile_ptr[1:])
         out_tile = torch.empty(int(self._dst.shape[0]), dtype=torch.int32,
                                device=dev)
-        out_tile[self._perm] = _edge_tiles(self._dst, self._indptr,
-                                           tile_ptr).to(torch.int32)
+        perm = self._perm
+        if perm is None:  # canonical edge -> its src-sorted position
+            order = torch.sort(self._src, stable=True).indices
+            perm = torch.empty_like(order)
+            perm[order] = torch.arange(order.numel(), device=dev)
+        out_tile[perm] = _edge_tiles(self._dst, self._indptr,
+                                     tile_ptr).to(torch.int32)
         return tile_ptr.to(torch.int32), out_tile, int(tile_ptr[-1])
 
     @functools.cached_property
@@ -499,17 +528,31 @@ def gather_emit_combine_skip_plain(program, monoid: str, src, dst, vprops,
         src_ids=src_ids, dst_ids=dst_ids)
 
 
+def _real(dst, indptr):
+    """[E] bool: the edge is one of the layout's rows, not a sentinel pad
+    (a distributed bucket pads its slots with dst = V)."""
+    return dst.long() < int(indptr.shape[0]) - 1
+
+
 def _skip_live(dst, indptr, tables: FusedTables, bitmap):
-    """[E] bool: the edge's tile is live in the block-skip bitmap."""
-    return bitmap[edge_tiles(dst, indptr, tables)] != 0
+    """[E] bool: the edge's tile is live in the block-skip bitmap
+    (sentinel pads never are)."""
+    real = _real(dst, indptr)
+    if tables.num_tiles == 0:
+        return torch.zeros_like(real)
+    d = torch.where(real, dst, 0)
+    tiles = edge_tiles(d, indptr, tables).clamp(max=tables.num_tiles - 1)
+    return real & (bitmap[tiles] != 0)
 
 
 def _in_window(src, dst, tables: FusedTables):
-    """[E] bool: the edge's src lies in its windowed CTA's slab pair."""
+    """[E] bool: the edge's src lies in its windowed CTA's slab pair
+    (sentinel pads never do)."""
     w = int(tables.window)
-    base = tables.window_q.long()[dst.long() // WINDOW_ROWS] * w
-    idx = src.long() - base
-    return (idx >= 0) & (idx < 2 * w)
+    q = tables.window_q.long()
+    cta = (dst.long() // WINDOW_ROWS).clamp(max=q.shape[0] - 1)
+    idx = src.long() - q[cta] * w
+    return (idx >= 0) & (idx < 2 * w) & _real(dst, tables._indptr)
 
 
 def gather_emit_combine_window_plain(program, monoid: str, src, dst, vprops,
@@ -522,6 +565,22 @@ def gather_emit_combine_window_plain(program, monoid: str, src, dst, vprops,
         program, monoid, src, dst, vprops, eprops, active, num_vertices,
         valid=_and(valid, _in_window(src, dst, tables)), src_ids=src_ids,
         dst_ids=dst_ids)
+
+
+def gather_emit_combine_window_skip_plain(program, monoid: str, src, dst,
+                                          vprops, eprops, active,
+                                          num_vertices: int, indptr,
+                                          tables: FusedTables, bitmap,
+                                          valid=None, src_ids=None,
+                                          dst_ids=None):
+    """Plain version of the windowed block-skip kernel: the three-pass
+    plain pass with every edge of a dead tile, and every edge whose src
+    lies outside its CTA's slab pair, vetoed."""
+    veto = _skip_live(dst, indptr, tables, bitmap) \
+        & _in_window(src, dst, tables)
+    return gather_emit_combine_plain(
+        program, monoid, src, dst, vprops, eprops, active, num_vertices,
+        valid=_and(valid, veto), src_ids=src_ids, dst_ids=dst_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -816,21 +875,59 @@ def _finish_kernel(order_ptr, heavy_ptr, part_ptr, gs_ptr, out_ptr, hm_ptr,
              .to(tl.uint8), mask=rmask)
 
 
+def _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices,
+              ROWS: "tl.constexpr", GROUP: "tl.constexpr",
+              SCAN: "tl.constexpr"):
+    # does any tile of the CTA's ROWS rows hold an active source? Their
+    # GROUP-row groups' tiles are one range of the bitmap (tile_ptr runs
+    # over the groups in id order), scanned SCAN tiles at a time
+    g0 = cta * (ROWS // GROUP)
+    g1 = tl.minimum(g0 + ROWS // GROUP, tl.cdiv(num_vertices, GROUP))
+    t0 = tl.load(tile_ptr_ptr + g0)
+    t1 = tl.load(tile_ptr_ptr + g1)
+    live = tl.zeros([SCAN], tl.int32)
+    for t in range(t0, t1, SCAN):
+        tt = t + tl.arange(0, SCAN)
+        live = tl.maximum(live, tl.load(bitmap_ptr + tt, mask=tt < t1,
+                                        other=0).to(tl.int32))
+    return tl.max(live, axis=0) != 0
+
+
+def _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows, rmask, lo, hi, live,
+                      BK: "tl.constexpr", GROUP: "tl.constexpr"):
+    # (first tile of each row's group, the edges each row walks): a row
+    # whose edges all lie in its dead first tile walks none, and a CTA
+    # with no live tile (`live` false) walks none
+    tr = tl.load(tile_ptr_ptr + rows // GROUP, mask=rmask, other=0)
+    first = tl.load(bitmap_ptr + tr, mask=rmask & (hi > lo), other=0) != 0
+    deg = tl.where(first | (hi - lo > BK), hi - lo, 0)
+    return tr, tl.where(live, deg, 0)
+
+
 def _window_kernel(
-        indptr_ptr, src_ptr, q_ptr, a_ptr, b_ptr, w_ptr, act_ptr, valid_ptr,
-        sid_ptr, did_ptr, out_ptr, hm_ptr, num_vertices,
-        EMIT: "tl.constexpr", MONOID: "tl.constexpr", IDENT: "tl.constexpr",
-        ACC_INT: "tl.constexpr", FSUM: "tl.constexpr", N_VP: "tl.constexpr",
-        HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
-        HAS_IDS: "tl.constexpr", W: "tl.constexpr", ROWS: "tl.constexpr",
-        BV: "tl.constexpr", STEP: "tl.constexpr", LANES: "tl.constexpr",
+        indptr_ptr, src_ptr, q_ptr, tile_ptr_ptr, bitmap_ptr, a_ptr, b_ptr,
+        w_ptr, act_ptr, valid_ptr, sid_ptr, did_ptr, out_ptr, hm_ptr,
+        num_vertices, EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+        IDENT: "tl.constexpr", ACC_INT: "tl.constexpr", FSUM: "tl.constexpr",
+        N_VP: "tl.constexpr", HAS_W: "tl.constexpr",
+        HAS_VALID: "tl.constexpr", HAS_IDS: "tl.constexpr",
+        SKIP: "tl.constexpr", W: "tl.constexpr", ROWS: "tl.constexpr",
+        BV: "tl.constexpr", STEP: "tl.constexpr", BK: "tl.constexpr",
+        GROUP: "tl.constexpr", LANES: "tl.constexpr",
         LOG_LANES: "tl.constexpr"):
     # stage the slab pair [q·W, (q+2)·W) of the frontier flag and of each
-    # gathered leaf once; every gather is a tl.gather from it
+    # gathered leaf once; every gather is a tl.gather from it. With SKIP
+    # (the windowed block-skip shape) the bitmap is read first: a CTA
+    # whose tiles are all dead stages nothing (every staging load masked
+    # off) and walks no edge, and a live CTA drops the edges of dead tiles
     cta = tl.program_id(0)
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
+    if SKIP:
+        live = _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS,
+                         GROUP, 256)
+        smask = smask & live
     act_s = tl.load(act_ptr + slab, mask=smask, other=0).to(tl.int32)
     if N_VP > 0:
         a_s = tl.load(a_ptr + slab, mask=smask, other=0)
@@ -842,7 +939,12 @@ def _window_kernel(
         rmask = rows < num_vertices
         lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
         hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
-        max_deg = tl.max(hi - lo, axis=0)
+        if SKIP:
+            tr, deg = _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows,
+                                        rmask, lo, hi, live, BK, GROUP)
+            max_deg = tl.max(deg, axis=0)
+        else:
+            max_deg = tl.max(hi - lo, axis=0)
         if FSUM:
             # partial g * STEP + i of a row: [BV, NG, STEP]
             acc = tl.zeros([BV, NG, STEP], tl.float32)
@@ -856,6 +958,11 @@ def _window_kernel(
         for k in range(0, max_deg, STEP):
             e = lo[:, None] + k + tl.arange(0, STEP)[None, :]
             emask = e < hi[:, None]
+            if SKIP:
+                # the bit of each row's group at this step's BK-edge tile
+                emask = emask & (tl.load(
+                    bitmap_ptr + tr + k // BK, mask=rmask & (k < hi - lo),
+                    other=0) != 0)[:, None]
             s = tl.load(src_ptr + e, mask=emask, other=0)
             idx = s - base
             win = emask & (idx >= 0) & (idx < 2 * W)
@@ -895,7 +1002,7 @@ def _window_kernel(
 
 _HELPERS = ("_edge_ids_w", "_emit_staged", "_emit_edges", "_fold",
             "_finish_acc", "_reduce_rows", "_light_chunk", "_block_rows",
-            "_light_block", "_split_lane")
+            "_light_block", "_split_lane", "_cta_live", "_window_rows_live")
 
 
 @functools.cache
@@ -1043,10 +1150,7 @@ def gather_emit_combine_triton(program, monoid: str, indptr, src, vprops,
         if tables is None:
             raise ValueError("block-skip kernel: bitmap given without its "
                              "tables")
-        if (bitmap.dtype != torch.uint8 or bitmap.device != src.device
-                or tuple(bitmap.shape) != (tables.num_tiles,)):
-            raise ValueError(f"block-skip kernel: bitmap must be uint8 "
-                             f"({tables.num_tiles},) on {src.device}")
+        _check_bitmap(bitmap, tables, src.device)
     rows = _pow2("rows", rows, 1024)
     if split_chunks is None:
         split_chunks = SPLIT_FSUM_CHUNKS if const["FSUM"] else SPLIT_CHUNKS
@@ -1089,14 +1193,17 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
                                       vprops, eprops, active,
                                       num_vertices: int, tables: FusedTables,
                                       *, dst=None, valid=None, src_ids=None,
-                                      dst_ids=None, rows: int = WINDOW_BV,
+                                      dst_ids=None, bitmap=None,
+                                      rows: int = WINDOW_BV,
                                       step: int = WINDOW_STEP,
                                       num_warps: int = WINDOW_WARPS):
-    """Launch the windowed kernel on the current stream (the caller has
-    checked :func:`window_usable`). Returns (inbox record [V], has_msg [V]
-    bool). Each CTA walks its WINDOW_ROWS rows in tiles of `rows` rows,
-    `step` edges a step (a divisor of SUM_LANES), with `num_warps` warps;
-    every setting gives the same bits."""
+    """Launch the windowed kernel, or with `bitmap` (a [num_tiles] uint8
+    tile bitmap over `tables`) the windowed block-skip kernel, on the
+    current stream (the caller has checked :func:`window_usable`).
+    Returns (inbox record [V], has_msg [V] bool). Each CTA walks its
+    WINDOW_ROWS rows in tiles of `rows` rows, `step` edges a step (a
+    divisor of SUM_LANES), with `num_warps` warps; every setting gives
+    the same bits."""
     V = int(num_vertices)
     key, msg_dtype, p, const = _launch_args(
         program, monoid, indptr, src, vprops, eprops, active, V, dst, valid,
@@ -1106,6 +1213,9 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     if q.device != src.device or tuple(q.shape) != (C,):
         raise ValueError(f"windowed kernel: window_q must be ({C},) on "
                          f"{src.device}")
+    skip = bitmap is not None
+    if skip:
+        _check_bitmap(bitmap, tables, src.device)
     rows = _pow2("rows", rows, WINDOW_ROWS)
     step = _pow2("step", step, SUM_LANES)
     require_gather()
@@ -1113,12 +1223,21 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     out = torch.empty(V, dtype=msg_dtype, device=src.device)
     hm = torch.empty(V, dtype=torch.uint8, device=src.device)
     kernels["window"][(C,)](
-        indptr, src, q, p["a"], p["b"], p["w"], p["act"], p["valid"],
-        p["sid"], p["did"], out, hm, V, **const, W=int(tables.window),
-        ROWS=WINDOW_ROWS, BV=rows, STEP=step, **_lanes(SUM_LANES),
-        num_warps=num_warps)
-    counters.LAUNCHES["gather_emit_combine_window"] += 1
+        indptr, src, q, tables.tile_ptr if skip else src,
+        bitmap if skip else src, p["a"], p["b"], p["w"], p["act"],
+        p["valid"], p["sid"], p["did"], out, hm, V, **const, SKIP=skip,
+        W=int(tables.window), ROWS=WINDOW_ROWS, BV=rows, STEP=step,
+        BK=BLOCK_K, GROUP=BLOCK_V, **_lanes(SUM_LANES), num_warps=num_warps)
+    counters.LAUNCHES["gather_emit_combine_window_skip" if skip
+                      else "gather_emit_combine_window"] += 1
     return {key: out}, hm.view(torch.bool)
+
+
+def _check_bitmap(bitmap, tables: FusedTables, device):
+    if (bitmap.dtype != torch.uint8 or bitmap.device != device
+            or tuple(bitmap.shape) != (tables.num_tiles,)):
+        raise ValueError(f"block-skip kernel: bitmap must be uint8 "
+                         f"({tables.num_tiles},) on {device}")
 
 
 def tile_bitmap_cuda(active, tables: FusedTables) -> torch.Tensor:
@@ -1178,44 +1297,49 @@ def gather_emit_combine(program, monoid: str, src, dst, vprops, eprops,
     row pointers of `dst`) is derived when not given.
 
     variant: "resident"; "skip" (block-skip over `tables`, bitmap built
-    from the frontier); "window" (the windowed kernel over `tables`, or the resident
-    one where :func:`window_usable` says no, as the reference falls back).
-    Every variant gives the same bits."""
-    if variant not in ("resident", "skip", "window"):
-        raise ValueError(f"variant must be resident, skip or window, got "
+    from the frontier); "window" (the windowed kernel over `tables`, or
+    the resident one where :func:`window_usable` says no, as the
+    reference falls back); "window_skip" (windowed and block-skip
+    together, or block-skip alone where no window is usable). Every
+    variant gives the same bits."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     if variant != "resident" and tables is None:
         raise ValueError(f"the {variant} variant needs the layout's "
                          "FusedTables")
-    if variant == "window":
+    if variant in ("window", "window_skip"):
         reads = program.triton_emit_reads or ((), ())
         if not window_usable(tables, num_vertices,
                              [vprops[n] for n in reads[0] if n in vprops]):
-            variant = "resident"
+            variant = "resident" if variant == "window" else "skip"
     if indptr is None:
         from .segment_reduce import indptr_from_seg_ids
         indptr = indptr_from_seg_ids(dst, num_vertices)
     kw = dict(valid=valid, src_ids=src_ids, dst_ids=dst_ids)
+    bitmap = None
+    if variant in ("skip", "window_skip"):
+        bitmap = tile_bitmap(active, tables)
     if src.device.type == "cpu":
         if variant == "skip":
             return gather_emit_combine_skip_plain(
                 program, monoid, src, dst, vprops, eprops, active,
-                num_vertices, indptr, tables,
-                tile_bitmap(active, tables), **kw)
+                num_vertices, indptr, tables, bitmap, **kw)
         if variant == "window":
             return gather_emit_combine_window_plain(
                 program, monoid, src, dst, vprops, eprops, active,
                 num_vertices, tables, **kw)
+        if variant == "window_skip":
+            return gather_emit_combine_window_skip_plain(
+                program, monoid, src, dst, vprops, eprops, active,
+                num_vertices, indptr, tables, bitmap, **kw)
         return gather_emit_combine_plain(
             program, monoid, src, dst, vprops, eprops, active, num_vertices,
             **kw)
-    if variant == "window":
+    if variant in ("window", "window_skip"):
         return gather_emit_combine_window_triton(
             program, monoid, indptr, src, vprops, eprops, active,
-            num_vertices, tables, dst=dst, **kw)
-    bitmap = None
-    if variant == "skip":
-        bitmap = tile_bitmap(active, tables)
+            num_vertices, tables, dst=dst, bitmap=bitmap, **kw)
     return gather_emit_combine_triton(
         program, monoid, indptr, src, vprops, eprops, active, num_vertices,
         dst=dst, tables=tables, bitmap=bitmap, **kw)

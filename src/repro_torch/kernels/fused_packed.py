@@ -2,8 +2,8 @@
 
 Replaces the Pallas kernel `repro/kernels/fused_gather_emit.py::
 gather_emit_combine_packed` (`_packed_kernel`) with a Triton kernel in the
-three shapes of the single-leaf kernel (resident, block-skip, windowed;
-see :mod:`.fused_gather_emit`). It runs the records the single-leaf kernel
+four shapes of the single-leaf kernel (resident, block-skip, windowed,
+windowed block-skip; see :mod:`.fused_gather_emit`). It runs the records the single-leaf kernel
 cannot: several message leaves, a per-leaf monoid table (sum, min and max
 leaves in one message), vector leaves ([V, D] properties, [E, D]
 messages) and the batched query lanes of a
@@ -81,6 +81,10 @@ Design:
     kernel (PERF.md).
     :func:`window_usable` counts every padded column against
     PACKED_WINDOW_SLAB_BYTES.
+  * Windowed block-skip (the windowed kernel with `SKIP`): the CTA scans
+    its rows' bitmap range before staging; a CTA with no live tile stages
+    nothing and walks no edge, a live one drops the edges of dead tiles
+    (the single-leaf kernel's design, :mod:`.fused_gather_emit`).
   * Batched lanes: the kernel calls the BASE program's Triton emit on
     every lane's column, ANDs its is_emit with the lane's `_lane_act`
     bit, and writes the lane's `_lane_msg` column as 1 where the lane kept
@@ -451,6 +455,22 @@ def gather_emit_combine_packed_window_plain(program, monoids, src, dst,
         src_ids=src_ids, dst_ids=dst_ids)
 
 
+def gather_emit_combine_packed_window_skip_plain(program, monoids, src, dst,
+                                                 vprops, eprops, active,
+                                                 num_vertices: int, indptr,
+                                                 tables, bitmap, *,
+                                                 valid=None, src_ids=None,
+                                                 dst_ids=None):
+    """Plain version of the packed windowed block-skip kernel: every edge
+    of a dead tile, and every edge whose src lies outside its CTA's slab
+    pair, vetoed."""
+    veto = fge._skip_live(dst, indptr, tables, bitmap) \
+        & fge._in_window(src, dst, tables)
+    return gather_emit_combine_packed_plain(
+        program, monoids, src, dst, vprops, eprops, active, num_vertices,
+        valid=fge._and(valid, veto), src_ids=src_ids, dst_ids=dst_ids)
+
+
 # ---------------------------------------------------------------------------
 # The Triton kernels, generated per record layout
 # ---------------------------------------------------------------------------
@@ -554,7 +574,7 @@ _HEADER = "\n".join([
     "import triton",
     "import triton.language as tl",
     "",
-    "from {helpers} import _edge_ids_w",
+    "from {helpers} import _cta_live, _edge_ids_w, _window_rows_live",
     "from {module} import _lane_tree",
     "", "", ""])
 
@@ -670,21 +690,30 @@ def packed_finish(heavy_ptr, hm_ptr, gs_ptr, {args}
 
 _WINDOW = '''\
 @triton.jit
-def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, w_ptr, act_ptr,
-                         valid_ptr, sid_ptr, did_ptr, hm_ptr, {args}
+def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, tile_ptr_ptr,
+                         bitmap_ptr, w_ptr, act_ptr, valid_ptr, sid_ptr,
+                         did_ptr, hm_ptr, {args}
                          num_vertices, EMIT: tl.constexpr,
                          HAS_W: tl.constexpr, HAS_VALID: tl.constexpr,
-                         HAS_IDS: tl.constexpr, W: tl.constexpr,
-                         ROWS: tl.constexpr, BV: tl.constexpr,
-                         LANES: tl.constexpr, LOG_LANES: tl.constexpr,
-                         CC: tl.constexpr):
+                         HAS_IDS: tl.constexpr, SKIP: tl.constexpr,
+                         W: tl.constexpr, ROWS: tl.constexpr,
+                         BV: tl.constexpr, BK: tl.constexpr,
+                         GROUP: tl.constexpr, LANES: tl.constexpr,
+                         LOG_LANES: tl.constexpr, CC: tl.constexpr):
     cta = tl.program_id(0)
 {cols}
     # stage the slab pair [q*W, (q+2)*W) of the frontier flag and of each
-    # [V] leaf once; a [V, D] leaf's rows are read from the pair through L1
+    # [V] leaf once; a [V, D] leaf's rows are read from the pair through
+    # L1. With SKIP the bitmap is read first: a CTA whose tiles are all
+    # dead stages nothing and walks no edge; a live one drops the edges
+    # of dead tiles
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
+    if SKIP:
+        live = _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS,
+                         GROUP, 256)
+        smask = smask & live
     act_s = tl.load(act_ptr + slab, mask=smask, other=0).to(tl.int32)
 {stage}
     for sub in range(0, ROWS, BV):
@@ -692,11 +721,20 @@ def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, w_ptr, act_ptr,
         rmask = rows < num_vertices
         lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
         hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
-        max_deg = tl.max(hi - lo, axis=0)
+        if SKIP:
+            tr, deg = _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows,
+                                        rmask, lo, hi, live, BK, GROUP)
+            max_deg = tl.max(deg, axis=0)
+        else:
+            max_deg = tl.max(hi - lo, axis=0)
 {init}
         for k in range(0, max_deg, LANES):
             e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
             emask = e < hi[:, None]
+            if SKIP:
+                emask = emask & (tl.load(
+                    bitmap_ptr + tr + k // BK, mask=rmask & (k < hi - lo),
+                    other=0) != 0)[:, None]
             s = tl.load(src_ptr + e, mask=emask, other=0)
             idx = s - base
             in_win = (idx >= 0) & (idx < 2 * W)
@@ -1052,11 +1090,11 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
                                       variant: str = "resident", dst=None,
                                       valid=None, src_ids=None, dst_ids=None,
                                       tables=None, bitmap=None, leaves=None):
-    """Launch the packed kernel (resident, block-skip with `bitmap`, or
-    windowed) on the current stream; the resident and block-skip shapes
-    also launch the heavy blocks' finishing kernel when the layout has
-    heavy blocks. Returns (message slabs, one per group of `pack`,
-    has_msg [V] bool)."""
+    """Launch the packed kernel (resident, block-skip with `bitmap`,
+    windowed, or windowed block-skip: variant "window" with `bitmap`) on
+    the current stream; the resident and block-skip shapes also launch
+    the heavy blocks' finishing kernel when the layout has heavy blocks.
+    Returns (message slabs, one per group of `pack`, has_msg [V] bool)."""
     V, E = int(num_vertices), int(src.shape[0])
     dev = src.device
     if dev.type != "cuda":
@@ -1111,6 +1149,9 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
     common = (src if w is None else w, fge._u8(active),
               src if valid is None else fge._u8(valid),
               src_ids if has_ids else src, dst_ids if has_ids else src)
+    skip = bitmap is not None
+    if skip:
+        fge._check_bitmap(bitmap, tables, dev)
     if window:
         fge.require_gather()
         C = max(-(-V // fge.WINDOW_ROWS), 1)
@@ -1121,16 +1162,14 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
         if not fsum:
             const.update(fge._lanes(WINDOW_CHUNK))
         mod.packed_window_kernel[(C,)](
-            indptr, src, q, *common, hm, *reads, *slabs, V, **const,
-            W=int(tables.window), ROWS=fge.WINDOW_ROWS,
-            BV=_window_rows(cc, const["LANES"]), num_warps=WINDOW_WARPS)
-        counters.LAUNCHES["gather_emit_combine_packed_window"] += 1
+            indptr, src, q, tables.tile_ptr if skip else src,
+            bitmap if skip else src, *common, hm, *reads, *slabs, V,
+            **const, SKIP=skip, W=int(tables.window), ROWS=fge.WINDOW_ROWS,
+            BV=_window_rows(cc, const["LANES"]), BK=fge.BLOCK_K,
+            GROUP=fge.BLOCK_V, num_warps=WINDOW_WARPS)
+        counters.LAUNCHES["gather_emit_combine_packed_window_skip" if skip
+                          else "gather_emit_combine_packed_window"] += 1
         return slabs, hm.view(torch.bool)
-    skip = bitmap is not None
-    if skip and (bitmap.dtype != torch.uint8 or bitmap.device != dev
-                 or tuple(bitmap.shape) != (tables.num_tiles,)):
-        raise ValueError(f"packed block-skip kernel: bitmap must be "
-                         f"uint8 ({tables.num_tiles},) on {dev}")
     heavy = heavy_blocks(indptr)
     n_split = int(heavy.shape[0]) * fge.SUM_LANES
     # each split program's [BV, CP] partials, per accumulated slot
@@ -1182,15 +1221,16 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
     `monoids` is the per-leaf monoid table (flattened leaf order), `pack`
     an optional prebuilt :class:`PackSpec` (derived when absent).
     `variant` is "resident", "skip" (block-skip over `tables`; the bitmap
-    is built from the frontier) or
-    "window" (the windowed kernel, or the resident one where
-    :func:`window_usable` says no). `leaves` (flat indices)
-    computes only those message leaves and returns {index: leaf}.
-    Returns (inbox, has_msg [V] bool); every variant gives the same bits.
+    is built from the frontier), "window" (the windowed kernel, or the
+    resident one where :func:`window_usable` says no) or "window_skip"
+    (windowed and block-skip together, or block-skip alone where no
+    window is usable). `leaves` (flat indices) computes only those
+    message leaves and returns {index: leaf}. Returns (inbox, has_msg [V]
+    bool); every variant gives the same bits.
     """
     monoids = tuple(monoids)
-    if variant not in ("resident", "skip", "window"):
-        raise ValueError(f"variant must be resident, skip or window, got "
+    if variant not in fge.VARIANTS:
+        raise ValueError(f"variant must be one of {fge.VARIANTS}, got "
                          f"{variant!r}")
     if variant != "resident" and tables is None:
         raise ValueError(f"the {variant} variant needs the layout's "
@@ -1199,22 +1239,29 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
     plan = packed_plan(program, vprops, eprops, V, int(src.shape[0]))
     if pack is None:
         pack = make_pack_spec(program, monoids, vprops, eprops)
-    if variant == "window" and not window_usable(
+    if variant in ("window", "window_skip") and not window_usable(
             tables, V, read_leaves(plan, vprops), plan.ncol):
-        variant = "resident"
+        variant = "resident" if variant == "window" else "skip"
     if indptr is None:
         from .segment_reduce import indptr_from_seg_ids
         indptr = indptr_from_seg_ids(dst, V)
     kw = dict(valid=valid, src_ids=src_ids, dst_ids=dst_ids)
+    bitmap = None
+    if variant in ("skip", "window_skip"):
+        bitmap = fge.tile_bitmap(active, tables)
     if src.device.type == "cpu":
         if variant == "skip":
             inbox, hm = gather_emit_combine_packed_skip_plain(
                 program, monoids, src, dst, vprops, eprops, active, V,
-                indptr, tables, fge.tile_bitmap(active, tables), **kw)
+                indptr, tables, bitmap, **kw)
         elif variant == "window":
             inbox, hm = gather_emit_combine_packed_window_plain(
                 program, monoids, src, dst, vprops, eprops, active, V,
                 tables, **kw)
+        elif variant == "window_skip":
+            inbox, hm = gather_emit_combine_packed_window_skip_plain(
+                program, monoids, src, dst, vprops, eprops, active, V,
+                indptr, tables, bitmap, **kw)
         else:
             inbox, hm = gather_emit_combine_packed_plain(
                 program, monoids, src, dst, vprops, eprops, active, V, **kw)
@@ -1222,11 +1269,8 @@ def gather_emit_combine_packed(program, monoids, src, dst, vprops, eprops,
             flat = records.tree_leaves(inbox)
             inbox = {i: flat[i] for i in leaves}
         return inbox, hm
-    bitmap = None
-    if variant == "skip":
-        bitmap = fge.tile_bitmap(active, tables)
     slabs, hm = gather_emit_combine_packed_triton(
         program, monoids, indptr, src, vprops, eprops, active, V, plan=plan,
-        pack=pack, variant=variant, dst=dst, tables=tables, bitmap=bitmap,
-        leaves=leaves, **kw)
+        pack=pack, variant="window" if variant == "window_skip" else variant,
+        dst=dst, tables=tables, bitmap=bitmap, leaves=leaves, **kw)
     return _unpack(plan, pack, slabs, leaves), hm

@@ -1606,3 +1606,160 @@ def test_lm_wgmma_path_on_card(cuda, arch):
     a, b = a[..., :cfg.vocab_size].float(), b[..., :cfg.vocab_size].float()
     assert bool(torch.isfinite(a).all())
     assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+
+# --- the windowed block-skip shapes and the distributed engine ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.01, 0.2])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_window_skip_kernel_vs_plain(cuda, banded, name, dens):
+    """The windowed block-skip kernel on an RCM-ordered banded graph,
+    against its plain version and, bitwise, the resident kernel."""
+    fge.require_gather()
+    gdev = graph_device.build_device_graph(banded, reorder="rcm",
+                                           device=cuda)
+    V, cv = banded.num_vertices, gdev.canonical
+    t = cv.fused_tables
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=5)
+    active = _frontier(V, dens, cuda)
+    args = (prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, active, V)
+    ids = dict(src_ids=cv.src_ids, dst_ids=cv.dst_ids)
+    counters.reset()
+    out, hm = fge.gather_emit_combine(*args, indptr=cv.in_indptr,
+                                      variant="window_skip", tables=t, **ids)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_window_skip"] == 1
+    (key,) = out.keys()
+    dtype = "float32" if out[key].dtype == torch.float32 else "int32"
+    bm = fge.tile_bitmap(active, t)
+    ref, rhm = fge.gather_emit_combine_window_skip_plain(
+        *args, cv.in_indptr, t, bm, **ids)
+    assert torch.equal(hm, rhm)
+    _assert_match(out[key], ref[key], dtype, prog.monoid)
+    res, rshm = fge.gather_emit_combine(*args, indptr=cv.in_indptr, **ids)
+    assert torch.equal(hm, rshm)
+    assert torch.equal(out[key], res[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dens", [0.0, 0.01, 0.2])
+def test_packed_window_skip_kernel_vs_plain(cuda, banded, dens):
+    """The packed windowed block-skip kernel on batched SSSP lanes: its
+    plain version and, bitwise, the packed resident kernel."""
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import fused_packed as fp
+    fge.require_gather()
+    gdev = graph_device.build_device_graph(banded, reorder="rcm",
+                                           device=cuda)
+    V, cv = banded.num_vertices, gdev.canonical
+    prog = vcprog.as_batched([operators.SSSPProgram(r)
+                              for r in (0, 7, 99, 1000)])
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V,
+                              vids=gdev.vertex_perm)
+    rng = np.random.default_rng(4)
+    vp["p"]["distance"] = torch.from_numpy(
+        (rng.random((V, 4)) * 40).astype(np.float32)).to(cuda)
+    active = _frontier(V, dens, cuda)
+    monoids = leaf_monoids(prog, vcprog.empty_record(prog, cuda))
+    args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
+    kw = dict(indptr=cv.in_indptr, src_ids=cv.src_ids, dst_ids=cv.dst_ids,
+              tables=cv.fused_tables)
+    counters.reset()
+    out, hm = fp.gather_emit_combine_packed(*args, variant="window_skip",
+                                            **kw)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_packed_window_skip"] == 1
+    res, rhm = fp.gather_emit_combine_packed(*args, **kw)
+    assert torch.equal(hm, rhm)
+    assert torch.equal(out["m"]["distance"], res["m"]["distance"])
+    assert torch.equal(out["_lane_msg"], res["_lane_msg"])
+    bm = fge.tile_bitmap(active, cv.fused_tables)
+    ref, phm = fp.gather_emit_combine_packed_window_skip_plain(
+        *args, cv.in_indptr, cv.fused_tables, bm, src_ids=cv.src_ids,
+        dst_ids=cv.dst_ids)
+    assert torch.equal(hm, phm)
+    assert torch.equal(out["m"]["distance"], ref["m"]["distance"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_window_skip_kernels_on_a_padded_bucket(cuda, banded, packed):
+    """Both windowed block-skip kernels on a P = 4 bucket with sentinel
+    pads and a valid mask: equal to the same bucket without padding."""
+    from repro_torch.core.engines.distributed import ShardedGraph
+    from repro_torch.core.reorder import apply_reorder
+    from repro_torch.kernels import fused_packed as fp
+    fge.require_gather()
+    sg = ShardedGraph(apply_reorder(banded, "rcm")[0], 4)
+    q, wins = sg.prefetch_tables(False, False)
+    bk, v_pp, pad = sg.bucket(2, 2), sg.v_per_part, 1000
+    n = bk["dst_local"].shape[0]
+    t = lambda a, dt=None: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(cuda, dt)
+    meta = vcprog.SegmentMeta(last_edge=t(bk["last_edge"]),
+                              has_edge=t(bk["has_edge"]))
+    rng = np.random.default_rng(9)
+    vp = {"distance": t((rng.random(v_pp) * 30).astype(np.float32))}
+    active = _frontier(v_pp, 0.05, cuda)
+    prog = operators.SSSPProgram(0)
+    outs = []
+    for p in (pad, 0):
+        ext = lambda a, fill: t(np.concatenate(  # noqa: E731
+            [a, np.full(p, fill, a.dtype)]))
+        lay = graph_device.bucket_layout(
+            src_local=ext(bk["src_local"], 0),
+            src_global=ext(bk["src_uid"], 0),
+            dst_local=ext(bk["dst_local"], v_pp),
+            dst_global=ext(bk["dst_uid"], 0),
+            eprops={k: ext(v, 0) for k, v in bk["eprops"].items()},
+            mask=t(np.arange(n + p) < n) if p else None, seg_meta=meta,
+            v_per_part=v_pp, window=(t(q[2, 2]), wins[2]))
+        assert fge.window_usable(lay.fused_tables, v_pp, [vp["distance"]])
+        kw = dict(indptr=lay.in_indptr, valid=lay.valid_mask,
+                  src_ids=lay.src_ids, dst_ids=lay.dst_ids,
+                  variant="window_skip", tables=lay.fused_tables)
+        if packed:
+            outs.append(fp.gather_emit_combine_packed(
+                prog, ("min",), lay.src, lay.dst, vp, lay.eprops, active,
+                v_pp, **kw))
+        else:
+            outs.append(fge.gather_emit_combine(
+                prog, "min", lay.src, lay.dst, vp, lay.eprops, active, v_pp,
+                **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert torch.equal(outs[0][0]["distance"], outs[1][0]["distance"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["allgather", "ring", "push"])
+def test_distributed_engine_on_card(cuda, banded, schedule):
+    """The distributed engine as a world of one on the card: its bucket
+    planes run the kernels (windowed, windowed block-skip, packed) and
+    equal the single-device engine."""
+    from repro_torch.core.engines.distributed import ShardedGraph
+    from repro_torch.core.reorder import apply_reorder
+    g = apply_reorder(banded, "rcm")[0]
+    sg = ShardedGraph(g, 1)
+    kw = dict(engine="distributed", gdev=sg, schedule=schedule, device=cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", NonConvergenceWarning)
+        counters.reset()
+        d, _ = operators.sssp(g, 0, 60, frontier="auto", **kw)
+        b, _ = operators.sssp(g, sources=[0, 5, 900], max_iter=60,
+                              frontier="auto", **kw)
+        pr, _ = operators.pagerank(g, 10, **kw)
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        np.testing.assert_array_equal(
+            d, operators.sssp(g, 0, 60, device=cuda)[0])
+        np.testing.assert_array_equal(
+            b, operators.sssp(g, sources=[0, 5, 900], max_iter=60,
+                              device=cuda)[0])
+    np.testing.assert_allclose(pr, operators.pagerank(g, 10, device=cuda)[0],
+                               **F32_SUM_TOL)
+    for k in ("gather_emit_combine_window", "gather_emit_combine_window_skip",
+              "gather_emit_combine_packed_window_skip"):
+        assert launches[k] > 0, k

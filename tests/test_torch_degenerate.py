@@ -2,11 +2,13 @@
 
 The port twin of tests/test_degenerate_graphs.py: no edges (V = 7), a
 single vertex, all self-loops and one edge. The six operators ×
-{pushpull, pregel, gas} × {kernel off, kernel on} run in the port on the
-CPU (the kernels' plain versions when on) and are held against the
-reference (kernel="off", pushpull) on the same numpy graph; so are the
-batched `sources=` calls, the frontier and reorder modes of SSSP and BFS,
-and the packed multi-leaf MixedStats record.
+{pushpull, pregel, gas, distributed} × {kernel off, kernel on} run in the
+port on the CPU (the kernels' plain versions when on; the distributed
+engine in process at P = 1, and at P = 2 in two spawned gloo ranks) and
+are held against the reference (kernel="off", pushpull) on the same
+numpy graph; so are the batched `sources=` calls, the frontier and
+reorder modes of SSSP and BFS, and the packed multi-leaf MixedStats
+record.
 
 Tolerances: bitwise for SSSP/BFS/CC/degrees and every min, max or integer
 leaf; PageRank, PPR and f32 sum leaves within rtol=1e-5, atol=1e-6 (the
@@ -32,7 +34,7 @@ from repro_torch.kernels import fused_gather_emit as fge  # noqa: E402
 from repro_torch.kernels import fused_packed as fp  # noqa: E402
 
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
-ENGINES = ["pushpull", "pregel", "gas"]
+ENGINES = ["pushpull", "pregel", "gas", "distributed"]
 KERNELS = ["off", "on"]
 
 # (src, dst, V)
@@ -188,7 +190,8 @@ def test_degenerate_packed_record(gname, engine, kernel):
             np.testing.assert_array_equal(a, b, err_msg=k)
 
 
-@pytest.mark.parametrize("shape", ["resident", "skip", "window"])
+@pytest.mark.parametrize("shape", ["resident", "skip", "window",
+                                   "window_skip"])
 def test_plain_fused_passes_on_zero_edges(shape):
     """The shared plain emit on zero edges: the identity inbox and an
     all-false has_msg, for the single-leaf and the packed plain versions
@@ -218,3 +221,76 @@ def test_plain_fused_passes_on_zero_edges(shape):
     assert torch.equal(inbox["_lane_msg"], torch.zeros((V, 2), dtype=torch.int32))
     assert torch.equal(inbox["m"]["distance"],
                        torch.full((V, 2), 3.4e38, dtype=torch.float32))
+
+
+# Every degenerate graph x operator x kernel mode at P = 2 in two gloo
+# ranks (argv: rank, port, out_dir); rank 0 saves the results.
+_RANKS = r"""
+import sys, warnings
+import numpy as np
+from repro_torch import UniGPS
+from repro_torch.core.graph import from_edges
+from repro_torch.distributed.collectives import init_rank
+warnings.simplefilter("ignore")
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_rank(rank, 2, port, "gloo")
+GRAPHS = %r
+res = {}
+for gname, (src, dst, V) in GRAPHS.items():
+    s, d = np.asarray(src, np.int32), np.asarray(dst, np.int32)
+    g = from_edges(s, d, V, edge_props={"weight": np.arange(
+        1, len(src) + 1, dtype=np.float32)})
+    r = 2 if gname == "one_edge" else V - 1
+    for kernel in ("off", "on"):
+        for sch in ("allgather", "ring", "push"):
+            U = UniGPS(engine="distributed", device="cpu", kernel=kernel)
+            k = dict(schedule=sch, num_parts=2)
+            pre = f"{gname}|{kernel}|{sch}|"
+            res[pre + "pagerank"] = U.pagerank(g, num_iters=4, **k)[0]
+            res[pre + "sssp"] = U.sssp(g, r, frontier="auto", **k)[0]
+            res[pre + "cc"] = U.connected_components(g, max_iter=6, **k)[0]
+            res[pre + "bfs"] = U.bfs(g, r, **k)[0]
+            din, dout = U.degrees(g, **k)[0]
+            res[pre + "degrees_in"], res[pre + "degrees_out"] = din, dout
+            res[pre + "ppr"] = U.personalized_pagerank(g, r, num_iters=4,
+                                                       **k)[0]
+if rank == 0:
+    np.savez(f"{out}/p2.npz", **{k: np.asarray(v) for k, v in res.items()})
+"""
+
+
+@pytest.mark.slow
+def test_degenerate_distributed_gloo_p2(tmp_path):
+    """The distributed engine at P = 2 (two spawned gloo ranks; the
+    one-vertex graph leaves part 1 all padding) on every degenerate
+    graph, operator, kernel mode and schedule, against the reference."""
+    import subprocess
+    import sys
+
+    from repro_torch import envutil
+    from repro_torch.distributed.collectives import free_port
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANKS % (GRAPHS,), str(r), str(port),
+         str(tmp_path)], env=envutil.subprocess_env(threads=1),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    res = dict(np.load(tmp_path / "p2.npz"))
+    assert len(res) == len(GRAPHS) * 2 * 3 * 7
+    for key, out in res.items():
+        gname, _, _, op = key.split("|")
+        if op.startswith("degrees"):
+            ref = _reference(gname, "degrees")[op == "degrees_out"]
+            np.testing.assert_array_equal(out, np.asarray(ref), err_msg=key)
+        else:
+            _compare(op, out, _reference(gname, op))

@@ -1,8 +1,9 @@
 """The port's operators and user-program path against the JAX package.
 
-The six operators × {pushpull, pregel, gas} × {kernel off, kernel on} run
-in the port on the CPU (the kernels' plain versions when on) and are held
-against the reference with kernel="off" on the tests/conftest.py graphs;
+The six operators × {pushpull, pregel, gas, distributed} × {kernel off,
+kernel on} run in the port on the CPU (the kernels' plain versions when
+on; the distributed engine in process at P = 1) and are held against the
+reference with kernel="off" on the tests/conftest.py graphs;
 one case per operator is held against the reference's kernel="on"
 (Pallas in interpret mode) at the `kernel_graph` size.
 
@@ -24,7 +25,7 @@ from repro_torch import UniGPS, VCProgram, convert  # noqa: E402
 from repro_torch.core.engines.common import NonConvergenceWarning  # noqa: E402
 
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
-ENGINES = ["pushpull", "pregel", "gas"]
+ENGINES = ["pushpull", "pregel", "gas", "distributed"]
 
 OPS = {
     "pagerank": lambda U, g: U.pagerank(g, num_iters=12),
@@ -53,7 +54,10 @@ def _compare(name, out, ref):
 
 
 def _compare_info(info, rinfo):
-    assert sorted(info) == sorted(rinfo)
+    # the distributed engine also reports what its exchange did ("comm":
+    # backend, collectives, host-staged bytes), which the reference has not
+    assert sorted(info) == sorted(list(rinfo) + (
+        ["comm"] if info["engine"] == "distributed" else []))
     for k in ("iterations", "converged", "active_at_end", "engine",
               "bytes_exchanged", "prefetch_windows", "num_parts"):
         assert info[k] == rinfo[k], k
@@ -232,8 +236,9 @@ def test_unknown_keyword_rejected(kernel_graph):
 ])
 def test_later_slice_knobs_raise(kernel_graph, kw):
     """Knobs of later slices raise, naming their ROADMAP.md item; the
-    knobs that have been ported since (reorder, frontier, sources) run
-    and give the default run's bits (row 0 of a batch from root 0)."""
+    knobs that have been ported since (reorder, frontier, sources,
+    exchange, the distributed engine) run and give the default run's
+    bits (row 0 of a batch from root 0)."""
     T = UniGPS(device="cpu")
     if kw in PORTED_KNOBS:
         base, _ = T.sssp(_port(kernel_graph), 0)
@@ -251,7 +256,8 @@ def test_later_slice_knobs_raise(kernel_graph, kw):
 
 
 PORTED_KNOBS = ({"reorder": "rcm"}, {"frontier": "auto"},
-                {"sources": [0, 1]})
+                {"sources": [0, 1]}, {"exchange": "fp16"},
+                {"engine": "distributed"})
 
 
 def test_lint_and_batch_raise(kernel_graph):
