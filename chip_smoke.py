@@ -131,6 +131,33 @@ Phases, one line of numbers each:
      the lossy codecs to tests/test_wire.py's 2e-3 and to LOSSY_REL of
      max|rank|, a bound that a codec decoding zeros, run by the ranks
      after the counted runs, must break) and prints the phase's seconds;
+ 17. resilience (after 15, before 13), on phase 4's RMAT-21 DeviceGraph:
+     (a) sssp, pagerank, connected_components, the quickstart program,
+     sssp(sources=8) and sssp(frontier="auto") with checkpoint_every=8
+     and a checkpoint directory, each bitwise equal to its phase-4 or
+     phase-8 result, counters zeroed before and read after (K1, its
+     finishing kernel, K2, the packed, block-skip and bitmap kernels
+     must have run), with one snapshot's bytes and a blocking save's
+     seconds; (b) sssp and pagerank(20) monolithic, checkpointed and
+     guarded, each timed over a window of back-to-back calls in two
+     rounds (overhead and its spread printed, not gated), then one
+     monolithic and one guarded call traced: device operations and
+     device ms (torch.profiler) and synchronising calls (torch's sync
+     debug mode) per superstep; (c) a transient nan_poison (pagerank)
+     and mono_poison (sssp) recovered bitwise with one rollback, and a
+     persistent mono_poison refused with GuardError; (d) a child run of
+     this script (`--kill-child`) exits 17 on a kill_part fault and the
+     parent resumes bitwise; (e) four gloo ranks on phase 15c's
+     Banded-21: guarded runs and transient flip_bits / drop_delta
+     recovered bitwise under each schedule, a persistent lossy fault
+     under q8ef degraded to exact and bitwise equal to the exact run,
+     then kill_part exits 17 on every rank and the run resumes bitwise
+     on four ranks and on two;
+ 18. callback (paper Fig. 8d): benchmarks/bench_ipc.py's two workloads
+     under pushpull and callback with isolation_overhead_x, then RMAT-21
+     pagerank(5) and sssp(8) under callback against pushpull with the
+     kernels on (sssp bitwise, pagerank to SUM_RTOL), with the bytes
+     that cross the boundary a superstep and the host seconds;
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time.
@@ -755,6 +782,7 @@ def phase_lanes(ctx):
             fail(f"{name}: {n} packed launches for {info['iterations']} "
                  f"supersteps in {chunks} lane chunk(s)")
     lm = infos["landmark_distances"]
+    ctx["lane_results"] = out  # phase 17a holds its chunked runs to these
     seq = {"sssp": lambda r: operators.sssp(g, r, gdev=gdev)[0],
            "bfs": lambda r: operators.bfs(g, r, gdev=gdev)[0],
            "personalized_pagerank":
@@ -1706,6 +1734,9 @@ def graph_phases(args, dev):
     phase_records(ctx)
     rows += phase_compaction(ctx)
     rows += phase_distributed(ctx)
+    phase_resilience(ctx)
+    del ctx["banded_npz"]
+    phase_callback(ctx)
     return rows
 
 
@@ -1831,20 +1862,25 @@ def dist_rank_main(args):
     return 0
 
 
-def spawn_ranks(world, tmp, timeout):
-    """Start `world` rank processes of this script on phase 15b and wait;
-    every process is stopped before this returns."""
+def start_ranks(world, tmp, mode="runs"):
+    """Start `world` rank processes of this script (`--dist-mode mode`:
+    phase 15b's runs, or phase 17e's) in one gloo group."""
     from repro_torch.distributed.collectives import free_port
     from repro_torch.envutil import subprocess_env
 
     port = free_port()
     env = subprocess_env(threads=2, base=os.environ)
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", str(r),
          "--dist-world", str(world), "--dist-port", str(port),
-         "--dist-dir", str(tmp)], env=env, cwd=ROOT,
+         "--dist-dir", str(tmp), "--dist-mode", mode], env=env, cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
+
+
+def wait_ranks(procs, timeout, expect=0):
+    """Wait for rank processes started by start_ranks; fails unless each
+    exits `expect`. Every process is stopped before this returns."""
     outs = []
     try:
         for p in procs:
@@ -1857,8 +1893,9 @@ def spawn_ranks(world, tmp, timeout):
     for r, (p, (so, se)) in enumerate(zip(procs, outs)):
         for line in so.splitlines():
             print(f"  rank{r}: {line}", flush=True)
-        if p.returncode != 0:
-            fail(f"phase 15b rank {r} exited {p.returncode}: {se[-3000:]}")
+        if p.returncode != expect:
+            fail(f"rank {r} of {len(procs)} exited {p.returncode}, not "
+                 f"{expect}: {se[-3000:]}")
 
 
 def dist_bucket(sg, rank, b, pad, dev, windows):
@@ -2158,12 +2195,14 @@ def phase_distributed(ctx):
         refs["quickstart"] = operators.run_vcprog(
             user_prog(old[0]), gb, it, gdev=gw)[0]["distance"].cpu().numpy(
             )[perm]
+    # phase 17e's ranks load the same graph
+    ctx["banded_npz"] = dict(src=src, dst=dst, weight=weight, V=V,
+                             roots=np.asarray(roots))
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        np.savez(tmp / "graph.npz", src=src, dst=dst, weight=weight, V=V,
-                 roots=np.asarray(roots))
+        np.savez(tmp / "graph.npz", **ctx["banded_npz"])
         t = time.time()
-        spawn_ranks(4, tmp, timeout=600)
+        wait_ranks(start_ranks(4, tmp), timeout=600)
         spawn_s = time.time() - t
         meta = json.loads((tmp / "meta.json").read_text())
         got = dict(np.load(tmp / "results.npz"))
@@ -2223,6 +2262,575 @@ def phase_distributed(ctx):
     del ctx["banded_sharded"]
     log("distributed_phase", seconds=round(time.time() - t_phase, 2))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 17-18: resilience and the callback engine
+# ---------------------------------------------------------------------------
+
+CKPT_EVERY = 8       # 17a/17b: supersteps a chunk
+IPC_SCALE = 5000     # 18: vertices of benchmarks/bench_ipc.py's workloads
+
+
+def timed(fn):
+    """(result, wall seconds) of fn(), synchronised with the card."""
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def resilient_calls(ctx):
+    """17a's runs on phase 4's DeviceGraph: name -> (fn(**kw) returning
+    (result array, info), the phase-4 or phase-8 result it must equal)."""
+    from repro_torch.core import operators
+    g, gdev, res = ctx["g"], ctx["gdev"], ctx["results"]
+    roots = ctx["lane_roots"]
+    user_prog = ctx["user_prog"]
+
+    def quickstart(**kw):
+        vp, info = operators.run_vcprog(user_prog(0), g, 100, gdev=gdev,
+                                        **kw)
+        return vp["distance"].cpu().numpy(), info
+
+    return {
+        "sssp": (lambda **kw: operators.sssp(g, 0, gdev=gdev, **kw),
+                 res["sssp"]),
+        "pagerank": (lambda **kw: operators.pagerank(g, 20, gdev=gdev, **kw),
+                     res["pagerank"]),
+        "connected_components": (
+            lambda **kw: operators.connected_components(g, gdev=gdev, **kw),
+            res["connected_components"]),
+        "vcprog_quickstart": (quickstart, res["vcprog_quickstart"]),
+        "sssp_sources": (lambda **kw: operators.sssp(
+            g, sources=roots, gdev=gdev, **kw), ctx["lane_results"]["sssp"]),
+        "sssp_frontier_auto": (lambda **kw: operators.sssp(
+            g, 0, gdev=gdev, frontier="auto", **kw), res["sssp"]),
+    }
+
+
+def same_bits(name, out, want):
+    check(name, torch.from_numpy(np.asarray(out)),
+          torch.from_numpy(np.asarray(want)), False)
+
+
+def window_s(fn, kws, want, name):
+    """Seconds a call over a window of back-to-back calls fn(**kw), one
+    for each kw of `kws`, synchronised with the card at both ends; the
+    last result is held bitwise to `want`."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for kw in kws:
+        out, info = fn(**kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / len(kws)
+    same_bits(name, out, want)
+    return wall, info["iterations"]
+
+
+def device_trace(fn, kw):
+    """(device operations by name, their device ms, synchronising calls)
+    of one call fn(**kw): kernels, copies and memsets from
+    torch.profiler's CUDA activity, and the calls that waited for the
+    card, counted by torch's sync debug mode."""
+    import collections
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(**kw)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(**kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    return collections.Counter(e.name for e in dev), busy_ms, syncs
+
+
+def overhead_17b(tmp, name, fn, want):
+    """Phase 17b for one operator: the monolithic call, checkpoint_every
+    with a directory, and guards="on", each timed over a window of
+    back-to-back calls (~2 s), in two rounds, then one traced call of the
+    monolithic and the guarded run split per superstep."""
+    import collections
+    import shutil
+
+    calls = {"sssp": 80, "pagerank": 40}[name]
+    modes = {"monolithic": [{}] * calls,
+             "guards": [{"guards": "on"}] * calls}
+    rounds = []
+    for r in range(2):
+        ck = [{"checkpoint_every": CKPT_EVERY,
+               "checkpoint_dir": str(tmp / f"b{name}{r}_{i}")}
+              for i in range(4)]
+        walls = {}
+        for mode, kws in dict(modes, checkpoint=ck).items():
+            walls[mode], steps = window_s(fn, kws, want,
+                                          f"17b {name} {mode}")
+        for kw in ck:
+            shutil.rmtree(kw["checkpoint_dir"])
+        rounds.append(walls)
+        base = walls["monolithic"]
+        log("resilience_overhead", name=name, round=r,
+            window_calls=json.dumps({"monolithic": calls, "guards": calls,
+                                     "checkpoint": len(ck)}),
+            wall_s_per_call=json.dumps({k: round(v, 6)
+                                        for k, v in walls.items()}),
+            checkpoint_overhead_pct=round(
+                100 * (walls["checkpoint"] / base - 1), 2),
+            guards_overhead_pct=round(100 * (walls["guards"] / base - 1), 2))
+    pct = [100 * (w["guards"] / w["monolithic"] - 1) for w in rounds]
+    split, names = {}, {}
+    for mode, kw in (("monolithic", {}), ("guards", {"guards": "on"})):
+        names[mode], busy_ms, syncs = device_trace(fn, kw)
+        ops = sum(names[mode].values())
+        split[mode] = {"device_ops": ops, "device_ms": round(busy_ms, 4),
+                       "syncs": syncs,
+                       "ops_per_superstep": round(ops / steps, 2),
+                       "device_ms_per_superstep": round(busy_ms / steps, 5),
+                       "syncs_per_superstep": round(syncs / steps, 3)}
+    # the device operations the guarded call adds, by kernel name (cut
+    # to 60 characters; names that agree that far are summed)
+    added = collections.Counter()
+    for k, v in (names["guards"] - names["monolithic"]).items():
+        added[k[:60]] += v
+    log("resilience_overhead", name=name, supersteps=steps,
+        guards_overhead_pct_rounds=json.dumps([round(p, 2) for p in pct]),
+        guards_spread_pct=round(max(pct) - min(pct), 2),
+        trace=json.dumps(split, separators=(",", ":")))
+    log("resilience_overhead", name=name, guard_ops_added=json.dumps(
+        dict(added.most_common(12)),
+        separators=(",", ":")))
+
+
+def phase_resilience(ctx):
+    """Phases 17a-17d on RMAT-21 (module docstring), then 17e."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import graph_device
+    from repro_torch.distributed.faults import Fault, GuardError
+    from repro_torch.kernels import counters
+
+    t_phase = time.time()
+    calls = resilient_calls(ctx)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # -- 17a: chunked, checkpointed runs, bitwise ----------------------
+        t = time.time()
+        torch.cuda.synchronize()
+        counters.reset()
+        infos = {}
+        for name, (fn, want) in calls.items():
+            (out, info), wall = timed(lambda: fn(
+                checkpoint_dir=str(tmp / name), checkpoint_every=CKPT_EVERY))
+            same_bits(f"17a {name} checkpoint_every={CKPT_EVERY} vs "
+                      "uninterrupted", out, want)
+            infos[name] = info
+            log("resilience_run", name=name, wall_s=round(wall, 4),
+                supersteps=info["iterations"],
+                saves=info["checkpoint_saves"], bitwise=True)
+        launches = counters.snapshot()
+        log("resilience_path", launches=json.dumps(
+            launches, separators=(",", ":")))
+        for k in ("gather_emit_combine", "gather_emit_combine_finish",
+                  "segment_combine", "gather_emit_combine_packed",
+                  "gather_emit_combine_skip", "tile_bitmap"):
+            if launches[k] <= 0:
+                fail(f"17a: the chunked runs never launched {k}")
+        # one snapshot's bytes on disk, and a blocking save of the same
+        # state from the card (device-to-host copies and the write)
+        mgr = ckpt.CheckpointManager(str(tmp / "sssp"))
+        step = mgr.latest_step()
+        snap = tmp / "sssp" / f"step_{step:010d}" / "arrays.npz"
+        tmpl = mgr.restore(_state_template(ctx), step, device="cuda")
+        save_s = []
+        for i in range(3):
+            m2 = ckpt.CheckpointManager(str(tmp / f"save{i}"))
+            _, s = timed(lambda: m2.save(step, tmpl, block=True))
+            save_s.append(s)
+        log("resilience_snapshot", name="sssp", step=step,
+            bytes=snap.stat().st_size, save_s_median=float(np.median(save_s)),
+            save_s=json.dumps([round(s, 4) for s in save_s]),
+            phase_17a_s=round(time.time() - t, 2))
+
+        # -- 17b: what chunking and guards cost -----------------------------
+        t = time.time()
+        for name in ("sssp", "pagerank"):
+            overhead_17b(tmp, name, *calls[name])
+        log("resilience_overhead", phase_17b_s=round(time.time() - t, 2))
+
+        # -- 17c: guards on the card ----------------------------------------
+        t = time.time()
+        for name, kind in (("pagerank", "nan_poison"),
+                           ("sssp", "mono_poison")):
+            fn, want = calls[name]
+            out, info = fn(guards="on", checkpoint_every=CKPT_EVERY,
+                           faults=(Fault(kind, superstep=3, seed=7),))
+            same_bits(f"17c {name} {kind} recovered", out, want)
+            alarm = "nan" if kind == "nan_poison" else "mono"
+            if info["rollbacks"] != 1 or info["guard_trips"][alarm] < 1:
+                fail(f"17c {name} {kind}: rollbacks {info['rollbacks']}, "
+                     f"trips {info['guard_trips']}")
+            log("resilience_guard", name=name, fault=kind,
+                rollbacks=info["rollbacks"], replays=info["replays"],
+                trips=json.dumps(info["guard_trips"]), bitwise=True)
+        try:
+            calls["sssp"][0](guards="on", checkpoint_every=CKPT_EVERY,
+                             faults=(Fault("mono_poison", superstep=3,
+                                           seed=7, transient=False),))
+        except GuardError as e:
+            log("resilience_guard", name="sssp", fault="mono_poison",
+                persistent=True, raised="GuardError",
+                message=repr(str(e)[:60]))
+        else:
+            fail("17c: a persistent mono_poison did not raise GuardError")
+        log("resilience_guard", phase_17c_s=round(time.time() - t, 2))
+
+        # -- 17d: kill a child run, resume here -----------------------------
+        t = time.time()
+        g = ctx["g"]
+        np.savez(tmp / "rmat.npz", src=g.src, dst=g.dst,
+                 weight=g.edge_props["weight"], V=g.num_vertices)
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--kill-child",
+             str(tmp)], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"  child: {line}", flush=True)
+        from repro_torch.distributed.faults import KILL_EXIT_CODE
+        if proc.returncode != KILL_EXIT_CODE:
+            fail(f"17d: the child exited {proc.returncode}, not "
+                 f"{KILL_EXIT_CODE}: {proc.stderr[-3000:]}")
+        child_s = time.time() - t
+        (out, info), wall = timed(lambda: calls["sssp"][0](
+            checkpoint_dir=str(tmp / "kill"), checkpoint_every=4,
+            resume="must"))
+        same_bits("17d sssp resumed after kill_part", out, calls["sssp"][1])
+        log("resilience_kill", child_exit=proc.returncode,
+            resumed_from=info["resumed_from"], supersteps=info["iterations"],
+            resume_wall_s=round(wall, 4), child_s=round(child_s, 2),
+            bitwise=True)
+    rows_t = time.time()
+    phase_resilience_ranks(ctx)
+    log("resilience_phase", ranks_s=round(time.time() - rows_t, 2),
+        seconds=round(time.time() - t_phase, 2))
+
+
+def _state_template(ctx):
+    """The single-device SSSP loop carry's structure (17a's snapshot)."""
+    from repro_torch.core.engines import common
+    from repro_torch.core import operators
+    return common._init_state(operators.SSSPProgram(0), ctx["gdev"],
+                              common.ENGINES["pushpull"], True)
+
+
+def kill_child_main(args):
+    """17d's child (`--kill-child DIR`): loads RMAT-21 from DIR/rmat.npz
+    and runs sssp with checkpoint_every=4 and a kill_part fault at
+    superstep 6; the fault exits KILL_EXIT_CODE after the covering
+    snapshot is durable."""
+    from repro_torch.core import operators
+    from repro_torch.core.graph import from_edges
+    from repro_torch.distributed.faults import Fault
+
+    tmp = pathlib.Path(args.kill_child)
+    t = time.time()
+    data = np.load(tmp / "rmat.npz")
+    g = from_edges(data["src"], data["dst"], int(data["V"]),
+                   edge_props={"weight": data["weight"]}, directed=True)
+    print(f"phase=resilience_kill_child load_s={time.time() - t:.2f}",
+          flush=True)
+    operators.sssp(g, 0, checkpoint_dir=str(tmp / "kill"),
+                   checkpoint_every=4,
+                   faults=(Fault("kill_part", superstep=6),))
+    print("chip_smoke: the kill_part fault did not end the run",
+          file=sys.stderr)
+    return 1
+
+
+RESILIENCE_KEYS = ("plain", "guarded", "flip_bits", "drop_delta")
+
+
+def resilience_rank_main(args):
+    """One rank of phase 17e (`--dist-rank ... --dist-mode resilience`
+    or `resume`): joins the gloo group sharing cuda:0 and loads phase
+    15b's Banded-21 from `--dist-dir`. "resilience" runs SSSP (50
+    supersteps, frontier="auto") plain, guarded and with a transient
+    flip_bits / drop_delta fault (part 1, superstep 3) under each
+    schedule, then PageRank under q8ef with a persistent lossy_only
+    flip_bits and the same PageRank under the exact codec; rank 0 writes
+    the results; then every rank runs SSSP
+    (ring) with checkpoint_every=4 and a kill_part fault at superstep 6,
+    which exits 17 on every rank. "resume" resumes that run."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.core import operators
+    from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
+    from repro_torch.core.graph import from_edges
+    from repro_torch.distributed.collectives import init_rank
+    from repro_torch.distributed.faults import Fault, NonConvergenceWarning
+
+    out_dir = pathlib.Path(args.dist_dir)
+    dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
+                    device=torch.device("cuda", 0))
+    data = np.load(out_dir / "graph.npz")
+    g = from_edges(data["src"], data["dst"], int(data["V"]),
+                   edge_props={"weight": data["weight"]}, directed=True)
+    root = int(data["roots"][0])
+    sg = ShardedGraph(g, args.dist_world)
+    kw = dict(engine="distributed", gdev=sg, device=dev)
+
+    def sssp(**k):
+        return operators.sssp(g, root, DIST_ITERS, frontier="auto",
+                              **kw, **k)
+
+    kill = dict(schedule="ring", checkpoint_dir=str(out_dir / "ckpt"),
+                checkpoint_every=4)
+    res, meta = {}, {}
+    warnings.simplefilter("ignore", NonConvergenceWarning)
+    if args.dist_mode == "resume":
+        (d, info), wall = timed(lambda: sssp(resume="must", **kill))
+        res["resumed"] = np.asarray(d)
+        meta = {"resumed_from": info["resumed_from"], "wall_s": wall,
+                "supersteps": info["iterations"]}
+    else:
+        for sch in SCHEDULES:
+            runs = {
+                "plain": {},
+                "guarded": {"guards": "on"},
+                "flip_bits": {"guards": "on", "checkpoint_every": 10,
+                              "faults": (Fault("flip_bits", superstep=3,
+                                               part=1, seed=3),)},
+                "drop_delta": {"guards": "on", "checkpoint_every": 10,
+                               "faults": (Fault("drop_delta", superstep=3,
+                                                part=1, seed=3),)},
+            }
+            for name, k in runs.items():
+                (d, info), wall = timed(lambda: sssp(schedule=sch, **k))
+                res[f"{name}/{sch}"] = np.asarray(d)
+                meta[f"{name}/{sch}"] = {
+                    "wall_s": wall, "rollbacks": info.get("rollbacks", 0),
+                    "trips": info.get("guard_trips")}
+        pr = dict(frontier="sparse", schedule="ring", **kw)
+        (degraded, info), wall = timed(lambda: operators.pagerank(
+            g, 20, exchange="q8ef", guards="on", checkpoint_every=5,
+            faults=(Fault("flip_bits", superstep=3, part=1, seed=5,
+                          transient=False, lossy_only=True),), **pr))
+        res["degrade"] = np.asarray(degraded)
+        res["exact"] = np.asarray(operators.pagerank(
+            g, 20, exchange="exact", **pr)[0])
+        meta["degrade"] = {"degraded_exchange": info["degraded_exchange"],
+                           "exchange": info["exchange"],
+                           "rollbacks": info["rollbacks"], "wall_s": wall}
+    if args.dist_rank == 0:
+        np.savez(out_dir / f"{args.dist_mode}.npz", **res)
+        (out_dir / f"{args.dist_mode}.json").write_text(json.dumps(meta))
+    if args.dist_mode == "resilience":
+        sssp(faults=(Fault("kill_part", superstep=6),), **kill)
+        print("chip_smoke: the kill_part fault did not end the run",
+              file=sys.stderr)
+        return 1
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_resilience_ranks(ctx):
+    """Phase 17e: P = 4 gloo ranks sharing cuda:0 on phase 15b's
+    Banded-21 (module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.engines.distributed import SCHEDULES
+    from repro_torch.distributed.faults import KILL_EXIT_CODE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        np.savez(tmp / "graph.npz", **ctx["banded_npz"])
+        t = time.time()
+        wait_ranks(start_ranks(4, tmp, "resilience"), 900,
+                   expect=KILL_EXIT_CODE)
+        matrix_s = time.time() - t
+        got = dict(np.load(tmp / "resilience.npz"))
+        meta = json.loads((tmp / "resilience.json").read_text())
+        for sch in SCHEDULES:
+            base = got[f"plain/{sch}"]
+            for name in RESILIENCE_KEYS[1:]:
+                key = f"{name}/{sch}"
+                same_bits(f"17e P=4 {key} vs plain", got[key], base)
+                m = meta[key]
+                want = 0 if name == "guarded" else 1
+                if m["rollbacks"] != want or (
+                        want and m["trips"]["checksum"] < 1):
+                    fail(f"17e P=4 {key}: rollbacks {m['rollbacks']}, "
+                         f"trips {m['trips']}")
+            log("resilience_ranks", P=4, schedule=sch, bitwise=True,
+                wall_s=json.dumps({n: round(meta[f"{n}/{sch}"]["wall_s"], 4)
+                                   for n in RESILIENCE_KEYS}),
+                fault_trips=json.dumps({n: meta[f"{n}/{sch}"]["trips"]
+                                        for n in RESILIENCE_KEYS[2:]}))
+        d = meta["degrade"]
+        if d["degraded_exchange"] != "exact" or d["rollbacks"] < 2:
+            fail(f"17e P=4 q8ef persistent lossy fault: {d}")
+        # the trip is inside the first chunk, so the exact rung restarts
+        # from the initial state: the plain exact run's bits
+        same_bits("17e P=4 q8ef degraded to exact vs the exact run",
+                  got["degrade"], got["exact"])
+        log("resilience_ranks", P=4, schedule="ring", name="pagerank_q8ef",
+            degraded_exchange=d["degraded_exchange"],
+            rollbacks=d["rollbacks"], wall_s=round(d["wall_s"], 4))
+        step = ckpt.CheckpointManager(str(tmp / "ckpt")).latest_step()
+        dirs, procs = {}, []
+        t = time.time()
+        for world in (4, 2):
+            dirs[world] = tmp / f"resume{world}"
+            dirs[world].mkdir()
+            shutil.copytree(tmp / "ckpt", dirs[world] / "ckpt")
+            os.link(tmp / "graph.npz", dirs[world] / "graph.npz")
+            procs.append(start_ranks(world, dirs[world], "resume"))
+        for p in procs:
+            wait_ranks(p, 900)
+        for world, dr in dirs.items():
+            m = json.loads((dr / "resume.json").read_text())
+            if m["resumed_from"] != step:
+                fail(f"17e resume on {world} ranks from {m['resumed_from']}"
+                     f", not {step}")
+            same_bits(f"17e kill_part at P=4, resumed on {world} ranks",
+                      np.load(dr / "resume.npz")["resumed"],
+                      got["plain/ring"])
+            log("resilience_ranks", P=world, name="resume_after_kill",
+                killed_ranks=4, exit_code=KILL_EXIT_CODE,
+                resumed_from=m["resumed_from"], supersteps=m["supersteps"],
+                wall_s=round(m["wall_s"], 4), bitwise=True)
+        log("resilience_ranks", matrix_spawn_s=round(matrix_s, 2),
+            resume_spawns_s=round(time.time() - t, 2))
+
+
+def phase_callback(ctx):
+    """Phase 18: the callback engine (paper Fig. 8d): benchmarks/
+    bench_ipc.py's two workloads under pushpull and callback with
+    isolation_overhead_x; then RMAT-21 pagerank(5) and sssp(8) under
+    callback against pushpull with the kernels on, with the bytes that
+    cross the boundary a superstep and the seconds of the host phases."""
+    import warnings
+
+    from repro_torch import UniGPS, from_edges
+    from repro_torch.core import io, operators, records
+    from repro_torch.core.engines import callback
+    from repro_torch.distributed.faults import NonConvergenceWarning
+
+    t_phase = time.time()
+    n = IPC_SCALE
+    src = np.arange(n - 1)
+    g_path = from_edges(src, src + 1, n,
+                        edge_props={"weight": np.ones(n - 1, np.float32)})
+    g_ln = io.lognormal_graph(n, mu=1.6, sigma=1.1, seed=6, weighted=True)
+    work = {
+        "sssp_path": lambda U: U.sssp(g_path, 0, max_iter=n + 1),
+        "pagerank": lambda U: U.pagerank(g_ln, num_iters=10),
+    }
+    for name, fn in work.items():
+        walls = {}
+        outs = {}
+        for engine in ("pushpull", "callback"):
+            U = UniGPS(engine=engine)
+            if engine == "pushpull":
+                fn(U)  # the first call compiles this emit's kernels
+            (outs[engine], info), walls[engine] = timed(lambda: fn(U))
+        check(f"18 {name} callback vs pushpull",
+              torch.from_numpy(np.asarray(outs["callback"])),
+              torch.from_numpy(np.asarray(outs["pushpull"])),
+              name == "pagerank")
+        log("callback_ipc", workload=name, V=n,
+            supersteps=info["iterations"],
+            pushpull_s=round(walls["pushpull"], 4),
+            callback_s=round(walls["callback"], 4),
+            isolation_overhead_x=round(walls["callback"]
+                                       / walls["pushpull"], 2))
+
+    # RMAT-21 through the boundary, timing the host phases
+    g, gdev, res = ctx["g"], ctx["gdev"], ctx["results"]
+    eng = callback.CallbackEngine
+    host = {"s": 0.0}
+
+    def timed_phase(real):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            host["s"] += time.time() - t
+            return out
+        return wrapped
+
+    real = (eng.compute_phase, eng.emit_and_combine)
+    eng.compute_phase = timed_phase(real[0])
+    eng.emit_and_combine = timed_phase(real[1])
+    cv = gdev.canonical
+    layout_bytes = sum(
+        int(x.numel()) * x.element_size() for x in records.tree_leaves(
+            (cv.src, cv.dst, cv.eprops, cv.seg_meta, cv.in_indptr))
+        if isinstance(x, torch.Tensor))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", NonConvergenceWarning)
+            for name, fn, want, fsum in (
+                    ("pagerank", lambda: operators.pagerank(
+                        g, 5, gdev=gdev, engine="callback"),
+                     lambda: operators.pagerank(g, 5, gdev=gdev), True),
+                    ("sssp", lambda: operators.sssp(
+                        g, 0, 8, gdev=gdev, engine="callback"),
+                     lambda: operators.sssp(g, 0, 8, gdev=gdev), False)):
+                host["s"] = 0.0
+                (out, info), wall = timed(fn)
+                host_s = host["s"]
+                (ref, _), pp_wall = timed(want)
+                e = check(f"18 RMAT-21 {name} callback vs pushpull kernels on",
+                          torch.from_numpy(np.asarray(out)),
+                          torch.from_numpy(np.asarray(ref)), fsum)
+                prog = (operators.PageRankProgram(g.num_vertices, 5)
+                        if name == "pagerank" else operators.SSSPProgram(0))
+                state_bytes = callback_state_bytes(prog, gdev)
+                log("callback_rmat", name=name, supersteps=info["iterations"],
+                    callback_s=round(wall, 4), host_phases_s=round(host_s, 4),
+                    pushpull_s=round(pp_wall, 4),
+                    isolation_overhead_x=round(wall / pp_wall, 2),
+                    state_bytes_per_superstep=state_bytes,
+                    layout_bytes_per_superstep=layout_bytes,
+                    max_abs_err_vs_pushpull=e)
+    finally:
+        eng.compute_phase, eng.emit_and_combine = real
+    log("callback_phase", seconds=round(time.time() - t_phase, 2))
+
+
+def callback_state_bytes(prog, gdev):
+    """The state bytes one callback superstep moves across the boundary,
+    both ways: to the host the vertex state, the inbox, the process mask
+    and (again, for the emit) the state and the frontier mask; back the
+    state, the active mask, the inbox and has_msg."""
+    from repro_torch.core import records, vcprog
+    V = gdev.num_vertices
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V)
+    nbytes = lambda t: sum(int(x.numel()) * x.element_size()  # noqa: E731
+                           for x in records.tree_leaves(t))
+    state = nbytes(vp)
+    inbox = V * sum(x.element_size() for x in records.tree_leaves(
+        vcprog.empty_record(prog, gdev.device)))
+    return 3 * state + 2 * inbox + 4 * V
 
 
 # ---------------------------------------------------------------------------
@@ -2655,6 +3263,11 @@ def main():
     ap.add_argument("--dist-port", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-mode", default="runs",
+                    choices=("runs", "resilience", "resume"),
+                    help=argparse.SUPPRESS)
+    # phase 17d starts this script once with this
+    ap.add_argument("--kill-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2664,7 +3277,11 @@ def main():
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     sys.path.insert(0, str(ROOT / "src"))
     if args.dist_rank is not None:
+        if args.dist_mode != "runs":
+            return resilience_rank_main(args)
         return dist_rank_main(args)
+    if args.kill_child is not None:
+        return kill_child_main(args)
     from repro_torch.kernels import build
 
     t_all = time.time()

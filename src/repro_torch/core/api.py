@@ -10,7 +10,7 @@ Mirrors the paper's API shape:
     unigps.save_vertex_table({"rank": ranks}, "result.tsv")
 
 Every call takes `engine=` to pick the backend: pregel | gas | pushpull |
-distributed. The distributed engine runs one part per rank of the
+callback | distributed. The distributed engine runs one part per rank of the
 `torch.distributed` group (a world of one in process without one) and
 takes the per-call `num_parts=`, `schedule=` ("ring" default,
 "allgather", "push") and `overlap=` (default True).
@@ -65,10 +65,16 @@ class UniGPS:
     exchange ("exact"|"fp16"|"q8ef") is the distributed engine's wire
     codec (inert on the single-device engines).
 
+    checkpoint_dir / checkpoint_every / guards: session-level resilience
+    defaults. A checkpoint_dir snapshots the complete superstep loop
+    carry every `checkpoint_every` supersteps and resumes bit-identically
+    (`resume="auto"|"never"|"must"` per call); guards="on" arms the wire
+    checksums and the NaN/monotonicity watchdogs with rollback-and-replay
+    recovery. Every operator also takes these, and `resume=`/`faults=`,
+    per call.
+
     lint defaults to "off": the port has no linter yet, and the other
-    values raise. checkpoint_dir, checkpoint_every and guards keep the
-    reference's names; values whose machinery is a later slice raise
-    NotImplementedError when a run starts.
+    values raise.
     """
 
     def __init__(self, engine: str = DEFAULT_ENGINE, kernel: str = "auto",

@@ -14,7 +14,12 @@ dataflow — the analogue of the paper's Giraph/GraphX/Gemini backends:
             (engines/distributed.py): allgather, ring or push schedules
             over per-bucket planes.
 
-Every engine is a thin schedule over `core/message_plane.py`. The
-callback engine comes with a later slice (ROADMAP.md).
+  callback  the paper's execution-environment isolation: the user's
+            methods run on the host each superstep, the state crossing
+            the host↔device boundary both ways (engines/callback.py).
+
+Every engine is a thin schedule over `core/message_plane.py`. Every
+engine also runs resiliently (`checkpoint_dir`, `guards`, `faults`;
+distributed/faults.py).
 """
 from .common import ENGINES, prepare_device_graph, run_vcprog  # noqa: F401

@@ -43,8 +43,18 @@ the compact non-empty rows of each partial inbox, encoded by the wire
 codec (`exchange=`, distributed/wire.py). overlap=True issues each
 collective before the bucket plane that does not need its result; the
 folds keep their order, so every mode is bit-identical to its default.
-Checkpointing, guards and faults are ROADMAP.md Queue A item 9 and raise
-in `engines/common.py`.
+
+Resilience (`checkpoint_dir`, `checkpoint_every`, `resume`, `guards`,
+`faults`; distributed/faults.py) runs the loop in chunks of supersteps.
+With guards on, every encoded payload carries a checksum (attached by
+the sender, verified by every receiver after the collective, in every
+schedule) and each superstep's vertex-state transition runs the NaN and
+monotonicity watchdogs. The alarms ride the all-gather of frontier
+counts that each superstep makes anyway, before its exchange: a checksum
+alarm raised in superstep k is summed at superstep k+1's gather, and a
+chunk gathers once more after its last superstep, so no corrupted state
+is committed. Snapshots hold the state in original vertex ids, without
+padding, so a run may resume on another number of ranks.
 """
 from __future__ import annotations
 
@@ -58,7 +68,7 @@ from .. import message_plane, records, vcprog
 from ..graph import PropertyGraph, partition_graph
 from ..graph_device import (bucket_layout, min_prefetch_window,
                             resolve_device, workset_capacity)
-from ...distributed import wire
+from ...distributed import faults as faults_mod, wire
 from ...distributed.collectives import Comm, pack, unpack
 from ...kernels.fused_gather_emit import WINDOW_ROWS
 
@@ -84,8 +94,9 @@ def _compact_active(vprops, active, K: int, v_pp: int):
 def _scatter_part(vprops_tmpl, v_pp: int, idx, vals):
     """A remote part's (props, active) from its delta payload. Rows not
     shipped stay zero and inactive, and are never read (the active veto
-    masks their emissions)."""
-    keep = torch.nonzero(idx < v_pp).flatten()
+    masks their emissions). Indices outside the part (a corrupted payload
+    the guards will refuse) are dropped."""
+    keep = torch.nonzero((idx >= 0) & (idx < v_pp)).flatten()
     rows = idx[keep].long()
     vp = records.tree_map(
         lambda t, v: torch.zeros((v_pp,) + tuple(t.shape[1:]), dtype=t.dtype,
@@ -513,17 +524,30 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
                           comm: Comm, schedule: str = "ring",
                           kernel_on: bool = False, frontier: str = "dense",
                           prefetch: str = "auto", exchange: str = "exact",
-                          overlap: bool = True):
+                          overlap: bool = True, guards: bool = False,
+                          faults=()):
     """One Algorithm-1 superstep of this rank's part.
 
-    Returns ``step(it, vprops, active, inbox, has_msg, werr) -> (vprops,
-    active, inbox, has_msg, werr, counts)``, counts being the ranks'
-    frontier sizes ([P] host ints, all-gathered once); the run goes on
-    while their sum is positive. `werr` is the q8ef error-feedback state
-    (None for the other codecs or a dense frontier): the per-vertex
-    record for allgather/ring, [P, v_pp] message records for push.
-    Results are identical for every `overlap`, `frontier` and `prefetch`
-    and for exchange="exact"."""
+    Returns ``step(it, vprops, active, inbox, has_msg, werr, fault_on=0,
+    crc_prev=None) -> (vprops, active, inbox, has_msg, werr, counts,
+    alarms, crc)``, counts being the ranks' frontier sizes ([P] host
+    ints, all-gathered once); the run goes on while their sum is
+    positive. `werr` is the q8ef error-feedback state (None for the other
+    codecs or a dense frontier): the per-vertex record for
+    allgather/ring, [P, v_pp] message records for push. Results are
+    identical for every `overlap`, `frontier` and `prefetch` and for
+    exchange="exact".
+
+    guards=True attaches a checksum to every encoded payload and checks
+    it on every receiver (`crc`: this superstep's count of bad payloads
+    on this rank, a device scalar), and runs the NaN/monotonicity
+    watchdogs. The alarm vector — the watchdogs' counts plus `crc_prev`,
+    the previous superstep's bad payloads, in the checksum slot — rides
+    the all-gather of the counts: `alarms` is its sum over the ranks (a
+    host list; None with guards off). A nonzero sum ends the superstep
+    before its exchange. `faults` are injected while `fault_on` is set:
+    vertex-state faults after the compute phase, wire faults on the
+    sender's encoded payloads after their checksum."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got "
                          f"{schedule!r}")
@@ -533,6 +557,30 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
     K = (workset_capacity(v_pp, 1.0) if frontier == "sparse"
          else workset_capacity(v_pp))
     empty = vcprog.empty_record(program, dev)
+    guards = bool(guards)
+    faults = faults_mod.resolve_faults(faults)
+    wf = faults_mod.wire_faults(faults)
+    vf = faults_mod.vprop_faults(faults)
+    # the superstep being run, its fault_on flag and its bad payloads
+    cur = {"it": 0, "f_on": 0, "bad": None}
+
+    def guard_payload(enc):
+        """Sender side: attach the checksum to the encoded payload, THEN
+        apply any injected wire fault — the receivers see what a flaky
+        link would deliver."""
+        if guards:
+            enc = wire.attach_checksum(enc)
+        if wf:
+            enc = faults_mod.corrupt_wire(enc, cur["it"], cur["f_on"], wf,
+                                          my=my)
+        return enc
+
+    def verify(tree):
+        """Receiver side: count a received payload that fails its
+        checksum."""
+        if guards:
+            cur["bad"] = cur["bad"] + (~wire.checksum_ok(tree)).to(
+                torch.int64)
 
     def plane(b, props, act):
         """Bucket b's whole message plane, or None when it has no edges
@@ -562,7 +610,7 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
             return w, w.recv, werr
         idx, vals, _ = _compact_active(vprops, active, K, v_pp)
         enc, werr = wire.encode_delta(codec, idx, vals, v_pp, err=werr)
-        w = _Wire(enc, dev)
+        w = _Wire(guard_payload(enc), dev)
         return w, (lambda buf: _scatter_part(
             vprops, v_pp, *wire.decode_delta(codec, w.recv(buf), vals,
                                              v_pp))), werr
@@ -574,6 +622,9 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
         if overlap:  # this part's own bucket needs nothing in flight
             res[my] = plane(my, *rebuild(w.buf))
         rows = h.wait()
+        if sparse:
+            for b in range(Pn):
+                verify(w.recv(rows[b]))
         for b in range(Pn):
             if b not in res and part.buckets[b] is not None:
                 res[b] = plane(b, *rebuild(rows[b]))
@@ -586,6 +637,10 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
             b = (my - r) % Pn  # whose payload this rank holds
             nxt = comm.ppermute_async(buf, 1) \
                 if overlap and r + 1 < Pn else None
+            if sparse:
+                # every hop checks the payload it holds (hop 0: its own,
+                # so a sender's corruption is caught before it travels)
+                verify(w.recv(buf))
             if part.buckets[b] is not None:
                 res.append(plane(b, *rebuild(buf)))
             if r + 1 < Pn:
@@ -617,12 +672,14 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
             werr = records.tree_map(
                 lambda e, r: torch.cat([e[:b], r[None], e[b + 1:]]),
                 werr, e_row)
-        return _Wire(enc, dev), werr
+        return _Wire(guard_payload(enc), dev), werr
 
     def push_rebuild(w: _Wire, buf, sparse):
         if not sparse:
             return w.recv(buf)
-        i_row, v_row = wire.decode_delta(codec, w.recv(buf), msg_rows, v_pp)
+        got = w.recv(buf)
+        verify(got)
+        i_row, v_row = wire.decode_delta(codec, got, msg_rows, v_pp)
         return _scatter_msgs(empty, v_pp, i_row, v_row)
 
     def push(vprops, active, sparse, werr):
@@ -653,22 +710,45 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
 
     run = {"allgather": allgather, "ring": ring, "push": push}[schedule]
 
-    def step(it, vprops, active, inbox, has_msg, werr):
+    def step(it, vprops, active, inbox, has_msg, werr, fault_on=0,
+             crc_prev=None):
+        cur.update(it=it, f_on=fault_on,
+                   bad=torch.zeros((), dtype=torch.int64, device=dev))
         process = active | has_msg
         it_t = torch.tensor(it, dtype=torch.int32, device=dev)
+        prev = vprops
         vprops, active = vcprog.compute_phase(program, vprops, inbox,
                                               process, it_t)
+        if vf:
+            vprops = faults_mod.poison_vprops(vprops, program, it, fault_on,
+                                              vf, my=my)
         active = active & part.valid
-        counts = comm.all_gather(active.sum().reshape(1).to(torch.int64))
-        counts = counts.reshape(-1).tolist()
+        head = active.sum().reshape(1).to(torch.int64)
+        if guards:
+            alarm = faults_mod.guard_alarms(program, prev, vprops)
+            if crc_prev is not None:
+                alarm = alarm + torch.stack(
+                    [crc_prev, torch.zeros_like(crc_prev),
+                     torch.zeros_like(crc_prev)])
+            head = torch.cat([head, alarm])
+        rows = comm.all_gather(head).reshape(Pn, -1).tolist()
+        counts = [r[0] for r in rows]
+        alarms = None
+        if guards:
+            alarms = [sum(r[1 + j] for r in rows)
+                      for j in range(faults_mod.NUM_ALARMS)]
+            if any(alarms):  # the chunk ends here and is rolled back
+                return (vprops, active, inbox, has_msg, werr, counts,
+                        alarms, None)
         if sum(counts) == 0:  # nothing left to send: the run ends here
             return (vprops, active, records.tree_tile(empty, v_pp),
                     torch.zeros(v_pp, dtype=torch.bool, device=dev), werr,
-                    counts)
+                    counts, alarms, cur["bad"] if guards else None)
         sparse = frontier == "sparse" or (frontier == "auto"
                                           and max(counts) <= K)
         (inbox, has_msg), werr = run(vprops, active, sparse, werr)
-        return vprops, active, inbox, has_msg, werr, counts
+        return (vprops, active, inbox, has_msg, werr, counts, alarms,
+                cur["bad"] if guards else None)
 
     return step
 
@@ -676,7 +756,7 @@ def make_distributed_step(program: vcprog.VCProgram, part: PartGraph,
 def _scatter_msgs(empty, v_pp: int, idx, vals):
     """A dense partial inbox from its delta rows (rows not shipped hold
     the empty message and no has_msg)."""
-    keep = torch.nonzero(idx < v_pp).flatten()
+    keep = torch.nonzero((idx >= 0) & (idx < v_pp)).flatten()
     rows = idx[keep].long()
     dev = idx.device
     part = records.tree_map(
@@ -734,7 +814,9 @@ def run_vcprog_distributed(program: vcprog.VCProgram, graph: PropertyGraph,
                            prefetch: str = "auto", batch: int | None = None,
                            exchange: str = "exact", overlap: bool = True,
                            gdev: ShardedGraph | None = None,
-                           device="cuda"):
+                           device="cuda", checkpoint_dir: str | None = None,
+                           checkpoint_every: int = 0, resume: str = "auto",
+                           guards: str | bool = "off", faults=()):
     """Distributed Algorithm-1 entry point: this rank runs one part.
 
     The ranks are the processes of the default `torch.distributed` group,
@@ -747,12 +829,27 @@ def run_vcprog_distributed(program: vcprog.VCProgram, graph: PropertyGraph,
     whole result: vprops leaves [V] (or [V, Q] when batched) on `device`.
 
     `gdev` may be a :class:`ShardedGraph` (with this P and `reorder`),
-    reused across calls with its buckets and device parts. prefetch ("auto"|"on"|"off"): the per-bucket window tables of
-    the windowed kernels are built when "on", or "auto" with the kernels
-    on; "off" pins the resident kernels. batch, exchange, frontier,
-    overlap: as the reference's `run_vcprog_distributed`;
-    `info["bytes_exchanged"]` is its wire model, and `info["comm"]` what
-    this rank's exchange did (backend, collectives, host-staged bytes).
+    reused across calls with its buckets and device parts. prefetch
+    ("auto"|"on"|"off"): the per-bucket window tables of the windowed
+    kernels are built when "on", or "auto" with the kernels on; "off"
+    pins the resident kernels. batch, exchange, frontier, overlap: as the
+    reference's `run_vcprog_distributed`; `info["bytes_exchanged"]` is
+    its wire model, and `info["comm"]` what this rank's exchange did
+    (backend, collectives, host-staged bytes).
+
+    Resilience, as the reference's: `checkpoint_dir`/`checkpoint_every`
+    run the loop in chunks and snapshot the complete carry (batched
+    `_lane_act` masks and q8ef residuals included) at every chunk
+    boundary, in ORIGINAL vertex ids without padding: rank 0 writes what
+    the ranks gather, and every rank restores its part, so `resume=`
+    restores onto another number of ranks (the push + q8ef residual is
+    partition-structured and pins P through its fingerprint). `guards=`
+    arms the payload checksums and the watchdogs; a trip rolls back to the
+    last committed chunk and replays, and a deterministic re-trip on a
+    lossy codec degrades `exchange` to "exact"
+    (`info["degraded_exchange"]`). `faults=` injects seeded faults
+    (distributed/faults.py); a `kill_part` fault makes every rank exit
+    with `faults.KILL_EXIT_CODE` once the covering snapshot is durable.
     """
     program = vcprog.as_batched(program, batch)
     device = resolve_device(device)
@@ -773,6 +870,10 @@ def run_vcprog_distributed(program: vcprog.VCProgram, graph: PropertyGraph,
     prefetch = message_plane.resolve_prefetch_mode(prefetch)
     exchange = wire.resolve_exchange_mode(exchange)
     overlap = bool(overlap)
+    guards_on = faults_mod.resolve_guards_mode(guards)
+    fault_specs = faults_mod.resolve_faults(faults)
+    resilient = (bool(checkpoint_dir) or int(checkpoint_every or 0) > 0
+                 or guards_on or bool(fault_specs))
 
     sg = gdev
     if sg is None:
@@ -786,43 +887,42 @@ def run_vcprog_distributed(program: vcprog.VCProgram, graph: PropertyGraph,
                                prefetch == "on"
                                or (prefetch == "auto" and kernel_on))
     codec = wire.get_codec(exchange)
-    werr = None
-    step = make_distributed_step(program, part, comm, schedule,
-                                 kernel_on=kernel_on, frontier=frontier,
-                                 prefetch=prefetch, exchange=exchange,
-                                 overlap=overlap)
+    carry_err = codec.error_feedback and frontier != "dense"
+
+    def build(exchange_, faults_):
+        return make_distributed_step(
+            program, part, comm, schedule, kernel_on=kernel_on,
+            frontier=frontier, prefetch=prefetch, exchange=exchange_,
+            overlap=overlap, guards=guards_on, faults=faults_)
+
     empty = vcprog.empty_record(program, device)
     vprops = vcprog.init_vertices(program, part.vprops_in, part.out_degree,
                                   v_pp, vids=part.vertex_ids)
-    if codec.error_feedback and frontier != "dense":
+    werr = None
+    if carry_err:
         werr = wire.init_error_state(
             records.tree_map(lambda a: a[None].expand(
                 (Pn, v_pp) + tuple(a.shape)), empty)
             if schedule == "push" else vprops)
-    active = part.valid.clone()
-    inbox = records.tree_tile(empty, v_pp)
-    has_msg = torch.zeros(v_pp, dtype=torch.bool, device=device)
-    it, n_active = 1, int(sg.num_vertices)
-    while it <= int(max_iter) and n_active > 0:
-        vprops, active, inbox, has_msg, werr, counts = step(
-            it, vprops, active, inbox, has_msg, werr)
-        n_active = sum(counts)
-        it += 1
+    state = {"it": 1, "vprops": vprops, "active": part.valid.clone(),
+             "inbox": records.tree_tile(empty, v_pp),
+             "has_msg": torch.zeros(v_pp, dtype=torch.bool, device=device),
+             "werr": werr, "n": int(sg.num_vertices)}
+    # every call runs in chunks; without the resilience knobs that is one
+    # chunk of max_iter supersteps, and no guard or save
+    state, rinfo, resumed = _run_chunked(
+        program, graph, sg, comm, build, state, int(max_iter), schedule,
+        frontier, exchange, carry_err, guards_on, fault_specs,
+        checkpoint_dir, int(checkpoint_every or 0), resume)
+    vprops, it, n_active = state["vprops"], state["it"], state["n"]
 
     # every rank gets the whole result
-    V = sg.num_vertices
-    w = _Wire(vprops, device)
-    rows = comm.all_gather(w.buf)
-    out = records.tree_map(
-        lambda *ls: torch.cat(ls)[:V],
-        *[w.recv(rows[r]) for r in range(Pn)])
-    if sg.inv_perm is not None:
-        inv = torch.from_numpy(np.asarray(sg.inv_perm)).to(device)
-        out = records.tree_gather(out, inv.long())
+    out = _gather_global(comm, vprops, sg, device)
     info = {"engine": "distributed", "schedule": schedule, "num_parts": Pn,
             "kernel_on": kernel_on, "reorder": sg.reorder,
             "frontier": frontier, "prefetch": prefetch,
-            "prefetch_windows": pf_windows, "exchange": exchange,
+            "prefetch_windows": pf_windows,
+            "exchange": rinfo.get("degraded_exchange") or exchange,
             "overlap": overlap, "iterations": it - 1,
             "active_at_end": n_active, "converged": n_active == 0,
             "bytes_exchanged": _exchange_bytes_info(
@@ -832,14 +932,160 @@ def run_vcprog_distributed(program: vcprog.VCProgram, graph: PropertyGraph,
             "comm": {"backend": comm.backend or "in-process",
                      "collectives": comm.calls,
                      "host_staged_bytes": comm.staged_bytes}}
+    if resilient:
+        info.update(rinfo, resumed_from=resumed)
     if not info["converged"]:
-        from .common import NonConvergenceWarning
         warnings.warn(
             f"run_vcprog_distributed hit max_iter={int(max_iter)} with "
             f"{n_active} vertices still active — the result is truncated, "
             "not converged (info['converged'] is False)",
-            NonConvergenceWarning, stacklevel=2)
+            faults_mod.NonConvergenceWarning, stacklevel=2)
     if isinstance(program, vcprog.BatchedProgram):
         out = out["p"]
         info["batch"] = program.num_lanes
     return out, info
+
+
+def _gather_global(comm: Comm, tree, sg: ShardedGraph, device):
+    """A [v_pp, ...] per-rank record tree as the [V, ...] whole, in
+    original vertex ids, on every rank."""
+    w = _Wire(tree, device)
+    rows = comm.all_gather(w.buf)
+    out = records.tree_map(
+        lambda *ls: torch.cat(ls)[:sg.num_vertices],
+        *[w.recv(rows[r]) for r in range(comm.size)])
+    if sg.inv_perm is not None:
+        inv = torch.from_numpy(np.asarray(sg.inv_perm)).to(device)
+        out = records.tree_gather(out, inv.long())
+    return out
+
+
+def _to_part(a: torch.Tensor, sg: ShardedGraph, rank: int, device):
+    """This rank's [v_pp, ...] rows of a [V, ...] leaf in original ids
+    (pad rows zero)."""
+    if sg.vertex_perm is not None:
+        a = a[torch.from_numpy(np.asarray(sg.vertex_perm, np.int64))]
+    v_pp = sg.v_per_part
+    lo = min(rank * v_pp, sg.num_vertices)
+    hi = min(lo + v_pp, sg.num_vertices)
+    out = torch.zeros((v_pp,) + tuple(a.shape[1:]), dtype=a.dtype)
+    out[:hi - lo] = a[lo:hi]
+    return out.to(device)
+
+
+def _run_chunked(program, graph, sg, comm, build, state, max_iter,
+                 schedule, frontier, exchange, carry_err, guards_on,
+                 fault_specs, checkpoint_dir, checkpoint_every, resume):
+    """The superstep loop, in chunks driven by `faults.drive_chunks`,
+    with checkpoint/resume and the guard ladder when their knobs are set.
+    Returns (final state, resilience info, resumed_from step)."""
+    from ... import checkpoint as ckpt
+    device, rank, Pn = state["active"].device, comm.rank, comm.size
+    push_err = carry_err and schedule == "push"
+
+    def to_portable(st):
+        """The state in original ids on every rank (rank 0 writes it)."""
+        port = {"it": int(st["it"]), "n": int(st["n"])}
+        glob = {k: st[k] for k in ("vprops", "active", "inbox", "has_msg")}
+        if st.get("werr") is not None and not push_err:
+            glob["werr"] = st["werr"]
+        port.update(_gather_global(comm, glob, sg, device))
+        if st.get("werr") is not None and push_err:
+            # push's residual is per-(dst part, local row) message state:
+            # partition-structured, stored per rank (`ef_layout` pins it)
+            w = _Wire(st["werr"], device)
+            rows = comm.all_gather(w.buf)
+            port["werr"] = records.tree_map(
+                lambda *ls: torch.stack(ls),
+                *[w.recv(rows[r]) for r in range(Pn)])
+        return port
+
+    def from_portable(port):
+        st = {"it": int(port["it"]), "n": int(port["n"]), "werr": None}
+        for k in ("vprops", "active", "inbox", "has_msg"):
+            st[k] = records.tree_map(
+                lambda a: _to_part(a, sg, rank, device), port[k])
+        if "werr" in port:
+            st["werr"] = (records.tree_map(lambda a: a[rank].to(device),
+                                           port["werr"]) if push_err
+                          else records.tree_map(
+                              lambda a: _to_part(a, sg, rank, device),
+                              port["werr"]))
+        return st
+
+    mgr = save_cb = flush = None
+    resumed = None
+    if checkpoint_dir:
+        # max_iter is not fingerprinted (a truncated run may resume with
+        # a higher budget), nor are num_parts and reorder: the portable
+        # form is partition-independent (elastic resume) — except the
+        # push schedule's partition-structured residual (`ef_layout`)
+        fp = {"graph": ckpt.graph_signature(graph),
+              "engine": "distributed", "schedule": schedule,
+              "program": ckpt.program_signature(program),
+              "frontier": frontier, "exchange": exchange,
+              "wire_state": bool(carry_err), "format": 1}
+        if push_err:
+            fp["ef_layout"] = f"push:{Pn}:{sg.v_per_part}"
+        mgr = ckpt.CheckpointManager(checkpoint_dir)
+        step0 = ckpt.resume_step(mgr, fp, resume)
+        if step0 is not None:
+            state = from_portable(mgr.restore(to_portable(state), step0,
+                                              device="cpu"))
+            resumed = step0
+
+        def save_cb(st, done):
+            port = to_portable(st)
+            if rank == 0:
+                mgr.save(done, port, metadata={"fingerprint": fp})
+
+        def flush():
+            # rank 0's snapshot is durable, then every rank leaves
+            if rank == 0:
+                mgr.wait()
+            comm.all_gather(torch.zeros(1, dtype=torch.int64,
+                                        device=device))
+
+    def make_chunk(step):
+        def chunk(st, limit, f_on):
+            it, n, werr = st["it"], st["n"], st.get("werr")
+            vprops, active, inbox, has_msg = (st[k] for k in (
+                "vprops", "active", "inbox", "has_msg"))
+            alarms, crc = [0] * faults_mod.NUM_ALARMS, None
+            while it <= limit and n > 0:
+                vprops, active, inbox, has_msg, werr, counts, al, crc = step(
+                    it, vprops, active, inbox, has_msg, werr, fault_on=f_on,
+                    crc_prev=crc)
+                it += 1
+                n = sum(counts)
+                if al is not None and any(al):
+                    alarms, crc = al, None
+                    break
+            if guards_on and crc is not None:
+                # the last exchange's checksums, summed before the commit
+                bad = comm.all_gather(crc.reshape(1)).sum()
+                alarms[faults_mod.ALARM_CRC] += int(bad)
+            return ({"it": it, "vprops": vprops, "active": active,
+                     "inbox": inbox, "has_msg": has_msg, "werr": werr,
+                     "n": n}, alarms)
+        return chunk
+
+    def probe(st):
+        return st["it"], st["n"] > 0
+
+    degrade_cb = None
+    if not wire.get_codec(exchange).lossless:
+        def degrade_cb(st):
+            # deterministic trips on a lossy codec fall back to the exact
+            # wire: the residual and the lossy_only faults go, the rest of
+            # the committed state stays
+            step2 = build("exact", faults_mod.drop_lossy_only(fault_specs))
+            return make_chunk(step2), dict(st, werr=None), "exact"
+
+    state, rinfo = faults_mod.drive_chunks(
+        make_chunk(build(exchange, fault_specs)), state, max_iter=max_iter,
+        every=checkpoint_every, probe=probe, save=save_cb, flush=flush,
+        guards_on=guards_on, faults=fault_specs, degrade=degrade_cb)
+    if mgr is not None and rank == 0:
+        mgr.wait()
+    return state, rinfo, resumed

@@ -34,8 +34,8 @@ class PushPullEngine:
                          kernel_on, frontier="dense", prefetch="auto"):
         mask = vcprog.frontier_mask(active)
         out_edges = torch.where(mask, graph.out_degree, 0).sum()
-        active_out_edges, count = torch.stack(
-            [out_edges, mask.sum()]).tolist()
+        active_out_edges, count = vcprog.host_read(active, out_edges,
+                                                   mask.sum())
         if isinstance(active, vcprog.Frontier):
             active.host_count = count
             active.host_edges = active_out_edges

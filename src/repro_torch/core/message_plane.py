@@ -49,7 +49,8 @@ from . import records
 from .graph_device import EdgeLayout, SPARSE_CAP_FRAC, workset_capacity
 from .knobs import knob_error
 from .vcprog import (Frontier, Record, RecordBatch, SegmentMeta, VCProgram,
-                     frontier_mask, make_segment_meta, record_vmap)
+                     frontier_mask, host_read, make_segment_meta,
+                     record_vmap)
 
 _MODES = ("auto", "fused", "unfused")
 _MULTILEAF = ("auto", "packed", "perleaf")
@@ -301,7 +302,7 @@ def frontier_edge_count(active, cv: EdgeLayout, act_e=None) -> int:
         n_e = torch.where(mask, ip[1:] - ip[:-1], 0).sum()
     else:
         n_e = act_e.sum()
-    n, count = torch.stack([n_e.to(torch.int64), mask.sum()]).tolist()
+    n, count = host_read(active, n_e, mask.sum())
     if fr is not None:
         fr.host_count = count
         if cv.valid_mask is None:

@@ -101,6 +101,10 @@ class Frontier:
       lane_mask:  optional [V, Q] bool — vertex is on lane q's frontier
                   (batched runs).
       lane_count: optional [Q] int32 per-lane population counts.
+      alarms:     optional [NUM_ALARMS] int64 guard counts of this
+                  superstep (`guards="on"`, distributed/faults.py), read
+                  to the host with the first count read of the superstep
+                  (:func:`host_read`) into `host_alarms`.
     """
 
     mask: torch.Tensor
@@ -108,6 +112,8 @@ class Frontier:
     host_edges: Optional[int] = None
     lane_mask: Optional[torch.Tensor] = None
     lane_count: Optional[torch.Tensor] = None
+    alarms: Optional[torch.Tensor] = None
+    host_alarms: Optional[list] = None
 
 
 def make_frontier(mask, lane_mask=None) -> Frontier:
@@ -126,6 +132,23 @@ def make_frontier(mask, lane_mask=None) -> Frontier:
             mask = lane_mask.any(dim=-1)
     return Frontier(mask=mask.to(torch.bool), lane_mask=lane_mask,
                     lane_count=lane_count)
+
+
+def host_read(active, *values: torch.Tensor) -> list:
+    """Read 0-d integer tensors to the host in one transfer, as Python
+    ints. When `active` is a Frontier whose guard alarms are still on the
+    device, they ride the same transfer into `active.host_alarms`, so the
+    guards cost no read of their own."""
+    fr = active if isinstance(active, Frontier) else None
+    alarms = (fr.alarms if fr is not None and fr.host_alarms is None
+              else None)
+    parts = [v.reshape(1).to(torch.int64) for v in values]
+    if alarms is not None:
+        parts.append(alarms.reshape(-1).to(torch.int64))
+    out = torch.cat(parts).tolist()
+    if alarms is not None:
+        fr.host_alarms = out[len(values):]
+    return out[:len(values)]
 
 
 def frontier_mask(active) -> torch.Tensor:
@@ -531,6 +554,32 @@ def as_batched(program, batch=None, lane_attrs=()):
 
 
 # ---------------------------------------------------------------------------
+# Message combination — compatibility delegates
+# ---------------------------------------------------------------------------
+# The implementation (and every dispatch decision) lives in
+# core/message_plane.py; these keep the reference's
+# `vcprog.segment_combine` / `vcprog.resolve_kernel_mode` call sites.
+
+def segment_combine(program: VCProgram, msgs, dst, valid, num_segments, empty,
+                    kernel_on: bool = False,
+                    meta: Optional[SegmentMeta] = None):
+    """Combine per-edge messages into per-vertex inboxes (dst-sorted
+    edges). Delegates to :mod:`repro_torch.core.message_plane`."""
+    from . import message_plane
+    return message_plane.segment_combine(program, msgs, dst, valid,
+                                         num_segments, empty, kernel_on,
+                                         meta=meta)
+
+
+def resolve_kernel_mode(kernel, device="cuda") -> bool:
+    """Resolve the tri-state kernel knob to a concrete on/off: a delegate
+    of :func:`repro_torch.core.message_plane.resolve_kernel_mode`, the one
+    resolver."""
+    from . import message_plane
+    return message_plane.resolve_kernel_mode(kernel, device)
+
+
+# ---------------------------------------------------------------------------
 # Algorithm-1 driver (engine-agnostic part)
 # ---------------------------------------------------------------------------
 
@@ -558,13 +607,17 @@ def compute_phase(program: VCProgram, vprops, inbox, process_mask, it):
 
 
 def run_loop(step_fn: Callable, init_state, max_iter: int):
-    """The Algorithm-1 superstep loop.
+    """The Algorithm-1 superstep loop. Returns (state, alarms).
 
     state = (it, vprops, active, inbox, has_msg, extra), `it` a Python int.
     Termination: it > max_iter OR the previous round left no active
-    vertex and no delivered message (paper Algorithm 1 line 17-18).
+    vertex and no delivered message (paper Algorithm 1 line 17-18), OR a
+    superstep whose frontier carried a nonzero guard alarm vector
+    (`Frontier.host_alarms`, the chunked runner's guards): `alarms` is
+    that vector, else None.
 
-    The test costs one device-to-host read per superstep. A message is
+    `step_fn` returns the new carry and the superstep's Frontier. The
+    test costs one device-to-host read per superstep. A message is
     delivered only along an edge from an active source, so after the
     first superstep "any active or any has_msg" equals "any active"; when
     the step already read the frontier's count to the host (the push/pull
@@ -573,9 +626,21 @@ def run_loop(step_fn: Callable, init_state, max_iter: int):
     it, vprops, active, inbox, has_msg, extra = init_state
     live = bool(active.any() | has_msg.any())
     while it <= max_iter and live:
-        vprops, active, inbox, has_msg, extra, count = step_fn(
+        vprops, active, inbox, has_msg, extra, front = step_fn(
             it, vprops, active, inbox, has_msg, extra)
-        live = (count > 0) if count is not None \
-            else bool(active.any() | has_msg.any())
+        live = live_after(front, active, has_msg)
         it += 1
-    return it, vprops, active, inbox, has_msg, extra
+        if front.host_alarms is not None and any(front.host_alarms):
+            return (it, vprops, active, inbox, has_msg, extra), \
+                front.host_alarms
+    return (it, vprops, active, inbox, has_msg, extra), None
+
+
+def live_after(front: Frontier, active, has_msg) -> bool:
+    """Whether the loop goes on after a superstep: the frontier's count
+    when a consumer already read it, else one read of "any active or any
+    has_msg" (which also carries the frontier's pending guard alarms)."""
+    if front.host_count is not None:
+        return front.host_count > 0
+    (live,) = host_read(front, (active.any() | has_msg.any()))
+    return live > 0

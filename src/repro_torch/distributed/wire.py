@@ -13,8 +13,9 @@ the compact ``(indices, values)`` frontier payloads the schedules ship.
 Integer and bool leaves and the indices are always exact, so frontier
 membership and label payloads survive any codec. Every function gives
 the reference's bits on the same inputs (round half to even, f32
-arithmetic). The checksums of the reference's `guards=` arm are not
-ported here (ROADMAP.md Queue A, item 9).
+arithmetic). The per-payload checksums of the `guards=` arm
+(:func:`attach_checksum`, :func:`checksum_ok`) give the reference's
+uint32 for every codec and leaf dtype.
 """
 from __future__ import annotations
 
@@ -218,6 +219,82 @@ def decode_delta(codec, wire, template, v_pp: int):
         else:
             out.append(q8_dequantize(w["q"], w["scale"]).to(t.dtype))
     return idx, records.tree_unflatten(out, spec)
+
+
+# ---------------------------------------------------------------------------
+# Wire integrity: per-payload checksums (the `guards=` arm)
+# ---------------------------------------------------------------------------
+# A checksum is computed over the ENCODED payload on the sending side and
+# verified after the collective on the receiving side, so any in-flight
+# corruption (bit flips, zeroed deltas) of any codec's wire form is caught
+# before the decoded rows reach a monoid fold. The word fold is position-
+# weighted (a Knuth-hash ramp): the sum over leaves of
+# sum(word[i] * (i * _CRC_MUL + 1)) mod 2**32, the reference's uint32.
+# torch has no full uint32 arithmetic, so the words and the ramp are
+# int64 holding values below 2**32, and each product mod 2**32 is formed
+# from the 16-bit halves of one factor (no int64 overflow).
+
+_CRC_KEY = "crc"
+_CRC_MUL = 2654435761  # Knuth multiplicative hash constant
+_M32 = 0xFFFFFFFF
+_M16 = 0xFFFF
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2**32 for int64 `a`, `b` in [0, 2**32)."""
+    lo = a * (b & _M16)
+    hi = (a * (b >> 16)) & _M16
+    return (lo + (hi << 16)) & _M32
+
+
+def _checksum_words(leaf: torch.Tensor) -> torch.Tensor:
+    """One leaf -> its uint32 words as int64 in [0, 2**32): floats and
+    signed ints reinterpreted unsigned at their width, bools widened,
+    64-bit words folded as ``x ^ (x >> 32)``."""
+    x = leaf.reshape(-1)
+    if x.dtype == torch.bool:
+        return x.to(torch.int64)
+    size = x.element_size()
+    if size == 8:
+        w = x.view(torch.int64)
+        return (w & _M32) ^ ((w >> 32) & _M32)
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32}[size]
+    if x.dtype != torch.uint8:
+        x = x.view(signed)
+    return x.to(torch.int64) & ((1 << (8 * size)) - 1)
+
+
+def payload_checksum(payload) -> torch.Tensor:
+    """The uint32 checksum of one wire payload (the {"idx", "vals"} tree;
+    an existing `crc` entry is excluded), as a 0-d int64 tensor. Leaves
+    are taken in sorted-key order, as the reference flattens them."""
+    body = {k: v for k, v in payload.items() if k != _CRC_KEY} \
+        if isinstance(payload, dict) else payload
+    leaves = records.tree_leaves(records.canonical(body))
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for leaf in leaves:
+        w = _checksum_words(leaf)
+        i = torch.arange(w.shape[0], dtype=torch.int64, device=w.device)
+        ramp = (_mul32(i, _CRC_MUL) + 1) & _M32
+        total = (total + (_mul32(w, ramp).sum() & _M32)) & _M32
+    return total
+
+
+def attach_checksum(payload: dict) -> dict:
+    """The payload with its `crc` entry set (sending side). The crc rides
+    the payload's own buffer through the collectives: no extra launch."""
+    out = dict(payload)
+    out[_CRC_KEY] = payload_checksum(payload)
+    return out
+
+
+def checksum_ok(payload) -> torch.Tensor:
+    """0-d bool: the received payload matches its embedded checksum.
+    Payloads without a crc entry (guards off) verify trivially."""
+    if not (isinstance(payload, dict) and _CRC_KEY in payload):
+        return torch.ones((), dtype=torch.bool)
+    return payload_checksum(payload) == payload[_CRC_KEY]
 
 
 # ---------------------------------------------------------------------------

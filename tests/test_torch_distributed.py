@@ -479,7 +479,7 @@ def test_p1_modes_bit_identical(lognormal_graph, schedule):
                 np.testing.assert_array_equal(out, base, err_msg=str(kw))
 
 
-def test_p1_knobs_and_errors(kernel_graph):
+def test_p1_knobs_and_errors(kernel_graph, tmp_path):
     g = _port(kernel_graph)
     U = UniGPS(device="cpu", engine="distributed")
     with pytest.raises(ValueError, match="num_parts"):
@@ -489,12 +489,15 @@ def test_p1_knobs_and_errors(kernel_graph):
     with pytest.raises(ValueError, match="gdev"):
         tops.sssp(g, 0, engine="distributed", device="cpu",
                   gdev=tdist.ShardedGraph(g, 1, reorder="rcm"))
-    for kw in ({"checkpoint_dir": "x"}, {"guards": "on"},
-               {"faults": ("x",)}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            U.sssp(g, 0, **kw)
-    out, info = U.sssp(g, 0, reorder="rcm:part")
     base, _ = U.sssp(g, 0)
+    # the resilience knobs run at P = 1 and keep the default run's bits
+    for kw in ({"checkpoint_dir": str(tmp_path / "x")}, {"guards": "on"}):
+        out, info = U.sssp(g, 0, **kw)
+        np.testing.assert_array_equal(out, base)
+        assert info["rollbacks"] == 0 and info["resumed_from"] is None
+    with pytest.raises(TypeError, match="Fault"):
+        U.sssp(g, 0, faults=("x",))
+    out, info = U.sssp(g, 0, reorder="rcm:part")
     np.testing.assert_array_equal(out, base)
     assert info["reorder"] == "rcm:part"
     out, info = U.pagerank(g, exchange="q8ef", frontier="sparse")

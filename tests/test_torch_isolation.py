@@ -17,6 +17,14 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 TOP_LEVEL_TRITON = re.compile(r"^(import|from)\s+triton", re.MULTILINE)
 
 
+#: the callback engine and the resilience layer: imported in the fresh
+#: interpreter below, and their files among those checked
+RESILIENCE_MODULES = ("repro_torch.checkpoint",
+                      "repro_torch.checkpoint.manager",
+                      "repro_torch.distributed.faults",
+                      "repro_torch.core.engines.callback")
+
+
 def _port_files():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("*.py")))
@@ -26,7 +34,8 @@ def _port_files():
 
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build, repro_torch.core.operators; "
+            "repro_torch.kernels.build, repro_torch.core.operators, "
+            + ", ".join(RESILIENCE_MODULES) + "; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -43,3 +52,15 @@ def test_no_file_imports_jax_or_reference(path):
     src = path.read_text()
     assert not FORBIDDEN.findall(src), path
     assert not TOP_LEVEL_TRITON.findall(src), path
+
+
+@pytest.mark.parametrize("module", RESILIENCE_MODULES)
+def test_resilience_modules_are_checked(module):
+    """Each new module's file is one of the files held above, and it
+    names neither jax nor the JAX package."""
+    rel = module.split(".")[1:]
+    path = PORT.joinpath(*rel)
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in _port_files(), path
+    src = path.read_text()
+    assert "jax" not in src and not re.search(r"\brepro\.", src), path

@@ -234,30 +234,50 @@ def test_unknown_keyword_rejected(kernel_graph):
     {"checkpoint_dir": "ckpt"}, {"guards": "on"}, {"faults": ("x",)},
     {"sources": [0, 1]},
 ])
-def test_later_slice_knobs_raise(kernel_graph, kw):
-    """Knobs of later slices raise, naming their ROADMAP.md item; the
-    knobs that have been ported since (reorder, frontier, sources,
-    exchange, the distributed engine) run and give the default run's
-    bits (row 0 of a batch from root 0)."""
+def test_later_slice_knobs_raise(kernel_graph, kw, tmp_path):
+    """The knobs that have been ported since their slice (reorder,
+    frontier, sources, exchange, the distributed and callback engines,
+    checkpoint_dir, guards) run and give the default run's bits (row 0 of
+    a batch from root 0); a faults= entry that is not a Fault raises the
+    reference's TypeError. warm_start, the one knob of a later slice,
+    raises in test_warm_start_raises."""
     T = UniGPS(device="cpu")
     if kw in PORTED_KNOBS:
         base, _ = T.sssp(_port(kernel_graph), 0)
-        out, info = T.sssp(_port(kernel_graph), 0, **kw)
         (key, value), = kw.items()
+        if key == "checkpoint_dir":
+            kw = {key: str(tmp_path / value)}
+        out, info = T.sssp(_port(kernel_graph), 0, **kw)
         if key == "sources":
             assert info["batch"] == len(value)
             out = out[0]
+        elif key == "checkpoint_dir":
+            assert info["checkpoint_saves"] >= 1
+            assert (tmp_path / value).is_dir()
+        elif key == "guards":
+            assert info["rollbacks"] == 0
+            assert sum(info["guard_trips"].values()) == 0
         else:
             assert info[key] == value
         np.testing.assert_array_equal(out, base)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+    with pytest.raises(TypeError, match="Fault"):
         T.sssp(_port(kernel_graph), 0, **kw)
 
 
 PORTED_KNOBS = ({"reorder": "rcm"}, {"frontier": "auto"},
                 {"sources": [0, 1]}, {"exchange": "fp16"},
-                {"engine": "distributed"})
+                {"engine": "distributed"}, {"engine": "callback"},
+                {"checkpoint_dir": "ckpt"}, {"guards": "on"})
+
+
+def test_warm_start_raises(kernel_graph):
+    """warm_start (serving) is a later slice: it raises, naming ROADMAP.md
+    Queue A item 10."""
+    from repro_torch import run_vcprog
+    with pytest.raises(NotImplementedError, match="item 10"):
+        run_vcprog(UniSSSP(0), _port(kernel_graph), 10, device="cpu",
+                   warm_start=({}, None))
 
 
 def test_lint_and_batch_raise(kernel_graph):

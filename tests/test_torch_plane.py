@@ -316,3 +316,47 @@ def test_record_key_order_is_canonical(small_uniform_graph):
     ref_a = torch.zeros(V).index_add_(0, cv.dst.long(), cv.eprops["weight"])
     np.testing.assert_allclose(inbox["a"].numpy(), ref_a.numpy(), **SUM_TOL)
     assert inbox["b"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", ["pagerank", "sssp", "argmin"])
+@pytest.mark.parametrize("t_kernel", [False, True])
+def test_vcprog_segment_combine_delegate_matches_reference(name, t_kernel):
+    """`vcprog.segment_combine`, the reference's historical call site,
+    against the reference's on the same dst-sorted messages (named
+    monoids through the segment kernel's plain version when on, and a
+    general monoid through the scan)."""
+    V, E = 40, 300
+    rng = np.random.default_rng(len(name))
+    dst = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    dst[dst == 7] = 8  # an edgeless vertex
+    valid = rng.random(E) < 0.8
+    if name == "argmin":
+        tprog, rprog = _ArgMinProgram(), _RefArgMinProgram()
+        host = {"d": rng.integers(0, 4, E).astype(np.float32),
+                "src": rng.integers(0, 50, E).astype(np.int32)}
+    else:
+        rprog, tprog = (make(V) for make in PROGRAMS[name])
+        (key,) = tvc.empty_record(tprog, "cpu")
+        host = {key: (rng.random(E) * 10).astype(np.float32)}
+    r_out = rvc.segment_combine(
+        rprog, {k: jnp.asarray(v) for k, v in host.items()},
+        jnp.asarray(dst), jnp.asarray(valid), V,
+        jax.tree.map(jnp.asarray, rprog.empty_message()))
+    t_out = tvc.segment_combine(
+        tprog, convert.record_to_torch(host), torch.from_numpy(dst),
+        torch.from_numpy(valid), V, tvc.empty_record(tprog, "cpu"),
+        kernel_on=t_kernel)
+    _compare(t_out, r_out, getattr(tprog, "monoid", "general"))
+
+
+@pytest.mark.parametrize("knob", ["auto", "on", "off", True, False, None])
+def test_vcprog_resolve_kernel_mode_delegate_matches_reference(knob):
+    """On the CPU both delegates resolve every knob alike ("auto" is off
+    without the kernels' device); an unknown knob raises in both."""
+    assert tvc.resolve_kernel_mode(knob, "cpu") == \
+        rvc.resolve_kernel_mode(knob)
+    if knob == "auto":
+        assert tvc.resolve_kernel_mode(knob, "cuda")
+        for mod in (tvc, rvc):
+            with pytest.raises(ValueError, match="kernel"):
+                mod.resolve_kernel_mode("fast")
