@@ -158,6 +158,23 @@ Phases, one line of numbers each:
      pagerank(5) and sssp(8) under callback against pushpull with the
      kernels on (sssp bitwise, pagerank to SUM_RTOL), with the bytes
      that cross the boundary a superstep and the host seconds;
+ 19. serving (after 18): `UniGPS(frontier="auto").serve(g)` on phase 4's
+     RMAT-21, capacity 1.5·E: the session build (beside phase 4's
+     build_device_graph), warmup of sssp/ppr/pagerank/cc with warm
+     twins (compile events by kind), 20 sssp queries (cache hits,
+     bitwise against kernel="off" on phase 4's unpadded graph, p50/p99),
+     40 submits pumped as they arrive (a 32-lane occupancy and an 8-lane
+     forced flush, every lane bitwise against its single query), three
+     1,000-edge add bursts with sssp(0), cc and pagerank kept warm (sssp
+     and cc bitwise against a cold run on a fresh build, pagerank within
+     SUM_RTOL of the same warm tail there and within SERVE_PR_DRIFT of a
+     cold 20-round run, which a refresh seeded at the touched vertices
+     only must exceed), a removal burst refreshed cold, a slack=0
+     overflow rebuilt and invalidated; rule UL301: no Triton, packed or
+     nvcc event on the warm paths, a forced Triton compile counted, the
+     wrappers' host time with and without compiling ahead, invalidated
+     runners raising RetraceError; launches counted around the session's
+     calls (K1, finishing, packed, both block-skip shapes, bitmap);
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time.
@@ -179,6 +196,7 @@ value), which f32 rounding over in-degrees up to ~1e5 stays well inside.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1544,9 +1562,9 @@ def graph_phases(args, dev):
     t = time.time()
     gdev = graph_device.build_device_graph(g, device=dev)
     torch.cuda.synchronize()
+    build_s = time.time() - t
     log("graph", V=V, E=E, max_in_degree=int(g.in_degree.max()),
-        generate_s=round(t_gen, 2),
-        build_device_graph_s=round(time.time() - t, 3))
+        generate_s=round(t_gen, 2), build_device_graph_s=round(build_s, 3))
     cv = gdev.canonical
 
     programs = {
@@ -1725,7 +1743,8 @@ def graph_phases(args, dev):
         "bound_ms": ge_bound, "bound_by": ge_by, "library_ms": None})
 
     ctx = dict(g=g, gdev=gdev, vstate=vstate, user_prog=user_prog,
-               results=results, rng=rng, log2v=args.log2v)
+               results=results, rng=rng, log2v=args.log2v, wall=wall,
+               build_s=build_s)
     rows += phase_frontier(ctx)
     rows += phase_window(ctx)
     rows += phase_lanes(ctx)
@@ -1737,7 +1756,387 @@ def graph_phases(args, dev):
     phase_resilience(ctx)
     del ctx["banded_npz"]
     phase_callback(ctx)
+    phase_serving(ctx)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the serving tier
+# ---------------------------------------------------------------------------
+
+SERVE_QUERIES = 20    # (c) single-source queries, distinct seeded roots
+SERVE_SUBMITS = 40    # (d) submits: a 32-lane (occupancy) and an 8-lane
+SERVE_ADDS = 1000     # (e) edges per add burst (and per removal burst)
+SERVE_BURSTS = 3
+# the warm PageRank refresh's max |warm - cold 20-round run| over max|rank|:
+# sound refreshes read 1.2e-3 to 1.6e-3 on RMAT-21 (NVIDIA H100 80GB HBM3,
+# 700.00 W), a refresh seeded at the touched vertices only reads orders
+# of magnitude more, and the phase checks that it does
+SERVE_PR_DRIFT = 5e-3
+
+
+def phase_serving(ctx):
+    """Phase 19: `UniGPS(frontier="auto").serve(g)` on phase 4's RMAT-21
+    (not cut): (a) the capacity-padded session build; (b) warmup of the
+    sssp / ppr / pagerank (and cc) runners and their warm twins; (c) 20
+    single-source sssp queries, all cache hits, each bitwise equal to a
+    kernel="off" run of its root on phase 4's unpadded DeviceGraph, with
+    synchronised p50/p99 latency; (d) 40 submits pumped as they arrive:
+    a 32-lane occupancy flush and an 8-lane forced flush, each lane
+    bitwise equal to its single query, each of the 20 further single
+    queries bitwise equal to its kernel="off" run; (e) three in-capacity
+    add bursts with sssp(0), cc and pagerank kept warm — sssp and cc
+    bitwise equal to a cold run on a fresh build of the patched graph,
+    pagerank within SUM_RTOL of the same warm refresh on that fresh
+    build, changed by its refresh, and within SERVE_PR_DRIFT of max|rank|
+    from a cold 20-round run, a limit that a refresh seeded at the
+    touched vertices only must exceed (the stale ranks' drift and each
+    result's distance from a 100-round run are printed) — one removal
+    burst (refreshed cold) and one overflow on a slack=0 session
+    (rebuilt, cache entries invalidated); (f) rule UL301: no Triton,
+    packed or nvcc event around (c), (d) and (e)'s in-capacity bursts, a
+    forced Triton compile counted (positive control), the wrappers' host
+    time a launch with and without compiling ahead, and the session's
+    runners invalidated behind its back raising RetraceError (negative
+    control). Launches are counted around the session's own calls only:
+    K1, its finishing kernel, the packed kernel, both block-skip shapes
+    and the bitmap kernel must have run on the padded layout."""
+    from repro_torch import UniGPS
+    from repro_torch.core import graph_device, io, operators, vcprog
+    from repro_torch.core.engines import common as engines
+    from repro_torch.core.engines.common import run_vcprog
+    from repro_torch.kernels import counters
+    from repro_torch.kernels import fused_gather_emit as fge
+    from repro_torch.lint import retrace
+
+    g, unpadded = ctx["g"], ctx["gdev"]
+    dev = unpadded.device
+    V, E = g.num_vertices, g.num_edges
+    t_phase = time.time()
+    counters.reset()
+    path = dict.fromkeys(counters.LAUNCHES, 0)
+    events = dict.fromkeys(retrace.KINDS, 0)
+
+    def on_path(fn):
+        """fn() on the session, its launches added to the path's."""
+        before = counters.snapshot()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in counters.snapshot().items():
+            path[k] += n - before[k]
+        return out
+
+    def watched(fn):
+        """on_path(fn) with its compile events added to the gated ones."""
+        with retrace.CompileWatcher() as w:
+            out = on_path(fn)
+        for k, n in w.by_kind.items():
+            events[k] += n
+        return out
+
+    def sssp_off(root, gdev):
+        out, _ = run_vcprog(operators.SSSPProgram(int(root)), None, 100,
+                            gdev=gdev, kernel="off")
+        return out["distance"]
+
+    # -- (a) the session build -------------------------------------------------
+    t = time.time()
+    s = on_path(lambda: UniGPS(frontier="auto").serve(
+        g, deadline_ms=600_000.0))
+    build_s = time.time() - t
+    c, ss = s._inc.gdev.canonical, s._inc.gdev.src_sorted
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        c.src, c.dst, c.valid_mask, *c.eprops.values(), ss.src, ss.dst,
+        ss.perm, *ss.eprops.values()))
+    log("serving_build", V=V, E=E, capacity=s._inc.capacity,
+        layouts_gib=round(nbytes / 2**30, 3), seconds=round(build_s, 3),
+        phase4_build_device_graph_s=round(ctx["build_s"], 3),
+        degree_ordered=s._inc.ordered)
+
+    # -- (b) warmup ------------------------------------------------------------
+    t = time.time()
+    with retrace.CompileWatcher() as w:
+        rep = on_path(lambda: s.warmup(ops=("sssp", "ppr", "pagerank"),
+                                       warm_runners=True))
+        rep_cc = on_path(lambda: s.warmup(ops=("cc",), warm_runners=True))
+    warm_s = time.time() - t
+    built = {**rep["built"], **rep_cc["built"]}
+    log("serving_warmup", seconds=round(warm_s, 2),
+        built_s=json.dumps({k: round(v, 3) for k, v in built.items()},
+                           separators=(",", ":")),
+        compile_events=rep_cc["cache"]["compile_events"],
+        by_kind=json.dumps(w.by_kind, separators=(",", ":")))
+
+    # -- (c) single-source queries -------------------------------------------------
+    rng = np.random.default_rng(19)  # roots with out-edges: real queries
+    roots = [int(r) for r in rng.choice(np.flatnonzero(g.out_degree > 0),
+                                        SERVE_QUERIES + SERVE_SUBMITS // 2,
+                                        replace=False)]
+    single, lat = {}, []
+
+    def queries():
+        for r in roots[:SERVE_QUERIES]:
+            t0 = time.perf_counter()
+            d, info = s.query("sssp", source=r)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if not info["cache_hit"]:
+                fail(f"serving: sssp({r}) missed the cache after warmup")
+            single[r] = d
+    watched(queries)
+    for r in roots[:SERVE_QUERIES]:
+        if not torch.equal(single[r], sssp_off(r, unpadded)):
+            fail(f"serving: sssp({r}) differs from kernel=off")
+    p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    log("serving_queries", n=len(lat), p50_ms=round(float(p50), 3),
+        p99_ms=round(float(p99), 3),
+        phase4_sssp_wall_ms=round(ctx["wall"]["sssp"] * 1e3, 3),
+        bitwise_vs_kernel_off=True)
+
+    # -- (d) micro-batching: a 32-lane and an 8-lane flush -----------------------
+    sub_roots = roots[:SERVE_QUERIES] + roots[SERVE_QUERIES:]
+    sub_roots += roots[:SERVE_SUBMITS - len(sub_roots)]
+
+    def more_singles():
+        for r in roots[SERVE_QUERIES:]:
+            single[r] = s.query("sssp", source=r)[0]
+    watched(more_singles)
+    for r in roots[SERVE_QUERIES:]:
+        if not torch.equal(single[r], sssp_off(r, unpadded)):
+            fail(f"serving: sssp({r}) differs from kernel=off")
+    tickets, flush_ms = [], []
+
+    def submits():
+        for r in sub_roots:
+            tickets.append(s.submit("sssp", r))
+            t0 = time.perf_counter()
+            if s.pump():
+                torch.cuda.synchronize()
+                flush_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        s.pump(force=True)
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+    watched(submits)
+    shapes = sorted({(tk.info["q_bucket"], tk.info["flush_reason"],
+                      sum(1 for u in tickets
+                          if u.info["flush_reason"] == tk.info[
+                              "flush_reason"])) for tk in tickets})
+    if shapes != [(8, "forced", 8), (32, "occupancy", 32)]:
+        fail(f"serving: flushes {shapes}, want a 32-lane and an 8-lane one")
+    for tk, r in zip(tickets, sub_roots):
+        if not torch.equal(tk.value, single[r]):
+            fail(f"serving: batched lane of root {r} differs from its "
+                 "single query")
+    waits = [tk.info["queue_wait_ms"] for tk in tickets]
+    log("serving_batching", flushes=json.dumps(shapes, separators=(",", ":")),
+        flush_32_ms=round(flush_ms[0], 3), flush_8_ms=round(flush_ms[-1], 3),
+        queue_wait_ms_max=round(max(waits), 3),
+        queue_wait_ms_mean=round(float(np.mean(waits)), 3),
+        lanes_bitwise_vs_single=True, singles_bitwise_vs_kernel_off=True)
+
+    # -- (e) deltas ------------------------------------------------------------------
+    for op, kw in (("sssp", dict(source=0)), ("cc", {}), ("pagerank", {})):
+        on_path(lambda: s.query(op, keep_warm=True, **kw))
+    patch_s = []
+    inc_patch = s._inc.apply_edge_deltas
+
+    def timed_patch(*a, **kw):
+        t0 = time.time()
+        out = inc_patch(*a, **kw)
+        torch.cuda.synchronize()
+        patch_s.append(time.time() - t0)
+        return out
+    s._inc.apply_edge_deltas = timed_patch
+    drng = np.random.default_rng(23)
+    pr_refresh = operators.PageRankProgram(V, s.refresh_iters + 1, s.damping)
+    fresh_deg = None  # the same warm tails, fed the patched out-degrees
+    for b in range(SERVE_BURSTS):
+        adds = drng.integers(0, V, (SERVE_ADDS, 2))
+        w_add = drng.uniform(1.0, 10.0, SERVE_ADDS).astype(np.float32)
+        pr_before = s.hot_result("pagerank")
+        t = time.time()
+        rep = watched(lambda: s.apply_edge_deltas(
+            adds=adds, add_props={"weight": w_add}))
+        apply_s = time.time() - t
+        if rep["rebuilt"] or any(r["mode"] != "warm"
+                                 for r in rep["refreshed"]):
+            fail(f"serving: add burst {b} did not refresh warm: {rep}")
+        t = time.time()
+        fresh = graph_device.build_device_graph(s._inc.to_property_graph(),
+                                                device=dev)
+        fresh_s = time.time() - t
+        t = time.time()
+        cold_sssp, ci = run_vcprog(operators.SSSPProgram(0), None, 100,
+                                   gdev=fresh)
+        cold_cc, _ = run_vcprog(operators.CCProgram(), None, 200,
+                                gdev=fresh)
+        torch.cuda.synchronize()
+        cold_s = time.time() - t
+        cold_pr, _ = run_vcprog(operators.PageRankProgram(V, 20), None, 20,
+                                gdev=fresh)
+        conv_pr, _ = run_vcprog(operators.PageRankProgram(V, 100), None, 100,
+                                gdev=fresh)
+        prev = {"rank": pr_before, "out_degree": s._hot[("pagerank",)][
+            "record"]["out_degree"]}
+        every = torch.ones(V, dtype=torch.bool, device=dev)
+        twin, _ = run_vcprog(pr_refresh, None, s.max_iter, gdev=fresh,
+                             warm_start=(prev, every))
+        # a broken refresh: only the delta's endpoints re-emit
+        seed = torch.zeros(V, dtype=torch.bool, device=dev)
+        seed[torch.from_numpy(adds.ravel()).to(dev)] = True
+        broken, _ = run_vcprog(pr_refresh, None, s.max_iter, gdev=fresh,
+                               warm_start=(prev, seed))
+        fresh_deg, _ = run_vcprog(pr_refresh, None, s.max_iter, gdev=fresh,
+                                  warm_start=({
+                                      "rank": (pr_before if fresh_deg is None
+                                               else fresh_deg["rank"]),
+                                      "out_degree": cold_pr["out_degree"]},
+                                      every))
+        if not torch.equal(s.hot_result("sssp", source=0),
+                           cold_sssp["distance"]):
+            fail(f"serving: warm sssp after burst {b} differs from cold")
+        if not torch.equal(s.hot_result("cc"), cold_cc["label"]):
+            fail(f"serving: warm cc after burst {b} differs from cold")
+        warm_pr = s.hot_result("pagerank")
+        pr_err = check(f"serving pagerank refresh {b}", warm_pr,
+                       twin["rank"], True)
+        scale = float(cold_pr["rank"].abs().max())
+
+        def rel(x, ref):
+            return float((x - ref["rank"]).abs().max()) / scale
+        drift = float((warm_pr - cold_pr["rank"]).abs().max())
+        broken_rel = rel(broken["rank"], cold_pr)
+        if torch.equal(warm_pr, pr_before):
+            fail(f"serving: the pagerank refresh after burst {b} left the "
+                 "ranks as they were")
+        if not drift <= SERVE_PR_DRIFT * scale:
+            fail(f"serving: pagerank refresh after burst {b} drifts "
+                 f"{drift / scale} of max|rank| from a cold run, limit "
+                 f"{SERVE_PR_DRIFT}")
+        if not broken_rel > SERVE_PR_DRIFT:
+            fail(f"serving: a refresh seeded at the touched vertices only "
+                 f"drifts {broken_rel}, within the limit {SERVE_PR_DRIFT}")
+        log("serving_delta", burst=b, adds=SERVE_ADDS,
+            touched=rep["touched"], live_edges=rep["live_edges"],
+            capacity=rep["capacity"], patch_s=round(patch_s[-1], 3),
+            apply_s=round(apply_s, 3),
+            refresh=json.dumps([(r["hot"], r["mode"], r["iterations"])
+                                for r in rep["refreshed"]],
+                               separators=(",", ":")),
+            cold_sssp_iterations=ci["iterations"],
+            cold_sssp_cc_s=round(cold_s, 3), fresh_build_s=round(fresh_s, 3),
+            pagerank_vs_fresh_warm_err=pr_err,
+            pagerank_drift_vs_cold20=drift, pagerank_drift_rel=drift / scale,
+            pagerank_drift_limit=SERVE_PR_DRIFT,
+            stale_drift_rel=rel(pr_before, cold_pr),
+            touched_seed_drift_rel=broken_rel,
+            vs_converged_rel=json.dumps({
+                "warm": rel(warm_pr, conv_pr),
+                "cold20": rel(cold_pr["rank"], conv_pr),
+                "warm_fresh_degrees": rel(fresh_deg["rank"], conv_pr)},
+                separators=(",", ":")))
+        del fresh, cold_sssp, cold_cc, cold_pr, conv_pr, twin, broken
+    del fresh_deg
+    live = s._inc
+    pick = np.random.default_rng(29).choice(live.live_edges, SERVE_ADDS,
+                                            replace=False)
+    rem = np.stack([live._src[pick], live._dst[pick]], axis=1)
+    t = time.time()
+    rep = on_path(lambda: s.apply_edge_deltas(removals=rem))
+    if rep["rebuilt"] or {r["mode"] for r in rep["refreshed"]} != {"cold"}:
+        fail(f"serving: removal burst did not refresh cold: {rep}")
+    log("serving_removal", removed=SERVE_ADDS, patch_s=round(patch_s[-1], 3),
+        apply_s=round(time.time() - t, 3), live_edges=rep["live_edges"],
+        refresh=json.dumps([(r["hot"], r["mode"], r["iterations"])
+                            for r in rep["refreshed"]],
+                           separators=(",", ":")))
+    tight = UniGPS(frontier="auto").serve(g, slack=0.0)
+    tight.query("sssp", source=0, keep_warm=True)
+    n = tight._inc.free_slots + SERVE_ADDS
+    t = time.time()
+    rep = tight.apply_edge_deltas(adds=drng.integers(0, V, (n, 2)))
+    if not rep["rebuilt"] or rep["cache_invalidated"] < 1:
+        fail(f"serving: overflow did not rebuild and invalidate: {rep}")
+    log("serving_overflow", adds=n, rebuilt=rep["rebuilt"],
+        cache_invalidated=rep["cache_invalidated"],
+        capacity=rep["capacity"], seconds=round(time.time() - t, 3))
+    del tight
+
+    # -- (f) rule UL301 on the card ---------------------------------------------
+    if events["triton"] or events["packed"] or events["nvcc"]:
+        fail(f"serving: compile events on the warm paths: {events}")
+    small = graph_device.build_device_graph(
+        io.uniform_graph(500, 4000, seed=3, weighted=True), device=dev)
+    scv = small.canonical
+    prog = operators.SSSPProgram(0)
+    with retrace.CompileWatcher() as w:  # a setting no path launches
+        fge.gather_emit_combine_triton(
+            prog, "min", scv.in_indptr, scv.src,
+            {"distance": torch.zeros(500, device=dev)}, scv.eprops,
+            torch.ones(500, dtype=torch.bool, device=dev), 500, rows=64,
+            split_chunks=2, num_warps=1)
+        torch.cuda.synchronize()
+    if w.by_kind["triton"] < 1:
+        fail("serving: a forced Triton compile was not counted")
+    # the wrappers' host time a launch on a layout without heavy blocks,
+    # with the finishing kernels compiled ahead (what a serving miss asks
+    # for) and without (every other launch)
+    if fge.heavy_blocks(scv.in_indptr).numel():
+        fail("serving: the host-time graph has heavy blocks")
+    act = torch.ones(500, dtype=torch.bool, device=dev)
+    svp = vcprog.init_vertices(prog, small.vprops_in, small.out_degree, 500)
+    wrappers = {
+        "k1": lambda: fge.gather_emit_combine_triton(
+            prog, "min", scv.in_indptr, scv.src, svp, scv.eprops, act, 500),
+        "packed": packed_one_column(prog, scv, svp, act, 500)}
+
+    def host_us(fn, ahead, n=200):
+        with retrace.compile_ahead() if ahead else contextlib.nullcontext():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        return t / n * 1e6
+    launch_us = {}
+    for name, fn in wrappers.items():
+        got = {False: [], True: []}
+        for ahead in (False, True, True, False):
+            got[ahead].append(host_us(fn, ahead))
+        launch_us[name] = {"plain": float(np.mean(got[False])),
+                           "compile_ahead": float(np.mean(got[True]))}
+    resident = fge._triton()[1]["resident"]
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        retrace._cache_size(resident)
+        retrace._cache_size(resident)
+    launch_us["watch_jit_scans"] = (time.perf_counter() - t0) * 1e3
+    engines.clear_runner_cache()
+    try:
+        s.query("sssp", source=roots[0])
+        fail("serving: a runner rebuilt behind the cache did not trip UL301")
+    except retrace.RetraceError as e:
+        tripped = str(e).split(":")[0]
+    log("serving_ul301", watched_events=json.dumps(
+        events, separators=(",", ":")), forced_triton_compiles=
+        w.by_kind["triton"], negative_control=tripped.replace(" ", "_"),
+        sentinel_trips=s.sentinel_trips,
+        wrapper_host_us=json.dumps(launch_us, separators=(",", ":")))
+    log("serving_launches", launches=json.dumps(
+        {k: n for k, n in path.items() if n}, separators=(",", ":")),
+        segment_combine_ran=path["segment_combine"] > 0)
+    for name in ("gather_emit_combine", "gather_emit_combine_finish",
+                 "gather_emit_combine_packed", "gather_emit_combine_skip",
+                 "gather_emit_combine_packed_skip", "tile_bitmap"):
+        if path[name] <= 0:
+            fail(f"serving: the session never launched {name}")
+    del s, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("serving_phase", seconds=round(time.time() - t_phase, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -98,6 +98,19 @@ class UniGPS:
         self.guards = guards
         self.lane_chunk = lane_chunk
 
+    def serve(self, graph, **kw):
+        """A :class:`repro_torch.serve.ServingSession` over this handle's
+        defaults (device included) — the runner cache + micro-batching +
+        incremental-recompute request path."""
+        from ..serve import ServingSession
+        kw.setdefault("engine", self.engine)
+        kw.setdefault("kernel", self.kernel)
+        kw.setdefault("frontier", self.frontier)
+        kw.setdefault("prefetch", self.prefetch)
+        kw.setdefault("exchange", self.exchange)
+        kw.setdefault("device", self.device)
+        return ServingSession(graph, **kw)
+
     # -- graph creation (unified I/O module) -------------------------------
     def create_by_edge_list(self, path: str, directed: bool = True,
                             weighted: bool = False) -> PropertyGraph:

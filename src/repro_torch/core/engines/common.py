@@ -7,6 +7,7 @@ plane, and `core/message_plane.py` does the rest.
 """
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Any, Dict
 
@@ -17,7 +18,6 @@ from .. import message_plane, records, vcprog
 from ..graph import PropertyGraph
 from ..graph_device import (DeviceGraph, build_device_graph,
                             resolve_lane_chunk)
-from ..knobs import not_ported
 from ...distributed import faults as faults_mod, wire
 from ...distributed.faults import NonConvergenceWarning  # noqa: F401
 
@@ -103,11 +103,145 @@ def local_bytes_info() -> dict:
             "capacity": 0}
 
 
-def _refuse_later_slices(warm_start):
-    """Knobs whose machinery a later slice brings raise here, naming
-    their ROADMAP.md Queue A entry."""
-    if warm_start is not None:
-        raise not_ported("warm_start", "...", "item 10: serving")
+# ---------------------------------------------------------------------------
+# Runners: the eager Algorithm-1 loop behind the serving tier's cache
+# ---------------------------------------------------------------------------
+
+def _bind_lanes(program, lanes):
+    """Rebind a BatchedProgram's per-lane attribute values to `lanes`
+    (no-op for plain programs): the values are operands of a runner, not
+    part of what it holds."""
+    if isinstance(program, vcprog.BatchedProgram) and lanes:
+        return program._with_lane_values(lanes)
+    return program
+
+
+def _warm_entry_state(program, graph: DeviceGraph, engine, kernel_on: bool,
+                      frontier: str, prefetch: str, vprops0, active0):
+    """The loop carry entering at superstep 2 from a WARM fixpoint:
+    `vprops0` (original-id space, base record leaves — [V, Q] trailing
+    lane axis for batched programs) and a seed frontier `active0` ([V]
+    bool, or a Frontier).
+
+    The loop's invariant at the top of superstep k+1 is "`inbox` holds
+    what superstep k's frontier emitted", so the warm path runs ONE
+    emit_and_combine from the seed first, then enters the loop at it=2
+    with the delivered inbox: the state an uninterrupted run would carry
+    had its step-1 frontier been the seed (the programs' it==1 clauses
+    never re-fire)."""
+    V, dev = graph.num_vertices, graph.device
+    empty = vcprog.empty_record(program, dev)
+    vprops0 = records.tree_map(lambda a: torch.as_tensor(a).to(dev), vprops0)
+    active0 = vcprog.frontier_mask(active0).to(device=dev, dtype=torch.bool)
+    if graph.vertex_perm is not None:
+        # device row new_id holds original id vertex_perm[new_id]
+        vperm = graph.vertex_perm.long()
+        vprops0 = records.tree_gather(vprops0, vperm)
+        active0 = active0[vperm]
+    lanes = None
+    if isinstance(program, vcprog.BatchedProgram):
+        # a structural delta touches every lane alike: broadcast the seed
+        lane_act = active0[:, None].expand(V, program.num_lanes) \
+            .to(torch.int32).contiguous()
+        vprops0 = {"p": vprops0, "_lane_act": lane_act}
+        lanes = lane_act > 0
+    extra0 = engine.init_extra(graph, program, vprops0, kernel_on)
+    front = vcprog.make_frontier(active0, lane_mask=lanes)
+    inbox, has_msg, extra = engine.emit_and_combine(
+        graph, program, vprops0, front, extra0, empty, kernel_on, frontier,
+        prefetch)
+    return (2, vprops0, active0, inbox, has_msg, extra)
+
+
+def _run_monolithic(program, graph: DeviceGraph, engine, kernel_on: bool,
+                    frontier: str, prefetch: str, max_iter: int,
+                    warm_start=None):
+    """The monolithic Algorithm-1 loop from Phase-0 init, or from the
+    warm fixpoint `warm_start=(vprops0, active0)`. Returns the raw
+    (vprops, final iterations, active count); batched programs return
+    the wrapped record (the caller unwraps ["p"])."""
+    args = (program, graph, engine, kernel_on)
+    if warm_start is None:
+        state = _init_state(*args)
+    else:
+        state = _warm_entry_state(*args, frontier, prefetch, *warm_start)
+    step = _make_step(*args, frontier, prefetch)
+    state, _ = vcprog.run_loop(step, state, int(max_iter))
+    return _finish(graph, state)
+
+
+#: bumped by `clear_runner_cache`; a runner built in an older generation
+#: rebuilds at its next call
+_GENERATION = 0
+
+
+def clear_runner_cache() -> None:
+    """Invalidate every runner in the process: each one rebuilds at its
+    next call, a 'runner' compile event (the counterpart of
+    `jax.clear_caches()` for the retrace sentinel's forced-rebuild
+    control)."""
+    global _GENERATION
+    _GENERATION += 1
+
+
+class PreparedRunner:
+    """The serving tier's cache value: the resolved engine, a copy of the
+    program taken at the build (a BatchedProgram's per-lane values are
+    rebound at each call), and the knobs. Eager PyTorch has no compiled
+    executable to hold, so a build resolves the engine and counts one
+    'runner' compile event (lint/retrace.py) — it costs nothing else.
+
+    `runner(gdev, lanes)` (cold) or `runner(gdev, lanes, vprops0,
+    active0)` (warm start) runs on the caller's DeviceGraph and returns
+    the raw (vprops, final iterations, active count) triple."""
+
+    def __init__(self, engine_name: str, program, max_iter: int,
+                 kernel_on: bool, frontier: str, prefetch: str, warm: bool):
+        self.engine_name = engine_name
+        self.program = copy.copy(program)
+        self.max_iter = int(max_iter)
+        self.kernel_on, self.frontier, self.prefetch = (bool(kernel_on),
+                                                        frontier, prefetch)
+        self.warm = bool(warm)
+        self._build()
+
+    def _build(self):
+        from . import callback, gas, pregel, pushpull  # noqa: F401
+        from ...lint import retrace
+        self.engine = ENGINES[self.engine_name]
+        self.generation = _GENERATION
+        retrace.note_compile("runner")
+
+    def __call__(self, graph: DeviceGraph, lanes=(), vprops0=None,
+                 active0=None):
+        if self.generation != _GENERATION:
+            self._build()
+        return _run_monolithic(
+            _bind_lanes(self.program, lanes), graph, self.engine,
+            self.kernel_on, self.frontier, self.prefetch, self.max_iter,
+            (vprops0, active0) if self.warm else None)
+
+
+def compiled_runner(program, engine: str = "pushpull", max_iter: int = 100,
+                    kernel: str | bool = "auto",
+                    use_kernel: bool | None = None,
+                    frontier: str = "dense", prefetch: str = "auto",
+                    warm: bool = False, batch: int | None = None,
+                    device="cuda"):
+    """Build the serving tier's runner for this (program, engine, knobs)
+    combination. Returns (runner, lane_values): the PreparedRunner and
+    the program's per-lane values as tensors (empty for a plain
+    program). Calling it skips every per-request resolution layer and is
+    bitwise equal to `run_vcprog` on the same device graph. `device`
+    resolves kernel="auto" (on exactly for CUDA)."""
+    program = vcprog.as_batched(program, batch)
+    frontier = message_plane.resolve_frontier_mode(frontier)
+    prefetch = message_plane.resolve_prefetch_mode(prefetch)
+    kernel_on = message_plane.resolve_kernel_arg(kernel, use_kernel, device)
+    lanes = program.lane_values \
+        if isinstance(program, vcprog.BatchedProgram) else ()
+    return (PreparedRunner(engine, program, max_iter, kernel_on, frontier,
+                           prefetch, warm), lanes)
 
 
 def _chunk_runner(program, graph: DeviceGraph, engine, kernel_on: bool,
@@ -188,18 +322,26 @@ def _run_resilient(program, graph, gdev, eng, engine, kernel_on, frontier,
 
 
 def _run_lane_chunked(program: vcprog.BatchedProgram, graph, max_iter,
-                      chunk_width: int, gdev, reorder, device, **kw):
+                      chunk_width: int, gdev, reorder, device,
+                      warm_start=None, **kw):
     """Run a wide batch as `chunk_width`-lane sub-batches on one device
     graph and concatenate them on the trailing lane axis: bitwise equal
-    to the unchunked run (lanes never interact)."""
+    to the unchunked run (lanes never interact). A warm start's record
+    is sliced on the lane axis alike."""
     if gdev is None and kw.get("engine") != "distributed":
         gdev = prepare_device_graph(graph, reorder=reorder, device=device)
-    outs, infos = [], []
+    outs, infos, lo = [], [], 0
     for sub in program.split(chunk_width):
+        hi = lo + sub.num_lanes
+        ws = None
+        if warm_start is not None:
+            wv, wa = warm_start
+            ws = (records.tree_map(lambda a: a[..., lo:hi], wv), wa)
         v, i = run_vcprog(sub, graph, max_iter, gdev=gdev, reorder=reorder,
-                          device=device, **kw)
+                          device=device, warm_start=ws, **kw)
         outs.append(v)
         infos.append(i)
+        lo = hi
     vprops = records.tree_concat(outs, axis=-1)
     info = dict(infos[0])
     info["iterations"] = max(i["iterations"] for i in infos)
@@ -287,13 +429,24 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
     injection. `info` then also holds `resumed_from`, `guard_trips`,
     `rollbacks`, `replays`, `degraded_exchange` and `checkpoint_saves`.
     `info["converged"]` is False (with a NonConvergenceWarning) when the
-    run hits `max_iter` with a non-empty frontier. warm_start belongs to
-    a later slice and raises NotImplementedError.
+    run hits `max_iter` with a non-empty frontier.
+
+    warm_start: optional (vprops, active_mask) pair — re-converge from a
+    cached FIXPOINT instead of Phase-0 init (the serving tier's
+    frontier-incremental recompute). `vprops` is the full vertex record
+    in original id space (with the trailing [Q] lane axis when batched),
+    `active_mask` a [V] bool seed frontier — e.g. the endpoints an edge
+    delta touched (`vcprog.delta_frontier`). The runner emits once from
+    the seed and enters the loop at superstep 2 (so it==1 clauses never
+    re-fire); for monotone monoid programs re-converging from a valid
+    bound (edge ADDS under min-monoids) the result is bitwise equal to a
+    from-scratch run at O(affected region) cost; `info["warm_start"]` is
+    True. Single-device only, and does not compose with checkpointing,
+    guards or faults.
     """
     frontier = message_plane.resolve_frontier_mode(frontier)
     prefetch = message_plane.resolve_prefetch_mode(prefetch)
     exchange = wire.resolve_exchange_mode(exchange)
-    _refuse_later_slices(warm_start)
     guards_on = faults_mod.resolve_guards_mode(guards)
     fault_specs = faults_mod.resolve_faults(faults)
     program = vcprog.as_batched(program, batch)
@@ -309,8 +462,13 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
             engine=engine, kernel=kernel, use_kernel=use_kernel,
             frontier=frontier, prefetch=prefetch, exchange=exchange,
             overlap=overlap, num_parts=num_parts, schedule=schedule,
-            resume=resume, guards=guards, faults=faults)
+            resume=resume, guards=guards, faults=faults,
+            warm_start=warm_start)
     if engine == "distributed":
+        if warm_start is not None:
+            raise ValueError(
+                "warm_start is single-device only — the distributed engine "
+                "re-runs cold (its compiled runners are still cached)")
         from .distributed import run_vcprog_distributed
         return run_vcprog_distributed(
             program, graph, max_iter, num_parts=num_parts,
@@ -338,18 +496,23 @@ def run_vcprog(program: vcprog.VCProgram, graph: PropertyGraph, max_iter: int,
             "prefetch_windows": None, "exchange": exchange,
             "overlap": bool(overlap),
             "bytes_exchanged": local_bytes_info()}
+    if warm_start is not None and resilient:
+        raise ValueError(
+            "warm_start does not compose with checkpointing/guards/"
+            "faults — re-converge cold under those, or warm without")
     if resilient:
         state, resumed, rinfo = _run_resilient(
             program, graph, gdev, eng, engine, kernel_on, frontier,
             prefetch, max_iter, reorder, checkpoint_dir, checkpoint_every,
             resume, guards_on, fault_specs)
         info.update(resumed_from=resumed, **rinfo)
+        vprops, iters, num_active = _finish(gdev, state)
     else:
-        step = _make_step(program, gdev, eng, kernel_on, frontier, prefetch)
-        state, _ = vcprog.run_loop(step, _init_state(program, gdev, eng,
-                                                     kernel_on),
-                                   int(max_iter))
-    vprops, iters, num_active = _finish(gdev, state)
+        vprops, iters, num_active = _run_monolithic(
+            program, gdev, eng, kernel_on, frontier, prefetch, max_iter,
+            warm_start)
+        if warm_start is not None:
+            info["warm_start"] = True
     info.update(iterations=int(iters), active_at_end=num_active,
                 converged=num_active == 0)
     if batched:

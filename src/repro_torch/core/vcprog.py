@@ -174,6 +174,48 @@ def frontier_count(active) -> int:
     return int(frontier_mask(active).sum())
 
 
+def delta_frontier(touched, num_vertices: int, num_lanes: int | None = None,
+                   device=None) -> Frontier:
+    """Seed a Frontier from a set of touched vertex ids — the serving
+    tier's edge-delta → frontier bridge (re-convergence after an edge
+    update starts from the endpoints it touched).
+
+    `touched` is a 1-D array of vertex ids (duplicates fine) or a [V]
+    bool mask; a [V] bool tensor passes through as it is. Host ids
+    scatter in numpy and the mask goes to `device` (the CPU unless
+    given) with its count already on the Frontier. `num_lanes` attaches
+    the per-lane view for batched warm restarts: every lane shares the
+    seed, as a structural delta touches all queries alike."""
+    V = int(num_vertices)
+    host_count = None
+    if isinstance(touched, torch.Tensor):
+        if touched.dtype == torch.bool and touched.ndim == 1 \
+                and touched.shape[0] == V:
+            mask = touched
+        else:
+            mask = torch.zeros(V, dtype=torch.bool, device=touched.device)
+            if touched.numel():
+                mask[touched.long()] = True
+        if device is not None:
+            mask = mask.to(device)
+    else:
+        t = np.asarray(touched)
+        if t.dtype == np.bool_ and t.ndim == 1 and t.shape[0] == V:
+            m = t
+        else:
+            m = np.zeros(V, bool)
+            if t.size:
+                m[t.astype(np.int64)] = True
+        host_count = int(m.sum())
+        mask = torch.from_numpy(np.ascontiguousarray(m)).to(
+            device or "cpu")
+    lanes = None if num_lanes is None \
+        else mask[:, None].expand(V, int(num_lanes))
+    front = make_frontier(mask, lane_mask=lanes)
+    front.host_count = host_count
+    return front
+
+
 class VCProgram:
     """Abstract base class — mirrors paper Fig. 2 exactly (snake_case)."""
 

@@ -52,7 +52,8 @@ def _digest(source: pathlib.Path) -> str:
 
 
 def build(name: str) -> Tuple[ctypes.CDLL, str]:
-    """Compile (once per source hash) and load ``csrc/<name>.cu``.
+    """Compile (once per source hash) and load ``csrc/<name>.cu``; each
+    load is a compile event of rule UL301 (lint/retrace.py).
 
     Returns (library, ptxas report). The report holds `-Xptxas -v`'s
     register and spill lines from the compile that made the library; it
@@ -82,6 +83,8 @@ def build(name: str) -> Tuple[ctypes.CDLL, str]:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     lib = ctypes.CDLL(str(lib_path))
+    from ..lint import retrace
+    retrace.note_compile("nvcc")
     _LOADED[name] = (lib, report)
     return _LOADED[name]
 

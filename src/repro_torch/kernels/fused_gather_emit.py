@@ -126,6 +126,7 @@ from .segment_reduce import identity
 from ..core import records
 from ..core.graph_device import min_prefetch_window
 from ..core.vcprog import record_vmap
+from ..lint import retrace
 
 _MONOID_CODE = {"sum": 0, "min": 1, "max": 2}
 _REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
@@ -413,6 +414,14 @@ def orders_rows(indptr, rows: int = LIGHT_ROWS) -> bool:
                                       rows).sum())
         tables[key] = ids >= ORDER_GAIN * by_degree
     return tables[key]
+
+
+def pin_row_order(indptr, ordered: bool, rows: int = LIGHT_ROWS) -> None:
+    """Preset :func:`orders_rows` for a layout's row pointers. A serving
+    session decides the order once and pins it on every patched layout,
+    so a delta never flips the kernels' ORDERED constexpr (a new
+    specialization: rule UL301). Either order gives the same bits."""
+    _layout_tables(indptr)[("orders", rows)] = bool(ordered)
 
 
 # ---------------------------------------------------------------------------
@@ -1016,9 +1025,11 @@ def _triton():
     # so they are bound as jitted functions first
     for name in _HELPERS:
         globals()[name] = triton.jit(globals()[name])
-    return triton, {"resident": triton.jit(_gather_emit_combine_kernel),
-                    "finish": triton.jit(_finish_kernel),
-                    "window": triton.jit(_window_kernel)}
+    watch = retrace.watch_jit
+    return triton, {"resident": watch(triton.jit(
+                        _gather_emit_combine_kernel)),
+                    "finish": watch(triton.jit(_finish_kernel)),
+                    "window": watch(triton.jit(_window_kernel))}
 
 
 def require_gather():
@@ -1180,12 +1191,16 @@ def gather_emit_combine_triton(program, monoid: str, indptr, src, vprops,
         num_warps=num_warps)
     counters.LAUNCHES["gather_emit_combine_skip" if skip
                       else "gather_emit_combine"] += 1
+    fin_args = (order, hb if n_heavy else src, part, gs, out, hm, V)
+    fin_const = dict(MONOID=const["MONOID"], FSUM=const["FSUM"], BV=rows,
+                     ORDERED=ordered, **lanes, num_warps=4)
     if n_heavy:
-        kernels["finish"][(n_heavy,)](
-            order, hb, part, gs, out, hm, V, MONOID=const["MONOID"],
-            FSUM=const["FSUM"], BV=rows, ORDERED=ordered, **lanes,
-            num_warps=4)
+        kernels["finish"][(n_heavy,)](*fin_args, **fin_const)
         counters.LAUNCHES["gather_emit_combine_finish"] += 1
+    elif retrace.compiling_ahead():
+        # compiled, not run: a later delta that makes the layout's first
+        # heavy block then compiles nothing (rule UL301)
+        kernels["finish"].warmup(*fin_args, **fin_const, grid=(1,))
     return {key: out}, hm.view(torch.bool)
 
 

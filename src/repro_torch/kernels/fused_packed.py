@@ -121,6 +121,7 @@ from . import fused_gather_emit as fge
 from .segment_reduce import identity
 from ..core import records
 from ..core.vcprog import BatchedProgram, record_vmap
+from ..lint import retrace
 
 #: slab widths are padded to this column quantum (the reference's
 #: sublane quantum; it keeps the message slabs' rows aligned here too)
@@ -1043,7 +1044,7 @@ _KERNELS = {}
 def _kernel(layout, window: bool):
     """The generated module of a layout (its kernels as attributes): the
     source is written under build/triton_packed (named by its hash) and
-    imported once."""
+    imported once; each import is a compile event of rule UL301."""
     key = (layout, window)
     if key in _KERNELS:
         return _KERNELS[key]
@@ -1064,6 +1065,10 @@ def _kernel(layout, window: bool):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
+    for kernel in ("packed_kernel", "packed_finish", "packed_window_kernel"):
+        if hasattr(mod, kernel):
+            retrace.watch_jit(getattr(mod, kernel))
+    retrace.note_compile("packed")
     _KERNELS[key] = mod
     return mod
 
@@ -1186,10 +1191,16 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
         *scratch, V, n_split, **const, SKIP=skip, BV=fge.BLOCK_V,
         BK=fge.BLOCK_K, HEAVY=HEAVY_CHUNKS, num_warps=_resident_warps(cc),
         NS=SPLIT_FSUM_CHUNKS if fsum else SPLIT_CHUNKS)
+    fin_const = dict(BV=fge.BLOCK_V, CC=cc, **lanes,
+                     num_warps=_resident_warps(cc))
     if n_split:
         mod.packed_finish[(int(heavy.shape[0]),)](
-            heavy, hm, gs, *slabs, *scratch, V, BV=fge.BLOCK_V, CC=cc,
-            **lanes, num_warps=_resident_warps(cc))
+            heavy, hm, gs, *slabs, *scratch, V, **fin_const)
+    elif retrace.compiling_ahead():
+        # compiled, not run: a later delta that makes the layout's first
+        # heavy block then compiles nothing (rule UL301)
+        mod.packed_finish.warmup(heavy_arg, hm, gs, *slabs, *scratch, V,
+                                 **fin_const, grid=(1,))
     counters.LAUNCHES["gather_emit_combine_packed_skip" if skip
                       else "gather_emit_combine_packed"] += 1
     return slabs, hm.view(torch.bool)

@@ -239,8 +239,8 @@ def test_later_slice_knobs_raise(kernel_graph, kw, tmp_path):
     frontier, sources, exchange, the distributed and callback engines,
     checkpoint_dir, guards) run and give the default run's bits (row 0 of
     a batch from root 0); a faults= entry that is not a Fault raises the
-    reference's TypeError. warm_start, the one knob of a later slice,
-    raises in test_warm_start_raises."""
+    reference's TypeError. warm_start's refusals are in
+    test_warm_start_raises."""
     T = UniGPS(device="cpu")
     if kw in PORTED_KNOBS:
         base, _ = T.sssp(_port(kernel_graph), 0)
@@ -272,12 +272,26 @@ PORTED_KNOBS = ({"reorder": "rcm"}, {"frontier": "auto"},
 
 
 def test_warm_start_raises(kernel_graph):
-    """warm_start (serving) is a later slice: it raises, naming ROADMAP.md
-    Queue A item 10."""
+    """warm_start (serving) is ported: it raises only where the reference
+    refuses it — on the distributed engine, and beside checkpointing,
+    guards or faults — and an empty seed leaves a fixpoint as it is
+    (tests/test_torch_warm_start.py holds its results to the
+    reference's)."""
     from repro_torch import run_vcprog
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_vcprog(UniSSSP(0), _port(kernel_graph), 10, device="cpu",
-                   warm_start=({}, None))
+    g = _port(kernel_graph)
+    fix, _ = run_vcprog(UniSSSP(0), g, 10, device="cpu")
+    seed = torch.zeros(g.num_vertices, dtype=torch.bool)
+    with pytest.raises(ValueError, match="single-device only"):
+        run_vcprog(UniSSSP(0), g, 10, device="cpu", engine="distributed",
+                   warm_start=(fix, seed))
+    with pytest.raises(ValueError, match="does not compose"):
+        run_vcprog(UniSSSP(0), g, 10, device="cpu", guards="on",
+                   warm_start=(fix, seed))
+    out, info = run_vcprog(UniSSSP(0), g, 10, device="cpu",
+                           warm_start=(fix, seed))
+    assert info["warm_start"] is True
+    for k in fix:
+        assert torch.equal(out[k], fix[k])
 
 
 def test_lint_and_batch_raise(kernel_graph):
