@@ -57,18 +57,27 @@
 //    them the softmax's instruction issue (an exp2, an FMA, a max, an add
 //    per score, the O rescale), which the two warpgroups hide under each
 //    other's GEMMs.
-// 2. mma.sync / FMA (f32 at every head dim; bf16/fp16 at Dh 16 and 32, the
-//    smoke configs), flash_fwd_kernel: four warps per 64-row q tile, 64-key
-//    K/V tiles double-buffered with cp.async, mma.sync m16n8k16 for
-//    bf16/fp16 and plain FMA for f32 (exact f32: parity at 2e-5 rules out
-//    TF32, and wgmma has no f32 inputs). wgmma's k step is 16 and its
-//    smallest swizzled panel 32 bytes, so head dims 16 and 32 stay here;
-//    they run only in the smoke models.
+// 2. mma.sync / FMA (f32 at every head dim; bf16/fp16 at Dh 16, 32 and
+//    256), flash_fwd_kernel: four warps per 64-row q tile, 64-key K/V tiles
+//    double-buffered with cp.async, mma.sync m16n8k16 for bf16/fp16 and
+//    plain FMA for f32 (exact f32: parity at 2e-5 rules out TF32, and wgmma
+//    has no f32 inputs). wgmma's k step is 16 and its smallest swizzled
+//    panel 32 bytes, so head dims 16 and 32 stay here; they run only in
+//    the smoke models. Dh 256 (recurrentgemma-9b's local layers) stays here
+//    too, simple before fast. The bf16/fp16 Q fragments are read from the
+//    resident Q tile at every key tile, not held in registers (O alone is
+//    128 registers a thread at Dh 256; held Q fragments would add 64), and
+//    f32 at Dh 256 single-buffers K/V (five 64 x 260 f32 tiles are 332,800
+//    bytes, over the 232,448 a block may use; three and the P staging are
+//    216,320).
 //
 // Bound on the H100 at the smoke's qwen3-14b prefill shape (B = 2, Hq = 40,
 // Dh = 128, T = S = 4096, causal, bf16): operations. 4 * B * Hq * Dh *
 // T(T+1)/2 = 343.7 GFLOP at 989 TFLOP/s dense bf16 is 0.347 ms; the bytes
-// (q, k, v read once, out written once: ~0.2 GB) take 0.06 ms.
+// (q, k, v read once, out written once: ~0.2 GB) take 0.06 ms. At
+// recurrentgemma-9b's local prefill (B = 2, Hq = 16, Hkv = 1, Dh = 256,
+// T = S = 4096, window 2048, bf16; the mma.sync variant): 6,292,480 live
+// pairs a head, 206.2 GFLOP, 0.208 ms; the bytes take 0.043 ms.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda.h>
@@ -82,7 +91,7 @@
 namespace {
 
 // ===========================================================================
-// Variant 2: mma.sync / FMA (f32; bf16/fp16 at Dh 16 and 32), and the
+// Variant 2: mma.sync / FMA (f32; bf16/fp16 at Dh 16, 32 and 256), and the
 // helpers both variants share
 // ===========================================================================
 
@@ -103,9 +112,14 @@ struct Cfg {
   static constexpr int kStride = DH + kVec;         // smem row, padded
   static constexpr int kTile = kBlockQ * kStride;   // elements of one tile
   static constexpr int kChunks = DH / kVec;         // 16-byte chunks a row
+  // K/V stages: two (double-buffered) unless f32 at Dh 256, which fits
+  // the block's shared memory only single-buffered
+  static constexpr int kStages = (kFloat && DH > 128) ? 1 : 2;
+  static constexpr int kTiles = 1 + 2 * kStages;    // Q, then K and V stages
   static constexpr size_t kSmem =
-      5 * kTile * sizeof(T) +
+      kTiles * kTile * sizeof(T) +
       (kFloat ? (size_t)kWarps * 16 * kPStride * sizeof(float) : 0);
+  static_assert(kSmem <= 232448, "over the shared memory of a block");
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -217,8 +231,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kN = DH / 8;  // 8-column fragments of the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + C::kTile;      // two stages
-  T* sV = sK + 2 * C::kTile;  // two stages
+  T* sK = sQ + C::kTile;                // kStages stages
+  T* sV = sK + C::kStages * C::kTile;  // kStages stages
 
   // grid: kv-group member fastest, then q tile (last first), kv head, batch
   const int G = Hq / Hkv;
@@ -256,7 +270,6 @@ __global__ void __launch_bounds__(kThreads)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {kNegBig, kNegBig};
   float l_part[2] = {0.f, 0.f};  // this thread's columns; quad-summed last
-  uint32_t qf[C::kFloat ? 1 : DH / 16][4];
 
   if (t_begin < t_end) {
     load_tile<T, DH>(sQ, qb, qst, q_lo, T_len);
@@ -266,15 +279,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int stage = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      load_tile<T, DH>(sK + (stage ^ 1) * C::kTile, kb, kst,
-                       (t + 1) * kBlockK, S_len);
-      load_tile<T, DH>(sV + (stage ^ 1) * C::kTile, vb, vst,
-                       (t + 1) * kBlockK, S_len);
-      cp_async_commit();
-      cp_async_wait<1>();
+    int stage = 0;
+    if constexpr (C::kStages == 2) {
+      stage = (t - t_begin) & 1;
+      if (t + 1 < t_end) {
+        load_tile<T, DH>(sK + (stage ^ 1) * C::kTile, kb, kst,
+                         (t + 1) * kBlockK, S_len);
+        load_tile<T, DH>(sV + (stage ^ 1) * C::kTile, vb, vst,
+                         (t + 1) * kBlockK, S_len);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
     } else {
+      // single stage: the previous tile's readers passed the barrier at the
+      // end of the last iteration, so this tile may overwrite it now
+      if (t > t_begin) {
+        load_tile<T, DH>(sK, kb, kst, t * kBlockK, S_len);
+        load_tile<T, DH>(sV, vb, vst, t * kBlockK, S_len);
+        cp_async_commit();
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -311,24 +336,22 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     } else {
-      if (t == t_begin) {  // Q fragments, once
+      // each 16-column Q fragment read from the resident tile for all eight
+      // key fragments (held in registers it would cost DH / 4 of them, 64
+      // at Dh 256, beside O's DH / 2)
+#pragma unroll 2
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t a[4];
+        const T* p = sQ + r0 * C::kStride + kk * 16 + 2 * tg;
+        a[0] = *reinterpret_cast<const uint32_t*>(p);
+        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * C::kStride);
+        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * C::kStride + 8);
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const T* p = sQ + r0 * C::kStride + kk * 16 + 2 * tg;
-          qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-          qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * C::kStride);
-          qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-          qf[kk][3] =
-              *reinterpret_cast<const uint32_t*>(p + 8 * C::kStride + 8);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const T* p = cK + (8 * j + gr) * C::kStride + kk * 16 + 2 * tg;
-          mma16816<T>(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(p),
-                      *reinterpret_cast<const uint32_t*>(p + 8));
+        for (int j = 0; j < 8; ++j) {
+          const T* pk = cK + (8 * j + gr) * C::kStride + kk * 16 + 2 * tg;
+          mma16816<T>(s[j], a, *reinterpret_cast<const uint32_t*>(pk),
+                      *reinterpret_cast<const uint32_t*>(pk + 8));
         }
       }
     }
@@ -387,8 +410,8 @@ __global__ void __launch_bounds__(kThreads)
 
     // ---- O += P V ---------------------------------------------------------
     if constexpr (C::kFloat) {
-      float* sP = reinterpret_cast<float*>(smem_raw +
-                                           5 * C::kTile * sizeof(T)) +
+      float* sP = reinterpret_cast<float*>(smem_raw + C::kTiles * C::kTile *
+                                                          sizeof(T)) +
                   warp * 16 * kPStride;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -496,6 +519,9 @@ int launch_dh(int Dh, const void* q, const void* k, const void* v, void* o,
         return launch<T, 128>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
                               sm_scale, causal, has_window, window, s);
       break;
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
+                            sm_scale, causal, has_window, window, s);
     default:
       break;
   }
@@ -1056,7 +1082,8 @@ int launch_wgmma_dh(int Dh, int block_k, const void* q, const void* k,
 
 // strides: q (batch, head, row), k (batch, head, row), v (batch, head, row),
 // in elements. Returns the CUDA error of the launch (0 on success).
-// The mma.sync / FMA variant: f32 at Dh 16..128, bf16/fp16 at Dh 16 and 32.
+// The mma.sync / FMA variant: f32 at Dh 16..256, bf16/fp16 at Dh 16, 32 and
+// 256.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Hq,
                                    int Hkv, int T_len, int S_len, int Dh,

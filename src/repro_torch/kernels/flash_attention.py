@@ -13,14 +13,21 @@ from the dtype and the head dim (:func:`variant`):
   so one's softmax runs under the other's GEMMs. Reads the model's
   [B, T, H, Dh] views in place. Launches count as
   ``flash_attention_wgmma``.
-* ``"mma_sync"`` (f32 at every head dim, exact: no TF32; bf16/fp16 at
-  Dh 16 and 32, the smoke configs): four warps per 64-row q tile, 64-key
-  K/V tiles double-buffered with cp.async, `mma.sync` for bf16/fp16 and
-  plain FMA for f32. Launches count as ``flash_attention``.
+* ``"mma_sync"`` (f32 at every head dim of HEAD_DIMS, exact: no TF32;
+  bf16/fp16 at Dh 16 and 32, the smoke configs, and at Dh 256,
+  recurrentgemma-9b's local layers): four warps per 64-row q tile, 64-key
+  K/V tiles cp.async-staged (double-buffered, single-buffered for f32 at
+  Dh 256, whose five tiles would not fit the block's shared memory),
+  `mma.sync` for bf16/fp16 (the Q fragments re-read from shared memory
+  at every key tile, so O's 128 registers a thread at Dh 256 leave room
+  for the scores) and plain FMA for f32. Launches count as
+  ``flash_attention``.
 
 Its work is two matrix products per tile, so on the H100 it is bound by
 operations: at qwen3-14b's prefill (B = 2, Hq = 40, Dh = 128, T = 4096,
-causal, bf16) 343.7 GFLOP, 0.347 ms at 989 TFLOP/s.
+causal, bf16) 343.7 GFLOP, 0.347 ms at 989 TFLOP/s; at recurrentgemma-
+9b's local prefill (B = 2, Hq = 16, Hkv = 1, Dh = 256, T = 4096, window
+2048, bf16) 206.2 GFLOP, 0.208 ms.
 
 Semantics (shared by both variants and :func:`flash_attention_plain`, and
 those of the Pallas kernel): q head h reads kv head h // (Hq // Hkv);
@@ -39,7 +46,7 @@ import torch
 from . import counters
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: head dims of the wgmma variant (bf16/fp16)
 WGMMA_HEAD_DIMS = (64, 128)
 #: (q rows, keys) tiles of each variant; the first is its default (the

@@ -1,7 +1,7 @@
-"""LM substrate: the dense serving path (prefill + decode) of the
-reference's architecture zoo, for the configs whose blocks are attention
-and MLP (dense, vlm and audio families)."""
-from . import decoding, layers, transformer  # noqa: F401
+"""LM substrate: the serving path (prefill + decode) of the reference's
+architecture zoo, every block kind: attention + MLP (dense, vlm, audio),
+MoE (`moe.py`) and the recurrent blocks (`recurrent.py`)."""
+from . import decoding, layers, moe, recurrent, transformer  # noqa: F401
 from .decoding import greedy_generate, prefill_step  # noqa: F401
 from .transformer import (Transformer, decode_step, forward,  # noqa: F401
                           init_decode_state, lm_loss)

@@ -1,8 +1,9 @@
 """Prefill / decode entry points (the serving path).
 
 `prefill_step` runs the forward with state collection and assembles the
-decode state (one KV cache per layer, padded to max_len). `decode_step`
-lives in transformer.py.
+decode state: a KV cache padded to max_len for each attention layer, the
+recurrent layers' states passed through. `decode_step` lives in
+transformer.py.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def prefill_step(model: T.Transformer, tokens, max_len: int | None = None,
     max_len = max_len or T_in
     logits, _, states = model(tokens, collect_states=True)
     state: List[dict] = [_kv_to_cache(st, max_len, cache_dtype)
-                         for st in states]
+                         if kind in T.ATTN_KINDS else st
+                         for kind, st in zip(model.cfg.layer_types, states)]
     # a copy, so the [B, T, V] logits are freed on return
     return logits[:, -1].clone(), state
 

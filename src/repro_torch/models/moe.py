@@ -1,0 +1,166 @@
+"""Mixture-of-Experts layer (dbrx, granite-moe): a top-k router and
+capacity-based dispatch.
+
+The port of the reference's `models/moe.py`, which has no Pallas kernel:
+plain PyTorch here. Tokens are grouped (the reference's group size and
+capacity arithmetic), each expert takes at most C = ceil(top_k · group ·
+capacity_factor / E) tokens a group in token order, and the overflow is
+dropped. Two dispatches, chosen by `cfg.moe_impl`:
+
+  sort    (default) a stable argsort of the (token, choice) slots by
+          expert; each kept slot gets its place in its expert's queue, the
+          slot E·C is the trash slot for the dropped ones; gather into
+          [G, E, C, D], the experts' MLP, then a gather-combine back
+          (`moe_ep_combine`: a scatter-add in the model dtype instead,
+          which rounds each partial sum, as the reference's arm does).
+  einsum  the GShard one-hot dispatch/combine einsums (the oracle).
+
+The reference's `logical_constraint` sharding hints are no-ops on one
+device and are not ported; so `moe_ep_gather`, which only moves where the
+reference's gather is sharded, gathers the same rows here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers as L
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg, gen, device=None, dtype=torch.float32):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        std = 0.02
+        self.router = L._param((d, e), gen, std, device, dtype)
+        if cfg.activation in ("swiglu", "geglu"):
+            self.w_gate = L._param((e, d, f), gen, std, device, dtype)
+        self.w_up = L._param((e, d, f), gen, std, device, dtype)
+        self.w_down = L._param((e, f, d), gen,
+                               std / math.sqrt(2 * cfg.num_layers), device,
+                               dtype)
+
+
+def _route(p: MoE, cfg, xg):
+    """[G,S,D] -> (probs [G,S,E], gate values [G,S,K], top-k experts
+    [G,S,K]). Ties take the lowest expert first, as `lax.top_k`."""
+    logits = torch.einsum("gsd,de->gse", xg.float(), p.router.float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, topk_idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, topk_idx
+
+
+def _expert_mlp(p: MoE, cfg, exp_in):
+    """exp_in [G,E,C,D] -> [G,E,C,D] through each expert's MLP (jax.nn.gelu
+    is the tanh form)."""
+    dt = exp_in.dtype
+    up = torch.einsum("gecd,edf->gecf", exp_in, p.w_up.to(dt))
+    if cfg.activation in ("swiglu", "geglu"):
+        gt = torch.einsum("gecd,edf->gecf", exp_in, p.w_gate.to(dt))
+        act = (F.silu(gt) if cfg.activation == "swiglu"
+               else F.gelu(gt, approximate="tanh"))
+        h = act * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
+
+
+def _aux_loss(cfg, probs, topk_idx):
+    E, K = cfg.num_experts, cfg.top_k
+    sel = F.one_hot(topk_idx, E).float()                       # [G,S,K,E]
+    me = probs.mean(dim=(0, 1))
+    ce = sel.sum(2).mean(dim=(0, 1)) / K                        # frac routed
+    return E * torch.sum(me * ce)
+
+
+def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True):
+    """x [B,T,D] -> (y [B,T,D], {"moe_aux": f32 scalar}); the aux is None
+    when not `aux` (decode, which discards it)."""
+    B, T, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    N = B * T
+    g = max(1, min(group_size, N))
+    while N % g:
+        g -= 1
+    xg = x.reshape(N // g, g, D)
+    probs, gate_vals, topk_idx = _route(p, cfg, xg)
+    cap = max(int(math.ceil(K * g * cfg.capacity_factor / E)), 1)
+    dispatch = _dispatch_einsum if cfg.moe_impl == "einsum" \
+        else _dispatch_sort
+    y = dispatch(p, cfg, xg, gate_vals, topk_idx, cap, x.dtype)
+    return y.reshape(B, T, D), {
+        "moe_aux": _aux_loss(cfg, probs, topk_idx) if aux else None}
+
+
+def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
+    """Gather-based dispatch: no [S,E,C] one-hot is ever built."""
+    G, g, D = xg.shape
+    E, K = cfg.num_experts, cfg.top_k
+    SK = g * K
+    dev = xg.device
+    rows = torch.arange(G, device=dev)[:, None]
+
+    eid = topk_idx.reshape(G, SK)                     # expert of each slot
+    tok = torch.arange(g, device=dev).repeat_interleave(K)
+    eid_s, order = torch.sort(eid, dim=1, stable=True)  # sort by expert
+    tok_s = tok[order]
+    # place in the expert's queue = rank - rank of the expert's first slot
+    pos_s = torch.arange(SK, device=dev) - torch.searchsorted(eid_s, eid_s)
+    keep_s = pos_s < cap
+    slot_s = torch.where(keep_s, eid_s * cap + pos_s, E * cap)  # drop: trash
+    # expert slot -> source token (g: an empty slot)
+    slot_tok = torch.full((G, E * cap + 1), g, dtype=torch.long, device=dev)
+    slot_tok.scatter_(1, slot_s, tok_s)
+    slot_tok = slot_tok[:, :-1]
+
+    xg_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
+    exp_in = xg_pad[rows, slot_tok].to(dtype)         # empty slots read 0
+    exp_out = _expert_mlp(p, cfg, exp_in.reshape(G, E, cap, D))
+    exp_out = exp_out.reshape(G, E * cap, D)
+
+    if cfg.moe_ep_combine:
+        # scatter each slot's gate-weighted output back to its token, the
+        # partial sums in the model dtype
+        gate_s = torch.gather(gate_vals.reshape(G, SK), 1, order)
+        slot_gate = torch.zeros((G, E * cap + 1), dtype=torch.float32,
+                                device=dev)
+        slot_gate.scatter_(1, slot_s, gate_s)
+        contrib = (exp_out.float() * slot_gate[:, :-1, None]).to(dtype)
+        y = torch.zeros((G, g + 1, D), dtype=dtype, device=dev)
+        y.scatter_add_(1, slot_tok[..., None].expand(G, E * cap, D), contrib)
+        return y[:, :g]
+
+    # combine: each token gathers its K slots back
+    pos_u = torch.empty_like(pos_s).scatter_(1, order, pos_s)
+    keep_u = torch.empty_like(keep_s).scatter_(1, order, keep_s)
+    slot_u = torch.clamp(eid * cap + pos_u, max=E * cap - 1)
+    picked = exp_out[rows, slot_u].reshape(G, g, K, D)
+    w = (gate_vals * keep_u.reshape(G, g, K).float())[..., None]
+    return (picked.float() * w).sum(dim=2).to(dtype)
+
+
+def _dispatch_einsum(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
+    """GShard-style dispatch einsums (the oracle)."""
+    G, g, D = xg.shape
+    E, K = cfg.num_experts, cfg.top_k
+    sel = F.one_hot(topk_idx, E)                                # [G,S,K,E]
+    sel_flat = sel.reshape(G, g * K, E)
+    pos_in_e = torch.cumsum(sel_flat, dim=1) - sel_flat
+    pos = (pos_in_e.reshape(G, g, K, E) * sel).sum(-1)          # [G,S,K]
+    keep = pos < cap
+    disp = sel.float() * keep[..., None].float()
+    # one_hot(pos, cap): a dropped slot (pos >= cap) is all zeros
+    pos_oh = (pos[..., None] == torch.arange(cap, device=xg.device)).float()
+    dispatch = torch.einsum("gske,gskc->gsec", disp, pos_oh)
+    combine = torch.einsum("gske,gskc->gsec", disp * gate_vals[..., None],
+                           pos_oh)
+    exp_in = torch.einsum("gsec,gsd->gecd", dispatch, xg.float()).to(dtype)
+    exp_out = _expert_mlp(p, cfg, exp_in)
+    return torch.einsum("gsec,gecd->gsd", combine,
+                        exp_out.float()).to(dtype)

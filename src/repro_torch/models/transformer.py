@@ -1,16 +1,17 @@
-"""Model assembly for the dense, vlm and audio architectures.
+"""Model assembly for all ten architectures.
 
 One `Transformer` holds the embedding table (or, for `embed_inputs`
 configs, only the LM head), an `nn.ModuleList` of blocks and the final
-norm. Layers run in a Python loop: the reference's `scan_layers` is a
-compile-time strategy with no counterpart here (both of its parameter
-layouts convert, `convert.model_params_from_numpy`), and its `remat` is a
-training knob that has no effect without autograd. The decode state is a
-list with one KV cache per layer.
-
-Block kinds "attn" and "local" are ported; "moe", "mlstm", "slstm" and
-"rglru" raise NotImplementedError naming the ROADMAP item that brings
-them.
+norm; each block is one kind of the config's `layer_types`, as in the
+reference's `_block_fwd` / `_block_decode`: "attn" and "local" (attention
++ MLP), "moe" (attention + the MoE layer, `models/moe.py`), "mlstm",
+"slstm" and "rglru" (`models/recurrent.py`; "rglru" with a norm and MLP
+after it when `d_ff` is set). Layers run in a Python loop: the reference's
+`scan_layers` is a compile-time strategy with no counterpart here (both of
+its parameter layouts convert, `convert.model_params_from_numpy`), and its
+`remat` is a training knob that has no effect without autograd. The
+decode state is a list with one entry per layer: a KV cache for the
+attention kinds, a dict of recurrent state tensors for the others.
 """
 from __future__ import annotations
 
@@ -21,57 +22,98 @@ from torch import nn
 
 from ..core.graph_device import resolve_device
 from . import layers as L
+from . import moe as M
+from . import recurrent as R
 
-PORTED_KINDS = ("attn", "local")
-_NOT_PORTED = {
-    "moe": "ROADMAP.md Queue A 13b: models/moe.py",
-    "mlstm": "ROADMAP.md Queue A 13b: models/recurrent.py",
-    "slstm": "ROADMAP.md Queue A 13b: models/recurrent.py",
-    "rglru": "ROADMAP.md Queue A 13b: models/recurrent.py",
-}
+ATTN_KINDS = ("attn", "local", "moe")
+KINDS = ATTN_KINDS + ("mlstm", "slstm", "rglru")
 
 
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a config with a block kind the port
-    does not run yet, naming its ROADMAP item."""
-    for kind in dict.fromkeys(cfg.layer_types):
-        if kind not in PORTED_KINDS:
-            item = _NOT_PORTED.get(kind)
-            if item is None:
-                raise ValueError(f"unknown block kind {kind!r}")
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported to "
-                f"repro_torch yet ({item})")
+def _window(cfg, kind: str) -> int:
+    """The reference's window: the config's for "attn" and "local", none
+    for "moe"."""
+    return cfg.sliding_window if kind in ("attn", "local") else 0
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block (kinds "attn" and "local")."""
+    """One pre-norm block of kind `kind` (KINDS)."""
 
-    def __init__(self, cfg, gen: torch.Generator, device=None,
+    def __init__(self, cfg, kind: str, gen: torch.Generator, device=None,
                  dtype=torch.float32):
         super().__init__()
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+        self.kind = kind
         self.norm1 = L.Norm(cfg.d_model, cfg.norm, device, dtype)
-        self.attn = L.Attention(cfg, gen, device, dtype)
-        self.norm2 = L.Norm(cfg.d_model, cfg.norm, device, dtype)
-        self.mlp = L.MLP(cfg, gen, device, dtype)
+        if kind in ATTN_KINDS:
+            self.attn = L.Attention(cfg, gen, device, dtype)
+            self.norm2 = L.Norm(cfg.d_model, cfg.norm, device, dtype)
+            if kind == "moe":
+                self.moe = M.MoE(cfg, gen, device, dtype)
+            else:
+                self.mlp = L.MLP(cfg, gen, device, dtype)
+        elif kind == "mlstm":
+            self.mlstm = R.MLSTM(cfg, gen, device, dtype)
+        elif kind == "slstm":
+            self.slstm = R.SLSTM(cfg, gen, device, dtype)
+        else:
+            self.rglru = R.RGLRU(cfg, gen, device, dtype)
+            if cfg.d_ff:
+                self.norm2 = L.Norm(cfg.d_model, cfg.norm, device, dtype)
+                self.mlp = L.MLP(cfg, gen, device, dtype)
+
+    def _ffn(self, cfg, x, aux=True):
+        """x + the block's second half: the MLP or the MoE layer after
+        norm2. Returns (x, moe aux or None; None too when not `aux`)."""
+        h2 = L.apply_norm(self.norm2, x, cfg.norm)
+        if self.kind == "moe":
+            y2, auxd = M.moe_fwd(self.moe, cfg, h2, aux=aux)
+            return x + y2, auxd["moe_aux"]
+        return x + L.mlp_fwd(self.mlp, cfg, h2), None
 
     def forward(self, cfg, x, positions):
-        """Returns (x_out, (k, v)): the layer's keys and values for the
-        prefill cache."""
+        """Returns (x_out, aux, state): the MoE aux (None for other kinds)
+        and the prefill state, (k, v) for the attention kinds, the
+        recurrent state dict for the others."""
+        kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
-        y, kv = L.attention_fwd(self.attn, cfg, h, positions,
-                                window=cfg.sliding_window)
+        if kind in ATTN_KINDS:
+            y, st = L.attention_fwd(self.attn, cfg, h, positions,
+                                    window=_window(cfg, kind))
+            x, aux = self._ffn(cfg, x + y)
+            return x, aux, st
+        if kind == "mlstm":
+            y, st = R.mlstm_fwd(self.mlstm, cfg, h)
+            return x + y, None, st
+        if kind == "slstm":
+            y, st = R.slstm_fwd(self.slstm, cfg, h)
+            return x + y, None, st
+        y, st = R.rglru_fwd(self.rglru, cfg, h)
         x = x + y
-        h2 = L.apply_norm(self.norm2, x, cfg.norm)
-        return x + L.mlp_fwd(self.mlp, cfg, h2), kv
+        if cfg.d_ff:
+            x, _ = self._ffn(cfg, x)
+        return x, None, st
 
-    def decode(self, cfg, x, cache):
+    def decode(self, cfg, x, state):
+        """One token: x [B,1,D] and this layer's decode state -> (x_out,
+        new state). A KV cache is updated in place."""
+        kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
-        y, cache = L.attention_decode(self.attn, cfg, h, cache,
-                                      window=cfg.sliding_window)
+        if kind in ATTN_KINDS:
+            y, state = L.attention_decode(self.attn, cfg, h, state,
+                                          window=_window(cfg, kind))
+            return self._ffn(cfg, x + y, aux=False)[0], state
+        if kind == "mlstm":
+            y, state = R.mlstm_decode(self.mlstm, cfg, h, state)
+            return x + y, state
+        if kind == "slstm":
+            y, state = R.slstm_decode(self.slstm, cfg, h, state)
+            return x + y, state
+        y, state = R.rglru_decode(self.rglru, cfg, h, state)
         x = x + y
-        h2 = L.apply_norm(self.norm2, x, cfg.norm)
-        return x + L.mlp_fwd(self.mlp, cfg, h2), cache
+        if cfg.d_ff:
+            x, _ = self._ffn(cfg, x, aux=False)
+        return x, state
 
 
 class Transformer(nn.Module):
@@ -85,7 +127,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg, gen: Optional[torch.Generator] = None,
                  device="cuda", dtype=torch.float32):
         super().__init__()
-        check_ported(cfg)
         device = resolve_device(device)
         if gen is None:
             gen = torch.Generator(device=device).manual_seed(0)
@@ -98,13 +139,14 @@ class Transformer(nn.Module):
             self.lm_head = L._param((cfg.d_model, cfg.padded_vocab), gen,
                                     std, device, dtype)
         self.layers = nn.ModuleList(
-            Block(cfg, gen, device, dtype) for _ in cfg.layer_types)
+            Block(cfg, kind, gen, device, dtype) for kind in cfg.layer_types)
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, device, dtype)
 
     def forward(self, inputs, positions=None, collect_states: bool = False):
         """inputs: tokens [B,T] integer, or embeddings [B,T,D] when
         cfg.embed_inputs. Returns (logits [B,T,V] f32, aux, states): aux
-        is 0 (no MoE layer), states the per-layer (k, v) when
+        is the f32 sum of the MoE layers' load-balancing losses (0 without
+        one), states the per-layer prefill states (Block.forward) when
         `collect_states`, else None."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
@@ -116,14 +158,16 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
                                      device=x.device)[None].expand(B, T)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         states = []
         for blk in self.layers:
-            x, kv = blk(cfg, x, positions)
+            x, a, st = blk(cfg, x, positions)
+            if a is not None:
+                aux = aux + a
             if collect_states:
-                states.append(kv)
+                states.append(st)
         x = L.apply_norm(self.final_norm, x, cfg.norm)
         logits = L.logits_fwd(self, cfg, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, aux, (states if collect_states else None)
 
 
@@ -155,18 +199,22 @@ def lm_loss(model: Transformer, inputs, labels=None, z_loss: float = 1e-4,
 
 def init_decode_state(cfg, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device="cuda") -> List[dict]:
-    """One empty KV cache per layer on `device` (window layers get a
-    full-length buffer, as in the reference)."""
-    check_ported(cfg)
+    """One empty state per layer on `device`: a KV cache for the attention
+    kinds (window layers get a full-length buffer, as in the reference),
+    the recurrent kinds' state dicts (f32 `h`/`C`/`n`/`m`, the conv state
+    in `cache_dtype`) for the others."""
     device = resolve_device(device)
     return [L.init_kv_cache(cfg, batch, max_len, cache_dtype, device)
-            for _ in cfg.layer_types]
+            if kind in ATTN_KINDS
+            else R.init_state(kind, cfg, batch, cache_dtype, device)
+            for kind in cfg.layer_types]
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens, state: List[dict]):
     """One serve step: tokens [B] (or [B,D] embeddings) -> (logits [B,V],
-    state). The caches in `state` are updated in place."""
+    state). The KV caches in `state` are updated in place; the recurrent
+    layers' entries are new dicts."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     if cfg.embed_inputs:
@@ -174,8 +222,8 @@ def decode_step(model: Transformer, tokens, state: List[dict]):
     else:
         x = L.embed_tokens(model, cfg, tokens[:, None], dtype)
     new_state = []
-    for blk, cache in zip(model.layers, state):
-        x, cache = blk.decode(cfg, x, cache)
-        new_state.append(cache)
+    for blk, st in zip(model.layers, state):
+        x, st = blk.decode(cfg, x, st)
+        new_state.append(st)
     x = L.apply_norm(model.final_norm, x, cfg.norm)
     return L.logits_fwd(model, cfg, x)[:, 0], new_state

@@ -1530,6 +1530,41 @@ def test_flash_wgmma_reads_model_layout_in_place(cuda, dtype, Dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", ["window1", "window64_long", "causal_T_lt_S",
+                                  "causal_T_gt_S", "full_T_ne_S", "mqa",
+                                  "one_row"])
+def test_flash_dh256_masks_vs_plain(cuda, dtype, case):
+    """Dh 256 (recurrentgemma-9b's local layers; the mma.sync / FMA
+    variant, f32 single-buffered) under the masks of FLASH_CASES."""
+    c = dict(FLASH_CASES[case])
+    T, S = c.pop("T"), c.pop("S")
+    Hq, Hkv = c.pop("Hq", 4), c.pop("Hkv", 1)
+    q, k, v = _qkv((2, Hq, T, 256), (2, Hkv, S, 256), dtype, cuda, seed=3)
+    assert fa.variant(q.dtype, 256) == "mma_sync"
+    _flash_match(q, k, v, dtype, causal=c.get("causal", True),
+                 window=c.get("window"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dh256_reads_model_layout_in_place(cuda, dtype):
+    """recurrentgemma's [B, T, H, Dh] projections (MQA) viewed as
+    [B, H, T, Dh], bit for bit as their contiguous copies at Dh 256."""
+    rng = np.random.default_rng(256)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 300, h, 256))
+                                .astype(np.float32)).to(TDT[dtype])
+               .to(cuda).transpose(1, 2) for h in (8, 1, 1))
+    counters.reset()
+    a = fa.flash_attention_cuda(q, k, v, window=100)
+    b = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), window=100)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["flash_attention"] == 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_bad_inputs(cuda):
     q, k, v = _qkv((1, 2, 8, 64), (1, 1, 8, 64), "float32", cuda)
     with pytest.raises(ValueError, match="tile"):
@@ -1606,6 +1641,45 @@ def test_lm_wgmma_path_on_card(cuda, arch):
     a, b = a[..., :cfg.vocab_size].float(), b[..., :cfg.vocab_size].float()
     assert bool(torch.isfinite(a).all())
     assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
+                                  "granite-moe-1b-a400m", "dbrx-132b"])
+def test_lm_families_on_card(cuda, arch):
+    """The recurrent and MoE smoke models on the card in f32 (recurrentgemma
+    at its full head dim 256): one flash launch per attention layer, flash
+    against the einsum path within 2e-4, and prefill + decode against the
+    forward at the next position within 5e-4 (MoE at a no-drop capacity,
+    as test_decode_matches_forward)."""
+    cfg = smoke(get_config(arch)).replace(attn_impl="flash_kernel")
+    if arch == "recurrentgemma-9b":
+        cfg = cfg.replace(head_dim=256)
+    if cfg.is_moe:
+        cfg = cfg.replace(capacity_factor=64.0)
+    model = lm.Transformer(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 34))
+                           .astype(np.int32)).to(cuda)
+    counters.reset()
+    a, _, _ = lm.forward(model, tok[:, :33])
+    torch.cuda.synchronize()
+    n_attn = sum(k in ("attn", "local", "moe") for k in cfg.layer_types)
+    launches = counters.snapshot()
+    assert launches["flash_attention"] + \
+        launches["flash_attention_wgmma"] == n_attn
+    model.cfg = cfg.replace(attn_impl="xla")
+    b, _, _ = lm.forward(model, tok[:, :33])
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-4,
+                               atol=2e-4)
+    model.cfg = cfg
+    _, state = lm.prefill_step(model, tok[:, :33], max_len=36,
+                               cache_dtype=torch.float32)
+    got, _ = lm.decode_step(model, tok[:, 33], state)
+    full, _, _ = lm.forward(model, tok)
+    np.testing.assert_allclose(got.cpu().numpy(), full[:, -1].cpu().numpy(),
+                               rtol=5e-4, atol=5e-4)
 
 
 # --- the windowed block-skip shapes and the distributed engine ------------

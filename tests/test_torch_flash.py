@@ -95,6 +95,35 @@ def test_plain_matches_pallas_bf16():
     np.testing.assert_allclose(port, ref, **BF16_TOL)
 
 
+# Dh 256, recurrentgemma-9b's head dim (MQA, window 2048 at full width):
+# the plain version against the Pallas kernel in interpret mode
+DH256_CASES = {
+    "mqa": dict(B=1, Hq=4, Hkv=1, T=130, S=130),
+    "mqa_window": dict(B=2, Hq=4, Hkv=1, T=130, S=130, window=17),
+    "gqa_window_long": dict(B=1, Hq=4, Hkv=2, T=200, S=200, window=64),
+    "T_lt_S": dict(B=1, Hq=2, Hkv=1, T=64, S=192),
+    "T_gt_S": dict(B=1, Hq=2, Hkv=1, T=150, S=40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DH256_CASES))
+def test_plain_matches_pallas_dh256(case):
+    c = dict(DH256_CASES[case])
+    B, Hq, Hkv, T, S = (c.pop(n) for n in ("B", "Hq", "Hkv", "T", "S"))
+    q, k, v = _inputs((B, Hq, T, 256), (B, Hkv, S, 256), seed=T + S)
+    port, kern, ref = _both(q, k, v, causal=True, **c)
+    np.testing.assert_allclose(port, kern, **F32_TOL)
+    np.testing.assert_allclose(port, ref, **F32_TOL)
+
+
+def test_plain_matches_pallas_dh256_bf16():
+    q, k, v = _inputs((1, 4, 96, 256), (1, 1, 96, 256), seed=12)
+    port, kern, ref = _both(q, k, v, jnp.bfloat16, torch.bfloat16,
+                            causal=True, window=40)
+    np.testing.assert_allclose(port, kern, **BF16_TOL)
+    np.testing.assert_allclose(port, ref, **BF16_TOL)
+
+
 def test_plain_sm_scale():
     q, k, v = _inputs((1, 2, 40, 64), (1, 2, 40, 64), seed=5)
     port, kern, ref = _both(q, k, v, causal=True, sm_scale=0.3)
@@ -118,10 +147,13 @@ def test_wrapper_runs_plain_on_cpu():
     (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 32, "mma_sync"), (torch.float16, 16, "mma_sync"),
     (torch.float32, 128, "mma_sync"), (torch.float32, 64, "mma_sync"),
+    (torch.bfloat16, 256, "mma_sync"), (torch.float16, 256, "mma_sync"),
+    (torch.float32, 256, "mma_sync"),
 ])
 def test_variant_by_dtype_and_head_dim(dtype, Dh, want):
     """bf16/fp16 at Dh 64 and 128 take the wgmma variant; f32 (exact, no
-    TF32) and the smoke configs' Dh 16/32 the mma.sync / FMA one."""
+    TF32), the smoke configs' Dh 16/32 and recurrentgemma's Dh 256 the
+    mma.sync / FMA one."""
     assert fa.variant(dtype, Dh) == want
 
 
@@ -136,6 +168,10 @@ def test_variant_by_dtype_and_head_dim(dtype, Dh, want):
     (torch.float32, 128, (128, 128), False),
     (torch.bfloat16, 32, (None, None), True),
     (torch.bfloat16, 32, (128, 128), False),
+    (torch.bfloat16, 256, (None, None), True),
+    (torch.float32, 256, (64, 64), True),
+    (torch.float16, 256, (None, 64), True),
+    (torch.bfloat16, 256, (128, 128), False),
 ])
 def test_check_inputs_tiles_per_variant(dtype, Dh, tile, ok):
     """Each variant takes its own tiles (TILES; None its default) and
@@ -154,6 +190,7 @@ def test_check_inputs_tiles_per_variant(dtype, Dh, tile, ok):
     ("dtype", TypeError, "f32/bf16/fp16"),
     ("mixed", TypeError, "f32/bf16/fp16"),
     ("head_dim", ValueError, "head dim"),
+    ("head_dim_512", ValueError, "head dim"),
     ("groups", ValueError, "Hq % Hkv"),
     ("layout", ValueError, "do not fit"),
     ("stride", ValueError, "aligned"),
@@ -169,8 +206,9 @@ def test_check_inputs_refuses(case, exc, match):
         q, k, v = q.double(), k.double(), v.double()
     elif case == "mixed":
         k = k.bfloat16()
-    elif case == "head_dim":
-        q, k, v = (torch.zeros(s[:3] + (48,)) for s in
+    elif case in ("head_dim", "head_dim_512"):
+        dh = 48 if case == "head_dim" else 512
+        q, k, v = (torch.zeros(s[:3] + (dh,)) for s in
                    (q.shape, k.shape, v.shape))
     elif case == "groups":
         k = v = torch.zeros(1, 3, 8, 64)

@@ -1,6 +1,9 @@
 """The LM serving path: the port's models against the reference.
 
-For each dense, vlm and audio architecture's `smoke()` config (f32), the
+For each of the ten architectures' `smoke()` config (f32; every block
+kind: attention, MoE, mLSTM, sLSTM, RG-LRU), and recurrentgemma-9b's
+smoke config again at its full head dim 256 ("recurrentgemma-9b@dh256",
+the only CPU case that reaches the flash kernel's Dh 256), the
 reference's `init_model` parameters cross to the port through
 `convert.model_params_from_numpy`; both packages then run the same numpy
 inputs. The reference's flash kernel runs as its Pallas kernel in
@@ -30,21 +33,31 @@ from repro_torch import models as TM
 from repro_torch.models import layers as TL
 
 KEY = jax.random.PRNGKey(0)
-DENSE_ARCHS = ("qwen3-14b", "mistral-nemo-12b", "phi4-mini-3.8b",
-               "starcoder2-7b", "pixtral-12b", "musicgen-medium")
-TOKEN_ARCHS = tuple(a for a in DENSE_ARCHS
-                    if not tcfgs.get_config(a).embed_inputs)
-NOT_PORTED = {"dbrx-132b": "models/moe.py",
-              "granite-moe-1b-a400m": "models/moe.py",
-              "xlstm-350m": "models/recurrent.py",
-              "recurrentgemma-9b": "models/recurrent.py"}
+# the reference's entry points, jitted once per config (eager JAX compiles
+# each op on its own, which costs the recurrent configs seconds a call)
+J = {name: jax.jit(getattr(M, name), static_argnames=static) for name, static
+     in (("forward", ("cfg",)), ("lm_loss", ("cfg",)),
+         ("prefill_step", ("cfg", "max_len", "cache_dtype")),
+         ("decode_step", ("cfg",)),
+         ("greedy_generate", ("cfg", "num_steps", "max_len")))}
+# "name@dh256": the smoke config at head_dim 256
+ARCHS = ("qwen3-14b", "mistral-nemo-12b", "phi4-mini-3.8b",
+         "starcoder2-7b", "pixtral-12b", "musicgen-medium",
+         "granite-moe-1b-a400m", "dbrx-132b", "xlstm-350m",
+         "recurrentgemma-9b", "recurrentgemma-9b@dh256")
+TOKEN_ARCHS = tuple(a for a in ARCHS
+                    if not tcfgs.get_config(a.split("@")[0]).embed_inputs)
+ATTN_KINDS = ("attn", "local", "moe")
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 def _cfgs(arch, **kw):
-    return (jcfgs.smoke(jcfgs.get_config(arch)).replace(**kw),
-            tcfgs.smoke(tcfgs.get_config(arch)).replace(**kw))
+    name, _, variant = arch.partition("@")
+    if variant == "dh256":
+        kw = dict(kw, head_dim=256)
+    return (jcfgs.smoke(jcfgs.get_config(name)).replace(**kw),
+            tcfgs.smoke(tcfgs.get_config(name)).replace(**kw))
 
 
 _CACHE = {}
@@ -110,47 +123,49 @@ def test_config_values_match_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("impl", ["xla", "xla_chunked", "flash_kernel"])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference(arch, impl):
     jcfg, params, tcfg, model = _pair(arch)
     x = _inputs(jcfg, 2, 33)
-    a, _, _ = M.forward(params, jcfg.replace(attn_impl=impl),
-                        jnp.asarray(x))
+    a, jaux, _ = J["forward"](params, jcfg.replace(attn_impl=impl),
+                           jnp.asarray(x))
     model.cfg = tcfg.replace(attn_impl=impl)
     try:
         b, aux, states = TM.forward(model, torch.from_numpy(x))
     finally:
         model.cfg = tcfg
     assert b.dtype == torch.float32 and b.shape == a.shape
-    assert states is None and float(aux) == 0.0
+    assert states is None and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == ("moe" not in tcfg.layer_types)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     np.testing.assert_allclose(_np(b), np.asarray(a), **LOGIT_TOL)
     if tcfg.padded_vocab != tcfg.vocab_size:
         assert float(b[..., tcfg.vocab_size:].max()) < -1e29
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_unrolled_layout_matches_reference(arch):
     """scan_layers=False: the reference's "layer{i}" tree converts too."""
     jcfg, params, tcfg, model = _pair(arch, scan_layers=False)
     assert "layer0" in params and "groups" not in params
     x = _inputs(jcfg, 2, 12, seed=1)
-    a, _, _ = M.forward(params, jcfg, jnp.asarray(x))
+    a, _, _ = J["forward"](params, jcfg, jnp.asarray(x))
     b, _, _ = TM.forward(model, torch.from_numpy(x))
     np.testing.assert_allclose(_np(b), np.asarray(a), **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_lm_loss_matches_reference(arch):
     jcfg, params, tcfg, model = _pair(arch)
     rng = np.random.default_rng(2)
     if jcfg.embed_inputs:
         x = _inputs(jcfg, 2, 16, seed=2)
         y = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
-        ja, jm = M.lm_loss(params, jcfg, jnp.asarray(x), jnp.asarray(y))
+        ja, jm = J["lm_loss"](params, jcfg, jnp.asarray(x), jnp.asarray(y))
         ta, tm = TM.lm_loss(model, torch.from_numpy(x), torch.from_numpy(y))
     else:
         x = _inputs(jcfg, 2, 17, seed=2)
-        ja, jm = M.lm_loss(params, jcfg, jnp.asarray(x))
+        ja, jm = J["lm_loss"](params, jcfg, jnp.asarray(x))
         ta, tm = TM.lm_loss(model, torch.from_numpy(x))
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-5)
     for name in ("nll", "z_loss", "moe_aux"):
@@ -163,38 +178,53 @@ def test_lm_loss_matches_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("cache", ["bfloat16", "float32"])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_match_reference(arch, cache):
     jcfg, params, tcfg, model = _pair(arch)
     x = _inputs(jcfg, 2, 21, seed=3)
     T = 20
-    jlast, jst = M.prefill_step(params, jcfg, jnp.asarray(x[:, :T]),
+    jlast, jst = J["prefill_step"](params, jcfg, jnp.asarray(x[:, :T]),
                                 max_len=T + 4, cache_dtype=jnp.dtype(cache))
     tlast, tst = TM.prefill_step(model, torch.from_numpy(x[:, :T]),
                                  max_len=T + 4,
                                  cache_dtype=getattr(torch, cache))
     np.testing.assert_allclose(_np(tlast), np.asarray(jlast), **LOGIT_TOL)
     assert len(tst) == tcfg.num_layers
+    kinds = tcfg.layer_types
+    caches = [c for kind, c in zip(kinds, tst) if kind in ATTN_KINDS]
     assert all(c["pos"] == T and c["k"].shape[1] == T + 4
-               and c["k"].dtype == getattr(torch, cache) for c in tst)
+               and c["k"].dtype == getattr(torch, cache) for c in caches)
+    # recurrent states pass through prefill: f32 h/C/n/m
+    assert all(st[key].dtype == torch.float32
+               for kind, st in zip(kinds, tst) if kind not in ATTN_KINDS
+               for key in st if key != "conv")
     tol = BF16_DECODE_TOL if cache == "bfloat16" else LOGIT_TOL
     for t in (T, T):  # two steps: the second reads the first's cache row
-        jgot, jst = M.decode_step(params, jcfg, jnp.asarray(x[:, t]), jst)
+        jgot, jst = J["decode_step"](params, jcfg, jnp.asarray(x[:, t]), jst)
         tgot, tst = TM.decode_step(model, torch.from_numpy(x[:, t]), tst)
         np.testing.assert_allclose(_np(tgot), np.asarray(jgot), **tol)
-    assert all(c["pos"] == T + 2 for c in tst)
+    assert all(c["pos"] == T + 2
+               for kind, c in zip(kinds, tst) if kind in ATTN_KINDS)
 
 
 @pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_decode_matches_forward(arch):
     """Prefill on T tokens plus one decode step equals the forward pass at
-    position T+1 (f32 cache), as the reference's test of the same name."""
+    position T+1 (f32 cache), as the reference's test of the same name
+    (MoE at its no-drop capacity factor 64: a 17-token forward and a
+    one-token decode group their tokens differently, so a capacity that
+    drops differs between the two)."""
     _, _, tcfg, model = _pair(arch)
+    if tcfg.is_moe:
+        model.cfg = tcfg.replace(capacity_factor=64.0)
     x = torch.from_numpy(_inputs(tcfg, 2, 17, seed=4))
-    full, _, _ = TM.forward(model, x)
-    _, state = TM.prefill_step(model, x[:, :16], max_len=18,
-                               cache_dtype=torch.float32)
-    got, _ = TM.decode_step(model, x[:, 16], state)
+    try:
+        full, _, _ = TM.forward(model, x)
+        _, state = TM.prefill_step(model, x[:, :16], max_len=18,
+                                   cache_dtype=torch.float32)
+        got, _ = TM.decode_step(model, x[:, 16], state)
+    finally:
+        model.cfg = tcfg
     np.testing.assert_allclose(_np(got), _np(full[:, -1]), rtol=5e-4,
                                atol=5e-4)
 
@@ -203,7 +233,7 @@ def test_decode_matches_forward(arch):
 def test_greedy_generate_matches_reference(arch):
     jcfg, params, tcfg, model = _pair(arch)
     x = _inputs(jcfg, 2, 9, seed=5)
-    a = M.greedy_generate(params, jcfg, jnp.asarray(x), 7)
+    a = J["greedy_generate"](params, jcfg, jnp.asarray(x), 7)
     b = TM.greedy_generate(model, torch.from_numpy(x), 7)
     assert b.dtype == torch.int32 and tuple(b.shape) == (2, 7)
     np.testing.assert_array_equal(_np(b), np.asarray(a))
@@ -218,14 +248,14 @@ def test_window_layers_match_reference_past_the_window():
     x = _inputs(jcfg, 1, 33, seed=6)
     for impl in ("flash_kernel", "xla"):
         model.cfg = tcfg.replace(attn_impl=impl)
-        jl, jst = M.prefill_step(params, jcfg.replace(attn_impl=impl),
+        jl, jst = J["prefill_step"](params, jcfg.replace(attn_impl=impl),
                                  jnp.asarray(x[:, :30]), max_len=33,
                                  cache_dtype=jnp.float32)
         tl, tst = TM.prefill_step(model, torch.from_numpy(x[:, :30]),
                                   max_len=33, cache_dtype=torch.float32)
         np.testing.assert_allclose(_np(tl), np.asarray(jl), **LOGIT_TOL)
         for t in (30, 31, 32):
-            jg, jst = M.decode_step(params, jcfg, jnp.asarray(x[:, t]), jst)
+            jg, jst = J["decode_step"](params, jcfg, jnp.asarray(x[:, t]), jst)
             tg, tst = TM.decode_step(model, torch.from_numpy(x[:, t]), tst)
             np.testing.assert_allclose(_np(tg), np.asarray(jg), **LOGIT_TOL)
     model.cfg = tcfg
@@ -269,11 +299,45 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert state[0]["k"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_moe_and_recurrent_archs_refuse(arch):
-    cfg = tcfgs.smoke(tcfgs.get_config(arch))
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue A 13b: {NOT_PORTED[arch]}"):
-        TM.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        TM.init_decode_state(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_matches_reference_tree(arch):
+    """The port's own init (from a torch.Generator) has the converted
+    reference tree's names, shapes and constant inits (norm scales, the
+    mLSTM's forget bias 1, the RG-LRU's lambda 1, zero biases), for every
+    block kind."""
+    _, params, tcfg, model = _pair(arch)
+    own = TM.Transformer(tcfg, torch.Generator().manual_seed(1),
+                         device="cpu").state_dict()
+    ref = convert.model_params_from_numpy(
+        jax.tree.map(np.asarray, params), tcfg)
+    assert {k: tuple(v.shape) for k, v in own.items()} == \
+        {k: tuple(v.shape) for k, v in ref.items()}
+    for name, v in ref.items():
+        if bool((v == v.flatten()[0]).all()) and v.numel() > 1:
+            assert torch.equal(own[name], v), name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_decode_state_matches_reference(arch):
+    """init_decode_state builds each kind's state as the reference does:
+    KV caches in the cache dtype, recurrent h/C/n/m in f32 (m at -1e30)
+    and the conv state in the cache dtype; then one decode step from it
+    matches the reference's."""
+    jcfg, params, tcfg, model = _pair(arch, scan_layers=False)
+    tst = TM.init_decode_state(tcfg, 2, 6, device="cpu")
+    jst = M.init_decode_state(jcfg, 2, 6)
+    assert len(tst) == len(jst["layers"]) + len(jst["rem"])
+    for t, j in zip(tst, jst["layers"] + jst["rem"]):
+        assert set(t) == set(j)
+        for key in j:
+            if key == "pos":
+                assert t[key] == int(j[key])
+                continue
+            assert str(t[key].dtype).split(".")[-1] == str(j[key].dtype)
+            np.testing.assert_array_equal(t[key].float().numpy(),
+                                          np.asarray(j[key], np.float32))
+    x = _inputs(jcfg, 2, 1, seed=8)[:, 0]
+    jgot, _ = J["decode_step"](params, jcfg, jnp.asarray(x), jst)
+    tgot, _ = TM.decode_step(model, torch.from_numpy(x), tst)
+    np.testing.assert_allclose(_np(tgot), np.asarray(jgot),
+                               **BF16_DECODE_TOL)
