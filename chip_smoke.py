@@ -115,9 +115,13 @@ Phases, one line of numbers each:
      one `UniGPS(engine="distributed").pagerank`; (b) the windowed
      block-skip shapes (single-leaf for each built-in emit, packed for 8
      SSSP lanes) against their plain versions and bitwise against the
-     resident shape on Banded-21 under RCM at a 1 % frontier, and both
-     on a P = 4 bucket with 4,096 sentinel pads against the same bucket
-     unpadded; (c) P = 4: four ranks of this script (`--dist-rank`) in a
+     resident shape on Banded-21 under RCM at a 1 % frontier, timed
+     beside the dense windowed shapes there, with every bitmap tile set
+     (the skip machinery's own cost) and on an SSSP wavefront, each
+     frontier with its own bound; both on a P = 4 bucket with 4,096
+     sentinel pads against the same bucket unpadded, and the four shapes
+     timed on that bucket with its bound; (c) P = 4: four ranks of this
+     script (`--dist-rank`) in a
      gloo group sharing cuda:0 (exchange staged through pinned host
      memory) load phase 7's RCM-relabeled Banded-21 from a file in a
      temporary directory and run, under each schedule, pagerank
@@ -239,6 +243,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 SUM_RTOL = 1e-4
 SPIN_CYCLES = 4_000_000     # ~2 ms at the H100's clock: time_ms's queue
+SPIN_MOST_CYCLES = 100_000_000  # ~50 ms: the longest queue time_ms spins
+CLOCK_MOST_HZ = 2.0e9       # above the H100's boost clock: cycles per second
 
 
 def log(phase, **kw):
@@ -260,16 +266,25 @@ def nvidia_smi():
 
 def time_ms(fn, iters=20, warmup=3):
     """Mean device time of fn() over `iters` launches (CUDA events). The
-    launches queue behind a spin kernel of SPIN_CYCLES, so the events time
-    the device, not the host's launch rate (a kernel of a few microseconds
-    launches slower than it runs); a function that waits on the device
-    inside is timed on the wall all the same."""
-    for _ in range(warmup):
+    launches queue behind a spin kernel, so the events time the device,
+    not the host's launch rate (a kernel of a few microseconds launches
+    slower than it runs): the spin lasts SPIN_CYCLES, or twice the host
+    time of `iters` calls (the last warm-up call's, up to
+    SPIN_MOST_CYCLES), so every launch is queued before it ends; a
+    function that waits on the device inside is timed on the wall all
+    the same."""
+    for _ in range(warmup - 1):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    spin = int(min(max(SPIN_CYCLES, 2 * iters * host_s * CLOCK_MOST_HZ),
+                   SPIN_MOST_CYCLES))
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -972,7 +987,9 @@ def packed_shape(name, prog, gdev, key, act, rng, variant, **kw):
     """A batched mid-run state of `prog` on `gdev`; the packed kernel in
     the block-skip (`bitmap=` in kw), windowed or windowed block-skip
     (`bitmap=` in kw) shape against its plain version and, bitwise,
-    against the resident shape, then all three timed. Returns (max abs err vs plain, {ms, plain_ms, resident_ms})."""
+    against the resident shape, then all three timed (the windowed
+    block-skip shape also beside the windowed one). Returns (max abs err
+    vs plain, {ms, plain_ms, resident_ms[, window_ms]})."""
     from repro_torch.core import vcprog
     from repro_torch.core.message_plane import leaf_monoids
     from repro_torch.kernels import fused_packed as fp
@@ -1011,9 +1028,12 @@ def packed_shape(name, prog, gdev, key, act, rng, variant, **kw):
                         records_leaves(ref), monoids):
         err = max(err, check(f"packed {name} vs plain", a, b,
                              mo == "sum" and a.dtype == torch.float32))
-    return err, dict(ms=time_ms(shape), plain_ms=time_ms(plain, iters=3,
-                                                         warmup=1),
-                     resident_ms=time_ms(launch))
+    times = dict(ms=time_ms(shape), plain_ms=time_ms(plain, iters=3,
+                                                     warmup=1),
+                 resident_ms=time_ms(launch))
+    if variant == "window_skip":
+        times["window_ms"] = time_ms(lambda: launch(variant="window"))
+    return err, times
 
 
 def phase_lanes_frontier(ctx):
@@ -2355,14 +2375,81 @@ def dist_bucket(sg, rank, b, pad, dev, windows):
     return out
 
 
+def window_skip_bounds(V, E, tables, share, Q):
+    """((ms, by) of row 4s, (ms, by) of row 5d) at a frontier whose live
+    tile share is `share`: the single-leaf shape must read indptr,
+    tile_ptr, the window table and the bitmap, write out and has_msg,
+    and of the edge streams (src, weight) and the gathered leaves
+    (distance, active) the live tiles' share; the packed shape the same
+    with [V, Q] leaves (distance and the lane flags) and two [V, W] slabs
+    written."""
+    from repro_torch.core import graph_device
+    from repro_torch.kernels import fused_gather_emit as fge
+    P = -(-V // fge.BLOCK_V)
+    C = -(-V // fge.WINDOW_ROWS)
+    fixed = 4 * (V + 1) + 4 * (P + 1) + 4 * C + tables.num_tiles
+    W = graph_device.lane_slab_width(Q)
+    return (bound(fixed + 4 * V + V + share * (8 * E + 5 * V),
+                  2 * share * E),
+            bound(fixed + share * (8 * E + 8 * V * Q + V) + 8 * V * W + V,
+                  3 * share * E * Q))
+
+
+def bucket_shape_times(lay, v_pp, n_valid, prog, bprog, rng, dev, Q):
+    """Rows 4s, 4, 5d and 5c timed on one distributed bucket layout `lay`
+    (SSSP; the packed shapes on `bprog`'s Q lanes) at a 1 % frontier, as
+    phase 15b launches them, each skip shape bitwise against its dense
+    twin. Returns {live_tile_share, ms of each, bound_4s_ms,
+    bound_5d_ms}."""
+    from repro_torch.core import vcprog
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import fused_gather_emit as fge
+    from repro_torch.kernels import fused_packed as fp
+    act = random_frontier(v_pp, 0.01, rng, dev)
+    vp = {"distance": torch.from_numpy(
+        rng.random(v_pp).astype(np.float32) * 50).to(dev)}
+    lvp = {"p": {"distance": torch.from_numpy(
+        (rng.random((v_pp, Q)) * 50).astype(np.float32)).to(dev)},
+        "_lane_act": torch.from_numpy(
+            (rng.random((v_pp, Q)) < 0.7).astype(np.int32)).to(dev)}
+    t = lay.fused_tables
+    bm = fge.tile_bitmap_cuda(act, t)
+    share = int(bm.sum()) / t.num_tiles
+    kw = dict(dst=lay.dst, valid=lay.valid_mask, src_ids=lay.src_ids,
+              dst_ids=lay.dst_ids)
+    monoids = leaf_monoids(bprog, vcprog.empty_record(bprog, dev))
+    plan = fp.packed_plan(bprog, lvp, lay.eprops, v_pp, lay.num_edges)
+    pack = fp.make_pack_spec(bprog, monoids, lvp, lay.eprops)
+    single = lambda **k: fge.gather_emit_combine_window_triton(
+        prog, "min", lay.in_indptr, lay.src, vp, lay.eprops, act, v_pp, t,
+        **kw, **k)
+    packed = lambda **k: fp.gather_emit_combine_packed_triton(
+        bprog, monoids, lay.in_indptr, lay.src, lvp, lay.eprops, act, v_pp,
+        plan=plan, pack=pack, variant="window", tables=t, **kw, **k)
+    check("windowed block-skip on a P=4 bucket vs windowed",
+          single(bitmap=bm)[0]["distance"], single()[0]["distance"], False)
+    for a, b in zip(packed(bitmap=bm)[0], packed()[0]):
+        check("packed windowed block-skip on a P=4 bucket vs windowed", a, b,
+              False)
+    (b4, _), (b5, _) = window_skip_bounds(v_pp, n_valid, t, share, Q)
+    return dict(live_tile_share=share,
+                skip_ms=time_ms(lambda: single(bitmap=bm)),
+                window_ms=time_ms(single),
+                packed_skip_ms=time_ms(lambda: packed(bitmap=bm)),
+                packed_window_ms=time_ms(packed), bound_4s_ms=b4,
+                bound_5d_ms=b5)
+
+
 def window_skip_parity(ctx, dev):
     """The windowed block-skip shapes, single-leaf and packed, against
     their plain versions (and bitwise against the resident shape) on
-    Banded-21 under RCM at a 1 % frontier and on a P = 4 bucket with
-    sentinel pads. Returns the `kernels` rows 4s and 5d (launches filled
-    in by the caller)."""
-    from repro_torch.core import graph_device, operators, vcprog
-    from repro_torch.core.engines.distributed import ShardedGraph
+    Banded-21 under RCM at a 1 % frontier, timed beside the dense
+    windowed shapes there, with every bitmap tile set (the ablation: the
+    skip machinery's own cost) and on an SSSP wavefront, each with its
+    own bound; then both on a P = 4 bucket with sentinel pads against
+    the same bucket unpadded, and the four shapes timed on it. Returns
+    the `kernels` rows 4s and 5d (launches filled in by the caller)."""
+    from repro_torch.core import operators, vcprog
     from repro_torch.kernels import fused_gather_emit as fge
 
     gw, rng = ctx["gw"], ctx["rng"]
@@ -2386,8 +2473,8 @@ def window_skip_parity(ctx, dev):
                                          ).to(dev)
         args = (prog, prog.monoid, cv.in_indptr, cv.src, vp, cv.eprops, act,
                 V)
-        launch = lambda: fge.gather_emit_combine_window_triton(
-            *args, tables, dst=cv.dst, bitmap=bm, **ids)
+        launch = lambda b=bm: fge.gather_emit_combine_window_triton(
+            *args, tables, dst=cv.dst, bitmap=b, **ids)
         plain = lambda: fge.gather_emit_combine_window_skip_plain(
             prog, prog.monoid, cv.src, cv.dst, vp, cv.eprops, act, V,
             cv.in_indptr, tables, bm, **ids)
@@ -2406,8 +2493,19 @@ def window_skip_parity(ctx, dev):
                 *args, tables, dst=cv.dst, **ids)),
             skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
                 *args, dst=cv.dst, tables=tables, bitmap=bm, **ids)))
+        if name == "sssp":
+            # the ablation: every tile live, so the shape walks every edge
+            # the dense one walks; what it takes beyond the dense time is
+            # the skip machinery's own
+            ones = torch.ones_like(bm)
+            check("windowed block-skip kernel, all tiles live, vs resident",
+                  launch(ones)[0][key], d[key], False)
+            times[name]["allones_ms"] = time_ms(lambda: launch(ones))
         log("window_skip_kernel", emit=name, density=0.01,
             live_tile_share=share, W=tables.window, **times[name])
+    (b4, by4), (b5, by5) = window_skip_bounds(V, E, tables, share, 8)
+    log("window_skip_bound", frontier="1%", live_tile_share=share,
+        bound_4s_ms=b4, bound_5d_ms=b5)
     Q = 8
     roots = lane_roots(V, Q, seed=3)
     bprog = vcprog.as_batched([operators.SSSPProgram(r) for r in roots])
@@ -2415,6 +2513,11 @@ def window_skip_parity(ctx, dev):
                               act, rng, "window_skip", bitmap=bm)
     log("packed_window_skip_kernel", Q=Q, density=0.01,
         live_tile_share=share, **prow)
+    _, orow = packed_shape("windowed block-skip, all tiles live", bprog, gw,
+                           "distance", act, rng, "window_skip",
+                           bitmap=torch.ones_like(bm))
+    log("packed_window_skip_allones", Q=Q, density=0.01,
+        allones_ms=orow["ms"], window_ms=orow["window_ms"])
 
     # an SSSP wavefront (the vertices superstep 40 from vertex 0 improved,
     # in gw's ids) instead of a random frontier: its live tiles cluster in
@@ -2424,6 +2527,7 @@ def window_skip_parity(ctx, dev):
          for k in (39, 40)]
     wave = (d[1] < d[0])[perm].to(dev)
     wbm = fge.tile_bitmap_cuda(wave, tables)
+    wshare = int(wbm.sum()) / tables.num_tiles
     prog = operators.SSSPProgram(0)
     vp = {"distance": torch.where(torch.isinf(d[1]), 3.4e38, d[1])[perm]
           .to(dev, torch.float32).contiguous()}
@@ -2436,15 +2540,18 @@ def window_skip_parity(ctx, dev):
           o["distance"], r["distance"], False)
     _, wrow = packed_shape("windowed block-skip, SSSP wavefront", bprog, gw,
                            "distance", wave, rng, "window_skip", bitmap=wbm)
+    (wb4, _), (wb5, _) = window_skip_bounds(V, E, tables, wshare, Q)
     log("window_skip_wavefront", frontier=int(wave.sum()),
-        live_tile_share=int(wbm.sum()) / tables.num_tiles,
+        live_tile_share=wshare,
         ms=time_ms(lambda: fge.gather_emit_combine_window_triton(
             *args, tables, dst=cv.dst, bitmap=wbm, **ids)),
         window_ms=time_ms(lambda: fge.gather_emit_combine_window_triton(
             *args, tables, dst=cv.dst, **ids)),
         skip_ms=time_ms(lambda: fge.gather_emit_combine_triton(
             *args, dst=cv.dst, tables=tables, bitmap=wbm, **ids)),
-        packed_q8_ms=wrow["ms"], packed_q8_resident_ms=wrow["resident_ms"])
+        packed_q8_ms=wrow["ms"], packed_q8_window_ms=wrow["window_ms"],
+        packed_q8_resident_ms=wrow["resident_ms"], bound_4s_ms=wb4,
+        bound_5d_ms=wb5)
 
     # one P = 4 bucket with sentinel pads: the diagonal bucket of part 1
     sg = ctx["banded_sharded"]
@@ -2492,21 +2599,9 @@ def window_skip_parity(ctx, dev):
     log("window_skip_bucket", part=1, bucket=1, slots=bpad.num_edges,
         valid=bcut.num_edges, sentinel_pads=4096, W=wins[1],
         windowed=fge.window_usable(bpad.fused_tables, v_pp,
-                                   [bvp["distance"]]))
-
-    # Bounds (1 % frontier): the single-leaf shape must read indptr,
-    # tile_ptr, the window table and the bitmap, write out and has_msg,
-    # and of the edge streams (src, weight) and the gathered leaves
-    # (distance, active) the live tiles' share; the packed shape the same
-    # with [V, Q] leaves and two [V, W] slabs written
-    P = -(-V // fge.BLOCK_V)
-    C = -(-V // fge.WINDOW_ROWS)
-    fixed = 4 * (V + 1) + 4 * (P + 1) + 4 * C + tables.num_tiles
-    b4, by4 = bound(fixed + 4 * V + V + share * (8 * E + 5 * V),
-                    2 * share * E)
-    W = graph_device.lane_slab_width(Q)
-    b5, by5 = bound(fixed + share * (8 * E + 8 * V * Q + V) + 8 * V * W + V,
-                    3 * share * E * Q)
+                                   [bvp["distance"]]),
+        **bucket_shape_times(bpad, v_pp, bcut.num_edges, sprog, bprog, rng,
+                             dev, Q))
     return [
         {"name": "gather_emit_combine_window_skip", "route": "triton",
          "source": "src/repro_torch/kernels/fused_gather_emit.py",

@@ -87,15 +87,28 @@ slower (tools/sweep_window_tiles.py, PERF.md). W = 0 (the slab pair
 would reach the vertex range, or exceed ``WINDOW_SLAB_BYTES``) runs the
 resident kernel, as the reference does.
 
-Windowed block-skip design: the windowed kernel with the block-skip
-bitmap read before anything is staged. A CTA first scans the bitmap
-range of its rows' tiles (one contiguous range, since the tiles follow
-the rows in id order); with no live tile it stages nothing (every load of
-the slab pair masked off) and walks no edge. A live CTA stages its pair
-and drops, step by step, the edges whose tile is dead; a row whose edges
-all lie in its group's dead first tile walks none. A distributed bucket
-runs every shape over its valid edges: its sentinel-padded slots lie past
-the last row pointer, so no walk reaches them.
+Windowed block-skip design: the windowed kernel that walks only the
+live row groups (BLOCK_V rows, one bit per BLOCK_K-edge tile). What
+bounds it on the H100 is latency and occupancy, not bytes: a dead CTA
+holds its SM slot for its chain of dependent loads, a live CTA walks as
+many steps as its longest row, and the kernel's registers (the most any
+of its paths needs) set how many CTAs an SM holds. So each CTA issues
+its slab pair and row pointers first, and reads the bitmap once while
+they load: one vector load of its 32 groups' tile pointers, one of their
+first bits. A CTA whose live groups fill every narrow tile walks densely
+as one WINDOW_ROWS-row tile (a dead tile holds only vetoed emissions, so
+the bits are the same). Otherwise the rows of dead groups store the
+identity and no message in one vector store (a CTA with no live group
+stops there), and the live groups, compacted into a dense prefix of
+slots by the prefix sum of their bits, are walked WINDOW_SKIP_BV rows a
+tile: the trip count follows the live rows' degrees. A row's tile bit is
+a register, its group's first bit for its first BLOCK_K edges, re-read
+only when the walk crosses a BLOCK_K boundary (rows past BLOCK_K
+in-edges; a group of several tiles counts as live). With
+WINDOW_SKIP_WARPS = 8 the kernel takes the dense kernel's 80 registers,
+so the dense tile runs at its speed. A distributed bucket runs every
+shape over its valid edges: its sentinel-padded slots lie past the last
+row pointer, so no walk reaches them.
 
 The bits. Min/max and integer sums do not depend on the order of their
 terms. An f32 sum adds edge c of a row (counting from the row's first
@@ -169,6 +182,14 @@ WINDOW_ROWS = 256
 WINDOW_BV = 256
 WINDOW_STEP = 8
 WINDOW_WARPS = 8
+
+#: the windowed block-skip walk: a CTA's live row groups, compacted, in
+#: tiles of WINDOW_SKIP_BV rows (a multiple of BLOCK_V), WINDOW_STEP edges
+#: a step, with WINDOW_SKIP_WARPS warps, the dense walk's (its one
+#: WINDOW_ROWS-row tile then runs at the dense kernel's speed;
+#: tools/sweep_window_skip.py, PERF.md)
+WINDOW_SKIP_BV = 64
+WINDOW_SKIP_WARPS = 8
 
 #: most bytes one CTA's staged slab pair (active flag as int32 + property
 #: leaves, 2W rows each) may take; a wider window runs the resident
@@ -884,33 +905,136 @@ def _finish_kernel(order_ptr, heavy_ptr, part_ptr, gs_ptr, out_ptr, hm_ptr,
              .to(tl.uint8), mask=rmask)
 
 
-def _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices,
-              ROWS: "tl.constexpr", GROUP: "tl.constexpr",
-              SCAN: "tl.constexpr"):
-    # does any tile of the CTA's ROWS rows hold an active source? Their
-    # GROUP-row groups' tiles are one range of the bitmap (tile_ptr runs
-    # over the groups in id order), scanned SCAN tiles at a time
-    g0 = cta * (ROWS // GROUP)
-    g1 = tl.minimum(g0 + ROWS // GROUP, tl.cdiv(num_vertices, GROUP))
-    t0 = tl.load(tile_ptr_ptr + g0)
-    t1 = tl.load(tile_ptr_ptr + g1)
-    live = tl.zeros([SCAN], tl.int32)
-    for t in range(t0, t1, SCAN):
-        tt = t + tl.arange(0, SCAN)
-        live = tl.maximum(live, tl.load(bitmap_ptr + tt, mask=tt < t1,
-                                        other=0).to(tl.int32))
-    return tl.max(live, axis=0) != 0
+def _window_groups(tile_ptr_ptr, bitmap_ptr, cta, num_vertices,
+                   ROWS: "tl.constexpr", GROUP: "tl.constexpr"):
+    # the bitmap read once for the CTA's ROWS // GROUP row groups: one
+    # vector load of their tile pointers, then one of their first tiles'
+    # bits. Returns (live [NG] int32, first tile [NG], first bit [NG]
+    # int32, exclusive prefix sum of live [NG], live count). A group of
+    # more than one tile (a row past BK edges) counts as live: its rows
+    # test each later tile when the walk reaches it
+    NG: tl.constexpr = ROWS // GROUP
+    g = cta * NG + tl.arange(0, NG)
+    gmask = g < tl.cdiv(num_vertices, GROUP)
+    t0 = tl.load(tile_ptr_ptr + g, mask=gmask, other=0)
+    t1 = tl.load(tile_ptr_ptr + g + 1, mask=gmask, other=0)
+    first = (tl.load(bitmap_ptr + t0, mask=t1 > t0, other=0) != 0) \
+        .to(tl.int32)
+    live = tl.maximum(first, (t1 - t0 > 1).to(tl.int32))
+    excl = tl.cumsum(live, 0) - live
+    return live, t0, first, excl, tl.sum(live, axis=0)
 
 
-def _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows, rmask, lo, hi, live,
-                      BK: "tl.constexpr", GROUP: "tl.constexpr"):
-    # (first tile of each row's group, the edges each row walks): a row
-    # whose edges all lie in its dead first tile walks none, and a CTA
-    # with no live tile (`live` false) walks none
-    tr = tl.load(tile_ptr_ptr + rows // GROUP, mask=rmask, other=0)
-    first = tl.load(bitmap_ptr + tr, mask=rmask & (hi > lo), other=0) != 0
-    deg = tl.where(first | (hi - lo > BK), hi - lo, 0)
-    return tr, tl.where(live, deg, 0)
+def _window_slots(live, t0, first, excl, n_live, s0, cta, num_vertices,
+                  ROWS: "tl.constexpr", GROUP: "tl.constexpr",
+                  BV: "tl.constexpr"):
+    # the BV rows of live slots s0 .. s0 + BV // GROUP - 1, slot i being
+    # the CTA's i-th live group in id order (the compaction of `live` by
+    # its prefix sum): (rows, row mask, each row's group's first tile,
+    # that tile's bit)
+    NG: tl.constexpr = ROWS // GROUP
+    GS: tl.constexpr = BV // GROUP
+    slot = s0 + tl.arange(0, GS)
+    hit = (excl[None, :] == slot[:, None]) & (live[None, :] != 0)
+    grp = tl.sum(tl.where(hit, tl.arange(0, NG)[None, :], 0), axis=1)
+    j = tl.arange(0, BV)
+    gl = tl.gather(grp, j // GROUP, 0)
+    rows = cta * ROWS + gl * GROUP + j % GROUP
+    rmask = (s0 + j // GROUP < n_live) & (rows < num_vertices)
+    return rows, rmask, tl.gather(t0, gl, 0), tl.gather(first, gl, 0) != 0
+
+
+def _window_acc(IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                FSUM: "tl.constexpr", BV: "tl.constexpr",
+                STEP: "tl.constexpr", LANES: "tl.constexpr"):
+    # a tile's accumulators: an f32 sum's partial g * STEP + i of a row is
+    # acc[row, g, i]; has-msg flags
+    if FSUM:
+        acc = tl.zeros([BV, LANES // STEP, STEP], tl.float32)
+    elif ACC_INT:
+        acc = tl.full([BV, STEP], IDENT, tl.int32)
+    else:
+        acc = tl.full([BV, STEP], IDENT, tl.float32)
+    return acc, tl.zeros([BV, STEP], tl.int32)
+
+
+def _window_step(acc, got, e, emask, k, did, base, act_s, a_s, b_s,
+                 src_ptr, w_ptr, valid_ptr, sid_ptr, did_ptr,
+                 EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+                 IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                 FSUM: "tl.constexpr", N_VP: "tl.constexpr",
+                 HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+                 HAS_IDS: "tl.constexpr", W: "tl.constexpr",
+                 BV: "tl.constexpr", STEP: "tl.constexpr",
+                 LANES: "tl.constexpr"):
+    # one step of a tile: edges `e` ([BV, STEP], column k of each row)
+    # under `emask`, their sources gathered from the staged slab pair
+    NG: tl.constexpr = LANES // STEP
+    s = tl.load(src_ptr + e, mask=emask, other=0)
+    idx = s - base
+    win = emask & (idx >= 0) & (idx < 2 * W)
+    flat = tl.reshape(tl.where(win, idx, 0), [BV * STEP])
+    ok = win & (tl.reshape(tl.gather(act_s, flat, 0), [BV, STEP]) != 0)
+    if N_VP > 0:
+        a = tl.reshape(tl.gather(a_s, flat, 0), [BV, STEP])
+    else:
+        a = tl.zeros([BV, STEP], tl.float32)
+    if N_VP > 1:
+        b = tl.reshape(tl.gather(b_s, flat, 0), [BV, STEP])
+    else:
+        b = tl.zeros([BV, STEP], tl.float32)
+    msg, ok = _emit_staged(e, emask, s, did, ok, a, b, w_ptr, valid_ptr,
+                           sid_ptr, did_ptr, EMIT, HAS_W, HAS_VALID, HAS_IDS)
+    if FSUM:
+        # columns k .. k + STEP - 1 add into partials
+        # k % LANES .. k % LANES + STEP - 1
+        grp = tl.arange(0, NG)[None, :, None]
+        x = tl.where(ok, msg.to(tl.float32), 0.0)
+        acc = tl.where(grp == (k // STEP) % NG, acc + x[:, None, :], acc)
+        got = tl.maximum(got, ok.to(tl.int32))
+    else:
+        acc, got = _fold(acc, got, msg, ok, MONOID, IDENT, ACC_INT)
+    return acc, got
+
+
+def _window_store(acc, got, rows, rmask, out_ptr, hm_ptr,
+                  MONOID: "tl.constexpr", FSUM: "tl.constexpr",
+                  BV: "tl.constexpr", LANES: "tl.constexpr",
+                  LOG_LANES: "tl.constexpr"):
+    # a tile's rows: the partials reduced (an f32 sum's by the fixed
+    # pairwise tree), then out and has_msg stored
+    if FSUM:
+        out = _finish_acc(tl.reshape(acc, [BV, LANES]), BV, LANES,
+                          LOG_LANES)
+    else:
+        out = _reduce_rows(acc, MONOID, False, BV, LANES, 0)
+    tl.store(out_ptr + rows, out.to(out_ptr.dtype.element_ty), mask=rmask)
+    tl.store(hm_ptr + rows, tl.max(got, axis=1).to(tl.uint8), mask=rmask)
+
+
+def _window_tile(lo, hi, rows, rmask, base, act_s, a_s, b_s, src_ptr, w_ptr,
+                 valid_ptr, sid_ptr, did_ptr, out_ptr, hm_ptr,
+                 EMIT: "tl.constexpr", MONOID: "tl.constexpr",
+                 IDENT: "tl.constexpr", ACC_INT: "tl.constexpr",
+                 FSUM: "tl.constexpr", N_VP: "tl.constexpr",
+                 HAS_W: "tl.constexpr", HAS_VALID: "tl.constexpr",
+                 HAS_IDS: "tl.constexpr", W: "tl.constexpr",
+                 BV: "tl.constexpr", STEP: "tl.constexpr",
+                 LANES: "tl.constexpr", LOG_LANES: "tl.constexpr"):
+    # one dense tile: BV rows (their row pointers `lo`, `hi`) walked to
+    # their end over the staged slab pair, STEP edges a step
+    max_deg = tl.max(hi - lo, axis=0)
+    acc, got = _window_acc(IDENT, ACC_INT, FSUM, BV, STEP, LANES)
+    did = rows[:, None] + tl.zeros([BV, STEP], tl.int32)
+    for k in range(0, max_deg, STEP):
+        e = lo[:, None] + k + tl.arange(0, STEP)[None, :]
+        acc, got = _window_step(
+            acc, got, e, e < hi[:, None], k, did, base, act_s, a_s, b_s,
+            src_ptr, w_ptr, valid_ptr, sid_ptr, did_ptr, EMIT, MONOID, IDENT,
+            ACC_INT, FSUM, N_VP, HAS_W, HAS_VALID, HAS_IDS, W, BV, STEP,
+            LANES)
+    _window_store(acc, got, rows, rmask, out_ptr, hm_ptr, MONOID, FSUM, BV,
+                  LANES, LOG_LANES)
 
 
 def _window_kernel(
@@ -924,94 +1048,108 @@ def _window_kernel(
         BV: "tl.constexpr", STEP: "tl.constexpr", BK: "tl.constexpr",
         GROUP: "tl.constexpr", LANES: "tl.constexpr",
         LOG_LANES: "tl.constexpr"):
-    # stage the slab pair [q·W, (q+2)·W) of the frontier flag and of each
-    # gathered leaf once; every gather is a tl.gather from it. With SKIP
-    # (the windowed block-skip shape) the bitmap is read first: a CTA
-    # whose tiles are all dead stages nothing (every staging load masked
-    # off) and walks no edge, and a live CTA drops the edges of dead tiles
+    # CTA `cta` owns rows [cta·ROWS, (cta+1)·ROWS) and stages the slab
+    # pair [q·W, (q+2)·W) of the frontier flag and of each gathered leaf
+    # once; every gather is a tl.gather from it. The dense shape walks its
+    # rows in tiles of BV rows, STEP edges a step (_window_tile).
+    #
+    # With SKIP (the windowed block-skip shape) the bitmap is read once,
+    # for the CTA's GROUP-row groups (_window_groups), while the slab
+    # pair and the CTA's row pointers are already being loaded. When
+    # compacting its live groups would save none of the narrow walk's
+    # tiles, the CTA walks its ROWS rows densely as one tile (a dead tile
+    # holds only vetoed emissions, so either walk gives the same bits).
+    # Otherwise the rows of dead groups store the identity and no message
+    # in one vector store, and the live groups, compacted into a dense
+    # prefix of slots by the prefix sum of their bits, are walked BV rows
+    # a tile, so the trip count follows the live rows' degrees (a CTA
+    # with no live group walks none). A row's tile bit is a register: its
+    # group's first bit for its first BK edges, re-read only when the
+    # walk crosses a BK boundary (rows past BK in-edges); a tile column
+    # no row of the narrow tile has live is skipped whole.
     cta = tl.program_id(0)
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
-    if SKIP:
-        live = _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS,
-                         GROUP, 256)
-        smask = smask & live
     act_s = tl.load(act_ptr + slab, mask=smask, other=0).to(tl.int32)
+    # (a leaf the emit does not read stands as the flag's pair, never
+    # gathered)
     if N_VP > 0:
         a_s = tl.load(a_ptr + slab, mask=smask, other=0)
+    else:
+        a_s = act_s
     if N_VP > 1:
         b_s = tl.load(b_ptr + slab, mask=smask, other=0)
-    NG: tl.constexpr = LANES // STEP
-    for sub in range(0, ROWS, BV):
-        rows = cta * ROWS + sub + tl.arange(0, BV)
-        rmask = rows < num_vertices
-        lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
-        hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
-        if SKIP:
-            tr, deg = _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows,
-                                        rmask, lo, hi, live, BK, GROUP)
-            max_deg = tl.max(deg, axis=0)
+    else:
+        b_s = act_s
+    if SKIP:
+        # (names apart from the narrow walk's: Triton carries a name
+        # assigned before a loop through it, and its tiles are BV rows)
+        jd = tl.arange(0, ROWS)
+        drows = cta * ROWS + jd
+        dmask = drows < num_vertices
+        dlo = tl.load(indptr_ptr + drows, mask=dmask, other=0)
+        dhi = tl.load(indptr_ptr + drows + 1, mask=dmask, other=0)
+        live, t0, first, excl, n_live = _window_groups(
+            tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS, GROUP)
+        if n_live > (ROWS - BV) // GROUP:
+            _window_tile(dlo, dhi, drows, dmask, base, act_s, a_s, b_s,
+                         src_ptr, w_ptr, valid_ptr, sid_ptr, did_ptr,
+                         out_ptr, hm_ptr, EMIT, MONOID, IDENT, ACC_INT, FSUM,
+                         N_VP, HAS_W, HAS_VALID, HAS_IDS, W, ROWS, STEP,
+                         LANES, LOG_LANES)
         else:
-            max_deg = tl.max(hi - lo, axis=0)
-        if FSUM:
-            # partial g * STEP + i of a row: [BV, NG, STEP]
-            acc = tl.zeros([BV, NG, STEP], tl.float32)
-            grp = tl.arange(0, NG)[None, :, None]
-        elif ACC_INT:
-            acc = tl.full([BV, STEP], IDENT, tl.int32)
-        else:
-            acc = tl.full([BV, STEP], IDENT, tl.float32)
-        got = tl.zeros([BV, STEP], tl.int32)
-        did = rows[:, None] + tl.zeros([BV, STEP], tl.int32)
-        for k in range(0, max_deg, STEP):
-            e = lo[:, None] + k + tl.arange(0, STEP)[None, :]
-            emask = e < hi[:, None]
-            if SKIP:
-                # the bit of each row's group at this step's BK-edge tile
-                emask = emask & (tl.load(
-                    bitmap_ptr + tr + k // BK, mask=rmask & (k < hi - lo),
-                    other=0) != 0)[:, None]
-            s = tl.load(src_ptr + e, mask=emask, other=0)
-            idx = s - base
-            win = emask & (idx >= 0) & (idx < 2 * W)
-            flat = tl.reshape(tl.where(win, idx, 0), [BV * STEP])
-            ok = win & (tl.reshape(tl.gather(act_s, flat, 0), [BV, STEP])
-                        != 0)
-            if N_VP > 0:
-                a = tl.reshape(tl.gather(a_s, flat, 0), [BV, STEP])
+            dead = dmask & (tl.gather(live, jd // GROUP, 0) == 0)
+            if ACC_INT:
+                ident = tl.full([ROWS], IDENT, tl.int32)
             else:
-                a = tl.zeros([BV, STEP], tl.float32)
-            if N_VP > 1:
-                b = tl.reshape(tl.gather(b_s, flat, 0), [BV, STEP])
-            else:
-                b = tl.zeros([BV, STEP], tl.float32)
-            msg, ok = _emit_staged(e, emask, s, did, ok, a, b, w_ptr,
-                                   valid_ptr, sid_ptr, did_ptr, EMIT, HAS_W,
-                                   HAS_VALID, HAS_IDS)
-            if FSUM:
-                # columns k .. k + STEP - 1 add into partials
-                # k % LANES .. k % LANES + STEP - 1
-                x = tl.where(ok, msg.to(tl.float32), 0.0)
-                acc = tl.where(grp == (k // STEP) % NG, acc + x[:, None, :],
-                               acc)
-                got = tl.maximum(got, ok.to(tl.int32))
-            else:
-                acc, got = _fold(acc, got, msg, ok, MONOID, IDENT, ACC_INT)
-        if FSUM:
-            out = _finish_acc(tl.reshape(acc, [BV, LANES]), BV, LANES,
-                              LOG_LANES)
-        else:
-            out = _reduce_rows(acc, MONOID, False, BV, LANES, 0)
-        tl.store(out_ptr + rows, out.to(out_ptr.dtype.element_ty),
-                 mask=rmask)
-        tl.store(hm_ptr + rows, tl.max(got, axis=1).to(tl.uint8),
-                 mask=rmask)
+                ident = tl.full([ROWS], IDENT, tl.float32)
+            tl.store(out_ptr + drows, ident.to(out_ptr.dtype.element_ty),
+                     mask=dead)
+            tl.store(hm_ptr + drows, tl.zeros([ROWS], tl.uint8), mask=dead)
+            for s0 in range(0, n_live, BV // GROUP):
+                rows, rmask, tr, lv0 = _window_slots(
+                    live, t0, first, excl, n_live, s0, cta, num_vertices,
+                    ROWS, GROUP, BV)
+                lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+                hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+                max_deg = tl.max(hi - lo, axis=0)
+                acc, got = _window_acc(IDENT, ACC_INT, FSUM, BV, STEP, LANES)
+                did = rows[:, None] + tl.zeros([BV, STEP], tl.int32)
+                for k0 in range(0, max_deg, BK):
+                    lv = lv0
+                    if k0 > 0:
+                        lv = tl.load(bitmap_ptr + tr + k0 // BK,
+                                     mask=rmask & (k0 < hi - lo),
+                                     other=0) != 0
+                    if tl.max(lv.to(tl.int32), axis=0) != 0:
+                        for k in range(k0, tl.minimum(k0 + BK, max_deg),
+                                       STEP):
+                            e = lo[:, None] + k + tl.arange(0, STEP)[None, :]
+                            acc, got = _window_step(
+                                acc, got, e, (e < hi[:, None]) & lv[:, None],
+                                k, did, base, act_s, a_s, b_s, src_ptr,
+                                w_ptr, valid_ptr, sid_ptr, did_ptr, EMIT,
+                                MONOID, IDENT, ACC_INT, FSUM, N_VP, HAS_W,
+                                HAS_VALID, HAS_IDS, W, BV, STEP, LANES)
+                _window_store(acc, got, rows, rmask, out_ptr, hm_ptr, MONOID,
+                              FSUM, BV, LANES, LOG_LANES)
+    else:
+        for sub in range(0, ROWS, BV):
+            rows = cta * ROWS + sub + tl.arange(0, BV)
+            rmask = rows < num_vertices
+            lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+            hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+            _window_tile(lo, hi, rows, rmask, base, act_s, a_s, b_s, src_ptr,
+                         w_ptr, valid_ptr, sid_ptr, did_ptr, out_ptr, hm_ptr,
+                         EMIT, MONOID, IDENT, ACC_INT, FSUM, N_VP, HAS_W,
+                         HAS_VALID, HAS_IDS, W, BV, STEP, LANES, LOG_LANES)
 
 
 _HELPERS = ("_edge_ids_w", "_emit_staged", "_emit_edges", "_fold",
             "_finish_acc", "_reduce_rows", "_light_chunk", "_block_rows",
-            "_light_block", "_split_lane", "_cta_live", "_window_rows_live")
+            "_light_block", "_split_lane", "_window_groups", "_window_slots",
+            "_window_acc", "_window_step", "_window_store", "_window_tile")
 
 
 @functools.cache
@@ -1209,16 +1347,18 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
                                       num_vertices: int, tables: FusedTables,
                                       *, dst=None, valid=None, src_ids=None,
                                       dst_ids=None, bitmap=None,
-                                      rows: int = WINDOW_BV,
+                                      rows: int | None = None,
                                       step: int = WINDOW_STEP,
-                                      num_warps: int = WINDOW_WARPS):
+                                      num_warps: int | None = None):
     """Launch the windowed kernel, or with `bitmap` (a [num_tiles] uint8
     tile bitmap over `tables`) the windowed block-skip kernel, on the
     current stream (the caller has checked :func:`window_usable`).
     Returns (inbox record [V], has_msg [V] bool). Each CTA walks its
-    WINDOW_ROWS rows in tiles of `rows` rows, `step` edges a step (a
-    divisor of SUM_LANES), with `num_warps` warps; every setting gives
-    the same bits."""
+    WINDOW_ROWS rows (the block-skip shape: its live row groups) in tiles
+    of `rows` rows (WINDOW_BV, or WINDOW_SKIP_BV and at least BLOCK_V),
+    `step` edges a step (a divisor of SUM_LANES), with `num_warps` warps
+    (WINDOW_WARPS, or WINDOW_SKIP_WARPS); every setting gives the same
+    bits."""
     V = int(num_vertices)
     key, msg_dtype, p, const = _launch_args(
         program, monoid, indptr, src, vprops, eprops, active, V, dst, valid,
@@ -1231,8 +1371,14 @@ def gather_emit_combine_window_triton(program, monoid: str, indptr, src,
     skip = bitmap is not None
     if skip:
         _check_bitmap(bitmap, tables, src.device)
-    rows = _pow2("rows", rows, WINDOW_ROWS)
+    rows = _pow2("rows", rows or (WINDOW_SKIP_BV if skip else WINDOW_BV),
+                 WINDOW_ROWS)
+    if skip and rows < BLOCK_V:
+        raise ValueError(f"windowed block-skip kernel: rows must be at "
+                         f"least {BLOCK_V}, got {rows}")
     step = _pow2("step", step, SUM_LANES)
+    if num_warps is None:
+        num_warps = WINDOW_SKIP_WARPS if skip else WINDOW_WARPS
     require_gather()
     _, kernels = _triton()
     out = torch.empty(V, dtype=msg_dtype, device=src.device)

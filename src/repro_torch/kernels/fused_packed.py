@@ -81,10 +81,16 @@ Design:
     kernel (PERF.md).
     :func:`window_usable` counts every padded column against
     PACKED_WINDOW_SLAB_BYTES.
-  * Windowed block-skip (the windowed kernel with `SKIP`): the CTA scans
-    its rows' bitmap range before staging; a CTA with no live tile stages
-    nothing and walks no edge, a live one drops the edges of dead tiles
-    (the single-leaf kernel's design, :mod:`.fused_gather_emit`).
+  * Windowed block-skip (the windowed kernel with `SKIP`): the single-
+    leaf kernel's walk (:mod:`.fused_gather_emit`), with its helpers.
+    Each CTA issues its slab pair and first row pointers, then reads the
+    bitmap once for its 32 row groups; a CTA whose live groups fill every
+    tile walks densely, otherwise the rows of dead groups store every
+    slot's identity and no message, and the live groups are walked
+    compacted, BV rows a tile (at least BLOCK_V), each row's tile bit in
+    a register. Latency and occupancy bound it here as there: the launch
+    is held to WINDOW_SKIP_MAXNREG registers, so it holds as many CTAs an
+    SM as the windowed launch.
   * Batched lanes: the kernel calls the BASE program's Triton emit on
     every lane's column, ANDs its is_emit with the lane's `_lane_act`
     bit, and writes the lane's `_lane_msg` column as 1 where the lane kept
@@ -517,6 +523,13 @@ WINDOW_TILE = 4096
 WINDOW_MAX_ROWS = 64
 WINDOW_WARPS = 4
 
+#: most registers a thread of the windowed block-skip launch may take:
+#: four CTAs of WINDOW_WARPS warps an SM, as the windowed launch holds
+#: (SSSP lanes, Q = 8: 109 registers). Left alone, ptxas gives the
+#: block-skip shape, which holds both walks, 145 (three CTAs an SM); held
+#: here, 113 and no spill (tools/sweep_window_skip.py, PERF.md)
+WINDOW_SKIP_MAXNREG = 128
+
 
 def _columns(ncol: int, fsum: bool = False):
     """(CP, CC): the record's columns padded to a power of two, and the
@@ -575,7 +588,7 @@ _HEADER = "\n".join([
     "import triton",
     "import triton.language as tl",
     "",
-    "from {helpers} import _cta_live, _edge_ids_w, _window_rows_live",
+    "from {helpers} import _edge_ids_w, _window_groups, _window_slots",
     "from {module} import _lane_tree",
     "", "", ""])
 
@@ -701,51 +714,94 @@ def packed_window_kernel(indptr_ptr, src_ptr, q_ptr, tile_ptr_ptr,
                          BV: tl.constexpr, BK: tl.constexpr,
                          GROUP: tl.constexpr, LANES: tl.constexpr,
                          LOG_LANES: tl.constexpr, CC: tl.constexpr):
-    cta = tl.program_id(0)
-{cols}
     # stage the slab pair [q*W, (q+2)*W) of the frontier flag and of each
     # [V] leaf once; a [V, D] leaf's rows are read from the pair through
-    # L1. With SKIP the bitmap is read first: a CTA whose tiles are all
-    # dead stages nothing and walks no edge; a live one drops the edges
-    # of dead tiles
+    # L1. With SKIP the bitmap is read once for the CTA's row groups while
+    # the pair is loading: a CTA whose live groups fill every tile walks
+    # densely; otherwise the rows of dead groups store every slot's
+    # identity and no message, and the live groups are walked compacted,
+    # BV rows a tile, each row's tile bit held in a register (the
+    # single-leaf kernel's design)
+    cta = tl.program_id(0)
+{cols}
     base = tl.load(q_ptr + cta) * W
     slab = base + tl.arange(0, 2 * W)
     smask = slab < num_vertices
-    if SKIP:
-        live = _cta_live(tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS,
-                         GROUP, 256)
-        smask = smask & live
     act_s = tl.load(act_ptr + slab, mask=smask, other=0).to(tl.int32)
 {stage}
-    for sub in range(0, ROWS, BV):
-        rows = cta * ROWS + sub + tl.arange(0, BV)
-        rmask = rows < num_vertices
-        lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
-        hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
-        if SKIP:
-            tr, deg = _window_rows_live(tile_ptr_ptr, bitmap_ptr, rows,
-                                        rmask, lo, hi, live, BK, GROUP)
-            max_deg = tl.max(deg, axis=0)
+    if SKIP:
+        # the first tile's row pointers load beside the bitmap read, for
+        # a CTA that walks densely
+        prows = cta * ROWS + tl.arange(0, BV)
+        plo = tl.load(indptr_ptr + prows, mask=prows < num_vertices, other=0)
+        phi = tl.load(indptr_ptr + prows + 1, mask=prows < num_vertices,
+                      other=0)
+        live, t0, first, excl, n_live = _window_groups(
+            tile_ptr_ptr, bitmap_ptr, cta, num_vertices, ROWS, GROUP)
+        if n_live > (ROWS - BV) // GROUP:
+{wide}
         else:
-            max_deg = tl.max(hi - lo, axis=0)
+            for sub in range(0, ROWS, BV):
+                jd = sub + tl.arange(0, BV)
+                rows = cta * ROWS + jd
+                rmask = (tl.gather(live, jd // GROUP, 0) == 0) \\
+                    & (rows < num_vertices)
+                if tl.max(rmask.to(tl.int32), axis=0) != 0:
+{dead_init}
+{dead_finish}
+{dead_store}
+            for s0 in range(0, n_live, BV // GROUP):
+                rows, rmask, tr, lv0 = _window_slots(
+                    live, t0, first, excl, n_live, s0, cta, num_vertices,
+                    ROWS, GROUP, BV)
+                lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)
+                hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)
+                max_deg = tl.max(hi - lo, axis=0)
+{skip_init}
+                for k0 in range(0, max_deg, BK):
+                    lv = lv0
+                    if k0 > 0:
+                        lv = tl.load(bitmap_ptr + tr + k0 // BK,
+                                     mask=rmask & (k0 < hi - lo),
+                                     other=0) != 0
+                    if tl.max(lv.to(tl.int32), axis=0) != 0:
+                        for k in range(k0, tl.minimum(k0 + BK, max_deg),
+                                       LANES):
+                            e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
+                            emask = (e < hi[:, None]) & lv[:, None]
+{skip_body}
+{skip_finish}
+{skip_store}
+    else:
+{dense}
+'''
+
+# the dense walk of one CTA over its staged slab pair (the windowed
+# shape; the block-skip shape's CTAs whose live groups fill every tile):
+# the rows in tiles of BV rows, LANES edges a step
+_WINDOW_DENSE = '''\
+for sub in range(0, ROWS, BV):
+    rows = cta * ROWS + sub + tl.arange(0, BV)
+    rmask = rows < num_vertices
+{pointers}
+    max_deg = tl.max(hi - lo, axis=0)
 {init}
-        for k in range(0, max_deg, LANES):
-            e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
-            emask = e < hi[:, None]
-            if SKIP:
-                emask = emask & (tl.load(
-                    bitmap_ptr + tr + k // BK, mask=rmask & (k < hi - lo),
-                    other=0) != 0)[:, None]
-            s = tl.load(src_ptr + e, mask=emask, other=0)
-            idx = s - base
-            in_win = (idx >= 0) & (idx < 2 * W)
-            flat = tl.reshape(tl.where(in_win, idx, 0), [BV * LANES])
-            act = tl.reshape(tl.gather(act_s, flat, 0), [BV, LANES])
-            eok = emask & in_win & (act != 0)
+    for k in range(0, max_deg, LANES):
+        e = lo[:, None] + k + tl.arange(0, LANES)[None, :]
+        emask = e < hi[:, None]
 {body}
 {finish}
-{store}
-'''
+{store}'''
+
+# the windowed edge tile's sources: gathered from the staged pair, an
+# edge whose source lies outside it vetoed (the Pallas `in_win`)
+_WINDOW_EDGES = '''\
+s = tl.load(src_ptr + e, mask=emask, other=0)
+idx = s - base
+in_win = (idx >= 0) & (idx < 2 * W)
+flat = tl.reshape(tl.where(in_win, idx, 0), [BV * LANES])
+act = tl.reshape(tl.gather(act_s, flat, 0), [BV, LANES])
+eok = emask & in_win & (act != 0)'''
 
 
 class _Slot(NamedTuple):
@@ -978,18 +1034,44 @@ def _source(layout, window: bool) -> str:
                       if sl.source != _LANE)
     head = _HEADER.format(module=__name__, helpers=fge.__name__)
     if window:
-        stage = []
-        for i, vec in enumerate(read_vec):
-            if not vec:
-                stage.append(f"    x{i}_s = tl.load(r{i}_ptr + slab, "
-                             "mask=smask, other=0)")
+        def stage(ind):
+            return "\n".join(f"{ind}x{i}_s = tl.load(r{i}_ptr + slab, "
+                             "mask=smask, other=0)"
+                             for i, vec in enumerate(read_vec) if not vec)
+
+        def tile(n, m):
+            # a tile's accumulators, finish and store at indent n, its
+            # edge body at indent m
+            ind, body = " " * n, " " * m
+            edges = [body + ln for ln in _WINDOW_EDGES.splitlines()]
+            return dict(
+                init="\n".join(_init_lines(slots, ncc, False, ind)),
+                body="\n".join(edges + _body_lines(layout, "window", body)),
+                finish="\n".join(_finish_lines(slots, ncc, ind)),
+                store="\n".join(_store_lines(slots, ncc, ind)))
+
+        load = ["lo = tl.load(indptr_ptr + rows, mask=rmask, other=0)",
+                "hi = tl.load(indptr_ptr + rows + 1, mask=rmask, other=0)"]
+
+        def dense(n, first=False):
+            # the dense walk at indent n; `first`: its first tile's row
+            # pointers are plo, phi, loaded before the walk
+            ptrs = ["    " + ln for ln in load]
+            if first:
+                ptrs = ["    lo = plo", "    hi = phi", "    if sub > 0:"] \
+                    + ["        " + ln for ln in load]
+            walk = _WINDOW_DENSE.format(pointers="\n".join(ptrs),
+                                        **tile(4, 8))
+            return "\n".join(" " * n + ln if ln.strip() else ln
+                             for ln in walk.splitlines())
+
+        skip, dead = tile(16, 28), tile(20, 20)
+        del dead["body"]
         return head + _WINDOW.format(
             args=reads + outs, cols="\n".join(_col_lines(ncol, ncc, "    ")),
-            stage="\n".join(stage),
-            init="\n".join(_init_lines(slots, ncc, False, " " * 8)),
-            body="\n".join(_body_lines(layout, "window", " " * 12)),
-            finish="\n".join(_finish_lines(slots, ncc, " " * 8)),
-            store="\n".join(_store_lines(slots, ncc, " " * 8)))
+            wide=dense(12, True), dense=dense(8), stage=stage(" " * 4),
+            **{f"skip_{k}": v for k, v in skip.items()},
+            **{f"dead_{k}": v for k, v in dead.items()})
     args = reads + outs + scratch
     light = _LIGHT.format(
         args=args, cols="\n".join(_col_lines(ncol, ncc, " " * 8)),
@@ -1166,12 +1248,16 @@ def gather_emit_combine_packed_triton(program, monoids, indptr, src, vprops,
                              f"({C},) on {dev}")
         if not fsum:
             const.update(fge._lanes(WINDOW_CHUNK))
+        rows = _window_rows(cc, const["LANES"])
+        if skip:  # the block-skip walk's tiles hold whole row groups
+            rows = max(rows, fge.BLOCK_V)
         mod.packed_window_kernel[(C,)](
             indptr, src, q, tables.tile_ptr if skip else src,
             bitmap if skip else src, *common, hm, *reads, *slabs, V,
             **const, SKIP=skip, W=int(tables.window), ROWS=fge.WINDOW_ROWS,
-            BV=_window_rows(cc, const["LANES"]), BK=fge.BLOCK_K,
-            GROUP=fge.BLOCK_V, num_warps=WINDOW_WARPS)
+            BV=rows, BK=fge.BLOCK_K, GROUP=fge.BLOCK_V,
+            num_warps=WINDOW_WARPS,
+            **({"maxnreg": WINDOW_SKIP_MAXNREG} if skip else {}))
         counters.LAUNCHES["gather_emit_combine_packed_window_skip" if skip
                           else "gather_emit_combine_packed_window"] += 1
         return slabs, hm.view(torch.bool)

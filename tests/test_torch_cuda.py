@@ -1807,6 +1807,251 @@ def test_window_skip_kernels_on_a_padded_bucket(cuda, banded, packed):
     assert torch.equal(outs[0][0]["distance"], outs[1][0]["distance"])
 
 
+# --- the windowed block-skip walk: compacted live groups, tile bits held
+# in registers, rows past BLOCK_K edges -------------------------------------
+
+#: hub vertex -> in-degree of the banded hub graph; each hub's in-edges
+#: come from the 512 ids around it (some twice), so its row group spans
+#: two to four bitmap tiles
+WALK_HUBS = {1500: 300, 4100: 620, 6700: 1000}
+WALK_CASES = ("hub_tail", "scattered", "all", "wavefront", "last_group")
+
+
+@functools.cache
+def _banded_hubs_graph():
+    """A banded graph whose ids are its band (it runs with no reorder):
+    each vertex hears from ~85 % of the 16 ids within 8 of it, and the
+    WALK_HUBS rows go past BLOCK_K in-edges."""
+    from repro_torch.core.graph import from_edges
+    V, rng = 2**13, np.random.default_rng(23)
+    off = np.array([d for d in range(-8, 9) if d])
+    s = np.arange(V)[:, None] + off[None, :]
+    keep = (rng.random(s.shape) < 0.85) & (s >= 0) & (s < V)
+    src = [s[keep]]
+    dst = [np.broadcast_to(np.arange(V)[:, None], s.shape)[keep]]
+    for h, n in WALK_HUBS.items():
+        src.append(h - 256 + rng.integers(0, 512, n))
+        dst.append(np.full(n, h))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    w = (rng.random(src.shape[0]) * 9 + 1).astype(np.float32)
+    return from_edges(src, dst, V, edge_props={"weight": w})
+
+
+def _group_live(bm, tables, V):
+    """[ceil(V / BLOCK_V)] bool: a row group has a live tile."""
+    tp = tables.tile_ptr.long().cpu()
+    b = bm.cpu().to(torch.int64)
+    cs = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(b, 0)])
+    return (cs[tp[1:]] - cs[tp[:-1]]) > 0
+
+
+def _walk_frontier(case, gdev, cuda):
+    """The frontier of a walk case on the banded hub graph:
+      hub_tail    the top 56 ids of each hub's source range (only the
+                  hubs' last tiles live: rows past BLOCK_K whose first
+                  tiles are dead);
+      scattered   1 % of the vertices at random;
+      all         every vertex;
+      wavefront   one contiguous run of 100 ids (an SSSP wavefront's
+                  shape: its live groups cluster in two CTAs);
+      last_group  one vertex whose out-edges make the last row group of
+                  CTA 10 that CTA's only live group."""
+    V, t = gdev.num_vertices, gdev.canonical.fused_tables
+    act = torch.zeros(V, dtype=torch.bool)
+    if case == "hub_tail":
+        for h in WALK_HUBS:
+            act[h + 200:h + 256] = True
+    elif case == "scattered":
+        act = torch.from_numpy(np.random.default_rng(8).random(V) < 0.01)
+    elif case == "all":
+        act[:] = True
+    elif case == "wavefront":
+        act[3000:3100] = True
+    else:
+        c, ng = 10, fge.WINDOW_ROWS // fge.BLOCK_V
+        for u in range(c * fge.WINDOW_ROWS + 248, c * fge.WINDOW_ROWS + 272):
+            act = torch.zeros(V, dtype=torch.bool)
+            act[u] = True
+            live = _group_live(fge.tile_bitmap(act.to(cuda), t), t, V)
+            if torch.nonzero(live[c * ng:(c + 1) * ng]).flatten().tolist() \
+                    == [ng - 1]:
+                break
+        else:
+            raise AssertionError("no vertex makes CTA 10's last group its "
+                                 "only live one")
+    return act.to(cuda)
+
+
+def _walk_graph(cuda):
+    gdev = graph_device.build_device_graph(_banded_hubs_graph(), device=cuda)
+    t = gdev.canonical.fused_tables
+    deg = _degrees_of(gdev.canonical.in_indptr)
+    assert all(int(deg[h]) >= n for h, n in WALK_HUBS.items())
+    assert int((t.tile_ptr[1:] - t.tile_ptr[:-1]).max()) >= 4
+    return gdev
+
+
+def _degrees_of(indptr):
+    ip = indptr.long().cpu()
+    return ip[1:] - ip[:-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("monoid", ["sum", "min", "max"])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_window_skip_walk_vs_plain(cuda, name, monoid, case):
+    """The windowed block-skip kernel's walk (live groups compacted, tile
+    bits in registers, hub rows past BLOCK_K re-reading the bitmap at
+    each tile) on every built-in emit under each monoid: its plain
+    version within the stated tolerance and, bitwise, the resident
+    kernel."""
+    fge.require_gather()
+    gdev = _walk_graph(cuda)
+    V, cv, t = gdev.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog = BUILTINS[name](V)
+    vp = _random_state(prog, gdev, seed=len(name) + len(case))
+    assert fge.window_usable(t, V, [vp[n] for n in
+                                    prog.triton_emit_reads[0]])
+    active = _walk_frontier(case, gdev, cuda)
+    args = (prog, monoid, cv.src, cv.dst, vp, cv.eprops, active, V)
+    counters.reset()
+    out, hm = fge.gather_emit_combine(*args, indptr=cv.in_indptr,
+                                      variant="window_skip", tables=t)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_window_skip"] == 1
+    (key,) = out.keys()
+    bm = fge.tile_bitmap(active, t)
+    ref, rhm = fge.gather_emit_combine_window_skip_plain(
+        *args, cv.in_indptr, t, bm)
+    assert torch.equal(hm, rhm)
+    _assert_match(out[key], ref[key], "float32" if out[key].dtype
+                  == torch.float32 else "int32", monoid)
+    res, reshm = fge.gather_emit_combine(*args, indptr=cv.in_indptr)
+    assert torch.equal(hm, reshm)
+    assert torch.equal(out[key], res[key])
+
+
+def _walk_packed_program(kind, gdev, cuda):
+    """(program, vertex state) of a packed walk case: SSSP lanes (min),
+    PPR lanes (f32 sums) or the five-leaf record (sum, min and max)."""
+    V = gdev.num_vertices
+    if kind == "mixed":
+        prog = _Mixed()
+        return prog, vcprog.init_vertices(prog, gdev.vprops_in,
+                                          gdev.out_degree, V)
+    lanes = (0, 7, 99, 1000) if kind == "sssp_lanes" else (0, 4100)
+    make = (operators.SSSPProgram if kind == "sssp_lanes" else
+            lambda r: operators.PersonalizedPageRankProgram(V, 20, r))
+    prog = vcprog.as_batched([make(r) for r in lanes])
+    vp = vcprog.init_vertices(prog, gdev.vprops_in, gdev.out_degree, V)
+    rng = np.random.default_rng(len(kind))
+    key = "distance" if kind == "sssp_lanes" else "rank"
+    vp["p"][key] = torch.from_numpy(
+        (rng.random((V, len(lanes))) * 40).astype(np.float32)).to(cuda)
+    return prog, vp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("kind", ["sssp_lanes", "ppr_lanes", "mixed"])
+def test_packed_window_skip_walk_vs_plain(cuda, kind, case):
+    """The packed windowed block-skip kernel's walk on batched lanes and
+    a record of sum, min and max leaves: every leaf equal to its plain
+    version (within the stated tolerance for f32 sums) and, bitwise, to
+    the packed resident kernel."""
+    from repro_torch.core import records
+    from repro_torch.core.message_plane import leaf_monoids
+    from repro_torch.kernels import fused_packed as fp
+    fge.require_gather()
+    gdev = _walk_graph(cuda)
+    V, cv, t = gdev.num_vertices, gdev.canonical, gdev.canonical.fused_tables
+    prog, vp = _walk_packed_program(kind, gdev, cuda)
+    monoids = leaf_monoids(prog, vcprog.empty_record(prog, cuda))
+    plan = fp.packed_plan(prog, vp, cv.eprops, V, cv.num_edges)
+    assert fp.window_usable(t, V, fp.read_leaves(plan, vp), plan.ncol)
+    active = _walk_frontier(case, gdev, cuda)
+    args = (prog, monoids, cv.src, cv.dst, vp, cv.eprops, active, V)
+    kw = dict(indptr=cv.in_indptr, tables=t)
+    counters.reset()
+    out, hm = fp.gather_emit_combine_packed(*args, variant="window_skip",
+                                            **kw)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["gather_emit_combine_packed_window_skip"] == 1
+    res, rhm = fp.gather_emit_combine_packed(*args, **kw)
+    bm = fge.tile_bitmap(active, t)
+    ref, phm = fp.gather_emit_combine_packed_window_skip_plain(
+        *args, cv.in_indptr, t, bm)
+    assert torch.equal(hm, rhm) and torch.equal(hm, phm)
+    for a, b, c, mo in zip(records.tree_leaves(out), records.tree_leaves(res),
+                           records.tree_leaves(ref), monoids):
+        assert torch.equal(a, b)
+        _assert_match(a, c, "float32" if a.dtype == torch.float32
+                      else "int32", mo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "min", "max"])
+@pytest.mark.parametrize("name", sorted(BUILTINS))
+def test_window_skip_walk_on_a_padded_bucket(cuda, name, monoid):
+    """The windowed block-skip kernel on a P = 4 bucket of the banded hub
+    graph (hub 4100's part), with sentinel pads and a valid mask, every
+    built-in emit under each monoid: its plain version, and bitwise the
+    resident kernel on the same bucket and the kernel on the bucket
+    without pads."""
+    from repro_torch.core.engines.distributed import ShardedGraph
+    fge.require_gather()
+    g = _banded_hubs_graph()
+    sg = ShardedGraph(g, 4)
+    q, wins = sg.prefetch_tables(False, False)
+    bk, v_pp, pad = sg.bucket(2, 2), sg.v_per_part, 1000
+    n = bk["dst_local"].shape[0]
+    t = lambda a, dt=None: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(cuda, dt)
+    meta = vcprog.SegmentMeta(last_edge=t(bk["last_edge"]),
+                              has_edge=t(bk["has_edge"]))
+    gdev = graph_device.build_device_graph(g, device=cuda)
+    prog = BUILTINS[name](g.num_vertices)
+    vp = {k: x[2 * v_pp:3 * v_pp].contiguous() for k, x in
+          _random_state(prog, gdev, seed=len(name)).items()}
+    rng = np.random.default_rng(len(name) + len(monoid))
+    active = torch.from_numpy(rng.random(v_pp) < 0.03).to(cuda)
+    outs = []
+    for p in (pad, 0):
+        ext = lambda a, fill: t(np.concatenate(  # noqa: E731
+            [a, np.full(p, fill, a.dtype)]))
+        lay = graph_device.bucket_layout(
+            src_local=ext(bk["src_local"], 0),
+            src_global=ext(bk["src_uid"], 0),
+            dst_local=ext(bk["dst_local"], v_pp),
+            dst_global=ext(bk["dst_uid"], 0),
+            eprops={k: ext(v, 0) for k, v in bk["eprops"].items()},
+            mask=t(np.arange(n + p) < n) if p else None, seg_meta=meta,
+            v_per_part=v_pp, window=(t(q[2, 2]), wins[2]))
+        tab = lay.fused_tables
+        assert fge.window_usable(tab, v_pp, [vp[k] for k in
+                                             prog.triton_emit_reads[0]])
+        kw = dict(indptr=lay.in_indptr, valid=lay.valid_mask,
+                  src_ids=lay.src_ids, dst_ids=lay.dst_ids, tables=tab)
+        args = (prog, monoid, lay.src, lay.dst, vp, lay.eprops, active, v_pp)
+        counters.reset()
+        out, hm = fge.gather_emit_combine(*args, variant="window_skip", **kw)
+        torch.cuda.synchronize()
+        assert counters.snapshot()["gather_emit_combine_window_skip"] == 1
+        (key,) = out.keys()
+        ref, rhm = fge.gather_emit_combine_window_skip_plain(
+            *args, lay.in_indptr, tab, fge.tile_bitmap(active, tab),
+            valid=lay.valid_mask, src_ids=lay.src_ids, dst_ids=lay.dst_ids)
+        assert torch.equal(hm, rhm)
+        _assert_match(out[key], ref[key], "float32" if out[key].dtype
+                      == torch.float32 else "int32", monoid)
+        res, reshm = fge.gather_emit_combine(*args, variant="resident", **kw)
+        assert torch.equal(hm, reshm) and torch.equal(out[key], res[key])
+        outs.append((out[key], hm))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["allgather", "ring", "push"])
 def test_distributed_engine_on_card(cuda, banded, schedule):

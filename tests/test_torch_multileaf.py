@@ -491,9 +491,11 @@ def _batched_sssp():
 def test_generated_kernel_source_is_python(dgraphs, name, window):
     """The packed kernel's source, generated per record layout, parses as
     Python with one accumulator fold and one store per message leaf in
-    each part (Triton compiles it on the card): the windowed kernel; or
-    the resident kernel's light-block and split-lane parts, its entry and
-    the heavy blocks' finishing kernel, which stores every leaf again."""
+    each part (Triton compiles it on the card): the windowed kernel, whose
+    parts are its dense walk and the block-skip shape's dense walk, dead
+    groups' store and narrow walk; or the resident kernel's light-block
+    and split-lane parts, its entry and the heavy blocks' finishing
+    kernel, which stores every leaf again."""
     import ast
     import re
     _, tdg = dgraphs
@@ -508,13 +510,15 @@ def test_generated_kernel_source_is_python(dgraphs, name, window):
     tree = ast.parse(src)
     fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
     entry = "packed_window_kernel" if window else "packed_kernel"
-    parts = 1 if window else 2  # stores: light + finish; folds: light + split
+    # stores: the four windowed parts, or light + finish; folds: the
+    # three windowed walks, or light + split
+    stores, parts = (4, 3) if window else (2, 2)
     assert set(fns) == ({entry} if window else
                         {entry, "_light_block", "_split_lane",
                          "packed_finish"})
     n_msg = len(monoids)
     assert plan.ncol <= fp.COL_CHUNK  # one column chunk: one fold per leaf
-    assert src.count("tl.store(o") == parts * n_msg
+    assert src.count("tl.store(o") == stores * n_msg
     lanes = int(name == "batched_sssp")  # `_lane_msg` stores `got`
     folds = re.findall(r"(acc\d+_0) = (?:\1 \+|tl\.minimum\(\1|"
                        r"tl\.maximum\(\1)", src)
