@@ -8,8 +8,9 @@ Phases, one line of numbers each:
   2. build: the CUDA kernels (segment combine, tile bitmap, flash
      attention) with nvcc for sm_90a from src/repro_torch/kernels/csrc,
      one nvcc each, started together (prints ptxas' registers and spills,
-     and fails if the wgmma flash kernel spills), then `cuobjdump -sass`
-     of the flash library must show HGMMA and UTMALDG instructions; and
+     and fails if any flash kernel instantiation spills), then `cuobjdump
+     -sass` of the flash library must show HGMMA and UTMALDG instructions
+     (the wgmma variant) and TF32 HMMA (the f32 kernel's 3xTF32); and
      the fused Triton kernel once per built-in emit;
   3. kernel parity at the main path's shapes: each kernel against its plain
      PyTorch version on the same card inputs; then a graph without edges
@@ -84,9 +85,11 @@ Phases, one line of numbers each:
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
      7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000
      (the wgmma variant), and in f32 at the first shape cut to T=1024 (the
-     mma.sync / FMA variant); tolerances f32 2e-5 abs and rel; bf16 2^-6
-     rel + 2^-9 * max|v| abs, see flash_tol, and it must reject planted
-     off-by-one-key faults on long rows. Each shape also runs on the
+     mma.sync variant, 3xTF32); tolerances f32 2e-5 abs and rel (which
+     must reject a one-pass TF32 version: the plain version with TF32
+     matmuls); bf16 2^-6 rel + 2^-9 * max|v| abs, see flash_tol, and it
+     must reject planted off-by-one-key faults on long rows. Each shape
+     also runs on the
      model's [B, T, H, Dh] projections viewed as [B, H, T, Dh], bitwise
      equal to the contiguous run; both layouts are timed beside SDPA on
      the same tensors (with the window's boolean mask at the window
@@ -102,7 +105,7 @@ Phases, one line of numbers each:
      last-position logits within 5e-2 * max|logit| of the einsum path
      (attn_impl="xla") on the same weights (generated tokens reported,
      not gated: bf16 may flip a near-tie); the same model cut to 4 layers
-     in f32 (4 launches of the mma.sync / FMA variant), flash against xla
+     in f32 (4 launches of the mma.sync variant), flash against xla
      within 2e-4; prefill on T tokens plus one decode step against the
      forward at T+1 within 5e-2 * max|logit| (bf16). Prints prefill wall,
      decode ms per token and peak memory;
@@ -179,16 +182,17 @@ Phases, one line of numbers each:
      wrappers' host time with and without compiling ahead, invalidated
      runners raising RetraceError; launches counted around the session's
      calls (K1, finishing, packed, both block-skip shapes, bitmap);
- 20. lm_families (after 14): (a) the flash kernel at Dh 256 (the
-     mma.sync variant) against its plain version at recurrentgemma-9b's
-     local prefill (B=2, Hq=16, Hkv=1, T=S=4096, window 2048, bf16), a
-     ragged T=4000 and T=1024 in f32, on contiguous tensors and on the
+ 20. lm_families (after 14): (a) the flash kernel at Dh 256 (the wgmma
+     variant in bf16, the mma.sync one in f32) against its plain version
+     at recurrentgemma-9b's local prefill (B=2, Hq=16, Hkv=1, T=S=4096,
+     window 2048, bf16), a ragged T=4000 and T=1024 in f32, on
+     contiguous tensors and on the
      model's [B, T, H, Dh] views (bitwise equal), held to phase 13's
      flash_tol and planted faults, timed beside SDPA with the window's
      boolean mask; (b) recurrentgemma-9b at full width (38 layers, bf16
      weights from seed 0): prefill_step on 2 x 4096 tokens (caches of
      4128), 31 decode steps and greedy_generate of 32, with 12 launches
-     of the Dh-256 flash kernel a prefill and none of the wgmma one; each
+     of the wgmma flash kernel a prefill and none of the other; each
      local layer's attention against the einsum path within flash_tol;
      last-position logits within 5e-2 * max|logit| of attn_impl="xla";
      prefill + one decode step against the forward at T+1; the 3-layer
@@ -207,7 +211,8 @@ Phases, one line of numbers each:
      peak memory for each model, and the phase's seconds;
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
-     call's time (row flash_attention[dh256] from phase 20).
+     call's time (rows flash_attention[dh256] and
+     flash_attention[dh256,f32] from phase 20).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line; without a CUDA device the script exits 2 at once.
 
@@ -241,6 +246,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12   # H100 SXM dense TF32 tensor cores
+# f32 products on the tensor cores as 3xTF32: three TF32 products each
+F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3
 SUM_RTOL = 1e-4
 SPIN_CYCLES = 4_000_000     # ~2 ms at the H100's clock: time_ms's queue
 SPIN_MOST_CYCLES = 100_000_000  # ~50 ms: the longest queue time_ms spins
@@ -3385,14 +3393,17 @@ def live_pairs(T, S, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_bound(B, Hq, Hkv, T, S, Dh, dtype, causal, window):
+def flash_bound(B, Hq, Hkv, T, S, Dh, dtype, causal, window,
+                f32_rate=F32_3XTF32_OPS_PER_S):
     """(least ms, what bounds it): 4·Dh flops per live pair per head (two
-    products) at the tensor cores' bf16 rate (f32 outside them), or q, k,
-    v read once and out written once at the memory rate."""
+    products) at the tensor cores' bf16 rate (f32: `f32_rate`, three TF32
+    products a product by default, as the kernel computes them; pass
+    F32_OPS_PER_S for the bound of f32 FMA), or q, k, v read once and out
+    written once at the memory rate."""
     ops = 4.0 * B * Hq * Dh * live_pairs(T, S, causal, window)
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * Dh * (2 * B * Hq * T + 2 * B * Hkv * S)
-    rate = BF16_OPS_PER_S if dtype != torch.float32 else F32_OPS_PER_S
+    rate = BF16_OPS_PER_S if dtype != torch.float32 else f32_rate
     t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -3464,18 +3475,43 @@ def planted_faults(name, got, q, k, v, window):
     return out
 
 
+def planted_tf32_fault(name, q, k, v, ref, window):
+    """The f32 tolerance must reject the shortcut 3xTF32 avoids: the plain
+    version with its matmuls in one-pass TF32 (allow_tf32), held against
+    the exact plain version `ref`. Returns its largest |d| over the
+    allowance, which must exceed 1."""
+    from repro_torch.kernels import flash_attention as fa
+    rtol, atol = flash_tol(v)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = fa.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d = (one_pass - ref).abs()
+    over = float((d / (atol + rtol * ref.abs())).max())
+    if not over > 1.0:
+        fail(f"flash {name}: the f32 tolerance passes one-pass TF32 "
+             f"({over} of the allowance)")
+    return over
+
+
 def sass_check(lib_path):
-    """The built flash library's SASS must hold the Hopper instructions the
-    wgmma variant is made of: HGMMA (wgmma) and UTMALDG (TMA loads).
+    """The built flash library's SASS must hold the Hopper instructions its
+    kernels are made of: HGMMA (wgmma) and UTMALDG (TMA loads) of the
+    wgmma variant, and the TF32 HMMA of the f32 kernel's 3xTF32 products.
     Returns their counts."""
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     counts = {op: out.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts["HMMA_TF32"] = sum("HMMA" in ln and "TF32" in ln
+                              for ln in out.stdout.splitlines())
     if out.returncode != 0 or not all(counts.values()):
-        fail(f"flash library SASS lacks HGMMA or UTMALDG: {counts} "
-             f"(cuobjdump exit {out.returncode}: {out.stderr[-500:]})")
+        fail(f"flash library SASS lacks HGMMA, UTMALDG or TF32 HMMA: "
+             f"{counts} (cuobjdump exit {out.returncode}: "
+             f"{out.stderr[-500:]})")
     return counts
 
 
@@ -3486,9 +3522,9 @@ def phase_flash(dev, shapes=FLASH_SHAPES, dh=128,
     wgmma variant, on contiguous tensors and on the model's [B, T, H, Dh]
     projections viewed as [B, H, T, Dh] (bitwise equal outputs); each
     layout is timed beside SDPA on the same tensors. The f32 shape runs
-    the mma.sync / FMA variant. Returns each variant's row numbers, taken
-    from the `row_cases` shapes. Phase 20a runs the same at Dh 256
-    (`shapes`, `dh`), where every shape takes the mma.sync variant."""
+    the mma.sync variant (3xTF32), and its tolerance must reject one-pass
+    TF32. Returns each variant's row numbers, taken from the `row_cases`
+    shapes. Phase 20a runs the same at Dh 256 (`shapes`, `dh`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import counters
     from repro_torch.kernels import flash_attention as fa
@@ -3515,8 +3551,11 @@ def phase_flash(dev, shapes=FLASH_SHAPES, dh=128,
         ref = fa.flash_attention_plain(q, k, v, window=window)
         torch.cuda.synchronize()
         errs = flash_close(f"flash kernel {name}", got, ref, v)
+        if dt == torch.float32:
+            errs["one_pass_tf32_over_tol"] = planted_tf32_fault(
+                name, q, k, v, ref, window)
         del ref, got_model
-        if dt == torch.bfloat16 and name != "ragged-4000":
+        if dt == torch.bfloat16 and not name.startswith("ragged"):
             errs["planted_faults_over_tol"] = planted_faults(
                 name, got, q, k, v, window)
         row = rows[var]
@@ -3535,16 +3574,20 @@ def phase_flash(dev, shapes=FLASH_SHAPES, dh=128,
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window), iters=3, warmup=1)
         flop = 4.0 * B * Hq * dh * live_pairs(T, T, True, window)
+        extra = {}
+        if dt == torch.float32:    # the bound of the same work on f32 FMA
+            extra["fma_bound_ms"] = flash_bound(
+                B, Hq, Hkv, T, T, dh, dt, True, window, F32_OPS_PER_S)[0]
         out = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_Dh{dh}", dtype=str(dt),
                    variant=var, window=window, **errs,
                    rtol=flash_tol(v)[0], **times, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=by,
+                   bound_ms=bound_ms, bound_by=by, **extra,
                    bound_share=bound_ms / times["ms"],
                    bound_share_model=bound_ms / times["ms_model"],
                    tflops=flop / (times["ms"] * 1e-3) / 1e12)
         if name in row_cases:
             row.update(ms=times["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=by, library_ms=times["library_ms"])
+                       bound_by=by, library_ms=times["library_ms"], **extra)
         log(phase, kernel=f"flash_attention[{var}]", case=name,
             **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
                for k_, v_ in out.items()})
@@ -3675,13 +3718,13 @@ def phase_lm(dev, flash):
     log("lm_memory", peak_gib=round(peak, 3))
 
     # the `kernels` rows: the wgmma variant with the bf16 prefill's
-    # launches, the mma.sync / FMA variant with the f32 cut's
+    # launches, the mma.sync variant (3xTF32) with the f32 cut's
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:104",
              "launches": launches, **{key: flash[var][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}}
+                 "library_ms", "fma_bound_ms") if key in flash[var]}}
             for name, var, launches in (
                 ("flash_attention_wgmma", "wgmma", n),
                 ("flash_attention", "mma_sync", cut["flash_launches"]))]
@@ -3695,7 +3738,7 @@ def phase_lm(dev, flash):
 # 9b's local-layer prefill, a ragged T, and the first cut to T = 1024 in f32
 FLASH256_SHAPES = (
     ("recurrentgemma-9b-local", 2, 16, 1, 4096, torch.bfloat16, 2048),
-    ("ragged-4000", 2, 16, 1, 4000, torch.bfloat16, 2048),
+    ("ragged-4000-dh256", 2, 16, 1, 4000, torch.bfloat16, 2048),
     ("recurrentgemma-9b-local-f32", 2, 16, 1, 1024, torch.float32, 2048),
 )
 # 20b-d, arch -> (B, prompt T, cache length, greedy steps)
@@ -3825,7 +3868,7 @@ def flash_vs_xla(model, prompt, max_len, last, name):
 
 def f32_cut(dev, cfg, num_layers, tokens, name):
     """The first `num_layers` layers at full width in f32: the flash path
-    (the mma.sync / FMA variant, once per attention layer) against xla
+    (the mma.sync variant, 3xTF32, once per attention layer) against xla
     within 2e-4 abs + 2e-4 rel. Returns the numbers to log."""
     from repro_torch import models as lm
     from repro_torch.kernels import counters
@@ -3838,7 +3881,7 @@ def f32_cut(dev, cfg, num_layers, tokens, name):
     a, _, _ = lm.forward(model, tokens)
     torch.cuda.synchronize()
     if counters.snapshot()["flash_attention"] != n_attn:
-        fail(f"{name} f32 cut: the flash kernel's mma.sync / FMA variant "
+        fail(f"{name} f32 cut: the flash kernel's mma.sync variant "
              f"did not launch once per attention layer ({n_attn})")
     model.cfg = cfg.replace(attn_impl="xla")
     b_, _, _ = lm.forward(model, tokens)
@@ -3883,13 +3926,14 @@ def free_model(model):
 
 def phase_recurrentgemma(dev):
     """20b: recurrentgemma-9b at full width, its 12 local layers through
-    the flash kernel at Dh 256. Returns their launches a prefill."""
+    the flash kernel's wgmma variant at Dh 256. Returns their launches a
+    prefill, and the f32 cut's launches of the mma.sync variant."""
     from repro_torch.configs import get_config
     name = "recurrentgemma-9b"
     B, T, MAX_LEN, STEPS = FAMILIES[name]
     cfg = get_config(name).replace(attn_impl="flash_kernel")
     n_local = cfg.layer_types.count("local")
-    want = {"flash_attention": n_local, "flash_attention_wgmma": 0}
+    want = {"flash_attention_wgmma": n_local, "flash_attention": 0}
     model = family_model(dev, cfg)
     prompt = family_prompt(cfg, B, T, dev)
     last, _ = family_serve(model, prompt, MAX_LEN, STEPS, want,
@@ -3907,11 +3951,11 @@ def phase_recurrentgemma(dev):
     del last, last_x
     free_model(model)
     # the 3-layer f32 cut (rglru, rglru, local) at full width: the f32
-    # mma.sync / FMA path at Dh 256
-    log("lm_families_f32", model=name, **f32_cut(
-        dev, cfg, 3, prompt[:1, :FAMILY_F32_TOKENS], name))
+    # mma.sync (3xTF32) path at Dh 256
+    cut = f32_cut(dev, cfg, 3, prompt[:1, :FAMILY_F32_TOKENS], name)
+    log("lm_families_f32", model=name, **cut)
     log("lm_families_memory", model=name, peak_gib=round(peak, 3))
-    return n_local
+    return n_local, cut["flash_launches"]
 
 
 def phase_xlstm(dev):
@@ -4015,16 +4059,18 @@ def phase_lm_families(dev):
     """Phase 20: the flash kernel at Dh 256 against its plain version
     (20a), then recurrentgemma-9b (20b), xlstm-350m (20c) and granite-
     moe-1b-a400m (20d) at full width through the serving entry points.
-    Returns the `kernels` row of the flash kernel at Dh 256 (6d)."""
+    Returns the `kernels` rows of the flash kernel at Dh 256: bf16 on
+    the wgmma variant (6d) and f32 on the mma.sync one (6f's twin)."""
     t0 = time.time()
     # f32 products in full f32 on both paths (no TF32), as the reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash = phase_flash(dev, FLASH256_SHAPES, 256,
-                        row_cases=("recurrentgemma-9b-local",),
-                        phase="lm_families_flash")["mma_sync"]
+                        row_cases=("recurrentgemma-9b-local",
+                                   "recurrentgemma-9b-local-f32"),
+                        phase="lm_families_flash")
     t = time.time()
-    n_local = phase_recurrentgemma(dev)
+    n_local, n_f32 = phase_recurrentgemma(dev)
     log("lm_families_seconds", model="recurrentgemma-9b",
         seconds=round(time.time() - t, 2))
     for run in (phase_xlstm, phase_granite):
@@ -4033,12 +4079,15 @@ def phase_lm_families(dev):
         log("lm_families_seconds", model=run.__name__[len("phase_"):],
             seconds=round(time.time() - t, 2))
     log("lm_families_seconds", phase_s=round(time.time() - t0, 2))
-    return {"name": "flash_attention[dh256]", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:104",
-            "launches": n_local, **{key: flash[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}}
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:104",
+             "launches": launches, **{key: flash[var][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "fma_bound_ms") if key in flash[var]}}
+            for name, var, launches in (
+                ("flash_attention[dh256]", "wgmma", n_local),
+                ("flash_attention[dh256,f32]", "mma_sync", n_f32))]
 
 
 def main():
@@ -4092,8 +4141,8 @@ def main():
         log("build", kernel=name, route="cuda", seconds=round(secs, 2))
         for line in build.ptxas_summary(report).splitlines():
             print("  ptxas:", line, flush=True)
-            if "wgmma" in line and not line.endswith("=0/0"):
-                fail(f"the wgmma flash kernel spills: {line}")
+            if name == "flash_attention" and not line.endswith("=0/0"):
+                fail(f"a flash kernel instantiation spills: {line}")
     log("sass", library="flash_attention",
         **sass_check(built["flash_attention"][0]._name))
 
@@ -4111,7 +4160,7 @@ def main():
         total_s=round(time.time() - t_all, 1))
     gc.collect()
     torch.cuda.empty_cache()
-    rows.append(phase_lm_families(dev))
+    rows.extend(phase_lm_families(dev))
     log("memory", total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

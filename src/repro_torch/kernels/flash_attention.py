@@ -5,29 +5,32 @@ flash_attention_kernel` with a CUDA C++ kernel (`csrc/flash_attention.cu`,
 built with nvcc for sm_90a and bound with ctypes) in two variants, picked
 from the dtype and the head dim (:func:`variant`):
 
-* ``"wgmma"`` (bf16/fp16 at Dh 64 and 128, every full-width config): one
-  persistent CTA of three warpgroups per SM walks the (batch, q head,
-  128-row q tile) items; a producer warpgroup feeds Q, K and V by TMA
-  into a ring of shared-memory stages, two consumer warpgroups run both
-  products on `wgmma` with the online softmax in registers, ping-ponged
-  so one's softmax runs under the other's GEMMs. Reads the model's
-  [B, T, H, Dh] views in place. Launches count as
-  ``flash_attention_wgmma``.
-* ``"mma_sync"`` (f32 at every head dim of HEAD_DIMS, exact: no TF32;
-  bf16/fp16 at Dh 16 and 32, the smoke configs, and at Dh 256,
-  recurrentgemma-9b's local layers): four warps per 64-row q tile, 64-key
-  K/V tiles cp.async-staged (double-buffered, single-buffered for f32 at
-  Dh 256, whose five tiles would not fit the block's shared memory),
-  `mma.sync` for bf16/fp16 (the Q fragments re-read from shared memory
-  at every key tile, so O's 128 registers a thread at Dh 256 leave room
-  for the scores) and plain FMA for f32. Launches count as
+* ``"wgmma"`` (bf16/fp16 at Dh 64, 128 and 256: every full-width config,
+  recurrentgemma-9b's Dh-256 local layers included): one persistent CTA
+  of three warpgroups per SM walks the (batch, q head, 128-row q tile)
+  items; a producer warpgroup feeds Q, K and V by TMA into a ring of
+  shared-memory stages (two at Dh 256, whose key tile is 64), two
+  consumer warpgroups run both products on `wgmma` with the online
+  softmax in registers, ping-ponged so one's softmax runs under the
+  other's GEMMs. Reads the model's [B, T, H, Dh] views in place.
+  Launches count as ``flash_attention_wgmma``.
+* ``"mma_sync"``: f32 at every head dim of HEAD_DIMS on the tensor cores
+  by 3xTF32 (each operand split into two tf32 terms, three `mma.sync`
+  m16n8k8 products a pair, S summed in f32 every 16 dims: within the
+  reference's 2e-5 of the plain version, and nearer the float64 answer
+  than the plain f32 version, where one-pass TF32 misses 2e-5 by ~40-70
+  times), eight warps per 128-row q tile sharing cp.async-staged K/V
+  tiles; and bf16/fp16 at
+  Dh 16 and 32, the smoke configs' shapes only (four warps per 64-row q
+  tile, `mma.sync` m16n8k16; not redesigned). Launches count as
   ``flash_attention``.
 
 Its work is two matrix products per tile, so on the H100 it is bound by
 operations: at qwen3-14b's prefill (B = 2, Hq = 40, Dh = 128, T = 4096,
 causal, bf16) 343.7 GFLOP, 0.347 ms at 989 TFLOP/s; at recurrentgemma-
 9b's local prefill (B = 2, Hq = 16, Hkv = 1, Dh = 256, T = 4096, window
-2048, bf16) 206.2 GFLOP, 0.208 ms.
+2048, bf16) 206.2 GFLOP, 0.208 ms; in f32 at the first shape cut to
+T = 1024, 21.50 GFLOP as three TF32 products at 494.7 TFLOP/s, 0.130 ms.
 
 Semantics (shared by both variants and :func:`flash_attention_plain`, and
 those of the Pallas kernel): q head h reads kv head h // (Hq // Hkv);
@@ -48,10 +51,18 @@ from . import counters
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: head dims of the wgmma variant (bf16/fp16)
-WGMMA_HEAD_DIMS = (64, 128)
-#: (q rows, keys) tiles of each variant; the first is its default (the
-#: wgmma variant's from tools/sweep_flash.py)
-TILES = {"wgmma": ((128, 128), (128, 64)), "mma_sync": ((64, 64),)}
+WGMMA_HEAD_DIMS = (64, 128, 256)
+#: (q rows, keys) tiles of each kernel by head dim; the first is its
+#: default (the wgmma variant's from tools/sweep_flash.py). At Dh 256 the
+#: wgmma kernel's shared memory holds two K/V stages of 64 keys and none
+#: of 128; the f32 kernel takes 32 keys there, in one stage.
+_WG = ((128, 128), (128, 64))
+TILES = {
+    "wgmma": {64: _WG, 128: _WG, 256: ((128, 64),)},
+    "mma_sync": {16: ((64, 64),), 32: ((64, 64),)},      # bf16/fp16
+    "mma_sync_f32": {**{dh: ((128, 64),) for dh in (16, 32, 64, 128)},
+                     256: ((128, 32),)},
+}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -99,16 +110,25 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     return "mma_sync"
 
 
+def tiles(dtype: torch.dtype, head_dim: int) -> tuple:
+    """The (q rows, keys) tiles of the kernel that serves (dtype, head
+    dim); the first is its default."""
+    name = variant(dtype, head_dim)
+    if name == "mma_sync" and dtype == torch.float32:
+        name = "mma_sync_f32"
+    return TILES[name][head_dim]
+
+
 def _tile(q: torch.Tensor, block_q: int | None, block_k: int | None):
     """(variant, (block_q, block_k)) for q, the variant's default tile
     filling in a None; raises for a tile the variant does not have."""
     name = variant(q.dtype, q.shape[-1])
-    tiles = TILES[name]
-    tile = (block_q or tiles[0][0], block_k or tiles[0][1])
-    if tile not in tiles:
+    tiles_ = tiles(q.dtype, q.shape[-1])
+    tile = (block_q or tiles_[0][0], block_k or tiles_[0][1])
+    if tile not in tiles_:
         raise ValueError(f"flash kernel: tile {tile[0]}x{tile[1]} not "
                          f"supported by the {name} variant for "
-                         f"{q.dtype} at Dh {q.shape[-1]} (tiles {tiles})")
+                         f"{q.dtype} at Dh {q.shape[-1]} (tiles {tiles_})")
     return name, tile
 
 
@@ -118,8 +138,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise unless the CUDA kernel takes these operands: one dtype of
     f32/bf16/fp16, Dh in HEAD_DIMS, q [B, Hq, T, Dh] and k/v
     [B, Hkv, S, Dh] with Hq % Hkv == 0, the last dim contiguous, every
-    stride and address 16-byte aligned, and a tile of the variant that
-    serves them (TILES; None takes its default)."""
+    stride and address 16-byte aligned (an empty operand, which the
+    kernel never reads, may have any strides), and a tile of the variant
+    that serves them (TILES; None takes its default)."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes one of f32/bf16/fp16 for q, k "
@@ -138,6 +159,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _tile(q, block_q, block_k)
     item = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.numel() == 0:      # nothing is read (S = 0: every row is 0)
+            continue
         if x.stride(3) != 1 or any(x.stride(i) * item % 16
                                    for i in range(3)) \
                 or x.data_ptr() % 16:

@@ -1502,10 +1502,17 @@ def test_flash_wgmma_dtypes_and_head_dims(cuda, dtype, Dh, case):
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("Dh", fa.WGMMA_HEAD_DIMS)
 def test_flash_wgmma_key_tiles(cuda, block_k, window, Dh):
-    """Both key tiles the sweep times give the plain version's answer, at
-    a ragged causal shape."""
+    """Every key tile the sweep times gives the plain version's answer, at
+    a ragged causal shape; a tile the head dim does not have (128 keys at
+    Dh 256) is refused before any launch."""
     q, k, v = _qkv((2, 6, 300, Dh), (2, 2, 300, Dh), "bfloat16", cuda,
                    seed=block_k)
+    if (128, block_k) not in fa.tiles(q.dtype, Dh):
+        counters.reset()
+        with pytest.raises(ValueError, match="tile"):
+            fa.flash_attention_cuda(q, k, v, window=window, block_k=block_k)
+        assert counters.snapshot()["flash_attention_wgmma"] == 0
+        return
     _flash_match(q, k, v, "bfloat16", window=window, block_k=block_k)
 
 
@@ -1535,13 +1542,15 @@ def test_flash_wgmma_reads_model_layout_in_place(cuda, dtype, Dh):
                                   "causal_T_gt_S", "full_T_ne_S", "mqa",
                                   "one_row"])
 def test_flash_dh256_masks_vs_plain(cuda, dtype, case):
-    """Dh 256 (recurrentgemma-9b's local layers; the mma.sync / FMA
-    variant, f32 single-buffered) under the masks of FLASH_CASES."""
+    """Dh 256 (recurrentgemma-9b's local layers: bf16/fp16 on the wgmma
+    variant, f32 on the 3xTF32 mma.sync one) under the masks of
+    FLASH_CASES."""
     c = dict(FLASH_CASES[case])
     T, S = c.pop("T"), c.pop("S")
     Hq, Hkv = c.pop("Hq", 4), c.pop("Hkv", 1)
     q, k, v = _qkv((2, Hq, T, 256), (2, Hkv, S, 256), dtype, cuda, seed=3)
-    assert fa.variant(q.dtype, 256) == "mma_sync"
+    assert fa.variant(q.dtype, 256) == (
+        "mma_sync" if dtype == "float32" else "wgmma")
     _flash_match(q, k, v, dtype, causal=c.get("causal", True),
                  window=c.get("window"))
 
@@ -1560,15 +1569,105 @@ def test_flash_dh256_reads_model_layout_in_place(cuda, dtype):
     b = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), window=100)
     torch.cuda.synchronize()
-    assert counters.snapshot()["flash_attention"] == 2
+    counter = FLASH_COUNTER[fa.variant(q.dtype, 256)]
+    assert counter == ("flash_attention" if dtype == "float32"
+                       else "flash_attention_wgmma")
+    assert counters.snapshot()[counter] == 2
     assert torch.equal(a, b)
+
+
+# the wgmma variant at Dh 256 (bf16, MQA 16/1 as recurrentgemma-9b unless
+# a case says otherwise): its 128-row q tile and 64-key tile cut at odd
+# places, windows whose edge falls inside a key tile, both group sizes, a
+# row with no live key, no key at all
+WGMMA256_EDGES = {
+    "T300": dict(T=300, S=300),                     # T % 128 != 0
+    "T200_S200": dict(T=200, S=200),                # S % 64 != 0
+    "T100_S300": dict(T=100, S=300),
+    "T300_S100": dict(T=300, S=100),
+    "full_T130_S70": dict(T=130, S=70, causal=False),
+    "window100": dict(T=520, S=520, window=100),    # edges inside tiles
+    "window2048": dict(T=2200, S=2200, window=2048),
+    "group16": dict(T=300, S=300, Hq=16, Hkv=1, window=100),
+    "group1": dict(T=300, S=300, Hq=2, Hkv=2, window=100),
+    "dead_rows": dict(T=200, S=70, window=1),       # rows >= 70: no key
+    "S0": dict(T=130, S=0, causal=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA256_EDGES))
+def test_flash_wgmma_dh256_edges(cuda, case):
+    c = dict(WGMMA256_EDGES[case])
+    T, S = c.pop("T"), c.pop("S")
+    Hq, Hkv = c.pop("Hq", 16), c.pop("Hkv", 1)
+    q, k, v = _qkv((2, Hq, T, 256), (2, Hkv, S, 256), "bfloat16", cuda,
+                   seed=T + S)
+    assert fa.variant(q.dtype, 256) == "wgmma"
+    if S == 0:   # no key at all: every row is 0, one launch all the same
+        counters.reset()
+        out = fa.flash_attention_cuda(q, k, v, causal=c.get("causal", True))
+        torch.cuda.synchronize()
+        assert counters.snapshot()["flash_attention_wgmma"] == 1
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert not out.any()
+        return
+    _flash_match(q, k, v, "bfloat16", causal=c.get("causal", True),
+                 window=c.get("window"))
+    if case == "dead_rows":
+        out = fa.flash_attention_cuda(q, k, v, window=1)
+        assert not out[:, :, S:].any()
+
+
+def _flash_exact(q, k, v, window=None):
+    """The float64 oracle: causal attention with the plain version's
+    masks, every step in float64."""
+    B, Hq, T, Dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qd = q.double().reshape(B, Hkv, Hq // Hkv, T, Dh)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qd, k.double()) * Dh ** -0.5
+    live = fa._live_mask(T, S, True, window, q.device)
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+    return torch.einsum("bhgts,bhsd->bhgtd", p, v.double()).reshape(
+        B, Hq, T, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_f32_scaled_inputs(cuda, Dh, window):
+    """f32 on the tensor cores (3xTF32) with q, k and v scaled by 8, at a
+    ragged GQA shape across q and key tiles: scores spread ~64 wide, so
+    the softmax amplifies any score error. At this scale the plain f32
+    version is itself 15-41 times the reference's 2e-5 allowance away from
+    the exact answer (its f32 sums round), and a kernel that sums in
+    another order lands as far from it again, so 2e-5 against the plain
+    version would only ask for its summation order. The kernel is held
+    to the float64 oracle instead, no farther from it (in units of the
+    2e-5 allowance, elementwise) than the plain f32 version is; one-pass
+    TF32 (~2^-11 a product) is some 500 times farther."""
+    q, k, v = (8 * x for x in _qkv((2, 6, 300, Dh), (2, 2, 300, Dh),
+                                   "float32", cuda, seed=Dh))
+    assert fa.variant(q.dtype, Dh) == "mma_sync"
+    counters.reset()
+    got = fa.flash_attention_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert counters.snapshot()["flash_attention"] == 1
+    exact = _flash_exact(q, k, v, window)
+
+    def over(x):   # largest |x - exact| over the 2e-5 allowance
+        return float(((x.double() - exact).abs()
+                      / (2e-5 + 2e-5 * exact.abs())).max())
+    plain = over(fa.flash_attention_plain(q, k, v, window=window))
+    assert bool(torch.isfinite(got).all())
+    assert over(got) <= plain, (over(got), plain)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_bad_inputs(cuda):
     q, k, v = _qkv((1, 2, 8, 64), (1, 1, 8, 64), "float32", cuda)
     with pytest.raises(ValueError, match="tile"):
-        fa.flash_attention_cuda(q, k, v, block_q=128)
+        fa.flash_attention_cuda(q, k, v, block_q=64)
     with pytest.raises(TypeError):
         fa.flash_attention_cuda(q.double(), k.double(), v.double())
     q48, k48, v48 = _qkv((1, 2, 8, 48), (1, 1, 8, 48), "float32", cuda)

@@ -147,13 +147,14 @@ def test_wrapper_runs_plain_on_cpu():
     (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 32, "mma_sync"), (torch.float16, 16, "mma_sync"),
     (torch.float32, 128, "mma_sync"), (torch.float32, 64, "mma_sync"),
-    (torch.bfloat16, 256, "mma_sync"), (torch.float16, 256, "mma_sync"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float16, 256, "wgmma"),
     (torch.float32, 256, "mma_sync"),
 ])
 def test_variant_by_dtype_and_head_dim(dtype, Dh, want):
-    """bf16/fp16 at Dh 64 and 128 take the wgmma variant; f32 (exact, no
-    TF32), the smoke configs' Dh 16/32 and recurrentgemma's Dh 256 the
-    mma.sync / FMA one."""
+    """bf16/fp16 at Dh 64, 128 and 256 (recurrentgemma's local layers)
+    take the wgmma variant; f32 at every head dim (3xTF32 on mma.sync,
+    within the reference's 2e-5) and bf16/fp16 at the smoke configs' Dh
+    16/32 the mma.sync one."""
     assert fa.variant(dtype, Dh) == want
 
 
@@ -164,14 +165,23 @@ def test_variant_by_dtype_and_head_dim(dtype, Dh, want):
     (torch.float16, 64, (None, 64), True),
     (torch.bfloat16, 128, (64, 64), False),
     (torch.bfloat16, 64, (128, 32), False),
-    (torch.float32, 128, (64, 64), True),
+    (torch.float32, 128, (128, 64), True),
     (torch.float32, 128, (128, 128), False),
     (torch.bfloat16, 32, (None, None), True),
     (torch.bfloat16, 32, (128, 128), False),
     (torch.bfloat16, 256, (None, None), True),
-    (torch.float32, 256, (64, 64), True),
+    (torch.float32, 256, (128, 32), True),
     (torch.float16, 256, (None, 64), True),
     (torch.bfloat16, 256, (128, 128), False),
+    (torch.bfloat16, 256, (128, 64), True),
+    (torch.float16, 256, (128, 128), False),
+    (torch.float32, 128, (None, None), True),
+    (torch.float32, 128, (64, 64), False),
+    (torch.float32, 64, (None, 64), True),
+    (torch.float32, 16, (128, 64), True),
+    (torch.float32, 256, (None, None), True),
+    (torch.float32, 256, (128, 64), False),
+    (torch.float32, 256, (64, 64), False),
 ])
 def test_check_inputs_tiles_per_variant(dtype, Dh, tile, ok):
     """Each variant takes its own tiles (TILES; None its default) and
@@ -201,7 +211,7 @@ def test_check_inputs_refuses(case, exc, match):
     k = v = torch.zeros(1, 2, 8, 64)
     kw = {}
     if case == "tile":
-        kw = dict(block_q=128)
+        kw = dict(block_q=64)      # the f32 kernel's q tile is 128 rows
     elif case == "dtype":
         q, k, v = q.double(), k.double(), v.double()
     elif case == "mixed":
