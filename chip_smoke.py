@@ -209,6 +209,19 @@ Phases, one line of numbers each:
      a dropping capacity groups a 4,097-token forward and a one-token
      decode differently). Prints prefill wall, decode ms per token and
      peak memory for each model, and the phase's seconds;
+ 21. lint (after 4, before 5, on phase 4's RMAT graph): (a) the quickstart
+     program (phase 4 ran it under UniGPS()'s default lint="warn") and
+     phase 11's three record programs through `UniGPS().vcprog` with
+     LintWarning raised as an error: zero findings, each result bitwise
+     equal to lint="off", with an uncached lint pass's seconds and a
+     cached probe's; (b) `lint.check_program` over those programs and a
+     mutant whose state drifts dtype leaves the card's allocator (bytes
+     held, requests and bytes requested so far) and every launch counter
+     unchanged; (c) that mutant under lint="error" raises LintError
+     (UL101 alone) with no launch and no allocation; (d) `python -m
+     repro_torch.lint` over the operators and the two torch examples
+     with --error exits 0 in a subprocess started at the phase's start
+     (it runs beside (a)-(c));
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time (rows flash_attention[dh256] and
@@ -1593,6 +1606,138 @@ def degenerate_parity(dev):
             bitwise=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the VCProg linter in front of the main path
+# ---------------------------------------------------------------------------
+
+#: the files (c)'s command lints, relative to the checkout
+LINT_FILES = ("src/repro_torch/core/operators.py",
+              "examples/quickstart_torch.py",
+              "examples/graph_analytics_torch.py")
+
+
+def drift_program(user_prog):
+    """The quickstart program with a state that drifts dtype (rule UL101)."""
+    class DtypeDrift(user_prog):
+        def vertex_compute(self, prop, msg, it):
+            new, active = super().vertex_compute(prop, msg, it)
+            return {"vid": new["vid"],
+                    "distance": new["distance"].to(torch.int32)}, active
+    return DtypeDrift
+
+
+def card_allocations():
+    """(bytes allocated now, allocation requests so far, bytes requested
+    so far) of the caching allocator on the card."""
+    st = torch.cuda.memory_stats()
+    return (torch.cuda.memory_allocated(),
+            st.get("allocation.all.allocated", 0),
+            st.get("allocated_bytes.all.allocated", 0))
+
+
+def phase_lint(ctx):
+    """Phase 21 (module docstring), on phase 4's RMAT graph."""
+    from repro_torch.envutil import subprocess_env
+
+    t_phase = time.perf_counter()
+    g, user_prog = ctx["g"], ctx["user_prog"]
+    card = nvidia_smi()
+    # (d) starts first and runs beside (a)-(c): it is mostly interpreter
+    # start-up, on the host
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.lint", *LINT_FILES, "--error"],
+        cwd=ROOT, env=subprocess_env(threads=2, base=os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        rules = lint_checks(g, user_prog, ctx["results"], card)
+        out, err = cli.communicate(timeout=600)
+        cli_s = time.perf_counter() - t_cli
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    if cli.returncode != 0:
+        fail(f"lint: the CLI exited {cli.returncode}:\n{out}{err[-4000:]}")
+    log("lint", error_mode_rules=rules, cli_exit=cli.returncode,
+        cli_wall_s=round(cli_s, 3), cli=repr(out.strip().splitlines()[-1]),
+        phase_s=round(time.perf_counter() - t_phase, 2), card=repr(card))
+
+
+def lint_checks(g, user_prog, results, card):
+    """Phase 21's (a)-(c); returns the rules (c)'s refusal fired."""
+    import warnings
+
+    import repro_torch
+    from repro_torch import UniGPS, lint
+    from repro_torch.kernels import counters
+
+    progs = {"quickstart": user_prog(0)}
+    classes = record_programs(repro_torch.VCProgram)
+    progs.update((name, cls()) for name, cls in classes.items())
+
+    # (a) zero findings under the default lint="warn", bitwise vs "off"
+    U, off = UniGPS(), UniGPS(lint="off")
+    for name, prog in progs.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", lint.LintWarning)
+            if name == "quickstart":  # phase 4 ran it under the default
+                on = {"distance": torch.from_numpy(np.asarray(
+                    results["vcprog_quickstart"]))}
+                ref = {"distance": off.vcprog(g, user_prog(0))[0][
+                    "distance"].cpu()}
+            else:
+                on = {k: v.cpu() for k, v in U.vcprog(g, prog, 4)[0].items()}
+                ref = {k: v.cpu() for k, v in
+                       off.vcprog(g, classes[name](), 4)[0].items()}
+            t = time.perf_counter()
+            found = lint.check_program(prog, graph=g)
+            first_s = time.perf_counter() - t
+            t = time.perf_counter()
+            cached = lint.check_and_report(prog, graph=g)
+            probe_s = time.perf_counter() - t
+        if found or cached:
+            fail(f"lint: {name} has findings: {found or cached}")
+        for k in sorted(ref):
+            check(f"lint {name} {k} warn vs off", on[k], ref[k], False)
+        log("lint", program=name, findings=0, lint_first_s=first_s,
+            cached_probe_s=probe_s, bitwise_vs_off=True, card=repr(card))
+
+    # (b) a lint pass allocates nothing on the card and launches nothing
+    Drift = drift_program(user_prog)
+    torch.cuda.synchronize()
+    counters.reset()
+    before = card_allocations()
+    t = time.perf_counter()
+    for prog in list(progs.values()) + [Drift(0)]:
+        lint.check_program(prog, graph=g)
+    lint_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    after = card_allocations()
+    launched = {k: v for k, v in counters.snapshot().items() if v}
+    if after != before or launched:
+        fail(f"lint: check_program touched the card: allocator "
+             f"{before} -> {after}, launches {launched}")
+
+    # (c) lint="error" refuses the UL101 mutant before any launch
+    counters.reset()
+    before = card_allocations()
+    try:
+        UniGPS(lint="error").vcprog(g, Drift(0))
+    except lint.LintError as e:
+        rules = sorted({f.rule for f in e.findings})
+    else:
+        fail("lint: lint='error' ran a program with a UL101 finding")
+    launched = {k: v for k, v in counters.snapshot().items() if v}
+    if rules != ["UL101"] or launched or card_allocations() != before:
+        fail(f"lint: the error-mode refusal fired {rules}, launched "
+             f"{launched}, allocator {before} -> {card_allocations()}")
+
+    log("lint", programs=len(progs) + 1, check_program_s=lint_s,
+        card_allocations=0, launches=0, card=repr(card))
+    return rules
+
+
 def graph_phases(args, dev):
     """Phases 2-12 on the RMAT-21 and Banded-21 graphs; returns their
     `kernels` rows. Every graph tensor is local to this call, so the
@@ -1739,6 +1884,7 @@ def graph_phases(args, dev):
         log("operator", name=name, wall_s=round(wall[name], 4),
             kernel_off_wall_s=round(off_s, 4), max_abs_err_vs_off=e,
             shape=tuple(np.asarray(results[name]).shape))
+    phase_lint(dict(g=g, user_prog=user_prog, results=results))
 
     # -- 5. kernel times at the main path's shapes --------------------------------
     rows = []

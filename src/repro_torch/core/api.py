@@ -26,20 +26,9 @@ from . import operators
 from .engines import run_vcprog
 from .graph_device import resolve_device
 from .graph import PropertyGraph, from_edges
-from .knobs import knob_error, not_ported
 from .vcprog import VCProgram
 
 DEFAULT_ENGINE = "pushpull"
-_LINT = ("warn", "error", "off")
-
-
-def _resolve_lint(lint) -> str:
-    """The lint knob: the port has no linter yet, so only "off" runs."""
-    if lint not in _LINT:
-        raise knob_error("lint", lint, _LINT)
-    if lint != "off":
-        raise not_ported("lint", lint, "item 11: lint")
-    return lint
 
 
 class UniGPS:
@@ -73,8 +62,14 @@ class UniGPS:
     recovery. Every operator also takes these, and `resume=`/`faults=`,
     per call.
 
-    lint defaults to "off": the port has no linter yet, and the other
-    values raise.
+    lint: "warn"|"error"|"off" — static-analyze user programs before
+    running them (`repro_torch.lint`): every `vcprog()` call runs the
+    program's five methods through the engine's vmapped call path on
+    synthetic CPU samples, checking its cross-superstep contracts and
+    lane hygiene, and warns ("warn", default) or raises `LintError`
+    ("error") on findings. Results cache per program class + graph
+    schema, so hot request loops pay one dict probe. The built-in
+    operators do not lint.
     """
 
     def __init__(self, engine: str = DEFAULT_ENGINE, kernel: str = "auto",
@@ -82,9 +77,10 @@ class UniGPS:
                  frontier: str = "dense", prefetch: str = "auto",
                  exchange: str = "exact", checkpoint_dir: str | None = None,
                  checkpoint_every: int = 0, guards: str | bool = "off",
-                 lane_chunk=None, lint: str = "off", device="cuda"):
+                 lane_chunk=None, lint: str = "warn", device="cuda"):
+        from ..lint import resolve_lint_mode
         self.device = resolve_device(device)
-        self.lint = _resolve_lint(lint)
+        self.lint = resolve_lint_mode(lint)
         self.engine = engine
         self.kernel = "on" if use_kernel else kernel
         if use_kernel is False:
@@ -171,8 +167,10 @@ class UniGPS:
         lane each), or `batch=Q` replicates one program over Q lanes:
         vprops leaves are then [V, Q]. `lint=` overrides the session's
         lint mode for this call."""
-        if lint is not None:
-            _resolve_lint(lint)
+        from .. import lint as lint_pkg
+        mode = self.lint if lint is None else \
+            lint_pkg.resolve_lint_mode(lint)
+        lint_pkg.check_and_report(user_program, graph=graph, mode=mode)
         eng = engine or self.engine
         vprops, info = run_vcprog(user_program, graph, max_iter=max_iter,
                                   engine=eng, batch=batch,

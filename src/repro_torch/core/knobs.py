@@ -14,7 +14,7 @@ contract; the exact punctuation is not.
 """
 from __future__ import annotations
 
-__all__ = ["knob_error", "not_ported"]
+__all__ = ["knob_error"]
 
 
 def knob_error(name: str, value, choices, note: str = "") -> ValueError:
@@ -28,12 +28,3 @@ def knob_error(name: str, value, choices, note: str = "") -> ValueError:
     suffix = f" {note}" if note else ""
     return ValueError(
         f"{name} must be one of {tuple(choices)}{suffix}, got {value!r}")
-
-
-def not_ported(name: str, value, item: str) -> NotImplementedError:
-    """The error for a knob value whose machinery a later slice of the
-    port brings: names the ROADMAP.md Queue A entry that carries it.
-    Returned, not raised, like :func:`knob_error`."""
-    return NotImplementedError(
-        f"{name}={value!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md Queue A, {item})")

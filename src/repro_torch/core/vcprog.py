@@ -228,8 +228,14 @@ class VCProgram:
     #: "increasing" or None); advisory, engines never rely on it.
     monotonic = None
 
-    #: names of per-query constructor attributes (batched lanes).
+    #: names of per-query constructor attributes (batched lanes); the
+    #: linter's UL201 rule flags a batch where one was set as a constant.
     lane_attrs = ()
+
+    #: lint-rule suppression list (e.g. ``lint_suppress = ("UL105",)``):
+    #: rule ids `repro_torch.lint.check_program` must not report for this
+    #: class.
+    lint_suppress = ()
 
     #: the leaves the Triton emit reads, in argument order:
     #: ((vertex-property names), (edge-property names, at most 1)); a
