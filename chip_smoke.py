@@ -20,7 +20,8 @@ Phases, one line of numbers each:
   4. the main path: `UniGPS()` runs pagerank, sssp, connected_components,
      bfs, degrees, personalized_pagerank and the quickstart's user
      program (pushpull engine, kernels on) on rmat_graph(21, 16, seed=0,
-     weighted=True); launch counters are zeroed just before and read just
+     weighted=True) (made by a child process started with the script,
+     beside phase 2's builds, and handed over pickled); launch counters are zeroed just before and read just
      after (K1, its heavy blocks' finishing kernel and the segment kernel
      must have run); each result is then held against kernel="off" on the
      card;
@@ -43,7 +44,9 @@ Phases, one line of numbers each:
      and 1;
   7. window: one banded community under scrambled ids
      (part_community_graph(1, 2**21, degree=16, band=4, cross_edges=0)),
-     relabeled by RCM in one DeviceGraph; the six operators and the
+     relabeled by RCM in one DeviceGraph (the graph and its RCM order are
+     made by a child process started once phase 4's graph is in, beside
+     phases 3-6, and both of the phase's RCM users take that order); the six operators and the
      quickstart run on it through `run_vcprog(gdev=...)` and sssp through
      `UniGPS(reorder="rcm", frontier="auto")` (counters zeroed just before,
      read just after; the windowed kernel must have run); every result is
@@ -80,7 +83,8 @@ Phases, one line of numbers each:
      frontier="dense" bitwise; the segment kernel with dense-row offsets
      on a 10 % workset is held to the dense rows and timed beside its
      plain version and torch.segment_reduce (its own `kernels` row);
- 13. flash (after phases 2-12 and 15 have freed their graphs): the flash
+ 13. flash (right after phase 2, while the child process started with
+     the script makes phase 4's graph; its tensors freed after): the flash
      attention kernel against its plain version in bf16 at qwen3-14b's
      prefill (B=2, Hq=40, Hkv=8, T=S=4096, Dh=128, causal), starcoder2-
      7b's (B=1, Hq=36, Hkv=4, T=8192, window 4096) and a ragged T=4000
@@ -222,6 +226,22 @@ Phases, one line of numbers each:
      repro_torch.lint` over the operators and the two torch examples
      with --error exits 0 in a subprocess started at the phase's start
      (it runs beside (a)-(c));
+ 22. train (after 20): (a) granite-moe-1b-a400m at full width and depth
+     (24 layers, d 1024, 32 experts top-8, vocab 49155), bf16 parameters,
+     f32 AdamW moments, remat="full": 20 `train.step.make_train_step`
+     steps on SyntheticLMDataset batches of 4 x 1024 tokens, finite
+     losses and gradient norms, the last loss below the first; prints
+     the step ms (median of steps 5-20), tokens/s and peak memory;
+     (b) its 2-layer f32 cut, TF32 off: the gradients and one step on the
+     card against the same state and batch on the CPU (TRAIN_* tolerances
+     below); (c) the cut saved at step 10 by CheckpointManager, restored
+     into a fresh state, two more steps bitwise equal to the run that went
+     on (torch.use_deterministic_algorithms, warn-only; ops it names as
+     nondeterministic are printed and the losses then held to a stated
+     tolerance); (d) examples/lm_train_torch.py (demo-100m, 300 steps) in
+     this process, its loss-drop assertion; (e) a train step with
+     attn_impl="flash_kernel" raises, with no flash launch and no
+     gradient. The card's name and power limit stand on every line;
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time (rows flash_attention[dh256] and
@@ -257,9 +277,28 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-TF32_OPS_PER_S = 494.7e12   # H100 SXM dense TF32 tensor cores
+
+
+def _roofline():
+    """The port's one copy of the H100 SXM's data-sheet rates
+    (src/repro_torch/launch/roofline.py, which imports nothing of the
+    package), loaded by path: a tool that imports this module after
+    putting another checkout's package first on sys.path keeps it."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_roofline",
+        ROOT / "src" / "repro_torch" / "launch" / "roofline.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_RL = _roofline()
+HBM_BYTES_PER_S = _RL.HBM_BW        # device memory
+F32_OPS_PER_S = _RL.F32_FLOPS       # f32 outside the tensor cores
+TF32_OPS_PER_S = _RL.TF32_FLOPS     # dense TF32 tensor cores
+BF16_OPS_PER_S = _RL.PEAK_FLOPS     # dense bf16 tensor cores
 # f32 products on the tensor cores as 3xTF32: three TF32 products each
 F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3
 SUM_RTOL = 1e-4
@@ -596,9 +635,86 @@ def banded_graph(log2v):
     return g
 
 
+def prep_main(args):
+    """`--prep KIND FILE`: make a graph phase's host data in a process of
+    its own, beside the card's work, and pickle it into FILE. "rmat":
+    phase 4's rmat_graph(--scale, 16, seed=0, weighted=True); "banded":
+    phase 7's Banded-21 and its RCM order (`reorder.rcm_permutation`,
+    host numpy). Touches no card."""
+    kind, path = args.prep[0], pathlib.Path(args.prep[1])
+    t = time.time()
+    if kind == "rmat":
+        from repro_torch.core import io
+        out = {"graph": io.rmat_graph(args.scale, 16, seed=0,
+                                      weighted=True),
+               "generate_s": time.time() - t}
+    else:
+        from repro_torch.core import reorder
+        gb = banded_graph(args.log2v)
+        gen_s = time.time() - t
+        t = time.time()
+        perm = reorder.rcm_permutation(gb.src, gb.dst, gb.num_vertices)
+        out = {"graph": gb, "perm": perm, "generate_s": gen_s,
+               "rcm_s": time.time() - t}
+    save_pickle(path, out)
+    return 0
+
+
+def save_pickle(path, obj):
+    import pickle
+    path = pathlib.Path(path)
+    with open(path.with_suffix(".tmp"), "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path.with_suffix(".tmp"), path)
+
+
+def load_pickle(path):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def start_prep(kind, args, out_dir):
+    """Start prep_main for `kind` in a child process (its CPU work
+    overlaps the card's); returns (process, pickle path). An exit handler
+    stops it if the script ends first."""
+    import atexit
+    path = pathlib.Path(out_dir) / f"prep_{kind}.pkl"
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--prep", kind,
+         str(path), "--scale", str(args.scale), "--log2v", str(args.log2v)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, path
+
+
+def wait_prep(prep):
+    """(the child's pickled dict, seconds waited for it)."""
+    proc, path = prep
+    t = time.time()
+    _, err = proc.communicate(timeout=900)
+    waited = time.time() - t
+    if proc.returncode != 0:
+        fail(f"the host preparation {path.name} exited {proc.returncode}: "
+             f"{err[-3000:]}")
+    got = load_pickle(path)
+    path.unlink()
+    return got, waited
+
+
 def phase_window(ctx):
     """Phase 7 (module docstring). Returns the JSON row of the windowed
-    kernel."""
+    kernel. The graph and its RCM order come from the child
+    `ctx["banded_prep"]` (start_prep): both of the phase's RCM users
+    (`build_device_graph(reorder="rcm")` and `UniGPS(reorder="rcm")`) get
+    the child's order for this graph, the same function's result on the
+    same arrays, so the host RCM runs once, beside the card's phases. The
+    phase fails unless both took it."""
     import warnings
 
     from repro_torch import UniGPS, run_vcprog
@@ -608,20 +724,21 @@ def phase_window(ctx):
     from repro_torch.kernels import fused_gather_emit as fge
 
     dev = torch.device("cuda")
-    t = time.time()
-    gb = banded_graph(ctx["log2v"])
+    got, waited = wait_prep(ctx.pop("banded_prep"))
+    gb, pre_perm = got["graph"], got["perm"]
     V, E = gb.num_vertices, gb.num_edges
-    gen_s = time.time() - t
-    rcm_s = []
+    rcm_calls = []
     real_rcm = reorder.rcm_permutation
 
-    def timed_rcm(*a):
-        t0 = time.time()
-        perm = real_rcm(*a)
-        rcm_s.append(time.time() - t0)
-        return perm
+    def child_rcm(src, dst, n):
+        if n == V and np.array_equal(src, gb.src) \
+                and np.array_equal(dst, gb.dst):
+            rcm_calls.append("precomputed")
+            return pre_perm.copy()
+        rcm_calls.append("computed")
+        return real_rcm(src, dst, n)
 
-    reorder.rcm_permutation = timed_rcm
+    reorder.rcm_permutation = child_rcm
     try:
         t = time.time()
         gw = graph_device.build_device_graph(gb, reorder="rcm", device=dev)
@@ -636,7 +753,8 @@ def phase_window(ctx):
     tables = gw.canonical.fused_tables
     W = tables.window
     log("window_graph", V=V, E=E, max_in_degree=int(gb.in_degree.max()),
-        generate_s=round(gen_s, 2), rcm_s=round(rcm_s[0], 2),
+        generate_s=round(got["generate_s"], 2),
+        rcm_s=round(got["rcm_s"], 2), prep_wait_s=round(waited, 2),
         build_device_graph_rcm_s=round(build_s, 2),
         build_device_graph_none_s=round(build_none_s, 2), W=W,
         W_none=gn.canonical.fused_tables.window,
@@ -674,8 +792,12 @@ def phase_window(ctx):
             torch.cuda.synchronize()
             wall[name] = time.time() - t
         t = time.time()
-        user_sssp, user_info = UniGPS(reorder="rcm", frontier="auto").sssp(
-            gb, 0)
+        reorder.rcm_permutation = child_rcm
+        try:
+            user_sssp, user_info = UniGPS(reorder="rcm",
+                                          frontier="auto").sssp(gb, 0)
+        finally:
+            reorder.rcm_permutation = real_rcm
         torch.cuda.synchronize()
         user_wall = time.time() - t
         launches = counters.snapshot()
@@ -705,7 +827,10 @@ def phase_window(ctx):
                       gb, 0, gdev=gn)[0])), False)
     log("window_operator", name="sssp_unigps_rcm_auto",
         wall_s=round(user_wall, 4), supersteps=user_info["iterations"],
-        max_abs_err_vs_reorder_none=e)
+        max_abs_err_vs_reorder_none=e, rcm_calls=",".join(rcm_calls))
+    if rcm_calls != ["precomputed"] * 2:
+        fail(f"phase 7's two RCM users did not both take the child's "
+             f"order: {rcm_calls}")
 
     # the windowed kernel against its plain version and the resident
     # kernel, at the path's shapes (mid-run state: random frontier)
@@ -1738,13 +1863,16 @@ def lint_checks(g, user_prog, results, card):
     return rules
 
 
-def graph_phases(args, dev):
+def graph_phases(args, dev, rmat_prep):
     """Phases 2-12 on the RMAT-21 and Banded-21 graphs; returns their
     `kernels` rows. Every graph tensor is local to this call, so the
-    card's memory is free again when it returns."""
+    card's memory is free again when it returns. The RMAT graph comes
+    from `rmat_prep` (start_prep("rmat", ...), started with the script),
+    and a second child makes phase 7's graph and RCM order while phases
+    3-6 run."""
     import repro_torch
     from repro_torch import UniGPS
-    from repro_torch.core import graph_device, io, operators, vcprog
+    from repro_torch.core import graph_device, operators, vcprog
     from repro_torch.kernels import counters
     from repro_torch.kernels import fused_gather_emit as fge
     from repro_torch.kernels import segment_reduce as sr
@@ -1754,16 +1882,18 @@ def graph_phases(args, dev):
         triton=fge.require_gather())  # raises unless tl.gather exists
 
     # -- the main path's graph --------------------------------------------------
-    t = time.time()
-    g = io.rmat_graph(args.scale, 16, seed=0, weighted=True)
+    got, waited = wait_prep(rmat_prep)
+    g, t_gen = got["graph"], got["generate_s"]
+    # started once the RMAT child is done, so the two do not share the
+    # host's cores and memory bandwidth
+    banded_prep = start_prep("banded", args, ROOT / "build")
     V, E = g.num_vertices, g.num_edges
-    t_gen = time.time() - t
     t = time.time()
     gdev = graph_device.build_device_graph(g, device=dev)
     torch.cuda.synchronize()
     build_s = time.time() - t
     log("graph", V=V, E=E, max_in_degree=int(g.in_degree.max()),
-        generate_s=round(t_gen, 2), build_device_graph_s=round(build_s, 3))
+        generate_s=round(t_gen, 2), prep_wait_s=round(waited, 2), build_device_graph_s=round(build_s, 3))
     cv = gdev.canonical
 
     programs = {
@@ -1943,8 +2073,8 @@ def graph_phases(args, dev):
         "bound_ms": ge_bound, "bound_by": ge_by, "library_ms": None})
 
     ctx = dict(g=g, gdev=gdev, vstate=vstate, user_prog=user_prog,
-               results=results, rng=rng, log2v=args.log2v, wall=wall,
-               build_s=build_s)
+               results=results, rng=rng, wall=wall,
+               build_s=build_s, banded_prep=banded_prep)
     rows += phase_frontier(ctx)
     rows += phase_window(ctx)
     rows += phase_lanes(ctx)
@@ -1954,7 +2084,7 @@ def graph_phases(args, dev):
     rows += phase_compaction(ctx)
     rows += phase_distributed(ctx)
     phase_resilience(ctx)
-    del ctx["banded_npz"]
+    del ctx["banded_ranks"]
     phase_callback(ctx)
     phase_serving(ctx)
     return rows
@@ -2390,7 +2520,6 @@ def dist_rank_main(args):
     import repro_torch
     from repro_torch.core.engines.common import NonConvergenceWarning
     from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
-    from repro_torch.core.graph import from_edges
     from repro_torch.distributed.collectives import Comm, init_rank
     from repro_torch.kernels import counters
 
@@ -2398,9 +2527,8 @@ def dist_rank_main(args):
     dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
                     device=torch.device("cuda", 0))
     t = time.time()
-    data = np.load(out_dir / "graph.npz")
-    g = from_edges(data["src"], data["dst"], int(data["V"]),
-                   edge_props={"weight": data["weight"]}, directed=True)
+    data = load_pickle(out_dir / "graph.pkl")
+    g = data["graph"]
     roots = [int(r) for r in data["roots"]]
     load_s = time.time() - t
     t = time.time()
@@ -2869,12 +2997,12 @@ def phase_distributed(ctx):
         refs["quickstart"] = operators.run_vcprog(
             user_prog(old[0]), gb, it, gdev=gw)[0]["distance"].cpu().numpy(
             )[perm]
-    # phase 17e's ranks load the same graph
-    ctx["banded_npz"] = dict(src=src, dst=dst, weight=weight, V=V,
-                             roots=np.asarray(roots))
+    # the ranks load this graph (phase 17e's too): the PropertyGraph
+    # itself, pickled, so no rank sorts its 30M edges again
+    ctx["banded_ranks"] = {"graph": gr, "roots": np.asarray(roots)}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        np.savez(tmp / "graph.npz", **ctx["banded_npz"])
+        save_pickle(tmp / "graph.pkl", ctx["banded_ranks"])
         t = time.time()
         wait_ranks(start_ranks(4, tmp), timeout=600)
         spawn_s = time.time() - t
@@ -3175,8 +3303,7 @@ def phase_resilience(ctx):
         # -- 17d: kill a child run, resume here -----------------------------
         t = time.time()
         g = ctx["g"]
-        np.savez(tmp / "rmat.npz", src=g.src, dst=g.dst,
-                 weight=g.edge_props["weight"], V=g.num_vertices)
+        save_pickle(tmp / "rmat.pkl", g)
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--kill-child",
              str(tmp)], cwd=ROOT, capture_output=True, text=True,
@@ -3211,19 +3338,16 @@ def _state_template(ctx):
 
 
 def kill_child_main(args):
-    """17d's child (`--kill-child DIR`): loads RMAT-21 from DIR/rmat.npz
+    """17d's child (`--kill-child DIR`): loads RMAT-21 from DIR/rmat.pkl
     and runs sssp with checkpoint_every=4 and a kill_part fault at
     superstep 6; the fault exits KILL_EXIT_CODE after the covering
     snapshot is durable."""
     from repro_torch.core import operators
-    from repro_torch.core.graph import from_edges
     from repro_torch.distributed.faults import Fault
 
     tmp = pathlib.Path(args.kill_child)
     t = time.time()
-    data = np.load(tmp / "rmat.npz")
-    g = from_edges(data["src"], data["dst"], int(data["V"]),
-                   edge_props={"weight": data["weight"]}, directed=True)
+    g = load_pickle(tmp / "rmat.pkl")
     print(f"phase=resilience_kill_child load_s={time.time() - t:.2f}",
           flush=True)
     operators.sssp(g, 0, checkpoint_dir=str(tmp / "kill"),
@@ -3254,16 +3378,14 @@ def resilience_rank_main(args):
 
     from repro_torch.core import operators
     from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
-    from repro_torch.core.graph import from_edges
     from repro_torch.distributed.collectives import init_rank
     from repro_torch.distributed.faults import Fault, NonConvergenceWarning
 
     out_dir = pathlib.Path(args.dist_dir)
     dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
                     device=torch.device("cuda", 0))
-    data = np.load(out_dir / "graph.npz")
-    g = from_edges(data["src"], data["dst"], int(data["V"]),
-                   edge_props={"weight": data["weight"]}, directed=True)
+    data = load_pickle(out_dir / "graph.pkl")
+    g = data["graph"]
     root = int(data["roots"][0])
     sg = ShardedGraph(g, args.dist_world)
     kw = dict(engine="distributed", gdev=sg, device=dev)
@@ -3334,7 +3456,7 @@ def phase_resilience_ranks(ctx):
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        np.savez(tmp / "graph.npz", **ctx["banded_npz"])
+        save_pickle(tmp / "graph.pkl", ctx["banded_ranks"])
         t = time.time()
         wait_ranks(start_ranks(4, tmp, "resilience"), 900,
                    expect=KILL_EXIT_CODE)
@@ -3374,7 +3496,7 @@ def phase_resilience_ranks(ctx):
             dirs[world] = tmp / f"resume{world}"
             dirs[world].mkdir()
             shutil.copytree(tmp / "ckpt", dirs[world] / "ckpt")
-            os.link(tmp / "graph.npz", dirs[world] / "graph.npz")
+            os.link(tmp / "graph.pkl", dirs[world] / "graph.pkl")
             procs.append(start_ranks(world, dirs[world], "resume"))
         for p in procs:
             wait_ranks(p, 900)
@@ -3511,7 +3633,6 @@ def callback_state_bytes(prog, gdev):
 # phases 13-14: flash attention and the LM serving path
 # ---------------------------------------------------------------------------
 
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 # (name, B, Hq, Hkv, T = S, dtype, window): qwen3-14b's prefill, starcoder2-
 # 7b's windowed prefill, a ragged T, and the first shape cut to T = 1024 in
 # f32; Dh = 128 throughout
@@ -4236,6 +4357,340 @@ def phase_lm_families(dev):
                 ("flash_attention[dh256,f32]", "mma_sync", n_f32))]
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the training path on one card
+# ---------------------------------------------------------------------------
+
+# 22a: granite-moe-1b-a400m at full width and depth, bf16 parameters, f32
+# AdamW moments, remat="full": TRAIN_STEPS steps of TRAIN_B x TRAIN_T
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "granite-moe-1b-a400m", 4, 1024, 20
+# 22b: its 2-layer f32 cut, one step on the card against the same step on
+# the CPU (TF32 off): loss and grad_norm relative; each gradient within
+# TRAIN_GRAD_REL of its tensor's largest entry (f32 sums in other orders);
+# each parameter's change in the step within TRAIN_STEP_ATOL of the CPU's.
+# AdamW's first step moves an entry by lr * m/sqrt(v) = ±lr (1e-4 here),
+# so a skipped, sign-flipped or rescaled update misses TRAIN_STEP_ATOL by
+# ten times; only an entry whose CPU gradient lies within TRAIN_GRAD_REL
+# of its tensor's largest entry may round to the other sign on one side,
+# and those (counted) are held to the 2 lr that a flip moves them apart.
+# 1e-5 is the cuda test's limit (test_train_step_on_card_matches_cpu); the
+# largest gap read on the card was 5.9e-6 over every entry
+TRAIN_CUT_B, TRAIN_CUT_T, TRAIN_CUT_LR = 2, 128, 1e-4
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-4, 1e-3
+TRAIN_STEP_ATOL = 1e-5
+# 22c: resume of the cut at step TRAIN_SAVE_AT, then two more steps;
+# without bitwise determinism, held to TRAIN_RESUME_RTOL of the loss
+TRAIN_SAVE_AT, TRAIN_RESUME_RTOL = 10, 1e-6
+
+
+def train_cut_cfg():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+
+
+def phase_train_full(dev, card):
+    """22a: the full-width train step; returns the numbers to log."""
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.remat != "full" or cfg.dtype != "bfloat16":
+        fail(f"{TRAIN_ARCH}: expected remat full and bf16, got {cfg.remat},"
+             f" {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    state = TS.init_train_state(cfg, 0, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+        3e-4, 5, TRAIN_STEPS))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0)
+    losses, gnorms, ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t = time.time()
+        state, m = step(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        ms.append((time.time() - t) * 1e3)
+        losses.append(loss)
+        gnorms.append(gn)
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            fail(f"22a step {i}: loss {loss}, grad norm {gn}")
+    if not losses[-1] < losses[0]:
+        fail(f"22a: the loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses[0]} -> {losses[-1]}")
+    med = float(np.median(ms[4:]))
+    trace = train_step_trace(step, state, data.batch(TRAIN_STEPS))
+    out = dict(model=TRAIN_ARCH, layers=cfg.num_layers,
+               d_model=cfg.d_model, experts=cfg.num_experts,
+               top_k=cfg.top_k, params=n_params,
+               param_count_model=param_count(cfg), param_dtype="bfloat16",
+               remat=cfg.remat, batch=TRAIN_B, seq=TRAIN_T,
+               steps=TRAIN_STEPS, init_s=round(init_s, 3),
+               first_loss=losses[0], last_loss=losses[-1],
+               grad_norms=[round(g, 4) for g in gnorms[:3]],
+               first_step_ms=round(ms[0], 2),
+               step_ms_median_5_20=round(med, 3),
+               tokens_per_s=round(TRAIN_B * TRAIN_T / med * 1e3, 1),
+               peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+               card=repr(card), **trace)
+    del state
+    free_model(None)
+    return out
+
+
+def train_step_trace(step, state, batch):
+    """One more step under torch.profiler (after the timed ones): its
+    wall, the device's busy ms and idle share, the device operations and
+    the six that took the most device time."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    wall_ms = (time.time() - t) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per = collections.Counter()
+    for e in dev:
+        per[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    busy = sum(per.values())
+    return dict(trace_wall_ms=round(wall_ms, 2), trace_busy_ms=round(busy, 2),
+                trace_idle_share=round(1 - busy / wall_ms, 4),
+                trace_device_ops=len(dev),
+                trace_top=json.dumps({k: round(v, 2) for k, v in
+                                      per.most_common(6)}))
+
+
+def train_states_on(dev, cfg, seed=0):
+    """The same seed-`seed` f32 state on the CPU and on `dev`."""
+    from repro_torch.train import step as TS
+    cpu = TS.init_train_state(cfg, seed, "cpu")
+    card = TS.load_state_tree(TS.init_train_state(cfg, seed + 1, dev),
+                              TS.state_tree(cpu))
+    return cpu, card
+
+
+def phase_train_vs_cpu(dev, card):
+    """22b: the 2-layer f32 cut, one step on the card against the CPU."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu, gpu = train_states_on(dev, cfg)
+        batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_CUT_T, TRAIN_CUT_B,
+                                   seed=0).batch(0)
+        t = time.time()
+        _, _, g_cpu = TS.loss_and_grads(cpu.params, torch.from_numpy(batch))
+        cpu_grad_s = time.time() - t
+        _, _, g_gpu = TS.loss_and_grads(gpu.params,
+                                        torch.from_numpy(batch).to(dev))
+        grad_rel, near0 = 0.0, {}
+        for k, a in g_cpu.items():
+            d = float((g_gpu[k].cpu() - a).abs().max())
+            scale = float(a.abs().max())
+            r = d / scale if scale else d
+            grad_rel = max(grad_rel, r)
+            if r > TRAIN_GRAD_REL:
+                fail(f"22b gradient {k}: card vs CPU {d} over "
+                     f"{TRAIN_GRAD_REL} x max|g| = {scale}")
+            near0[k] = a.abs() <= TRAIN_GRAD_REL * scale
+        del g_cpu, g_gpu
+        before = {k: p.detach().clone()
+                  for k, p in TS.named_params(cpu.params).items()}
+        step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+            TRAIN_CUT_LR, 0, 10))
+        cpu, mc = step(cpu, batch)
+        gpu, mg = step(gpu, batch)
+        res = {}
+        for key, tol in (("loss", TRAIN_LOSS_RTOL),
+                         ("grad_norm", TRAIN_GNORM_RTOL)):
+            a, b = float(mg[key]), float(mc[key])
+            res[key] = abs(a - b) / abs(b)
+            if not res[key] <= tol:
+                fail(f"22b {key}: card {a} vs CPU {b}, relative "
+                     f"{res[key]} over {tol}")
+        flip_tol = 2 * TRAIN_CUT_LR
+        held_err, near0_err, n_held, n_near0, n_moved = 0.0, 0.0, 0, 0, 0
+        pc, pg = TS.named_params(cpu.params), TS.named_params(gpu.params)
+        for k, p0 in before.items():
+            d_cpu = pc[k].detach() - p0
+            gap = (pg[k].detach().cpu() - p0 - d_cpu).abs()
+            held = ~near0[k]
+            n_held += int(held.sum())
+            n_near0 += int(near0[k].sum())
+            n_moved += int((d_cpu.abs()[held] > TRAIN_STEP_ATOL).sum())
+            e_held = float(gap[held].max()) if held.any() else 0.0
+            e_near0 = float(gap[near0[k]].max()) if near0[k].any() else 0.0
+            held_err, near0_err = max(held_err, e_held), max(near0_err,
+                                                             e_near0)
+            if e_held > TRAIN_STEP_ATOL:
+                fail(f"22b step of {k}: card vs CPU change {e_held} over "
+                     f"{TRAIN_STEP_ATOL}")
+            if e_near0 > flip_tol:
+                fail(f"22b step of {k} where |g| <= {TRAIN_GRAD_REL} x "
+                     f"max|g|: card vs CPU change {e_near0} over 2 lr = "
+                     f"{flip_tol}")
+        del before, near0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = dict(model=f"{TRAIN_ARCH} (2 layers, f32)", batch=TRAIN_CUT_B,
+               seq=TRAIN_CUT_T, tf32=False, loss=float(mg["loss"]),
+               loss_rel=res["loss"], grad_norm_rel=res["grad_norm"],
+               grad_max_rel=grad_rel, step_max_abs=held_err,
+               step_entries=n_held,
+               step_entries_moved_over_tol=n_moved,
+               near0_entries=n_near0, near0_step_max_abs=near0_err,
+               tol=f"loss {TRAIN_LOSS_RTOL} rel, grad_norm "
+                   f"{TRAIN_GNORM_RTOL} rel, grads {TRAIN_GRAD_REL} x "
+                   f"max|g|, parameter change {TRAIN_STEP_ATOL} abs "
+                   f"(2 lr = {flip_tol} where |g| <= {TRAIN_GRAD_REL} x "
+                   f"max|g|)",
+               cpu_grad_s=round(cpu_grad_s, 2), card=repr(card))
+    del cpu, gpu
+    free_model(None)
+    return out
+
+
+def phase_train_resume(dev, card, tmp):
+    """22c: save the cut at step TRAIN_SAVE_AT, restore into a fresh
+    state, and take two steps there and in the run that went on."""
+    import warnings
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg()
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+        TRAIN_CUT_LR, 2, TRAIN_SAVE_AT + 2))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_CUT_T, TRAIN_CUT_B,
+                              seed=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            state = TS.init_train_state(cfg, 0, dev)
+            for i in range(TRAIN_SAVE_AT):
+                state, _ = step(state, data.batch(i))
+            mgr = CheckpointManager(str(tmp / "train"), keep=1)
+            t = time.time()
+            mgr.save(TRAIN_SAVE_AT, TS.state_tree(state), block=True)
+            save_s = time.time() - t
+            went_on, resumed = [], []
+            for i in range(TRAIN_SAVE_AT, TRAIN_SAVE_AT + 2):
+                state, m = step(state, data.batch(i))
+                went_on.append(float(m["loss"]))
+            fresh = TS.init_train_state(cfg, 7, dev)
+            fresh = TS.load_state_tree(fresh, mgr.restore(
+                TS.state_tree(fresh)))
+            if int(fresh.step) != TRAIN_SAVE_AT:
+                fail(f"22c restored step {int(fresh.step)}")
+            for i in range(TRAIN_SAVE_AT, TRAIN_SAVE_AT + 2):
+                fresh, m = step(fresh, data.batch(i))
+                resumed.append(float(m["loss"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    a, b = TS.named_params(state.params), TS.named_params(fresh.params)
+    bitwise = went_on == resumed and all(torch.equal(a[k], b[k]) for k in a)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, went_on))
+    if not bitwise and (nondet == [] or rel > TRAIN_RESUME_RTOL):
+        fail(f"22c resume: losses {resumed} vs {went_on} (relative {rel}), "
+             f"nondeterministic ops: {nondet}")
+    out = dict(model=f"{TRAIN_ARCH} (2 layers, f32)", saved_at=TRAIN_SAVE_AT,
+               save_s=round(save_s, 3), losses_went_on=went_on,
+               losses_resumed=resumed, bitwise=bitwise,
+               max_rel=rel, nondeterministic_ops=json.dumps(nondet),
+               tol="bitwise" if bitwise else f"{TRAIN_RESUME_RTOL} rel",
+               card=repr(card))
+    del state, fresh
+    free_model(None)
+    return out
+
+
+def phase_train_example(card):
+    """22d: examples/lm_train_torch.py (demo-100m, 300 steps) in this
+    process; its own assertion holds the loss drop."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "lm_train_torch", ROOT / "examples" / "lm_train_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t = time.time()
+    try:
+        res = mod.main([])
+    except AssertionError as e:
+        fail(f"22d examples/lm_train_torch.py: {e}")
+    out = dict(example="examples/lm_train_torch.py", model="demo-100m",
+               wall_s=round(time.time() - t, 2), card=repr(card), **res)
+    free_model(None)
+    return out
+
+
+def phase_train_no_flash(dev, card):
+    """22e: a train step with attn_impl="flash_kernel" raises and leaves
+    no gradient (the kernel has no backward pass)."""
+    from repro_torch.kernels import counters
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg().replace(attn_impl="flash_kernel",
+                                  dtype="bfloat16")
+    state = TS.init_train_state(cfg, 0, dev, torch.bfloat16)
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(1e-4, 0, 4))
+    batch = np.zeros((1, 65), np.int32)
+    counters.reset()
+    try:
+        step(state, batch)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        fail("22e: a train step with attn_impl=flash_kernel did not raise")
+    launches = counters.snapshot()
+    if launches["flash_attention"] or launches["flash_attention_wgmma"] \
+            or any(p.grad is not None for p in state.params.parameters()) \
+            or int(state.step) != 0:
+        fail(f"22e: the refused step launched {launches} or left a "
+             "gradient or a step")
+    out = dict(raised="RuntimeError", message=repr(msg[:80]),
+               flash_launches=0, card=repr(card))
+    del state
+    free_model(None)
+    return out
+
+
+def phase_train(dev):
+    """Phase 22 (module docstring)."""
+    import tempfile
+    t0 = time.time()
+    card = nvidia_smi()
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, fn in (("22a", lambda: phase_train_full(dev, card)),
+                         ("22b", lambda: phase_train_vs_cpu(dev, card)),
+                         ("22c", lambda: phase_train_resume(
+                             dev, card, pathlib.Path(tmp))),
+                         ("22d", lambda: phase_train_example(card)),
+                         ("22e", lambda: phase_train_no_flash(dev, card))):
+            t = time.time()
+            log(f"train_{name}", **fn())
+            walls[name] = round(time.time() - t, 2)
+    log("train_phase", seconds=round(time.time() - t0, 2),
+        walls=json.dumps(walls), card=repr(card))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=21,
@@ -4256,14 +4711,17 @@ def main():
                     help=argparse.SUPPRESS)
     # phase 17d starts this script once with this
     ap.add_argument("--kill-child", default=None, help=argparse.SUPPRESS)
+    # main starts this script with this for phase 4's and phase 7's graphs
+    ap.add_argument("--prep", nargs=2, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-
+    sys.path.insert(0, str(ROOT / "src"))
+    if args.prep is not None:  # host work only
+        return prep_main(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on a GPU",
               file=sys.stderr)
         return 2
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
-    sys.path.insert(0, str(ROOT / "src"))
     if args.dist_rank is not None:
         if args.dist_mode != "runs":
             return resilience_rank_main(args)
@@ -4273,6 +4731,8 @@ def main():
     from repro_torch.kernels import build
 
     t_all = time.time()
+    (ROOT / "build").mkdir(exist_ok=True)
+    rmat_prep = start_prep("rmat", args, ROOT / "build")
     dev = torch.device("cuda")
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -4292,14 +4752,21 @@ def main():
     log("sass", library="flash_attention",
         **sass_check(built["flash_attention"][0]._name))
 
-    rows = graph_phases(args, dev)
+    # phase 13 runs while the RMAT child makes phase 4's graph
+    t = time.time()
+    flash = phase_flash(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("flash_phase", seconds=round(time.time() - t, 2), peak_gib=round(
+        torch.cuda.max_memory_allocated() / 2**30, 3))
+    torch.cuda.reset_peak_memory_stats()
+    rows = graph_phases(args, dev, rmat_prep)
     gc.collect()
     torch.cuda.empty_cache()
     log("memory", graph_phases_peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3),
         after_free_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
     torch.cuda.reset_peak_memory_stats()
-    flash = phase_flash(dev)
     rows.extend(phase_lm(dev, flash))
     log("memory", lm_phases_peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3),
@@ -4307,6 +4774,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     rows.extend(phase_lm_families(dev))
+    log("memory", total_s=round(time.time() - t_all, 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev)
     log("memory", total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

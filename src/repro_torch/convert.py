@@ -12,7 +12,8 @@ and stack back with :func:`stack_lanes`. A distributed partition (the
 :class:`~repro_torch.core.engines.distributed.ShardedGraph`, whose
 per-rank device tensors the engine builds, with
 :func:`sharded_graph_from_arrays`. A language model's parameter tree
-crosses through :func:`model_params_from_numpy`.
+crosses through :func:`model_params_from_numpy`, and a training state
+(parameters, AdamW moments, step) through :func:`train_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -152,3 +153,45 @@ def model_params_from_numpy(tree: dict, cfg) -> dict:
         else:
             out[key] = torch.from_numpy(np.array(val))
     return out
+
+
+def _field(tree, name: str, index: int):
+    """A NamedTuple field of either package (or a dict entry)."""
+    if isinstance(tree, dict):
+        return tree[name]
+    return getattr(tree, name) if hasattr(tree, name) else tree[index]
+
+
+def train_state_from_numpy(tree, cfg, device="cuda"):
+    """The reference's `TrainState(params, opt=AdamWState(step, m, v),
+    step)` as numpy (e.g. ``jax.tree.map(np.asarray, state)``, or what its
+    CheckpointManager restores) -> the port's `train.step.TrainState` on
+    `device`: a Transformer holding the converted parameters (in their
+    arrays' dtype, requiring grad), the moments through the same name
+    mapping as f32 tensors, and both steps as int32 scalars."""
+    from . import models
+    from .core.graph_device import resolve_device
+    from .optim.adamw import AdamWState
+    from .train.step import TrainState, trainable
+
+    device = resolve_device(device)
+    params = model_params_from_numpy(_field(tree, "params", 0), cfg)
+    opt = _field(tree, "opt", 1)
+    dtype = next(iter(params.values())).dtype
+    model = models.Transformer(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device,
+        dtype=dtype)
+    model.load_state_dict(params, strict=True)
+
+    def moments(t):
+        return {k: v.to(device=device, dtype=torch.float32)
+                for k, v in model_params_from_numpy(t, cfg).items()}
+
+    def step(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+    return TrainState(params=trainable(model),
+                      opt=AdamWState(step(_field(opt, "step", 0)),
+                                     moments(_field(opt, "m", 1)),
+                                     moments(_field(opt, "v", 2))),
+                      step=step(_field(tree, "step", 2)))

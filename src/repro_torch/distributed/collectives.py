@@ -32,6 +32,7 @@ its collectives all the same.
 """
 from __future__ import annotations
 
+import atexit
 import socket
 from typing import List, Sequence, Tuple
 
@@ -229,11 +230,29 @@ def free_port() -> int:
         return int(s.getsockname()[1])
 
 
+def leave_group():
+    """Destroy this process's default process group, if one is up.
+
+    A rank whose interpreter exits with its group alive leaves the
+    group's threads to the C++ static destructors at process teardown,
+    and there a gloo thread still joinable aborts the process
+    ("terminate called without an active exception", exit -6), whatever
+    its peers are doing. `init_rank` registers this to run at interpreter
+    exit, so every rank tears its group down first. (The `kill_part`
+    fault leaves by `os._exit`, which runs no destructor at all.)"""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+_LEAVE_AT_EXIT = []
+
+
 def init_rank(rank: int, world_size: int, port: int, backend: str = "gloo",
               device=None) -> torch.device:
     """Join the process group of `world_size` ranks at tcp://localhost:
     `port` with an explicit backend; returns this rank's device (under
-    nccl, GPU `rank`, made current; else `device`, default the CPU)."""
+    nccl, GPU `rank`, made current; else `device`, default the CPU). The
+    group is destroyed at interpreter exit (`leave_group`)."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be gloo or nccl, got {backend!r}")
     if backend == "nccl":
@@ -241,4 +260,7 @@ def init_rank(rank: int, world_size: int, port: int, backend: str = "gloo",
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world_size, rank=rank)
+    if not _LEAVE_AT_EXIT:
+        atexit.register(leave_group)
+        _LEAVE_AT_EXIT.append(True)
     return torch.device(device if device is not None else "cpu")

@@ -192,11 +192,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_k: int | None = None) -> torch.Tensor:
     """Launch the variant that serves q's dtype and head dim on q's
     device, on the current stream, without synchronising. Returns a
-    contiguous [B, Hq, T, Dh] tensor."""
+    contiguous [B, Hq, T, Dh] tensor.
+
+    The kernel has no backward pass (nor has the reference's Pallas
+    kernel), and its output, written through ctypes, has no `grad_fn`: so
+    with grad mode on and an input that requires grad it raises rather
+    than silently cutting q, k and v off from their gradients. Training
+    takes attn_impl "xla" or "xla_chunked"."""
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
         raise ValueError(f"flash kernel needs q, k and v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash kernel: q, k or v requires grad, but the kernel has no "
+            "backward pass and its output would carry no gradient; train "
+            "with attn_impl='xla' or 'xla_chunked', or call it under "
+            "torch.no_grad()")
     check_inputs(q, k, v, block_q, block_k)
     name, (_, bk) = _tile(q, block_q, block_k)
     B, Hq, T, Dh = q.shape

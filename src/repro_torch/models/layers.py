@@ -7,8 +7,10 @@ parameter tree (`wq [d, Hq, hd]`, `wk`/`wv [d, Hkv, hd]`, `wo [Hq, hd, d]`,
 the reference's weights is a copy; the computation is plain functions on
 tensors with the reference's einsum layouts. Every einsum returns the
 activation dtype, as the reference's do; softmax, norms and RoPE run in
-f32. Nothing here builds an autograd graph (parameters do not require
-grad): training comes with a later slice.
+f32. Parameters are made with `requires_grad=False`, so the serving
+path builds no autograd graph; `train.step.init_train_state` turns them
+trainable, and then every function here is differentiable (none writes
+in place into a tensor that autograd saved).
 """
 from __future__ import annotations
 

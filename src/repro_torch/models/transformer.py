@@ -8,17 +8,30 @@ reference's `_block_fwd` / `_block_decode`: "attn" and "local" (attention
 "slstm" and "rglru" (`models/recurrent.py`; "rglru" with a norm and MLP
 after it when `d_ff` is set). Layers run in a Python loop: the reference's
 `scan_layers` is a compile-time strategy with no counterpart here (both of
-its parameter layouts convert, `convert.model_params_from_numpy`), and its
-`remat` is a training knob that has no effect without autograd. The
+its parameter layouts convert, `convert.model_params_from_numpy`). The
 decode state is a list with one entry per layer: a KV cache for the
 attention kinds, a dict of recurrent state tensors for the others.
+
+Training: `lm_loss` is differentiable once the parameters require grad
+(`train.step.init_train_state`); the serving entry points (`decode_step`
+here, `prefill_step` and `greedy_generate` in decoding.py) run under
+`torch.no_grad()`. `cfg.remat` maps the reference's `jax.checkpoint`
+policies (`_remat` there) onto `torch.utils.checkpoint` around each block
+while grad mode is on and the parameters require grad (a frozen model runs
+the plain loop): "full" (`nothing_saveable`) recomputes the whole block in
+the backward pass, "dots" (`dots_with_no_batch_dims_saveable`) keeps the
+matrix products' outputs (aten mm/bmm/addmm/baddbmm: einsum lowers batched
+products to bmm, so batched products are kept too) and recomputes the
+rest, "none" keeps everything.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.graph_device import resolve_device
 from . import layers as L
@@ -27,6 +40,36 @@ from . import recurrent as R
 
 ATTN_KINDS = ("attn", "local", "moe")
 KINDS = ATTN_KINDS + ("mlstm", "slstm", "rglru")
+REMAT = ("none", "full", "dots")
+
+_aten = torch.ops.aten
+#: the matrix products "dots" keeps (einsum lowers to these)
+_DOT_OPS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+            _aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_remat(blk, cfg, x, positions):
+    """(x_out, aux) of one block under `cfg.remat` (REMAT)."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+
+    def run(x):
+        y, aux, _ = blk(cfg, x, positions)
+        return y, aux
+
+    if cfg.remat == "none":
+        return run(x)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(run, x, use_reentrant=False, **kw)
 
 
 def _window(cfg, kind: str) -> int:
@@ -147,7 +190,9 @@ class Transformer(nn.Module):
         cfg.embed_inputs. Returns (logits [B,T,V] f32, aux, states): aux
         is the f32 sum of the MoE layers' load-balancing losses (0 without
         one), states the per-layer prefill states (Block.forward) when
-        `collect_states`, else None."""
+        `collect_states`, else None. With grad mode on, trainable parameters
+        and no states collected, each block runs under `cfg.remat` (module
+        docstring); a frozen model runs the plain loop."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         if cfg.embed_inputs:
@@ -160,12 +205,19 @@ class Transformer(nn.Module):
                                      device=x.device)[None].expand(B, T)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         states = []
+        # checkpoint only what is trained: `train.step.trainable` flips
+        # every parameter, so the first one speaks for all of them
+        remat = (torch.is_grad_enabled() and not collect_states
+                 and next(self.parameters()).requires_grad)
         for blk in self.layers:
-            x, a, st = blk(cfg, x, positions)
+            if remat:
+                x, a = _block_remat(blk, cfg, x, positions)
+            else:
+                x, a, st = blk(cfg, x, positions)
+                if collect_states:
+                    states.append(st)
             if a is not None:
                 aux = aux + a
-            if collect_states:
-                states.append(st)
         x = L.apply_norm(self.final_norm, x, cfg.norm)
         logits = L.logits_fwd(self, cfg, x)
         return logits, aux, (states if collect_states else None)
@@ -177,11 +229,11 @@ def forward(model: Transformer, inputs, positions=None,
     return model(inputs, positions, collect_states)
 
 
-@torch.no_grad()
 def lm_loss(model: Transformer, inputs, labels=None, z_loss: float = 1e-4,
             aux_weight: float = 1e-2):
-    """Next-token cross-entropy (value only; labels default to shifted
-    inputs). Returns (total, {"nll", "z_loss", "moe_aux"})."""
+    """Next-token cross-entropy; labels default to shifted inputs.
+    Returns (total, {"nll", "z_loss", "moe_aux"}), differentiable with
+    respect to the parameters that require grad."""
     if labels is None:
         logits, aux, _ = model(inputs[:, :-1])
         targets = inputs[:, 1:]

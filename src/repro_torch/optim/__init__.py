@@ -1,0 +1,4 @@
+"""The optimizer of the training path (the reference's AdamW, on tensors)."""
+from .adamw import (AdamWState, adamw_init, adamw_update,  # noqa: F401
+                    clip_by_global_norm, cosine_schedule,
+                    linear_warmup_cosine)

@@ -2181,3 +2181,69 @@ def test_distributed_engine_on_card(cuda, banded, schedule):
     for k in ("gather_emit_combine_window", "gather_emit_combine_window_skip",
               "gather_emit_combine_packed_window_skip"):
         assert launches[k] > 0, k
+
+
+# ---------------------------------------------------------------------------
+# The training path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_grad_mode(cuda):
+    """The flash kernel has no backward pass: with grad mode on and an
+    input that requires grad its wrapper raises (no output without a
+    grad_fn), under no_grad it runs; and a train step with
+    attn_impl="flash_kernel" raises before any gradient exists."""
+    from repro_torch.train import step as TS
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        fa.flash_attention(q, k, v)
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is None and torch.isfinite(out.float()).all()
+    cfg = smoke(get_config("qwen3-14b")).replace(attn_impl="flash_kernel")
+    state = TS.init_train_state(cfg, 0, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    counters.reset()
+    with pytest.raises(RuntimeError, match="backward"):
+        TS.loss_and_grads(state.params, tokens)
+    assert counters.snapshot()["flash_attention"] == 0
+    assert all(p.grad is None for p in state.params.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m",
+                                  "recurrentgemma-9b", "qwen3-14b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Two f32 train steps of a smoke config on the card and on the CPU
+    from the same seed-0 state (TF32 off): loss and grad_norm within 1e-4
+    relative, every parameter within 1e-5 (AdamW's normalised step turns
+    rounding in a near-zero gradient into up to ±lr = 1e-4 here; none
+    reached 1e-5 where this was first run)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke(get_config(arch))
+    states = {"cpu": TS.init_train_state(cfg, 0, "cpu")}
+    states["card"] = TS.load_state_tree(TS.init_train_state(cfg, 1, cuda),
+                                        TS.state_tree(states["cpu"]))
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(1e-4, 1, 5))
+    data = SyntheticLMDataset(cfg.vocab_size, 32, 2, seed=0)
+    for s in range(2):
+        metrics = {}
+        for d in ("cpu", "card"):
+            states[d], metrics[d] = step(states[d], data.batch(s))
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(metrics["card"][key]),
+                                       float(metrics["cpu"][key]),
+                                       rtol=1e-4)
+    a = TS.named_params(states["cpu"].params)
+    b = TS.named_params(states["card"].params)
+    for name in a:
+        np.testing.assert_allclose(b[name].detach().cpu().numpy(),
+                                   a[name].detach().numpy(), rtol=0,
+                                   atol=1e-5, err_msg=name)

@@ -82,3 +82,32 @@ def test_lint_modules_are_checked(module):
     path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
     assert path in _port_files(), path
     assert not FORBIDDEN.findall(path.read_text()), path
+
+
+#: the training path and the launchers: imported in a fresh interpreter
+#: below, and their files among those checked
+TRAIN_MODULES = ("repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.train.step", "repro_torch.launch.roofline",
+                 "repro_torch.launch.mesh", "repro_torch.launch.graph_job",
+                 "repro_torch.launch.report", "repro_torch.launch.train")
+
+
+def test_training_modules_import_alone():
+    """Importing the training path and the launchers loads neither jax,
+    the JAX package nor triton."""
+    code = ("import sys, " + ", ".join(TRAIN_MODULES) + "; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ["PATH"],
+           "HOME": os.environ.get("HOME", str(ROOT))}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_training_modules_are_checked(module):
+    path = PORT.joinpath(*module.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files(), path
+    assert not FORBIDDEN.findall(path.read_text()), path
