@@ -226,7 +226,7 @@ Phases, one line of numbers each:
      repro_torch.lint` over the operators and the two torch examples
      with --error exits 0 in a subprocess started at the phase's start
      (it runs beside (a)-(c));
- 22. train (after 20): (a) granite-moe-1b-a400m at full width and depth
+ 22. train (after the graph phases): (a) granite-moe-1b-a400m at full width and depth
      (24 layers, d 1024, 32 experts top-8, vocab 49155), bf16 parameters,
      f32 AdamW moments, remat="full": 20 `train.step.make_train_step`
      steps on SyntheticLMDataset batches of 4 x 1024 tokens, finite
@@ -242,10 +242,37 @@ Phases, one line of numbers each:
      this process, its loss-drop assertion; (e) a train step with
      attn_impl="flash_kernel" raises, with no flash launch and no
      gradient. The card's name and power limit stand on every line;
+ 23. sharded (its two ranks, this script with --train-rank, start
+     before phase 22 and import and join their gloo group while 22a
+     runs; they touch the card once `go_checks` appears after 22a, run
+     (b)-(e) beside 22b-e, and run (a) alone once 22 is done and
+     `go_timed` appears): two gloo ranks share cuda:0, collectives staged
+     through host memory. (a) 22a's
+     model and batches at data 2, 8 steps of the sharded step (each rank
+     keeps half of every parameter and moment, gathers each block's
+     weights at use, reduce-scatters the gradients): finite losses, the
+     loss falls, step 1's loss and moe_aux within 1e-3 of 22a's step 1;
+     prints step ms (median of steps 3-8), tokens/s, each rank's peak
+     memory and a step's host-staged bytes per collective; (b) the
+     2-layer f32 cut at 4 x 1024, one step under data 2, data 1 x model
+     2 and the "dp" profile against one rank on the card (22b's rules);
+     (c) the cut saved at step 2 on the ranks and resumed there (bitwise,
+     22c's rule) and on one rank in this process (1e-5); (d)
+     build_prefill_step over the ranks with the flash kernel, each rank's
+     rows held to one rank's prefill (phase 14's gate), 24 wgmma launches
+     a rank; (e) the pipeline over the two ranks against its sequential
+     run (1e-5) and 50 compressed psums (1e-3);
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time (rows flash_attention[dh256] and
      flash_attention[dh256,f32] from phase 20).
+Order of execution: 1, 2, 13, 14, 20, then the graph phases (3-12, 21,
+15, 17, 18, 19), 22 and 23. Children do host work beside the card's:
+RMAT-21's (started with the script) and Banded-21's generation, phase
+21's lint CLI (started with the script), and the rank groups of 15b and
+17e (started before the graph phases; each imports, joins its gloo group
+and waits for its directory's `go`) and of 23 (before 22).
+
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line; without a CUDA device the script exits 2 at once.
 
@@ -269,6 +296,7 @@ import gc
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -674,22 +702,27 @@ def load_pickle(path):
         return pickle.load(f)
 
 
-def start_prep(kind, args, out_dir):
-    """Start prep_main for `kind` in a child process (its CPU work
-    overlaps the card's); returns (process, pickle path). An exit handler
-    stops it if the script ends first."""
+def stop_at_exit(proc):
+    """Kill `proc` at interpreter exit if it still runs; returns it."""
     import atexit
-    path = pathlib.Path(out_dir) / f"prep_{kind}.pkl"
-    proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--prep", kind,
-         str(path), "--scale", str(args.scale), "--log2v", str(args.log2v)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def stop():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     atexit.register(stop)
+    return proc
+
+
+def start_prep(kind, args, out_dir):
+    """Start prep_main for `kind` in a child process (its CPU work
+    overlaps the card's); returns (process, pickle path). An exit handler
+    stops it if the script ends first."""
+    path = pathlib.Path(out_dir) / f"prep_{kind}.pkl"
+    proc = stop_at_exit(subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--prep", kind,
+         str(path), "--scale", str(args.scale), "--log2v", str(args.log2v)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     return proc, path
 
 
@@ -1760,20 +1793,26 @@ def card_allocations():
             st.get("allocated_bytes.all.allocated", 0))
 
 
-def phase_lint(ctx):
-    """Phase 21 (module docstring), on phase 4's RMAT graph."""
+def start_lint_cli():
+    """Phase 21's (d): `python -m repro_torch.lint` on the port's smoke
+    programs, a child on the host (mostly interpreter start-up); returns
+    (the process, its start time); an exit handler stops it."""
     from repro_torch.envutil import subprocess_env
+    return stop_at_exit(subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.lint", *LINT_FILES, "--error"],
+        cwd=ROOT, env=subprocess_env(threads=2, base=os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)), time.perf_counter()
 
+
+def phase_lint(ctx):
+    """Phase 21 (module docstring), on phase 4's RMAT graph. (d) is the
+    CLI child `ctx["cli"]` (main starts it with the script), else one
+    started here beside (a)-(c)."""
     t_phase = time.perf_counter()
     g, user_prog = ctx["g"], ctx["user_prog"]
     card = nvidia_smi()
-    # (d) starts first and runs beside (a)-(c): it is mostly interpreter
-    # start-up, on the host
-    t_cli = time.perf_counter()
-    cli = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.lint", *LINT_FILES, "--error"],
-        cwd=ROOT, env=subprocess_env(threads=2, base=os.environ),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cli, t_cli = ctx.get("cli") or start_lint_cli()
     try:
         rules = lint_checks(g, user_prog, ctx["results"], card)
         out, err = cli.communicate(timeout=600)
@@ -1863,7 +1902,7 @@ def lint_checks(g, user_prog, results, card):
     return rules
 
 
-def graph_phases(args, dev, rmat_prep):
+def graph_phases(args, dev, rmat_prep, lint_cli=None, rank_groups=None):
     """Phases 2-12 on the RMAT-21 and Banded-21 graphs; returns their
     `kernels` rows. Every graph tensor is local to this call, so the
     card's memory is free again when it returns. The RMAT graph comes
@@ -2014,7 +2053,8 @@ def graph_phases(args, dev, rmat_prep):
         log("operator", name=name, wall_s=round(wall[name], 4),
             kernel_off_wall_s=round(off_s, 4), max_abs_err_vs_off=e,
             shape=tuple(np.asarray(results[name]).shape))
-    phase_lint(dict(g=g, user_prog=user_prog, results=results))
+    phase_lint(dict(g=g, user_prog=user_prog, results=results,
+                    cli=lint_cli))
 
     # -- 5. kernel times at the main path's shapes --------------------------------
     rows = []
@@ -2075,6 +2115,8 @@ def graph_phases(args, dev, rmat_prep):
     ctx = dict(g=g, gdev=gdev, vstate=vstate, user_prog=user_prog,
                results=results, rng=rng, wall=wall,
                build_s=build_s, banded_prep=banded_prep)
+    if rank_groups is not None:
+        ctx["rank_groups"] = rank_groups
     rows += phase_frontier(ctx)
     rows += phase_window(ctx)
     rows += phase_lanes(ctx)
@@ -2526,6 +2568,7 @@ def dist_rank_main(args):
     out_dir = pathlib.Path(args.dist_dir)
     dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
                     device=torch.device("cuda", 0))
+    wait_go(out_dir)
     t = time.time()
     data = load_pickle(out_dir / "graph.pkl")
     g = data["graph"]
@@ -2587,6 +2630,47 @@ def dist_rank_main(args):
         (out_dir / "meta.json").write_text(json.dumps(meta))
     dist.destroy_process_group()
     return 0
+
+
+def wait_go(out_dir, timeout=1800):
+    """A rank started early (`spawn_rank_groups`) waits here, joined to
+    its group, until its inputs are in `out_dir` and `go` is written;
+    exits 3 if the script that started it is gone."""
+    parent, t = os.getppid(), time.time()
+    while not (out_dir / "go").exists():
+        if os.getppid() != parent or time.time() - t > timeout:
+            raise SystemExit(3)
+        time.sleep(0.1)
+
+
+#: phase 15b's and 17e's rank groups: name -> (world, --dist-mode)
+RANK_GROUPS = {"15b": (4, "runs"), "17e": (4, "resilience"),
+               "17e_resume4": (4, "resume"), "17e_resume2": (2, "resume")}
+
+
+def spawn_rank_groups():
+    """Start phases 15b's and 17e's rank groups before the graph phases:
+    they import and join their gloo groups meanwhile, then wait for their
+    directory's `go`; returns {name: (processes, directory)}. An exit
+    handler stops them if the script ends first."""
+    groups = {}
+    for name, (world, mode) in RANK_GROUPS.items():
+        d = ROOT / "build" / f"ranks_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        groups[name] = ([stop_at_exit(p) for p in start_ranks(world, d, mode)],
+                        d)
+    return groups
+
+
+def rank_group(ctx, name, tmp):
+    """The started group `name` and its directory from `ctx`, or (a
+    tools/ driver's call) a group started now in `tmp`."""
+    pre = ctx.get("rank_groups", {}).get(name)
+    if pre is not None:
+        return pre
+    world, mode = RANK_GROUPS[name]
+    return start_ranks(world, tmp, mode), pathlib.Path(tmp)
 
 
 def start_ranks(world, tmp, mode="runs"):
@@ -3001,11 +3085,12 @@ def phase_distributed(ctx):
     # itself, pickled, so no rank sorts its 30M edges again
     ctx["banded_ranks"] = {"graph": gr, "roots": np.asarray(roots)}
     with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
+        procs, tmp = rank_group(ctx, "15b", tmp)
         save_pickle(tmp / "graph.pkl", ctx["banded_ranks"])
         t = time.time()
-        wait_ranks(start_ranks(4, tmp), timeout=600)
-        spawn_s = time.time() - t
+        (tmp / "go").write_text("")
+        wait_ranks(procs, timeout=600)
+        ranks_s = time.time() - t
         meta = json.loads((tmp / "meta.json").read_text())
         got = dict(np.load(tmp / "results.npz"))
     launches = meta["launches"]
@@ -3056,7 +3141,8 @@ def phase_distributed(ctx):
         if not rel >= bound:
             fail(f"distributed P=4 {name}: a codec decoding zeros reads "
                  f"{rel} of max|rank|, inside the bound {bound}")
-    log("distributed_ranks", P=4, spawn_s=round(spawn_s, 2),
+    log("distributed_ranks", P=4, ranks_s=round(ranks_s, 2),
+        prespawned="rank_groups" in ctx,
         graph_load_s=round(meta["load_s"], 2),
         runs_s=round(meta["runs_s"], 2))
     rows[0]["launches"] = launches["gather_emit_combine_window_skip"]
@@ -3384,6 +3470,7 @@ def resilience_rank_main(args):
     out_dir = pathlib.Path(args.dist_dir)
     dev = init_rank(args.dist_rank, args.dist_world, args.dist_port, "gloo",
                     device=torch.device("cuda", 0))
+    wait_go(out_dir)
     data = load_pickle(out_dir / "graph.pkl")
     g = data["graph"]
     root = int(data["roots"][0])
@@ -3455,11 +3542,11 @@ def phase_resilience_ranks(ctx):
     from repro_torch.distributed.faults import KILL_EXIT_CODE
 
     with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
+        procs, tmp = rank_group(ctx, "17e", tmp)
         save_pickle(tmp / "graph.pkl", ctx["banded_ranks"])
         t = time.time()
-        wait_ranks(start_ranks(4, tmp, "resilience"), 900,
-                   expect=KILL_EXIT_CODE)
+        (tmp / "go").write_text("")
+        wait_ranks(procs, 900, expect=KILL_EXIT_CODE)
         matrix_s = time.time() - t
         got = dict(np.load(tmp / "resilience.npz"))
         meta = json.loads((tmp / "resilience.json").read_text())
@@ -3493,11 +3580,13 @@ def phase_resilience_ranks(ctx):
         dirs, procs = {}, []
         t = time.time()
         for world in (4, 2):
-            dirs[world] = tmp / f"resume{world}"
-            dirs[world].mkdir()
+            p, dirs[world] = rank_group(ctx, f"17e_resume{world}",
+                                        tmp / f"resume{world}")
+            dirs[world].mkdir(exist_ok=True)
             shutil.copytree(tmp / "ckpt", dirs[world] / "ckpt")
             os.link(tmp / "graph.pkl", dirs[world] / "graph.pkl")
-            procs.append(start_ranks(world, dirs[world], "resume"))
+            (dirs[world] / "go").write_text("")
+            procs.append(p)
         for p in procs:
             wait_ranks(p, 900)
         for world, dr in dirs.items():
@@ -3512,8 +3601,9 @@ def phase_resilience_ranks(ctx):
                 killed_ranks=4, exit_code=KILL_EXIT_CODE,
                 resumed_from=m["resumed_from"], supersteps=m["supersteps"],
                 wall_s=round(m["wall_s"], 4), bitwise=True)
-        log("resilience_ranks", matrix_spawn_s=round(matrix_s, 2),
-            resume_spawns_s=round(time.time() - t, 2))
+        log("resilience_ranks", matrix_ranks_s=round(matrix_s, 2),
+            resume_ranks_s=round(time.time() - t, 2),
+            prespawned="rank_groups" in ctx)
 
 
 def phase_callback(ctx):
@@ -4407,13 +4497,14 @@ def phase_train_full(dev, card):
     step = TS.make_train_step(cfg, None, linear_warmup_cosine(
         3e-4, 5, TRAIN_STEPS))
     data = SyntheticLMDataset(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0)
-    losses, gnorms, ms = [], [], []
+    losses, gnorms, ms, aux = [], [], [], []
     for i in range(TRAIN_STEPS):
         batch = data.batch(i)
         torch.cuda.synchronize()
         t = time.time()
         state, m = step(state, batch)
         loss, gn = float(m["loss"]), float(m["grad_norm"])
+        aux.append(float(m["moe_aux"]))
         ms.append((time.time() - t) * 1e3)
         losses.append(loss)
         gnorms.append(gn)
@@ -4431,6 +4522,7 @@ def phase_train_full(dev, card):
                remat=cfg.remat, batch=TRAIN_B, seq=TRAIN_T,
                steps=TRAIN_STEPS, init_s=round(init_s, 3),
                first_loss=losses[0], last_loss=losses[-1],
+               first_moe_aux=aux[0],
                grad_norms=[round(g, 4) for g in gnorms[:3]],
                first_step_ms=round(ms[0], 2),
                step_ms_median_5_20=round(med, 3),
@@ -4594,7 +4686,7 @@ def phase_train_resume(dev, card, tmp):
                 went_on.append(float(m["loss"]))
             fresh = TS.init_train_state(cfg, 7, dev)
             fresh = TS.load_state_tree(fresh, mgr.restore(
-                TS.state_tree(fresh)))
+                TS.state_template(fresh)))
             if int(fresh.step) != TRAIN_SAVE_AT:
                 fail(f"22c restored step {int(fresh.step)}")
             for i in range(TRAIN_SAVE_AT, TRAIN_SAVE_AT + 2):
@@ -4671,12 +4763,13 @@ def phase_train_no_flash(dev, card):
     return out
 
 
-def phase_train(dev):
-    """Phase 22 (module docstring)."""
+def phase_train(dev, after_22a=None):
+    """Phase 22 (module docstring); returns 22a's step-1 loss and moe_aux
+    and what `after_22a()` (called between 22a and 22b) returned."""
     import tempfile
     t0 = time.time()
     card = nvidia_smi()
-    walls = {}
+    walls, first = {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         for name, fn in (("22a", lambda: phase_train_full(dev, card)),
                          ("22b", lambda: phase_train_vs_cpu(dev, card)),
@@ -4685,10 +4778,545 @@ def phase_train(dev):
                          ("22d", lambda: phase_train_example(card)),
                          ("22e", lambda: phase_train_no_flash(dev, card))):
             t = time.time()
-            log(f"train_{name}", **fn())
+            out = fn()
+            log(f"train_{name}", **out)
             walls[name] = round(time.time() - t, 2)
+            if name == "22a":
+                first = dict(loss=out["first_loss"],
+                             moe_aux=out["first_moe_aux"])
+                hooked = after_22a() if after_22a is not None else None
     log("train_phase", seconds=round(time.time() - t0, 2),
         walls=json.dumps(walls), card=repr(card))
+    return first, hooked
+
+
+# ---------------------------------------------------------------------------
+# phase 23: training on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# 23a: 22a's model and batches on two gloo ranks (data 2), TRAIN2_STEPS
+# steps; step 1 is 22a's step 1 (the same forward on the same rows, each
+# rank on half of them) within TRAIN2_REL
+TRAIN2_STEPS, TRAIN2_REL = 8, 1e-3
+# 23b: the 2-layer f32 cut at 4 x 1024 (each rank's 2,048 tokens are one
+# global MoE group, models/moe.py), one step on the ranks against one
+# rank on the card under each layout: model_parallel, profile
+TRAIN2_CUT_B, TRAIN2_CUT_T = 4, 1024
+TRAIN2_LAYOUTS = {"data2": (1, "default"), "model2": (2, "default"),
+                  "dp": (2, "dp")}
+# 23c: the cut saved at step 2 on the ranks, two more steps
+TRAIN2_SAVE_AT = 2
+# 23d: build_prefill_step on the ranks, granite bf16 through the flash
+# kernel, B x T rows against one rank's prefill (LM_REL, phase 14's gate)
+PREFILL2_B, PREFILL2_T = 2, 4096
+# 23e: the pipeline case over the two ranks (2 stages of 4 layers, D 16,
+# B 8, 4 microbatches) against its sequential run, and 50 compressed
+# psums; the CPU tests' limits
+PIPE2_TOL, COMPRESSED_TOL = 1e-5, 1e-3
+
+
+def start_train_ranks(tmp):
+    """Start phase 23's two rank processes (this script, --train-rank):
+    they import, join their gloo group and wait for tmp/go.json."""
+    from repro_torch.distributed.collectives import free_port
+    from repro_torch.envutil import subprocess_env
+    port = free_port()
+    env = subprocess_env(threads=2, base=os.environ)
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-rank", str(r),
+         "--dist-port", str(port), "--dist-dir", str(tmp)], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+
+
+def comm_tally(layout):
+    """{kind: {count, staged_bytes}} over every Comm of the layout."""
+    out = {}
+    for comm in layout.comms():
+        for kind, rec in comm.by_kind.items():
+            d = out.setdefault(kind, {"count": 0, "staged_bytes": 0})
+            d["count"] += rec["count"]
+            d["staged_bytes"] += rec["staged_bytes"]
+    return out
+
+
+def reset_comms(layout):
+    for comm in layout.comms():
+        comm.reset_counts()
+
+
+def rank_23a(dev, rank):
+    """23a on this rank: returns its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = get_config(TRAIN_ARCH)
+    lay = make_host_mesh(1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    state = TS.init_train_state(cfg, 0, layout=lay, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.time() - t
+    step = TS.make_train_step(cfg, lay, linear_warmup_cosine(
+        3e-4, 5, TRAIN_STEPS))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0)
+    losses, ms, aux = [], [], None
+    for i in range(TRAIN2_STEPS):
+        batch = data.batch(i)
+        reset_comms(lay)
+        torch.cuda.synchronize()
+        t = time.time()
+        state, m = step(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        ms.append((time.time() - t) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            aux = float(m["moe_aux"])
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise RuntimeError(f"23a step {i}: loss {loss}, grad norm {gn}")
+    tally = comm_tally(lay)
+    out = dict(losses=losses, first_moe_aux=aux, ms=ms, init_s=init_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               shard_params=sum(p.numel() for p in state.params.parameters()),
+               staged_per_step=tally)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_23b(dev, rank, tmp):
+    """23b: one step of the cut on the ranks under each layout; each rank
+    holds its own shards' change to the same shards of one rank's
+    (main's reference in tmp/ref23b.pt), on the card."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed.sharding import shard_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    ref = torch.load(tmp / "ref23b.pt")
+    batch = SyntheticLMDataset(train_cut_cfg().vocab_size, TRAIN2_CUT_T,
+                               TRAIN2_CUT_B, seed=0).batch(0)
+    out = {}
+    for name, (mp, prof) in TRAIN2_LAYOUTS.items():
+        cfg = train_cut_cfg().replace(sharding_profile=prof)
+        lay = make_host_mesh(mp, dev)
+        state = TS.init_train_state(cfg, 0, layout=lay)
+        specs = state.params.shard_plan.specs
+        before = {k: p.detach().clone()
+                  for k, p in TS.named_params(state.params).items()}
+        step = TS.make_train_step(cfg, lay, linear_warmup_cosine(
+            TRAIN_CUT_LR, 0, 10))
+        state, m = step(state, batch)
+        held_err, near0_err, n_near0 = 0.0, 0.0, 0
+        for k, p in TS.named_params(state.params).items():
+            d_ref = shard_tensor(ref["delta"][k], specs[k], lay).to(dev)
+            near0 = shard_tensor(ref["near0"][k], specs[k], lay).to(dev)
+            gap = (p.detach() - before[k] - d_ref).abs()
+            if state.params.shard_plan.counted(k):  # each entry once
+                n_near0 += int(near0.sum())
+            if (~near0).any():
+                held_err = max(held_err, float(gap[~near0].max()))
+            if near0.any():
+                near0_err = max(near0_err, float(gap[near0].max()))
+        out[name] = dict(
+            loss=float(m["loss"]),
+            loss_rel=abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"]),
+            grad_norm_rel=abs(float(m["grad_norm"]) - ref["grad_norm"])
+            / abs(ref["grad_norm"]),
+            step_max_abs=held_err, near0_entries=n_near0,
+            near0_step_max_abs=near0_err)
+        del state, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_23c(dev, rank, tmp):
+    """23c: the cut saved at step TRAIN2_SAVE_AT on the ranks, restored
+    into a fresh state there; two more steps each."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg()
+    lay = make_host_mesh(1, dev)
+    step = TS.make_train_step(cfg, lay, linear_warmup_cosine(
+        TRAIN_CUT_LR, 2, TRAIN2_SAVE_AT + 2))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN2_CUT_T, TRAIN2_CUT_B,
+                              seed=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            state = TS.init_train_state(cfg, 0, layout=lay)
+            for i in range(TRAIN2_SAVE_AT):
+                state, _ = step(state, data.batch(i))
+            tree = TS.state_tree(state)
+            t = time.time()
+            if rank == 0:
+                CheckpointManager(str(tmp / "ckpt23"), keep=1).save(
+                    TRAIN2_SAVE_AT, tree, block=True)
+            dist.barrier()
+            save_s = time.time() - t
+            del tree
+            went_on, resumed = [], []
+            for i in range(TRAIN2_SAVE_AT, TRAIN2_SAVE_AT + 2):
+                state, m = step(state, data.batch(i))
+                went_on.append(float(m["loss"]))
+            fresh = TS.init_train_state(cfg, 7, layout=lay)
+            mgr = CheckpointManager(str(tmp / "ckpt23"), keep=1)
+            fresh = TS.load_state_tree(fresh, mgr.restore(
+                TS.state_template(fresh)))
+            restored = int(fresh.step)
+            for i in range(TRAIN2_SAVE_AT, TRAIN2_SAVE_AT + 2):
+                fresh, m = step(fresh, data.batch(i))
+                resumed.append(float(m["loss"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    a, b = TS.named_params(state.params), TS.named_params(fresh.params)
+    shards_equal = all(torch.equal(a[k], b[k]) for k in a)
+    del state, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(went_on=went_on, resumed=resumed, restored_step=restored,
+                shards_equal=shards_equal, save_s=save_s,
+                nondeterministic_ops=nondet)
+
+
+def rank_23d(dev, rank, tmp):
+    """23d: build_prefill_step over the ranks, granite bf16 through the
+    flash kernel; rank 0 and 1 hold their rows to one rank's prefill."""
+    from repro_torch import models as lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as TS
+    cfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
+    lay = make_host_mesh(1, dev)
+    model = lm.Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    prefill, place = TS.build_prefill_step(cfg, lay, max_len=PREFILL2_T)
+    place.params(model)
+    prompt = family_prompt(cfg, PREFILL2_B, PREFILL2_T, dev)
+    torch.cuda.synchronize()
+    counters.reset()
+    t = time.time()
+    last, state = prefill(model, prompt)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = counters.snapshot()
+    ref = torch.load(tmp / "ref23d.pt")
+    rows = place._rows(PREFILL2_B)
+    got, want = last.float().cpu(), ref[rows]
+    got_v, want_v = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+    err = max_abs_err(got_v, want_v)
+    scale = float(want_v.abs().max())
+    out = dict(rows=[rows.start, rows.stop], wall_s=wall,
+               layers=cfg.num_layers,
+               flash_wgmma=launches["flash_attention_wgmma"],
+               flash_mma_sync=launches["flash_attention"],
+               max_abs=err, max_abs_over_max=err / scale,
+               finite=bool(torch.isfinite(got).all()),
+               argmax_equal=bool(torch.equal(got_v.argmax(-1),
+                                             want_v.argmax(-1))))
+    del model, last, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_23e(dev, rank):
+    """23e: the pipeline case and 50 compressed psums over the ranks."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.pipeline import make_pipelined_fn
+    from repro_torch.launch.mesh import RankLayout
+    S, L_PER, D, B, M = 2, 4, 16, 8, 4
+    rng = np.random.default_rng(0)
+    Ws = torch.from_numpy(rng.normal(size=(S, L_PER, D, D)).astype(
+        np.float32) * np.float32(0.3)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(dev)
+
+    def stage_fn(w, x):
+        for i in range(L_PER):
+            x = torch.tanh(x @ w[i])
+        return x
+
+    lay = RankLayout((S,), ("pipe",), rank, dev)
+    y = make_pipelined_fn(stage_fn, lay, "pipe", num_microbatches=M)(Ws, x)
+    y_seq = x
+    for s in range(S):
+        y_seq = stage_fn(Ws[s], y_seq)
+    pipe_err = max_abs_err(y, y_seq)
+    comm = lay.comm("pipe")
+    g = torch.linspace(-1, 1, 64, device=dev)
+    d = torch.linspace(0.3, -0.2, 64, device=dev)
+    mine = {"w": g + (rank - 0.5) * d}
+    err = C.init_error_state(mine)
+    acc = torch.zeros(64, device=dev)
+    for _ in range(50):
+        mean, err = C.compressed_psum(mine, err, comm)
+        acc = acc + mean["w"]
+    comp_err = max_abs_err(acc / 50, g)
+    return dict(pipeline_max_abs=pipe_err, pipeline_ticks=M + S - 1,
+                permutes=comm.by_kind["collective-permute"]["count"],
+                compressed_max_abs=comp_err)
+
+
+def train_rank_main(args):
+    """A phase-23 rank: join the gloo group; at go_checks run 23b-e on
+    cuda:0 (beside phase 22b-e in the main process), at go_timed 23a
+    (the card otherwise idle), and write rank<r>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import init_rank
+    rank, tmp = args.train_rank, pathlib.Path(args.dist_dir)
+    parent = os.getppid()
+    init_rank(rank, 2, args.dist_port, "gloo", device="cuda:0")
+
+    def wait_for(name):
+        t = time.time()
+        while not (tmp / name).exists():
+            if os.getppid() != parent or time.time() - t > 1800:
+                raise SystemExit(3)
+            time.sleep(0.1)
+        return time.time() - t
+
+    out, walls = {"waited_s": wait_for("go_checks")}, {}
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, fn in (("23b", lambda: rank_23b(dev, rank, tmp)),
+                     ("23c", lambda: rank_23c(dev, rank, tmp)),
+                     ("23d", lambda: rank_23d(dev, rank, tmp)),
+                     ("23e", lambda: rank_23e(dev, rank)),
+                     ("23a", lambda: rank_23a(dev, rank))):
+        if name == "23a":
+            # the timed steps run alone on the card: after phase 22
+            (tmp / f"checks{rank}.done").write_text("")
+            out["waited_timed_s"] = wait_for("go_timed")
+        t = time.time()
+        out[name] = fn()
+        walls[name] = time.time() - t
+    out["walls"] = walls
+    (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_refs(dev, tmp):
+    """One rank's references for 23b and 23d, saved to tmp on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg()
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN2_CUT_T, TRAIN2_CUT_B,
+                               seed=0).batch(0)
+    state = TS.init_train_state(cfg, 0, dev)
+    _, _, grads = TS.loss_and_grads(state.params, torch.from_numpy(
+        batch).to(dev))
+    near0 = {k: (g.abs() <= TRAIN_GRAD_REL * g.abs().max()).cpu()
+             for k, g in grads.items()}
+    del grads
+    before = {k: p.detach().clone()
+              for k, p in TS.named_params(state.params).items()}
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+        TRAIN_CUT_LR, 0, 10))
+    state, m = step(state, batch)
+    delta = {k: (p.detach() - before[k]).cpu()
+             for k, p in TS.named_params(state.params).items()}
+    torch.save({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "delta": delta, "near0": near0}, tmp / "ref23b.pt")
+    del state, before, delta
+    free_model(None)
+    from repro_torch import models as lm
+    pcfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
+    model = lm.Transformer(pcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    last, _ = lm.prefill_step(model, family_prompt(pcfg, PREFILL2_B,
+                                                   PREFILL2_T, dev),
+                              max_len=PREFILL2_T)
+    torch.save(last.float().cpu(), tmp / "ref23d.pt")
+    del model, last
+    free_model(None)
+
+
+def resume_on_one_rank(dev, tmp, went_on):
+    """23c's second half: the ranks' checkpoint restored on one rank in
+    this process, two steps, held to the ranks' losses."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    cfg = train_cut_cfg()
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+        TRAIN_CUT_LR, 2, TRAIN2_SAVE_AT + 2))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN2_CUT_T, TRAIN2_CUT_B,
+                              seed=1)
+    state = TS.init_train_state(cfg, 5, dev)
+    mgr = CheckpointManager(str(tmp / "ckpt23"), keep=1)
+    state = TS.load_state_tree(state, mgr.restore(TS.state_template(state)))
+    losses = []
+    for i in range(TRAIN2_SAVE_AT, TRAIN2_SAVE_AT + 2):
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+    del state
+    free_model(None)
+    return losses, max(abs(a - b) / abs(b) for a, b in zip(losses, went_on))
+
+
+def start_sharded_checks(dev, tmp):
+    """Phase 23's start, right after 22a: one rank's references, then
+    go_checks (the ranks' 23b-e run beside 22b-e); returns its seconds."""
+    t = time.time()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sharded_refs(dev, tmp)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (tmp / "go_checks").write_text("")
+    return time.time() - t
+
+
+def phase_sharded(dev, procs, tmp, first, refs_s):
+    """Phase 23 (module docstring) after phase 22: `procs` are the two
+    ranks (started before phase 22, their 23b-e begun after 22a), `first`
+    22a's step-1 loss and moe_aux. 23a starts once both ranks' checks are
+    done, the card otherwise idle."""
+    t0 = time.time()
+    card = nvidia_smi()
+    while not all((tmp / f"checks{r}.done").exists() for r in range(2)):
+        if any(p.poll() is not None for p in procs):
+            wait_ranks(procs, timeout=60)   # fails with the rank's error
+        if time.time() - t0 > 900:
+            fail("23: the ranks' checks did not finish in 900 s")
+        time.sleep(0.1)
+    checks_wait_s = time.time() - t0
+    (tmp / "go_timed").write_text("")
+    t = time.time()
+    wait_ranks(procs, timeout=900)
+    ranks_s = time.time() - t
+    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    r0 = res[0]
+
+    a = r0["23a"]
+    losses = a["losses"]
+    rel_loss = abs(losses[0] - first["loss"]) / abs(first["loss"])
+    rel_aux = abs(a["first_moe_aux"] - first["moe_aux"]) / abs(
+        first["moe_aux"])
+    if not losses[-1] < losses[0]:
+        fail(f"23a: the loss did not fall over {TRAIN2_STEPS} steps: "
+             f"{losses[0]} -> {losses[-1]}")
+    if not (rel_loss <= TRAIN2_REL and rel_aux <= TRAIN2_REL):
+        fail(f"23a step 1: loss {losses[0]} / moe_aux {a['first_moe_aux']} "
+             f"against 22a's {first['loss']} / {first['moe_aux']}: "
+             f"relative {rel_loss} / {rel_aux} over {TRAIN2_REL}")
+    med = float(np.median(a["ms"][2:]))
+    log("sharded_23a", model=TRAIN_ARCH, ranks=2, layout="data 2 x model 1",
+        backend="gloo, both ranks on cuda:0, collectives staged through "
+                "host memory",
+        batch=TRAIN_B, seq=TRAIN_T, steps=TRAIN2_STEPS, remat="full",
+        param_dtype="bfloat16", init_s=round(a["init_s"], 3),
+        first_loss=losses[0], last_loss=losses[-1],
+        step1_loss_rel_22a=rel_loss, step1_moe_aux_rel_22a=rel_aux,
+        first_step_ms=round(a["ms"][0], 2),
+        step_ms_median_3_8=round(med, 3),
+        tokens_per_s=round(TRAIN_B * TRAIN_T / med * 1e3, 1),
+        peak_gib_rank0=round(res[0]["23a"]["peak_gib"], 3),
+        peak_gib_rank1=round(res[1]["23a"]["peak_gib"], 3),
+        shard_params_rank0=a["shard_params"],
+        staged_bytes_last_step=json.dumps(a["staged_per_step"]),
+        card=repr(card))
+
+    for name in TRAIN2_LAYOUTS:
+        b = dict(r0["23b"][name])
+        for k in ("step_max_abs", "near0_step_max_abs"):
+            b[k] = max(x["23b"][name][k] for x in res)
+        b["near0_entries"] = sum(x["23b"][name]["near0_entries"]
+                                 for x in res)
+        if not (b["loss_rel"] <= TRAIN_LOSS_RTOL
+                and b["grad_norm_rel"] <= TRAIN_GNORM_RTOL
+                and b["step_max_abs"] <= TRAIN_STEP_ATOL
+                and b["near0_step_max_abs"] <= 2 * TRAIN_CUT_LR):
+            fail(f"23b {name}: {b} outside loss {TRAIN_LOSS_RTOL} rel, "
+                 f"grad_norm {TRAIN_GNORM_RTOL} rel, change "
+                 f"{TRAIN_STEP_ATOL} (2 lr where |g| is near 0)")
+        log("sharded_23b", layout=name, model=f"{TRAIN_ARCH} (2 layers, "
+            "f32)", batch=TRAIN2_CUT_B, seq=TRAIN2_CUT_T, tf32=False, **b,
+            tol=f"loss {TRAIN_LOSS_RTOL} rel, grad_norm {TRAIN_GNORM_RTOL} "
+                f"rel, parameter change {TRAIN_STEP_ATOL} abs (2 lr where "
+                f"|g| <= {TRAIN_GRAD_REL} x max|g|)", card=repr(card))
+
+    c = [x["23c"] for x in res]
+    bitwise = (c[0]["went_on"] == c[0]["resumed"]
+               and all(x["shards_equal"] for x in c))
+    rel2 = max(abs(x - y) / abs(y) for x, y in zip(c[0]["resumed"],
+                                                   c[0]["went_on"]))
+    nondet = sorted(set(c[0]["nondeterministic_ops"])
+                    | set(c[1]["nondeterministic_ops"]))
+    if c[0]["restored_step"] != TRAIN2_SAVE_AT:
+        fail(f"23c restored step {c[0]['restored_step']}")
+    if not bitwise and (nondet == [] or rel2 > TRAIN_RESUME_RTOL):
+        fail(f"23c resume on 2 ranks: {c[0]['resumed']} vs "
+             f"{c[0]['went_on']} (relative {rel2}), nondeterministic ops: "
+             f"{nondet}")
+    one, rel1 = resume_on_one_rank(dev, tmp, c[0]["went_on"])
+    if not rel1 <= TRAIN_LOSS_RTOL:
+        fail(f"23c resume on 1 rank: losses {one} vs the ranks' "
+             f"{c[0]['went_on']}, relative {rel1} over {TRAIN_LOSS_RTOL}")
+    log("sharded_23c", model=f"{TRAIN_ARCH} (2 layers, f32)",
+        saved_at=TRAIN2_SAVE_AT, save_s=round(c[0]["save_s"], 3),
+        losses_went_on=c[0]["went_on"], losses_resumed_2=c[0]["resumed"],
+        bitwise_2=bitwise, max_rel_2=rel2, losses_resumed_1=one,
+        max_rel_1=rel1, nondeterministic_ops=json.dumps(nondet),
+        tol=f"2 ranks bitwise (else {TRAIN_RESUME_RTOL} rel with named "
+            f"nondeterministic ops), 1 rank {TRAIN_LOSS_RTOL} rel",
+        card=repr(card))
+
+    for r, x in enumerate(res):
+        d = x["23d"]
+        if d["flash_wgmma"] != d["layers"] or d["flash_mma_sync"] != 0:
+            fail(f"23d rank {r}: flash launches wgmma {d['flash_wgmma']}, "
+                 f"mma_sync {d['flash_mma_sync']}; want {d['layers']} "
+                 "and 0")
+        if not (d["finite"] and d["max_abs_over_max"] <= LM_REL):
+            fail(f"23d rank {r}: rows {d['rows']} max abs {d['max_abs']} "
+                 f"= {d['max_abs_over_max']} of max|logit| over {LM_REL}")
+        log("sharded_23d", rank=r, model=TRAIN_ARCH, rows=d["rows"],
+            tokens=f"{PREFILL2_B}x{PREFILL2_T}", attn="flash_kernel",
+            flash_wgmma_launches=d["flash_wgmma"], wall_s=round(d["wall_s"],
+                                                                 3),
+            max_abs=d["max_abs"], max_abs_over_max=d["max_abs_over_max"],
+            argmax_equal=d["argmax_equal"], tol=f"{LM_REL}*max|logit|",
+            card=repr(card))
+
+    for r, x in enumerate(res):
+        e = x["23e"]
+        if not (e["pipeline_max_abs"] < PIPE2_TOL
+                and e["permutes"] == e["pipeline_ticks"]
+                and e["compressed_max_abs"] <= COMPRESSED_TOL):
+            fail(f"23e rank {r}: {e}")
+        log("sharded_23e", rank=r, **e, tol=f"pipeline {PIPE2_TOL}, "
+            f"compressed psum {COMPRESSED_TOL}", card=repr(card))
+    log("sharded_phase", seconds_after_22=round(time.time() - t0, 2),
+        refs_s=round(refs_s, 2), checks_wait_s=round(checks_wait_s, 2),
+        ranks_23a_s=round(ranks_s, 2),
+        rank_waited_s=round(r0["waited_s"], 2),
+        rank_waited_timed_s=round(r0["waited_timed_s"], 2),
+        walls=json.dumps({k: round(v, 2) for k, v in r0["walls"].items()}),
+        card=repr(card))
 
 
 def main():
@@ -4711,6 +5339,9 @@ def main():
                     help=argparse.SUPPRESS)
     # phase 17d starts this script once with this
     ap.add_argument("--kill-child", default=None, help=argparse.SUPPRESS)
+    # phase 23 starts this script once per rank with this (and --dist-*)
+    ap.add_argument("--train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     # main starts this script with this for phase 4's and phase 7's graphs
     ap.add_argument("--prep", nargs=2, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4728,11 +5359,14 @@ def main():
         return dist_rank_main(args)
     if args.kill_child is not None:
         return kill_child_main(args)
+    if args.train_rank is not None:
+        return train_rank_main(args)
     from repro_torch.kernels import build
 
     t_all = time.time()
     (ROOT / "build").mkdir(exist_ok=True)
     rmat_prep = start_prep("rmat", args, ROOT / "build")
+    lint_cli = start_lint_cli()
     dev = torch.device("cuda")
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -4759,25 +5393,50 @@ def main():
     torch.cuda.empty_cache()
     log("flash_phase", seconds=round(time.time() - t, 2), peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3))
+    # phases 14 and 20 run while the RMAT child still makes phase 4's
+    # graph; the graph phases follow
     torch.cuda.reset_peak_memory_stats()
-    rows = graph_phases(args, dev, rmat_prep)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("memory", graph_phases_peak_gib=round(
-        torch.cuda.max_memory_allocated() / 2**30, 3),
-        after_free_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
-    torch.cuda.reset_peak_memory_stats()
-    rows.extend(phase_lm(dev, flash))
+    lm_rows = phase_lm(dev, flash)
     log("memory", lm_phases_peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3),
         total_s=round(time.time() - t_all, 1))
     gc.collect()
     torch.cuda.empty_cache()
-    rows.extend(phase_lm_families(dev))
+    lm_rows.extend(phase_lm_families(dev))
     log("memory", total_s=round(time.time() - t_all, 1))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train(dev)
+    torch.cuda.reset_peak_memory_stats()
+    rank_groups = spawn_rank_groups()
+    rows = graph_phases(args, dev, rmat_prep, lint_cli, rank_groups)
+    for _, d in rank_groups.values():
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("memory", graph_phases_peak_gib=round(
+        torch.cuda.max_memory_allocated() / 2**30, 3),
+        after_free_gib=round(torch.cuda.memory_allocated() / 2**30, 3),
+        total_s=round(time.time() - t_all, 1))
+    rows.extend(lm_rows)
+    # phase 23's ranks import and join their group while phase 22 runs;
+    # their checks (23b-e) run beside 22b-e, their timed steps after
+    tmp23 = ROOT / "build" / "phase23"
+    shutil.rmtree(tmp23, ignore_errors=True)
+    tmp23.mkdir(parents=True)
+    ranks23 = start_train_ranks(tmp23)
+    try:
+        first, refs_s = phase_train(
+            dev, lambda: start_sharded_checks(dev, tmp23))
+        log("memory", total_s=round(time.time() - t_all, 1))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_sharded(dev, ranks23, tmp23, first, refs_s)
+    finally:
+        for p in ranks23:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp23, ignore_errors=True)
     log("memory", total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -162,19 +162,22 @@ def _field(tree, name: str, index: int):
     return getattr(tree, name) if hasattr(tree, name) else tree[index]
 
 
-def train_state_from_numpy(tree, cfg, device="cuda"):
+def train_state_from_numpy(tree, cfg, device="cuda", layout=None):
     """The reference's `TrainState(params, opt=AdamWState(step, m, v),
     step)` as numpy (e.g. ``jax.tree.map(np.asarray, state)``, or what its
     CheckpointManager restores) -> the port's `train.step.TrainState` on
     `device`: a Transformer holding the converted parameters (in their
     arrays' dtype, requiring grad), the moments through the same name
-    mapping as f32 tensors, and both steps as int32 scalars."""
+    mapping as f32 tensors, and both steps as int32 scalars. Given a
+    `layout` of several ranks, on its device, this rank keeps only its
+    shards (`train.step.Placement.state`)."""
     from . import models
     from .core.graph_device import resolve_device
     from .optim.adamw import AdamWState
-    from .train.step import TrainState, trainable
+    from .train.step import Placement, TrainState, trainable
 
-    device = resolve_device(device)
+    sharded = layout is not None and layout.size > 1
+    device = resolve_device(layout.device if sharded else device)
     params = model_params_from_numpy(_field(tree, "params", 0), cfg)
     opt = _field(tree, "opt", 1)
     dtype = next(iter(params.values())).dtype
@@ -190,8 +193,9 @@ def train_state_from_numpy(tree, cfg, device="cuda"):
     def step(x):
         return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
 
-    return TrainState(params=trainable(model),
-                      opt=AdamWState(step(_field(opt, "step", 0)),
-                                     moments(_field(opt, "m", 1)),
-                                     moments(_field(opt, "v", 2))),
-                      step=step(_field(tree, "step", 2)))
+    state = TrainState(params=trainable(model),
+                       opt=AdamWState(step(_field(opt, "step", 0)),
+                                      moments(_field(opt, "m", 1)),
+                                      moments(_field(opt, "v", 2))),
+                       step=step(_field(tree, "step", 2)))
+    return Placement(cfg, layout).state(state) if sharded else state

@@ -10,6 +10,12 @@ part; a :class:`Comm` is its view of the process group:
   ppermute    -> `batch_isend_irecv`       (the ring, and the push
                  schedule's per-offset sends under overlap)
   psum        -> `all_reduce`
+  pmax        -> `all_reduce(op=MAX)`      (compression's shared scale)
+  psum_scatter -> `reduce_scatter_tensor` under nccl; under gloo (and the
+                 dry-run's fake group) an `all_to_all_single` and a local
+                 sum over the received rows, in rank order: the same bytes
+                 on the wire, one code path on every torch version
+                 (the sharded train step's gradient reduce-scatter)
 
 Every exchange ships one flat uint8 buffer: :func:`pack` lays a payload's
 leaves out as bytes (each leaf 8-aligned) and :func:`unpack` views them
@@ -28,7 +34,15 @@ The backend is the caller's choice, made when the group is initialised:
 
 Without a process group the run is a world of one, in process: every
 collective is the identity. A group of one (e.g. nccl on one card) runs
-its collectives all the same.
+its collectives all the same. A `Comm` may also span a sub-group (one
+row or column of a rank layout, `launch.mesh.RankLayout.axis_group`);
+its `rank` and `size` are then the group's. The dry-run's `fake` backend
+(`launch/dryrun.py`) runs no exchange at all but is counted like the
+others.
+
+Besides `calls` and `staged_bytes`, `by_kind` tallies each collective
+kind's calls and the operand and output bytes of this rank, the figures
+`launch.roofline.wire_bytes` turns into wire bytes.
 """
 from __future__ import annotations
 
@@ -102,15 +116,18 @@ class Comm:
     `device` is where this rank's tensors live. Under nccl it must be the
     rank's own GPU; under gloo a CUDA device is served by host staging.
     `staged_bytes` counts the bytes copied between the card and host
-    memory for gloo (both directions); `calls` counts collectives."""
+    memory for gloo (both directions); `calls` counts collectives and
+    `by_kind` tallies them by kind (module docstring). `alone=True` makes
+    a world of one whatever the process group (a layout axis of size 1)."""
 
-    def __init__(self, device, group=None):
+    def __init__(self, device, group=None, alone: bool = False):
         self.device = torch.device(device)
         self.group = group
         self.calls = 0
         self.staged_bytes = 0
         self.staged = False
-        if not (dist.is_available() and dist.is_initialized()):
+        self.by_kind = {}
+        if alone or not (dist.is_available() and dist.is_initialized()):
             self.rank, self.size, self.backend = 0, 1, None
             return
         self.rank = dist.get_rank(group)
@@ -130,25 +147,56 @@ class Comm:
                 raise ValueError(
                     f"nccl needs one GPU per rank, but the ranks name GPUs "
                     f"{gpus}; ranks that share a card take the gloo backend")
-        elif self.backend != "gloo":
+        elif self.backend not in ("gloo", "fake"):
             raise ValueError(f"backend must be nccl or gloo, got "
                              f"{self.backend!r}")
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
 
     # -- host staging (gloo on a CUDA device) -----------------------------
-    def _to_wire(self, t):
+    def _rec(self, kind):
+        return self.by_kind.setdefault(kind, {
+            "count": 0, "operand_bytes": 0, "output_bytes": 0,
+            "staged_bytes": 0})
+
+    def _stage(self, t, kind):
+        n = t.numel() * t.element_size()
+        self.staged_bytes += n
+        self._rec(kind)["staged_bytes"] += n
+
+    def _to_wire(self, t, kind):
         if not self.staged:
             return t
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
-        self.staged_bytes += t.numel() * t.element_size()
+        self._stage(t, kind)
         return host
 
-    def _from_wire(self, t):
+    def _from_wire(self, t, kind):
         if not self.staged:
             return t
-        self.staged_bytes += t.numel() * t.element_size()
+        self._stage(t, kind)
         return t.to(self.device, non_blocking=True)
+
+    def _count(self, kind: str, t: torch.Tensor, out_numel: int):
+        """Tally one collective of `kind` on operand `t` whose output
+        holds `out_numel` elements of its dtype."""
+        self.calls += 1
+        item = t.element_size()
+        rec = self._rec(kind)
+        rec["count"] += 1
+        rec["operand_bytes"] += t.numel() * item
+        rec["output_bytes"] += out_numel * item
+
+    def reset_counts(self):
+        """Zero `calls`, `staged_bytes` and `by_kind`."""
+        self.calls, self.staged_bytes, self.by_kind = 0, 0, {}
+
+    def _global(self, group_rank: int) -> int:
+        """The global rank of a rank of this Comm's group (P2POp names
+        its peer by global rank)."""
+        if self.group is None or self.group is dist.group.WORLD:
+            return group_rank
+        return dist.get_global_rank(self.group, group_rank)
 
     def _wire_empty(self, shape, dtype):
         return torch.empty(shape, dtype=dtype, pin_memory=self.staged,
@@ -159,8 +207,8 @@ class Comm:
         """[n, ...] -> [P, n, ...], row r from rank r."""
         if self.backend is None:
             return Handle((), lambda: t[None])
-        self.calls += 1
-        src = self._to_wire(t.contiguous())
+        self._count("all-gather", t, self.size * t.numel())
+        src = self._to_wire(t.contiguous(), "all-gather")
         shape = tuple(t.shape) if t.ndim else (1,)
         # the ranks' rows concatenated along dim 0 (the form every backend
         # takes), viewed as [P, n, ...]
@@ -168,8 +216,8 @@ class Comm:
         gather = getattr(dist, "all_gather_single", None) \
             or dist.all_gather_into_tensor
         w = gather(out, src.reshape(shape), group=self.group, async_op=True)
-        return Handle((w,), lambda: self._from_wire(out).reshape(
-            (self.size,) + tuple(t.shape)))
+        return Handle((w,), lambda: self._from_wire(
+            out, "all-gather").reshape((self.size,) + tuple(t.shape)))
 
     def all_gather(self, t):
         return self.all_gather_async(t).wait()
@@ -179,12 +227,12 @@ class Comm:
         the result came from rank s."""
         if self.backend is None:
             return Handle((), lambda: t)
-        self.calls += 1
-        src = self._to_wire(t.contiguous())
+        self._count("all-to-all", t, t.numel())
+        src = self._to_wire(t.contiguous(), "all-to-all")
         out = self._wire_empty(tuple(t.shape), t.dtype)
         w = dist.all_to_all_single(out, src, group=self.group,
                                    async_op=True)
-        return Handle((w,), lambda: self._from_wire(out))
+        return Handle((w,), lambda: self._from_wire(out, "all-to-all"))
 
     def all_to_all(self, t):
         return self.all_to_all_async(t).wait()
@@ -195,32 +243,73 @@ class Comm:
         shift %= self.size
         if shift == 0:
             return Handle((), lambda: t)
-        self.calls += 1
-        src = self._to_wire(t.contiguous())
+        self._count("collective-permute", t, t.numel())
+        src = self._to_wire(t.contiguous(), "collective-permute")
         out = self._wire_empty(tuple(t.shape), t.dtype)
-        ops = [dist.P2POp(dist.isend, src, (self.rank + shift) % self.size,
+        peer = self._global
+        ops = [dist.P2POp(dist.isend, src,
+                          peer((self.rank + shift) % self.size),
                           group=self.group, tag=shift),
-               dist.P2POp(dist.irecv, out, (self.rank - shift) % self.size,
+               dist.P2POp(dist.irecv, out,
+                          peer((self.rank - shift) % self.size),
                           group=self.group, tag=shift)]
         works = dist.batch_isend_irecv(ops)
-        return Handle(works, lambda: self._from_wire(out))
+        return Handle(works, lambda: self._from_wire(
+            out, "collective-permute"))
 
     def ppermute(self, t, shift: int):
         return self.ppermute_async(t, shift).wait()
 
-    def psum_async(self, t: torch.Tensor) -> Handle:
-        """Elementwise sum over the ranks (`all_reduce`) into a copy."""
+    def psum_async(self, t: torch.Tensor, op=None) -> Handle:
+        """Elementwise sum over the ranks (`all_reduce`) into a copy;
+        `op` another `dist.ReduceOp` (`pmax`)."""
         if self.backend is None:
             return Handle((), lambda: t)
-        self.calls += 1
-        w = self._to_wire(t.contiguous())
+        self._count("all-reduce", t, t.numel())
+        w = self._to_wire(t.contiguous(), "all-reduce")
         if w is t:
             w = t.clone()
-        work = dist.all_reduce(w, group=self.group, async_op=True)
-        return Handle((work,), lambda: self._from_wire(w))
+        work = dist.all_reduce(w, op=dist.ReduceOp.SUM if op is None else op,
+                               group=self.group, async_op=True)
+        return Handle((work,), lambda: self._from_wire(w, "all-reduce"))
 
     def psum(self, t):
         return self.psum_async(t).wait()
+
+    def pmax(self, t):
+        """Elementwise maximum over the ranks, into a copy."""
+        return self.psum_async(t, dist.ReduceOp.MAX).wait()
+
+    def psum_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """[P*n, ...] -> [n, ...]: the elementwise sum over the ranks of
+        row block `rank` (rows r*n..(r+1)*n of every rank's `t`), in
+        `t`'s dtype. nccl reduce-scatters natively; gloo and the fake
+        group send block r to rank r (`all_to_all_single`) and sum the
+        P received blocks here in rank order (module docstring)."""
+        if self.backend is None:
+            return t
+        P = self.size
+        if t.shape[0] % P:
+            raise ValueError(f"psum_scatter: {t.shape[0]} rows do not split "
+                             f"over {P} ranks")
+        n = t.shape[0] // P
+        self._count("reduce-scatter", t, t.numel() // P)
+        if self.backend == "nccl":
+            out = torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            scatter = getattr(dist, "reduce_scatter_single", None) \
+                or dist.reduce_scatter_tensor
+            scatter(out, t.contiguous(), group=self.group)
+            return out
+        src = self._to_wire(t.contiguous(), "reduce-scatter")
+        rows = self._wire_empty(tuple(t.shape), t.dtype)
+        dist.all_to_all_single(rows, src, group=self.group)
+        rows = self._from_wire(rows, "reduce-scatter").reshape(
+            (P, n) + tuple(t.shape[1:]))
+        out = rows[0].clone()
+        for r in range(1, P):
+            out += rows[r]
+        return out
 
 
 def free_port() -> int:

@@ -1,0 +1,484 @@
+"""Logical-axis sharding rules with divisibility-aware fallback, and the
+pieces that make a model's parameters live sharded over a rank layout.
+
+The reference's `repro/distributed/sharding.py`, on a
+`launch.mesh.RankLayout` (or anything with `axis_names` and a shape:
+`shape`, or `devices.shape` as a `jax.sharding.Mesh` has). Model code
+names array dims with *logical* axes ("vocab", "mlp", "batch", ...); this
+module resolves them to partition specs. Resolution walks the rule's
+candidate list and picks the first candidate whose rank-axis product
+divides the dim size — so starcoder2's 36 heads fall back off a 16-way
+"model" axis, granite's 49155 vocab falls back off "model", and batch=1
+(long_500k) falls back to replicated. A spec is a tuple with one entry a
+dim: None (replicated), an axis name, or a tuple of axis names fused
+row-major (`RankLayout.axis_index`).
+
+Two rule tables: PARAM_RULES (weights; includes the FSDP "embed"→data
+rule) and ACT_RULES (activations / caches / inputs).
+
+The reference hands the specs to `jax.jit`, whose SPMD partitioner
+places the arrays and inserts the collectives. Eager PyTorch has no
+partitioner, so the port does it explicitly (`train/step.py`):
+
+  * `shard_tensor` keeps this rank's block of a whole tensor;
+  * `gather_param` / `gather_params` (an autograd Function) all-gather
+    parameters' shards to whole tensors where they are used (a block's
+    tensors split along one dim over the same axes in one buffer, one
+    collective); the backward sums each whole gradient back onto its
+    shard: a reduce-scatter over the spec's axes that split the batch,
+    this rank's block over the spec's axes that do not (their ranks
+    computed the same gradient), and an all-reduce over the batch axes
+    the spec does not use, a buffer each;
+  * `psum` is an all-reduce whose backward is an all-reduce too (the
+    MoE aux loss's global means);
+  * `ShardPlan` holds a model's specs and its batch split, and
+    `shard_model` turns a whole `models.Transformer` into this rank's
+    shards with the plan attached (`Transformer.forward` gathers each
+    block's weights through it).
+
+`logical_constraint` computes nothing in eager PyTorch (there is no
+partitioner to constrain), so it returns `x` unchanged, as the reference
+does outside a mesh.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+log = logging.getLogger("repro_torch.sharding")
+
+Candidate = Tuple[str, ...]          # rank axes fused for one dim
+RuleTable = Dict[str, Sequence[Candidate]]
+
+# Weights. "embed" on a param is the FSDP axis (gathered at use);
+# "mlp"/"heads"/"vocab"/"experts" are the TP/EP axes.
+PARAM_RULES: RuleTable = {
+    "vocab": [("model",), ()],
+    "embed": [("data",), ()],              # FSDP / ZeRO-3
+    "heads": [("model",), ()],
+    "kv_heads": [("model",), ()],
+    "head_dim": [()],
+    "mlp": [("model",), ()],
+    "experts": [("model",), ()],           # EP
+    "expert_mlp": [()],                    # within-expert width under EP
+    "rnn": [("model",), ()],
+    "conv": [()],
+    "layers": [()],                        # scan-stacked dim, never sharded
+    None: [()],
+}
+
+# Activations / inputs / caches.
+ACT_RULES: RuleTable = {
+    "batch": [("pod", "data"), ("data",), ()],
+    # sequence parallelism over the TP axis in the reference (activations
+    # shard on seq); the port resolves it but computes the whole sequence
+    # (model-axis compute is a later slice)
+    "seq": [("model",), ()],
+    "act_embed": [()],
+    "act_heads": [("model",), ()],
+    "act_kv_heads": [("model",), ()],
+    "act_mlp": [("model",), ()],
+    "act_experts": [("model",), ()],
+    "cache_seq": [("model",), ()],          # sequence-sharded KV cache
+    "act_vocab": [("model",), ()],
+    None: [()],
+}
+
+
+# Per-arch activation profiles:
+#   default  sequence parallelism over the TP axis (general fallback)
+#   dp       pure data parallelism: batch shards over EVERY rank axis,
+#            seq unsharded
+def rules_for_profile(profile: str) -> RuleTable:
+    if profile == "dp":
+        rules = dict(ACT_RULES)
+        rules["batch"] = [("pod", "data", "model"), ("data", "model"),
+                          ("pod", "data"), ("data",), ()]
+        rules["seq"] = [()]
+        return rules
+    return ACT_RULES
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    shape = mesh.devices.shape if hasattr(mesh, "devices") else mesh.shape
+    return dict(zip(mesh.axis_names, shape))
+
+
+def resolve_dim(logical: Optional[str], size: int, mesh, rules: RuleTable,
+                taken: set):
+    """First divisible candidate whose axes exist in the layout and are not
+    already used by another dim of the same array."""
+    sizes = _axis_sizes(mesh)
+    for cand in rules.get(logical, [()]):
+        axes = tuple(a for a in cand if a in sizes)
+        if not axes:
+            if cand == () or cand is None:
+                return None
+            continue
+        if any(a in taken for a in axes):
+            continue
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if size % prod == 0:
+            taken.update(axes)
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def spec_for(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
+             mesh, rules: RuleTable) -> tuple:
+    taken: set = set()
+    entries = [resolve_dim(a, s, mesh, rules, taken)
+               for a, s in zip(logical_axes, shape)]
+    fell_back = [a for a, e in zip(logical_axes, entries)
+                 if a is not None and rules.get(a, [()])[0] != () and e is None]
+    if fell_back:
+        log.debug("sharding fallback to replicated for logical axes %s "
+                  "(shape %s)", fell_back, tuple(shape))
+    return tuple(entries)
+
+
+def param_spec(logical_axes, shape, mesh) -> tuple:
+    return spec_for(logical_axes, shape, mesh, PARAM_RULES)
+
+
+def act_spec(logical_axes, shape, mesh) -> tuple:
+    return spec_for(logical_axes, shape, mesh, ACT_RULES)
+
+
+def tree_param_specs(spec_tree: dict, shape_tree: dict, mesh) -> dict:
+    """Resolve {name: logical axes} against {name: shape (or anything
+    with `.shape`)} -> {name: spec}."""
+    return {k: param_spec(axes, getattr(shape_tree[k], "shape",
+                                        shape_tree[k]), mesh)
+            for k, axes in spec_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Layout context: model code calls logical_constraint() without a layout
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_rules(mesh, act_rules: RuleTable = None):
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = (mesh, act_rules or ACT_RULES)
+    try:
+        yield
+    finally:
+        _CTX.state = prev
+
+
+def logical_constraint(x, *logical_axes):
+    """The reference's with_sharding_constraint by logical names. Eager
+    PyTorch has no partitioner to constrain, so this returns `x` as it
+    is, inside `mesh_rules` or not (the reference's own behaviour
+    outside a mesh)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Shards of whole tensors
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes of one spec entry (None -> ())."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every axis a spec uses, in dim order."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def shard_shape(shape, spec, layout) -> tuple:
+    """The shape of one rank's block of a tensor of `shape`."""
+    return tuple(n // layout.axis_size(entry_axes(e)) if e is not None
+                 else n for n, e in zip(shape, spec))
+
+
+def shard_tensor(full: torch.Tensor, spec, layout) -> torch.Tensor:
+    """This rank's block of `full` under `spec` (a copy)."""
+    x = full
+    for d, e in enumerate(spec):
+        axes = entry_axes(e)
+        if not axes:
+            continue
+        n = layout.axis_size(axes)
+        x = torch.chunk(x, n, dim=d)[layout.axis_index(axes)]
+    return x.clone()
+
+
+def _gathered(spec, layout):
+    """[(dim, axes)] of the dims `spec` splits over more than one rank."""
+    return [(d, entry_axes(e)) for d, e in enumerate(spec)
+            if entry_axes(e) and layout.axis_size(entry_axes(e)) > 1]
+
+
+def _gather_dim(x, comm, d):
+    parts = comm.all_gather(x.contiguous())
+    return torch.cat(list(parts.unbind(0)), dim=d)
+
+
+def _buckets(tensors, specs, layout):
+    """Tensors split along exactly one dim, by (axes, dtype): {key:
+    [(index, dim)]}, each bucket one collective."""
+    out = {}
+    for i, (t, spec) in enumerate(zip(tensors, specs)):
+        dims = _gathered(spec, layout)
+        if len(dims) == 1:
+            d, axes = dims[0]
+            out.setdefault((axes, t.dtype), []).append((i, d))
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """shards -> whole tensors; the backward sums each whole gradient
+    back onto its shard (module docstring). The tensors split along one
+    dim over the same axes travel in one buffer, a collective a bucket."""
+
+    @staticmethod
+    def forward(ctx, layout, batch_axes, specs, *shards):
+        ctx.layout, ctx.batch_axes, ctx.specs = layout, batch_axes, specs
+        outs = []
+        for s, spec in zip(shards, specs):
+            x = s
+            dims = _gathered(spec, layout)
+            if len(dims) > 1:       # the vocab x embed tables
+                for d, axes in dims:
+                    x = _gather_dim(x, layout.comm(axes), d)
+            outs.append(x if x is not s else s.view_as(s))
+        for (axes, _), members in _buckets(shards, specs, layout).items():
+            comm = layout.comm(axes)
+            parts = comm.all_gather(torch.cat(
+                [shards[i].movedim(d, 0).reshape(-1) for i, d in members]))
+            off = 0
+            for i, d in members:
+                moved = shards[i].movedim(d, 0)
+                n = moved.numel()
+                full = parts[:, off:off + n].reshape(
+                    (comm.size * moved.shape[0],) + tuple(moved.shape[1:]))
+                outs[i] = full.movedim(0, d).contiguous()
+                off += n
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        layout, batch, specs = ctx.layout, ctx.batch_axes, ctx.specs
+        gin = list(grads)
+        for i, spec in enumerate(specs):
+            dims = _gathered(spec, layout)
+            if len(dims) > 1:
+                for d, axes in reversed(dims):
+                    gin[i] = _cut(gin[i], d, axes, layout, batch)
+        for (axes, _), members in _buckets(grads, specs, layout).items():
+            if not all(a in batch for a in axes):
+                for i, d in members:
+                    gin[i] = _cut(grads[i], d, axes, layout, batch)
+                continue
+            # row r of the bucket: rank r's block of every member
+            P = layout.axis_size(axes)
+            mine = layout.comm(axes).psum_scatter(torch.cat(
+                [grads[i].movedim(d, 0).reshape(P, -1) for i, d in members],
+                dim=1)).reshape(-1)
+            off = 0
+            for i, d in members:
+                moved = grads[i].movedim(d, 0)
+                shape = (moved.shape[0] // P,) + tuple(moved.shape[1:])
+                n = moved.numel() // P
+                gin[i] = mine[off:off + n].reshape(shape).movedim(0, d)
+                off += n
+        # the batch axes a spec does not use: an all-reduce a bucket
+        rest = {}
+        for i, spec in enumerate(specs):
+            axes = tuple(a for a in layout.axis_names
+                         if a in batch and a not in spec_axes(spec))
+            if axes and layout.axis_size(axes) > 1:
+                rest.setdefault((axes, gin[i].dtype), []).append(i)
+        for (axes, _), idx in rest.items():
+            tot = layout.comm(axes).psum(torch.cat(
+                [gin[i].reshape(-1) for i in idx]))
+            off = 0
+            for i in idx:
+                n = gin[i].numel()
+                gin[i] = tot[off:off + n].reshape(gin[i].shape)
+                off += n
+        return (None, None, None) + tuple(g.contiguous() for g in gin)
+
+
+def _cut(g, d, axes, layout, batch):
+    """The gradient of dim d's gather over `axes`: summed and scattered
+    over batch axes, this rank's block over the others."""
+    inb = [a in batch for a in axes]
+    if all(inb):
+        moved = g.movedim(d, 0).contiguous()
+        return layout.comm(axes).psum_scatter(moved).movedim(0, d)
+    if not any(inb):
+        return torch.chunk(g, layout.axis_size(axes),
+                           dim=d)[layout.axis_index(axes)]
+    raise ValueError(f"spec entry {axes} mixes batch axes {batch} with "
+                     "others")
+
+
+def gather_params(shards, specs, layout,
+                  batch_axes: Tuple[str, ...] = ()) -> tuple:
+    """The whole parameters from this rank's shards: an all-gather along
+    every dim their specs split, one collective for all the tensors split
+    along one dim over the same axes. Differentiable: the gradient
+    reaching a whole tensor comes back summed over the ranks that split
+    the batch (`batch_axes`) and cut to this rank's shard (module
+    docstring)."""
+    return _Gather.apply(layout, tuple(batch_axes),
+                         tuple(tuple(s) for s in specs), *shards)
+
+
+def gather_param(shard: torch.Tensor, spec, layout,
+                 batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """`gather_params` of one tensor."""
+    return gather_params([shard], [spec], layout, batch_axes)[0]
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.psum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.psum(g.contiguous()), None
+
+
+def psum(x: torch.Tensor, comm) -> torch.Tensor:
+    """Sum over `comm`'s ranks, differentiable: every rank's loss reads
+    the sum, so each input's gradient is the sum of the ranks' gradients
+    of it (an all-reduce both ways)."""
+    if comm is None or comm.size == 1:
+        return x
+    return _Psum.apply(x, comm)
+
+
+# ---------------------------------------------------------------------------
+# A model's parameters over a layout
+# ---------------------------------------------------------------------------
+
+def batch_axes_for(shape, layout, rules: RuleTable) -> Tuple[str, ...]:
+    """The rank axes that split a batch of `shape` (dim 0, the "batch"
+    rule), in layout order; () when it falls back to replicated."""
+    spec = spec_for(("batch",) + (None,) * (len(shape) - 1), shape, layout,
+                    rules)
+    return entry_axes(spec[0])
+
+
+def counts_once(spec, layout) -> bool:
+    """Whether this rank's shard of a tensor under `spec` counts in a
+    global sum: a shard replicated along an axis its spec does not use
+    counts on that axis's index 0 only, so each element counts once."""
+    used = spec_axes(spec)
+    return all(layout.axis_index(a) == 0
+               for a in layout.axis_names if a not in used)
+
+
+class ShardPlan:
+    """How a model lives on this rank: `specs` {parameter name: spec}
+    over `layout`, and the split of the current batch (`set_batch`):
+    `batch_axes`, their Comm and the number of batch shards `n_batch`."""
+
+    def __init__(self, layout, specs: Dict[str, tuple], rules: RuleTable):
+        self.layout, self.specs, self.rules = layout, dict(specs), rules
+        self.batch_axes: Tuple[str, ...] = ()
+        self.n_batch = 1
+        self.batch_comm = layout.comm(())
+        self.world_comm = layout.comm(layout.axis_names)
+
+    def set_batch(self, shape) -> Tuple[str, ...]:
+        """Resolve the batch split of a global batch of `shape`."""
+        self.batch_axes = batch_axes_for(shape, self.layout, self.rules)
+        self.n_batch = self.layout.axis_size(self.batch_axes)
+        self.batch_comm = self.layout.comm(self.batch_axes)
+        # every group the gathers and their backward use, built here in
+        # the same order on every rank rather than first inside autograd
+        for spec in dict.fromkeys(self.specs.values()):
+            for e in spec:
+                self.layout.comm(entry_axes(e))
+            self.layout.comm(tuple(a for a in self.layout.axis_names
+                                   if a in self.batch_axes
+                                   and a not in spec_axes(spec)))
+        return self.batch_axes
+
+    def counted(self, name: str) -> bool:
+        """`counts_once` of parameter `name`'s shard on this rank."""
+        return counts_once(self.specs[name], self.layout)
+
+    def gather(self, module, prefix: str = "", recurse: bool = True,
+               skip: str = None) -> Dict[str, torch.Tensor]:
+        """{relative name: whole tensor} of `module`'s parameters (full
+        names `prefix` + relative), through one `gather_params`; `skip`
+        leaves out the names under that prefix."""
+        named = [(name, p) for name, p in
+                 module.named_parameters(recurse=recurse)
+                 if skip is None or not name.startswith(skip)]
+        full = gather_params([p for _, p in named],
+                             [self.specs[prefix + n] for n, _ in named],
+                             self.layout, self.batch_axes)
+        return {n: t for (n, _), t in zip(named, full)}
+
+
+@contextlib.contextmanager
+def swapped(module, tensors: Dict[str, torch.Tensor]):
+    """Within the block, `module`'s parameters named in `tensors` (dotted
+    relative names) read as those tensors; the parameters come back on
+    exit. The module's code runs unchanged on the whole weights."""
+    saved = []
+    try:
+        for name, t in tensors.items():
+            path, _, attr = name.rpartition(".")
+            m = module.get_submodule(path) if path else module
+            saved.append((m, attr, m._parameters[attr]))
+            m._parameters[attr] = t
+        yield
+    finally:
+        for m, attr, p in reversed(saved):
+            m._parameters[attr] = p
+
+
+@torch.no_grad()
+def shard_model(model, layout, specs: Dict[str, tuple], rules: RuleTable):
+    """Replace each of `model`'s parameters by this rank's shard (same
+    `requires_grad`) and attach a `ShardPlan` as `model.shard_plan`;
+    returns the model."""
+    plan = ShardPlan(layout, specs, rules)
+    for name, p in list(model.named_parameters()):
+        path, _, attr = name.rpartition(".")
+        m = model.get_submodule(path) if path else model
+        m._parameters[attr] = torch.nn.Parameter(
+            shard_tensor(p.detach(), specs[name], layout),
+            requires_grad=p.requires_grad)
+    model.shard_plan = plan
+    return model
+
+
+@torch.no_grad()
+def whole_tensor(shard: torch.Tensor, spec, layout) -> torch.Tensor:
+    """A new whole tensor from this rank's shard (every rank takes part;
+    no autograd): unlike `gather_param`, never a view of the shard."""
+    full = gather_param(shard.detach(), spec, layout)
+    if not any(layout.axis_size(entry_axes(e)) > 1 for e in spec):
+        full = full.clone()
+    return full
+
+
+def gather_whole(model) -> Dict[str, torch.Tensor]:
+    """{name: new whole tensor} of a sharded model's parameters."""
+    plan = model.shard_plan
+    return {k: whole_tensor(p, plan.specs[k], plan.layout)
+            for k, p in model.named_parameters()}

@@ -4,7 +4,9 @@ decode), gated/plain MLPs, embeddings.
 Parameters live in `nn.Module`s named and shaped as the reference's
 parameter tree (`wq [d, Hq, hd]`, `wk`/`wv [d, Hkv, hd]`, `wo [Hq, hd, d]`,
 `q_norm.scale`, `w_gate`/`w_up [d, f]`, `w_down [f, d]`), so converting
-the reference's weights is a copy; the computation is plain functions on
+the reference's weights is a copy; each module class's `AXES` names its
+parameters' logical axes as the reference's `pb.param(..., axes)` calls
+do (`transformer.param_logical_axes`); the computation is plain functions on
 tensors with the reference's einsum layouts. Every einsum returns the
 activation dtype, as the reference's do; softmax, norms and RoPE run in
 f32. Parameters are made with `requires_grad=False`, so the serving
@@ -27,8 +29,20 @@ from ..kernels import ops as kops
 NEG_INF = -1e30
 
 
+def state_device(device) -> torch.device:
+    """`resolve_device`, and "meta" as well (templates that allocate
+    nothing, `launch/specs.py`)."""
+    device = torch.device(device)
+    return device if device.type == "meta" else resolve_device(device)
+
+
 def _param(shape, gen, std, device, dtype):
-    """N(0, std^2) from `gen` (in f32, then cast), not requiring grad."""
+    """N(0, std^2) from `gen` (in f32, then cast), not requiring grad. On
+    the "meta" device (shapes only, `train.step.model_specs`) nothing is
+    drawn."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, device="meta", dtype=dtype),
+                            requires_grad=False)
     x = torch.randn(shape, generator=gen, device=device,
                     dtype=torch.float32) * std
     return nn.Parameter(x.to(dtype), requires_grad=False)
@@ -40,6 +54,8 @@ def _param(shape, gen, std, device, dtype):
 
 class Norm(nn.Module):
     """RMSNorm (`scale`) or LayerNorm (`scale`, `bias`) over the last dim."""
+
+    AXES = {"scale": (None,), "bias": (None,)}
 
     def __init__(self, dim: int, kind: str, device=None,
                  dtype=torch.float32):
@@ -87,6 +103,11 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
     def __init__(self, cfg, gen: torch.Generator, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -253,8 +274,8 @@ def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0):
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda"):
     """An empty cache of max_len positions on `device` ("cuda" unless the
-    caller asks for "cpu")."""
-    device = resolve_device(device)
+    caller asks for "cpu"; "meta" for shapes only)."""
+    device = state_device(device)
     hkv, hd = cfg.num_kv_heads, cfg.head_dim_
     return {"k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
                              device=device),
@@ -268,6 +289,9 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
     def __init__(self, cfg, gen: torch.Generator, device=None,
                  dtype=torch.float32, d_ff: Optional[int] = None):
         super().__init__()

@@ -27,10 +27,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import psum
 from . import layers as L
 
 
 class MoE(nn.Module):
+    AXES = {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed")}
+
+    #: the batch ranks' Comm when the model is sharded over several ranks
+    #: (`distributed.sharding.ShardPlan.set_batch` sets it): the aux loss
+    #: then takes its means over the global batch
+    batch_comm = None
+
     def __init__(self, cfg, gen, device=None, dtype=torch.float32):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
@@ -71,23 +82,49 @@ def _expert_mlp(p: MoE, cfg, exp_in):
     return torch.einsum("gecf,efd->gecd", h, p.w_down.to(dt))
 
 
-def _aux_loss(cfg, probs, topk_idx):
+def _aux_loss(cfg, probs, topk_idx, comm=None):
+    """E * sum(mean(probs) * mean(routed)): a product of means over the
+    whole batch, so on batch-split ranks (`comm`) the per-rank means are
+    summed (a differentiable psum) and divided by the ranks before the
+    product; the mean of per-rank aux values would be another number."""
     E, K = cfg.num_experts, cfg.top_k
     sel = F.one_hot(topk_idx, E).float()                       # [G,S,K,E]
     me = probs.mean(dim=(0, 1))
     ce = sel.sum(2).mean(dim=(0, 1)) / K                        # frac routed
+    if comm is not None and comm.size > 1:
+        me, ce = (psum(torch.stack([me, ce]), comm) / comm.size).unbind(0)
     return E * torch.sum(me * ce)
+
+
+def _group(N: int, group_size: int) -> int:
+    """The token group: the largest divisor of N that is <= group_size."""
+    g = max(1, min(group_size, N))
+    while N % g:
+        g -= 1
+    return g
 
 
 def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True):
     """x [B,T,D] -> (y [B,T,D], {"moe_aux": f32 scalar}); the aux is None
-    when not `aux` (decode, which discards it)."""
+    when not `aux` (decode, which discards it). On batch-split ranks
+    (`p.batch_comm`) the rank's token groups must be the global batch's:
+    the rank's token count must be a multiple of the global group, else
+    ValueError."""
     B, T, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     N = B * T
-    g = max(1, min(group_size, N))
-    while N % g:
-        g -= 1
+    g = _group(N, group_size)
+    comm = p.batch_comm
+    if comm is not None and comm.size > 1:
+        g_all = _group(N * comm.size, group_size)
+        if N % g_all:
+            raise ValueError(
+                f"MoE grouping: the batch split over {comm.size} ranks "
+                f"gives each {B} x {T} = {N} tokens, not a multiple of the "
+                f"global batch's token group {g_all} (of {N * comm.size} "
+                "tokens), so the ranks would route other groups than one "
+                "rank does; split the batch so each rank's tokens are a "
+                "multiple of it")
     xg = x.reshape(N // g, g, D)
     probs, gate_vals, topk_idx = _route(p, cfg, xg)
     cap = max(int(math.ceil(K * g * cfg.capacity_factor / E)), 1)
@@ -95,7 +132,7 @@ def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True):
         else _dispatch_sort
     y = dispatch(p, cfg, xg, gate_vals, topk_idx, cap, x.dtype)
     return y.reshape(B, T, D), {
-        "moe_aux": _aux_loss(cfg, probs, topk_idx) if aux else None}
+        "moe_aux": _aux_loss(cfg, probs, topk_idx, comm) if aux else None}
 
 
 def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):

@@ -49,6 +49,8 @@ def _const(shape, value, device, dtype):
 class Conv1d(nn.Module):
     """Depthwise causal conv: `w` [width, channels], `b` [channels]."""
 
+    AXES = {"w": ("conv", "rnn"), "b": ("rnn",)}
+
     def __init__(self, width: int, channels: int, gen, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -79,6 +81,11 @@ def conv1d_fwd(p: Conv1d, x, state=None):
 # ---------------------------------------------------------------------------
 
 class MLSTM(nn.Module):
+    AXES = {"w_up": ("embed", "rnn"), "w_gate_up": ("embed", "rnn"),
+            "wq": ("rnn", None), "wk": ("rnn", None), "wv": ("rnn", None),
+            "wi": ("rnn", None), "bi": (None,), "wf": ("rnn", None),
+            "bf": (None,), "w_down": ("rnn", "embed")}
+
     def __init__(self, cfg, gen, device=None, dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
@@ -214,6 +221,9 @@ def mlstm_decode(p: MLSTM, cfg, x, state: Dict):
 # ---------------------------------------------------------------------------
 
 class SLSTM(nn.Module):
+    AXES = {"w_in": ("embed", "rnn"), "b_in": ("rnn",),
+            "r": (None, None, None), "w_down": ("rnn", "embed")}
+
     def __init__(self, cfg, gen, device=None, dtype=torch.float32):
         super().__init__()
         d, H = cfg.d_model, cfg.num_heads
@@ -287,6 +297,10 @@ def slstm_decode(p: SLSTM, cfg, x, state: Dict):
 # ---------------------------------------------------------------------------
 
 class RGLRU(nn.Module):
+    AXES = {"w_x": ("embed", "rnn"), "w_gate": ("embed", "rnn"),
+            "w_a": ("rnn", None), "w_i": ("rnn", None), "lam": (None,),
+            "w_out": ("rnn", "embed")}
+
     def __init__(self, cfg, gen, device=None, dtype=torch.float32):
         super().__init__()
         d, r = cfg.d_model, cfg.rnn_width_

@@ -26,6 +26,7 @@ rest, "none" keeps everything.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Optional
 
@@ -34,6 +35,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..core.graph_device import resolve_device
+from ..distributed import sharding as S
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
@@ -54,13 +56,23 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _block_remat(blk, cfg, x, positions):
+def _run_block(blk, cfg, x, positions, plan, prefix):
+    """Block.forward on whole weights: the block's own parameters, or on
+    a sharded model (`plan`) its shards gathered here (so a checkpointed
+    block gathers again when it is recomputed)."""
+    if plan is None:
+        return blk(cfg, x, positions)
+    with S.swapped(blk, plan.gather(blk, prefix)):
+        return blk(cfg, x, positions)
+
+
+def _block_remat(blk, cfg, x, positions, plan=None, prefix=""):
     """(x_out, aux) of one block under `cfg.remat` (REMAT)."""
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
 
     def run(x):
-        y, aux, _ = blk(cfg, x, positions)
+        y, aux, _ = _run_block(blk, cfg, x, positions, plan, prefix)
         return y, aux
 
     if cfg.remat == "none":
@@ -163,17 +175,28 @@ class Transformer(nn.Module):
     """The model: parameters drawn from `gen` (a torch.Generator on
     `device`; seed 0 on it by default) with the reference's init scales,
     stored in `dtype`; the activations run in `cfg.dtype`. `device` is
-    "cuda" unless the caller asks for "cpu". `cfg` is read on every call,
-    so `model.cfg = model.cfg.replace(attn_impl=...)` switches the
-    attention path of the same weights."""
+    "cuda" unless the caller asks for "cpu"; "meta" builds the shapes
+    only, drawing nothing (the reference's `jax.eval_shape`). `cfg` is
+    read on every call, so `model.cfg = model.cfg.replace(attn_impl=...)`
+    switches the attention path of the same weights. A sharded model
+    (`shard_plan` set) holds this rank's shards and gathers each block's
+    weights at use, inside the block's remat region."""
+
+    AXES = {"embedding": ("vocab", "embed"), "lm_head": ("embed", "vocab")}
 
     def __init__(self, cfg, gen: Optional[torch.Generator] = None,
                  device="cuda", dtype=torch.float32):
         super().__init__()
-        device = resolve_device(device)
-        if gen is None:
-            gen = torch.Generator(device=device).manual_seed(0)
+        if torch.device(device).type == "meta":
+            gen = None
+        else:
+            device = resolve_device(device)
+            if gen is None:
+                gen = torch.Generator(device=device).manual_seed(0)
         self.cfg = cfg
+        #: a `distributed.sharding.ShardPlan` once the parameters are this
+        #: rank's shards (`sharding.shard_model`); None on one rank
+        self.shard_plan = None
         std = 0.02
         if not cfg.embed_inputs:
             self.embedding = L._param((cfg.padded_vocab, cfg.d_model), gen,
@@ -193,6 +216,10 @@ class Transformer(nn.Module):
         `collect_states`, else None. With grad mode on, trainable parameters
         and no states collected, each block runs under `cfg.remat` (module
         docstring); a frozen model runs the plain loop."""
+        with _top_weights(self):
+            return self._forward(inputs, positions, collect_states)
+
+    def _forward(self, inputs, positions, collect_states):
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         if cfg.embed_inputs:
@@ -209,11 +236,14 @@ class Transformer(nn.Module):
         # every parameter, so the first one speaks for all of them
         remat = (torch.is_grad_enabled() and not collect_states
                  and next(self.parameters()).requires_grad)
-        for blk in self.layers:
+        plan = self.shard_plan
+        for i, blk in enumerate(self.layers):
             if remat:
-                x, a = _block_remat(blk, cfg, x, positions)
+                x, a = _block_remat(blk, cfg, x, positions, plan,
+                                    f"layers.{i}.")
             else:
-                x, a, st = blk(cfg, x, positions)
+                x, a, st = _run_block(blk, cfg, x, positions, plan,
+                                      f"layers.{i}.")
                 if collect_states:
                     states.append(st)
             if a is not None:
@@ -221,6 +251,34 @@ class Transformer(nn.Module):
         x = L.apply_norm(self.final_norm, x, cfg.norm)
         logits = L.logits_fwd(self, cfg, x)
         return logits, aux, (states if collect_states else None)
+
+
+def _top_weights(model: Transformer):
+    """A context in which a sharded model's embedding, LM head and final
+    norm read whole (gathered once for the call: a tied table serves the
+    embedding and the logits); a no-op on one rank."""
+    plan = model.shard_plan
+    if plan is None:
+        return contextlib.nullcontext()
+    return S.swapped(model, plan.gather(model, skip="layers."))
+
+
+def param_logical_axes(cfg_or_model) -> dict:
+    """{parameter name: logical axes}, in `named_parameters()` order: the
+    axes of the reference's `pb.param(..., axes)` calls, without the
+    leading "layers" axis its scanned layout stacks (the port's layers
+    are separate modules). Given a config, the model is built on "meta"
+    (no memory)."""
+    model = cfg_or_model
+    if not isinstance(model, nn.Module):
+        model = Transformer(cfg_or_model, device="meta")
+    out = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = \
+                type(mod).AXES[pname]
+    order = [k for k, _ in model.named_parameters()]
+    return {k: out[k] for k in order}
 
 
 def forward(model: Transformer, inputs, positions=None,
@@ -254,8 +312,8 @@ def init_decode_state(cfg, batch: int, max_len: int,
     """One empty state per layer on `device`: a KV cache for the attention
     kinds (window layers get a full-length buffer, as in the reference),
     the recurrent kinds' state dicts (f32 `h`/`C`/`n`/`m`, the conv state
-    in `cache_dtype`) for the others."""
-    device = resolve_device(device)
+    in `cache_dtype`) for the others. "meta" makes shapes only."""
+    device = L.state_device(device)
     return [L.init_kv_cache(cfg, batch, max_len, cache_dtype, device)
             if kind in ATTN_KINDS
             else R.init_state(kind, cfg, batch, cache_dtype, device)
@@ -269,13 +327,17 @@ def decode_step(model: Transformer, tokens, state: List[dict]):
     layers' entries are new dicts."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
-    if cfg.embed_inputs:
-        x = (tokens[:, None] if tokens.ndim == 2 else tokens).to(dtype)
-    else:
-        x = L.embed_tokens(model, cfg, tokens[:, None], dtype)
-    new_state = []
-    for blk, st in zip(model.layers, state):
-        x, st = blk.decode(cfg, x, st)
-        new_state.append(st)
-    x = L.apply_norm(model.final_norm, x, cfg.norm)
-    return L.logits_fwd(model, cfg, x)[:, 0], new_state
+    plan = model.shard_plan
+    with _top_weights(model):
+        if cfg.embed_inputs:
+            x = (tokens[:, None] if tokens.ndim == 2 else tokens).to(dtype)
+        else:
+            x = L.embed_tokens(model, cfg, tokens[:, None], dtype)
+        new_state = []
+        for i, (blk, st) in enumerate(zip(model.layers, state)):
+            w = {} if plan is None else plan.gather(blk, f"layers.{i}.")
+            with S.swapped(blk, w):
+                x, st = blk.decode(cfg, x, st)
+            new_state.append(st)
+        x = L.apply_norm(model.final_norm, x, cfg.norm)
+        return L.logits_fwd(model, cfg, x)[:, 0], new_state

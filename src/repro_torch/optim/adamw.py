@@ -74,16 +74,28 @@ def adamw_update(grads: Tensors, state: AdamWState, params: Tensors, *, lr,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tensors, max_norm: float):
+def clip_by_global_norm(grads: Tensors, max_norm: float, counted=None,
+                        comm=None):
     """Scale every gradient in place by min(1, max_norm / global norm);
     returns (grads, the f32 global norm before clipping, a 0-d tensor on
-    the gradients' device). Nothing is read back to the host."""
+    the gradients' device). Nothing is read back to the host.
+
+    Sharded gradients (one rank's shards): the squares summed on this
+    rank are those of the names `counted` marks (a shard replicated over
+    other ranks is counted by one of them, `ShardPlan.counted`), and
+    `comm` (every rank) sums them, so each element counts once. AdamW is
+    elementwise, so on a shard it is the slice of the whole update."""
     gn = None
-    for g in grads.values():
+    for k, g in grads.items():
+        if counted is not None and not counted[k]:
+            continue
         s = torch.sum(torch.square(g.to(torch.float32)))
         gn = s if gn is None else gn + s
     if gn is None:
-        gn = torch.zeros((), dtype=torch.float32)
+        dev = next(iter(grads.values())).device if grads else None
+        gn = torch.zeros((), dtype=torch.float32, device=dev)
+    if comm is not None:
+        gn = comm.psum(gn)
     gn = torch.sqrt(gn)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():

@@ -1,4 +1,5 @@
-"""train_step / serve_step factories: the functions the launchers run.
+"""train_step / serve_step builders: the functions the dry-run runs and
+the launchers execute.
 
 One rank: the state is a `models.Transformer` whose parameters require
 grad, its AdamW state (f32 moments keyed like `named_parameters()`) and
@@ -7,19 +8,48 @@ the step. A train step is the reference's: `lm_loss`, its gradients
 schedule's learning rate at the state's step, and AdamW, in place.
 Nothing is read back to the host: the metrics are 0-d tensors.
 
-A layout of more than one rank needs the sharded forms (the reference's
-`build_*` and `train_state_specs`, over `distributed/sharding.py`),
-which come with the multi-rank slice; until then such a layout raises.
+Several ranks (a `launch.mesh.RankLayout` of more than one rank, one
+process per rank over `torch.distributed`): the reference gets this from
+`jax.jit` with the `NamedSharding`s that `train_state_specs` and
+`distributed/sharding.py` resolve; the port does it explicitly.
+
+  * Each rank keeps only its shard of every parameter and of both AdamW
+    moments, as `param_spec` resolves it over the layout
+    (`Placement.state`, `init_train_state(..., layout=)`).
+  * Each block gathers its parameters whole where they are used
+    (`sharding.gather_param`, inside the block's remat region), and the
+    gradients come back reduce-scattered to their owners in their own
+    dtype (as XLA's all-reduce reduces); the sum over the batch's ranks
+    is then divided by their number.
+  * The step takes the global batch and keeps this rank's rows: the
+    batch splits along the axes that the "batch" rule of the config's
+    profile resolves to (`sharding.rules_for_profile`).
+  * The loss metrics are averaged over the batch's ranks, the MoE aux
+    loss takes global means (`models/moe.py`), and the gradient norm
+    counts every element once (`optim.clip_by_global_norm`).
+
+So P ranks compute what one rank computes on the global batch. Compute
+over the `model` axis is not split (a later slice): ranks along it keep
+different shards but compute the same batch rows; under the "dp"
+profile the batch spans every axis, so no rank repeats another's work.
+
+The second member of each `build_*` pair, a `Placement`, puts a whole
+state, model, batch or decode state onto this rank's shards: the
+counterpart of `jit_for`'s `in_shardings` (donation has none). A
+one-rank layout runs the one-rank step, bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import models as M
 from ..core.graph_device import resolve_device
+from ..distributed import sharding as S
+from ..models.transformer import param_logical_axes
 from ..optim import adamw_init, adamw_update, clip_by_global_norm
 from ..optim.adamw import AdamWState
 
@@ -41,26 +71,161 @@ def trainable(model: M.Transformer) -> M.Transformer:
     return model.requires_grad_(True)
 
 
+def _sharded(layout) -> bool:
+    return layout is not None and layout.size > 1
+
+
 def init_train_state(cfg, seed: int = 0, device="cuda",
-                     dtype=torch.float32) -> TrainState:
+                     dtype=torch.float32, layout=None) -> TrainState:
     """A fresh state: parameters drawn from `torch.Generator(device)
     .manual_seed(seed)` in `dtype` (f32 masters by default, as the
-    reference's), zero f32 moments, step 0."""
+    reference's), zero f32 moments, step 0. With a layout of several
+    ranks every rank draws the whole model from the seed on its device
+    (`layout.device`) and keeps its shards, so P ranks start where one
+    rank starts."""
+    if _sharded(layout):
+        device = layout.device
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     model = trainable(M.Transformer(cfg, gen, device=device, dtype=dtype))
+    if _sharded(layout):
+        model = Placement(cfg, layout).params(model)
     return TrainState(params=model, opt=adamw_init(named_params(model)),
                       step=torch.tensor(0, dtype=torch.int32))
 
 
-def _single_rank(layout, what: str):
-    if layout is not None and getattr(layout, "size", 1) > 1:
-        raise ValueError(
-            f"{what}: a layout of {layout.size} ranks needs the sharded "
-            "step (distributed/sharding.py, build_train_step and "
-            "train_state_specs), which the multi-rank slice of the port "
-            "adds; this step runs on one rank")
+# ---------------------------------------------------------------------------
+# specs: logical axes and their resolution over a layout
+# ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _model_specs_cached(cfg):
+    """Shapes + logical axes WITHOUT allocating (a model on "meta") —
+    full-size configs (dbrx-132b...) must never materialise."""
+    model = M.Transformer(cfg, device="meta")
+    shapes = dict(model.named_parameters())
+    return param_logical_axes(model), shapes
+
+
+def model_specs(cfg):
+    """({name: "meta" tensor of the parameter's shape, f32}, {name:
+    logical axes}), the reference's `_model_specs`."""
+    specs, shapes = _model_specs_cached(cfg)
+    return shapes, specs
+
+
+def train_state_specs(cfg) -> TrainState:
+    """Logical-axis spec tree matching init_train_state's structure."""
+    _, pspecs = model_specs(cfg)
+    return TrainState(params=pspecs,
+                      opt=AdamWState(step=(), m=pspecs, v=pspecs),
+                      step=())
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def _tree_map(fn, spec_tree, template):
+    """fn(axes, leaf) over a spec tree (NamedTuples and dicts whose leaves
+    are logical-axis tuples) and a template of the same structure."""
+    if _is_axes(spec_tree):
+        return fn(spec_tree, template)
+    if isinstance(spec_tree, dict):
+        return {k: _tree_map(fn, v, template[k])
+                for k, v in spec_tree.items()}
+    return type(spec_tree)(*[_tree_map(fn, a, b)
+                             for a, b in zip(spec_tree, template)])
+
+
+def resolve_param_shardings(cfg, layout, state_template) -> Any:
+    """The spec tree of a TrainState (or a {name: tensor} params dict)
+    template over `layout`: `param_spec` of each leaf's shape."""
+    if isinstance(state_template, TrainState):
+        spec_tree = train_state_specs(cfg)
+    else:
+        _, spec_tree = model_specs(cfg)
+    return _tree_map(
+        lambda axes, leaf: S.param_spec(axes, leaf.shape, layout),
+        spec_tree, state_template)
+
+
+def resolve_specs(spec_tree, template, layout, rules) -> Any:
+    """`spec_for` of every leaf of a spec tree against its template."""
+    return _tree_map(
+        lambda axes, leaf: S.spec_for(axes, leaf.shape, layout, rules),
+        spec_tree, template)
+
+
+def _lead(batch):
+    return batch["labels"] if isinstance(batch, dict) else batch
+
+
+class Placement:
+    """Puts whole states, models, batches and decode states onto this
+    rank's shards of `layout` under `cfg`'s rules: the counterpart of the
+    reference's `jit_for` in_shardings."""
+
+    def __init__(self, cfg, layout):
+        self.cfg, self.layout = cfg, layout
+        self.rules = S.rules_for_profile(cfg.sharding_profile)
+
+    def param_specs(self, model) -> dict:
+        axes = param_logical_axes(model)
+        return {k: S.param_spec(axes[k], p.shape, self.layout)
+                for k, p in model.named_parameters()}
+
+    def params(self, model):
+        """A whole model -> this rank's shards of it (in place), with its
+        `ShardPlan`."""
+        if model.shard_plan is not None:
+            raise ValueError("the model is already sharded")
+        return S.shard_model(model, self.layout, self.param_specs(model),
+                             self.rules)
+
+    @torch.no_grad()
+    def state(self, state: TrainState) -> TrainState:
+        """A whole TrainState -> this rank's: parameters and both moments
+        sharded by the parameters' specs, the steps kept."""
+        specs = self.param_specs(state.params)
+        model = self.params(state.params)
+
+        def cut(t):
+            return {k: S.shard_tensor(v, specs[k], self.layout)
+                    for k, v in t.items()}
+        return TrainState(params=model, opt=AdamWState(
+            state.opt.step, cut(state.opt.m), cut(state.opt.v)),
+            step=state.step)
+
+    def _rows(self, n: int) -> slice:
+        axes = S.batch_axes_for((n,), self.layout, self.rules)
+        per = n // self.layout.axis_size(axes)
+        i = self.layout.axis_index(axes)
+        return slice(i * per, (i + 1) * per)
+
+    def batch(self, batch, device=None):
+        """This rank's rows of a global batch (tokens [B, ...], or both
+        leaves of an embed_inputs config's dict), on `device`."""
+        rows = self._rows(_lead(batch).shape[0])
+        device = device or self.layout.device
+        if isinstance(batch, dict):
+            return {k: _as_tensor(v[rows], device) for k, v in batch.items()}
+        return _as_tensor(batch[rows], device)
+
+    def decode_state(self, state):
+        """This rank's rows of a whole decode state (KV caches and
+        recurrent states are [B, ...]; positions are kept)."""
+        b = next(v.shape[0] for st in state for v in st.values()
+                 if isinstance(v, torch.Tensor))
+        rows = self._rows(b)
+        return [{k: v[rows].clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in st.items()} for st in state]
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 
 def _as_tensor(x, device, dtype=None):
     if isinstance(x, np.ndarray):
@@ -94,24 +259,63 @@ def loss_and_grads(model: M.Transformer, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _placed(model, layout, what: str):
+    plan = model.shard_plan
+    if plan is None or plan.layout is not layout:
+        raise ValueError(
+            f"{what}: the model is not sharded over this layout; place it "
+            "first (the second member of build_*: .state() or .params(), "
+            "or init_train_state(..., layout=layout))")
+    return plan
+
+
+def _bind_batch(model, plan, batch):
+    """Resolve the global batch's split on the plan and hand its Comm to
+    the MoE layers (their aux loss takes global means)."""
+    plan.set_batch(tuple(_lead(batch).shape))
+    for m in model.modules():
+        if isinstance(m, M.moe.MoE):
+            m.batch_comm = plan.batch_comm
+
+
 def make_train_step(cfg, layout=None, lr_schedule=None,
                     clip_norm: float = 1.0):
     """Returns train_step(state, batch) -> (state, metrics). batch is
     tokens [B, T+1] int32 (or dict(inputs=…, labels=…) for embed archs),
-    numpy or tensors; the model runs under `cfg`. The state's tensors are
-    updated in place, and the returned state shares them. metrics: loss,
-    grad_norm, lr, nll, z_loss, moe_aux (0-d tensors)."""
-    _single_rank(layout, "make_train_step")
+    numpy or tensors: the global batch; on several ranks each keeps its
+    rows and the state must be placed (module docstring). The model runs
+    under `cfg`. The state's tensors are updated in place, and the
+    returned state shares them. metrics: loss, grad_norm, lr, nll,
+    z_loss, moe_aux (0-d tensors, the global batch's)."""
     if lr_schedule is None:
         from ..optim import linear_warmup_cosine
         lr_schedule = linear_warmup_cosine(3e-4, 100, 10000)
+    sharded = _sharded(layout)
+    place = Placement(cfg, layout) if sharded else None
 
     def train_step(state: TrainState, batch):
         model = state.params
         model.cfg = cfg
         dev = next(model.parameters()).device
-        loss, metrics, grads = loss_and_grads(model, _batch_on(batch, dev))
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        if not sharded:
+            loss, metrics, grads = loss_and_grads(model,
+                                                  _batch_on(batch, dev))
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        else:
+            plan = _placed(model, layout, "make_train_step")
+            _bind_batch(model, plan, batch)
+            loss, metrics, grads = loss_and_grads(model,
+                                                  place.batch(batch, dev))
+            nb = plan.n_batch
+            if nb > 1:
+                for g in grads.values():
+                    g.div_(nb)
+                red = plan.batch_comm.psum(torch.stack(
+                    [loss, metrics["nll"], metrics["z_loss"]])) / nb
+                loss, metrics["nll"], metrics["z_loss"] = red.unbind(0)
+            grads, gnorm = clip_by_global_norm(
+                grads, clip_norm, {k: plan.counted(k) for k in grads},
+                plan.world_comm)
         lr = lr_schedule(state.step)
         _, new_opt = adamw_update(grads, state.opt, named_params(model),
                                   lr=lr)
@@ -123,26 +327,57 @@ def make_train_step(cfg, layout=None, lr_schedule=None,
     return train_step
 
 
+def build_train_step(cfg, layout, lr_schedule=None):
+    """(train_step, Placement): `make_train_step` over `layout`, and what
+    places a whole state (`.state`) or batch (`.batch`) on this rank."""
+    return make_train_step(cfg, layout, lr_schedule), Placement(cfg, layout)
+
+
 def make_serve_step(cfg, layout=None):
     """serve_step(model, tokens, state) -> (logits, state): `decode_step`
-    under `cfg`."""
-    _single_rank(layout, "make_serve_step")
+    under `cfg`. On several ranks `tokens` is the global batch (each rank
+    keeps its rows) and `state` this rank's rows (as `make_prefill_step`
+    returns them, or `Placement.decode_state` cuts them); the logits are
+    this rank's rows."""
+    sharded = _sharded(layout)
+    place = Placement(cfg, layout) if sharded else None
 
     def serve_step(model, tokens, state):
         model.cfg = cfg
+        if sharded:
+            _bind_batch(model, _placed(model, layout, "make_serve_step"),
+                        tokens)
+            tokens = place.batch(tokens, next(model.parameters()).device)
         return M.decode_step(model, tokens, state)
     return serve_step
 
 
 def make_prefill_step(cfg, layout=None, max_len: Optional[int] = None):
     """prefill(model, tokens) -> (last logits, decode state):
-    `prefill_step` under `cfg`."""
-    _single_rank(layout, "make_prefill_step")
+    `prefill_step` under `cfg`; on several ranks the global batch in,
+    this rank's rows of the logits and of the decode state out."""
+    sharded = _sharded(layout)
+    place = Placement(cfg, layout) if sharded else None
 
     def prefill(model, tokens):
         model.cfg = cfg
+        if sharded:
+            _bind_batch(model, _placed(model, layout, "make_prefill_step"),
+                        tokens)
+            tokens = place.batch(tokens, next(model.parameters()).device)
         return M.prefill_step(model, tokens, max_len=max_len)
     return prefill
+
+
+def build_serve_step(cfg, layout):
+    """(serve_step, Placement): `.params` places a whole model,
+    `.decode_state` a whole decode state."""
+    return make_serve_step(cfg, layout), Placement(cfg, layout)
+
+
+def build_prefill_step(cfg, layout, max_len: Optional[int] = None):
+    """(prefill, Placement): `.params` places a whole model."""
+    return make_prefill_step(cfg, layout, max_len), Placement(cfg, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -150,23 +385,53 @@ def make_prefill_step(cfg, layout=None, max_len: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 def state_tree(state: TrainState) -> TrainState:
-    """The state as a tree of tensors for `CheckpointManager.save` (the
-    model's parameters as a {name: tensor} dict, detached)."""
-    return TrainState(
-        params={k: p.detach() for k, p in named_params(state.params).items()},
-        opt=state.opt, step=state.step)
+    """The state as a tree of whole tensors for `CheckpointManager.save`
+    (the model's parameters as a {name: tensor} dict, detached). A
+    sharded state is gathered into new tensors: every rank takes part and
+    gets the whole tree (rank 0 writes it)."""
+    plan = state.params.shard_plan
+    if plan is None:
+        return TrainState(
+            params={k: p.detach()
+                    for k, p in named_params(state.params).items()},
+            opt=state.opt, step=state.step)
+
+    def whole(t):
+        return {k: S.whole_tensor(v, plan.specs[k], plan.layout)
+                for k, v in t.items()}
+    return TrainState(params=S.gather_whole(state.params),
+                      opt=AdamWState(state.opt.step, whole(state.opt.m),
+                                     whole(state.opt.v)),
+                      step=state.step)
+
+
+def state_template(state: TrainState) -> TrainState:
+    """`state_tree`'s structure with None leaves, for
+    `CheckpointManager.restore` (which reads only the structure): no
+    gather, so a rank can restore without its peers."""
+    names = {k: None for k in named_params(state.params)}
+    return TrainState(params=names, opt=AdamWState(None, dict(names),
+                                                   dict(names)), step=None)
 
 
 @torch.no_grad()
 def load_state_tree(state: TrainState, tree) -> TrainState:
-    """Copy a restored `state_tree` (numpy or tensors) into `state`'s
-    tensors in place; returns the state at the restored step."""
+    """Copy a restored `state_tree` (whole numpy arrays or tensors) into
+    `state`'s tensors in place — a sharded state keeps its shards of it,
+    so a checkpoint written by P ranks restores on any other number of
+    ranks; returns the state at the restored step."""
     dev = next(state.params.parameters()).device
+    plan = state.params.shard_plan
+
+    def mine(x, k, dtype):
+        x = _as_tensor(x, dev, dtype)
+        return x if plan is None else S.shard_tensor(x, plan.specs[k],
+                                                     plan.layout)
     for k, p in named_params(state.params).items():
-        p.copy_(_as_tensor(tree.params[k], dev, p.dtype))
+        p.copy_(mine(tree.params[k], k, p.dtype))
     for k in state.opt.m:
-        state.opt.m[k].copy_(_as_tensor(tree.opt.m[k], dev, torch.float32))
-        state.opt.v[k].copy_(_as_tensor(tree.opt.v[k], dev, torch.float32))
+        state.opt.m[k].copy_(mine(tree.opt.m[k], k, torch.float32))
+        state.opt.v[k].copy_(mine(tree.opt.v[k], k, torch.float32))
     step = torch.as_tensor(np.asarray(tree.step), dtype=torch.int32)
     opt_step = torch.as_tensor(np.asarray(tree.opt.step),
                                dtype=torch.int32)

@@ -2247,3 +2247,111 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
         np.testing.assert_allclose(b[name].detach().cpu().numpy(),
                                    a[name].detach().numpy(), rtol=0,
                                    atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Training on two ranks that share the card (gloo, host-staged)
+# ---------------------------------------------------------------------------
+
+_SHARDED_CASES = {"dense/data2": ("qwen3-14b", 1, "default", "dots", 16),
+                  "dense/model2": ("qwen3-14b", 2, "default", "none", 16),
+                  "dense/dp": ("qwen3-14b", 2, "dp", "none", 16),
+                  "moe/data2": ("granite-moe-1b-a400m", 1, "default", "full",
+                                1024),
+                  "moe/dp": ("granite-moe-1b-a400m", 2, "dp", "none", 1024)}
+
+_SHARDED_RANK = r"""
+import pickle, sys
+import torch
+from repro_torch.configs import get_config, smoke
+from repro_torch.data import SyntheticLMDataset
+from repro_torch.distributed.collectives import init_rank
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.optim import linear_warmup_cosine
+from repro_torch.train import step as TS
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+cases = pickle.loads(bytes.fromhex(sys.argv[4]))
+init_rank(rank, 2, port, "gloo", device="cuda:0")
+torch.backends.cuda.matmul.allow_tf32 = False
+res = {}
+for key, (arch, mp, prof, remat, T) in cases.items():
+    cfg = smoke(get_config(arch)).replace(sharding_profile=prof, remat=remat)
+    lay = make_host_mesh(mp, "cuda:0")
+    state = TS.init_train_state(cfg, 0, layout=lay)
+    step = TS.make_train_step(cfg, lay, linear_warmup_cosine(1e-3, 2, 10))
+    data = SyntheticLMDataset(cfg.vocab_size, T, 4, seed=0)
+    ms = []
+    for s in range(3):
+        state, m = step(state, data.batch(s))
+        ms.append({k: float(v) for k, v in m.items()})
+    tree = TS.state_tree(state)
+    res[key] = {"metrics": ms,
+                "params": {k: v.cpu() for k, v in tree.params.items()}}
+if rank == 0:
+    pickle.dump(res, open(out, "wb"))
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_on_card(tmp_path_factory):
+    """Two gloo ranks on cuda:0 run every case of _SHARDED_CASES once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_*.py)")
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch import envutil
+    from repro_torch.distributed import collectives
+    out = tmp_path_factory.mktemp("sharded_card") / "out.pkl"
+    port = collectives.free_port()
+    arg = pickle.dumps(_SHARDED_CASES).hex()
+    env = envutil.subprocess_env(threads=2, base=os.environ)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARDED_RANK, str(r), str(port), str(out),
+         arg], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SHARDED_CASES))
+def test_sharded_step_on_card_matches_one_rank(sharded_on_card, case):
+    """Two gloo ranks sharing the card against one rank on the card, f32,
+    TF32 off, three steps: loss 1e-5 and grad_norm 1e-4 relative,
+    moe_aux 1e-6 relative, every parameter within 1e-5."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = torch.device("cuda", 0)
+    arch, _, prof, remat, T = _SHARDED_CASES[case]
+    cfg = smoke(get_config(arch)).replace(sharding_profile=prof, remat=remat)
+    state = TS.init_train_state(cfg, 0, cuda)
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(1e-3, 2, 10))
+    data = SyntheticLMDataset(cfg.vocab_size, T, 4, seed=0)
+    got = sharded_on_card[case]
+    for s in range(3):
+        state, m = step(state, data.batch(s))
+        g = got["metrics"][s]
+        np.testing.assert_allclose(g["loss"], float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(g["grad_norm"], float(m["grad_norm"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(g["moe_aux"], float(m["moe_aux"]),
+                                   rtol=1e-6)
+    for k, p in TS.named_params(state.params).items():
+        np.testing.assert_allclose(got["params"][k].numpy(),
+                                   p.detach().cpu().numpy(), rtol=0,
+                                   atol=1e-5, err_msg=k)

@@ -111,3 +111,34 @@ def test_training_modules_are_checked(module):
     path = PORT.joinpath(*module.split(".")[1:]).with_suffix(".py")
     assert path in _port_files(), path
     assert not FORBIDDEN.findall(path.read_text()), path
+
+
+#: training on several ranks: imported in a fresh interpreter below, and
+#: their files among those checked
+SHARDED_MODULES = ("repro_torch.distributed.sharding",
+                   "repro_torch.distributed.compression",
+                   "repro_torch.distributed.pipeline",
+                   "repro_torch.launch.specs", "repro_torch.launch.dryrun")
+
+
+def test_sharded_modules_import_alone():
+    """Importing the multi-rank training modules loads neither jax, the
+    JAX package nor triton, and the dry-run's private fake process group
+    only when a cell runs."""
+    code = ("import sys, " + ", ".join(SHARDED_MODULES) + "; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton') or m.startswith("
+            "'torch.testing._internal.distributed')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ["PATH"],
+           "HOME": os.environ.get("HOME", str(ROOT))}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", SHARDED_MODULES)
+def test_sharded_modules_are_checked(module):
+    path = PORT.joinpath(*module.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files(), path
+    assert not FORBIDDEN.findall(path.read_text()), path

@@ -346,3 +346,39 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     np.testing.assert_allclose(float(m["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-4)
     assert int(state.step) == 3
+
+
+def test_launcher_on_two_ranks_resumes_on_one(tmp_path):
+    """`torchrun --nproc-per-node 2` runs the sharded step on two gloo
+    CPU ranks (the first line names the backend), rank 0 checkpoints at
+    the end, and --resume on one rank reshards that checkpoint: its last
+    loss lands within 1e-5 of an uninterrupted one-rank run's."""
+    ckpt = tmp_path / "two"
+    common = ["--smoke", "--device", "cpu", "--warmup", "2", "--lr", "1e-3",
+              "--log-every", "1", "--checkpoint-every", "100",
+              "--seq-len", "512"]
+    two = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(collectives.free_port()), "-m",
+         "repro_torch.launch.train", *common, "--steps", "3",
+         "--checkpoint-dir", str(ckpt)],
+        env=envutil.subprocess_env(threads=1), cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert two.returncode == 0, two.stderr[-3000:]
+    assert two.stdout.splitlines()[0].startswith("backend=gloo on the CPU")
+    assert "mesh={'data': 2, 'model': 1}" in two.stdout
+    one = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *common,
+         "--steps", "5", "--checkpoint-dir", str(ckpt), "--resume"],
+        env=envutil.subprocess_env(threads=2), cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert one.returncode == 0, one.stderr[-3000:]
+    assert "resumed from step 3" in one.stdout
+    full = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *common,
+         "--steps", "5", "--checkpoint-dir", str(tmp_path / "full")],
+        env=envutil.subprocess_env(threads=2), cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert full.returncode == 0, full.stderr[-3000:]
+    np.testing.assert_allclose(_final(one.stdout)["last_loss"],
+                               _final(full.stdout)["last_loss"], rtol=1e-5)

@@ -219,13 +219,18 @@ def test_flash_plain_version_is_differentiable_on_cpu():
 
 
 def test_layouts_of_several_ranks_are_refused():
+    """A step over several ranks refuses a model that was not placed on
+    them (tests/test_torch_train_sharded.py runs the placed ones)."""
     from repro_torch.launch.mesh import RankLayout
     _, cfg = _cfgs("qwen3-14b")
     lay = RankLayout((2, 1), ("data", "model"), 0, torch.device("cpu"))
-    for make in (TS.make_train_step, TS.make_serve_step,
-                 TS.make_prefill_step):
-        with pytest.raises(ValueError, match="sharding"):
-            make(cfg, lay)
+    state = TS.init_train_state(cfg, 0, "cpu")
+    tokens = np.zeros((2, 9), np.int32)
+    for make, args in ((TS.make_train_step, (state, tokens)),
+                       (TS.make_serve_step, (state.params, tokens, [])),
+                       (TS.make_prefill_step, (state.params, tokens))):
+        with pytest.raises(ValueError, match="not sharded"):
+            make(cfg, lay)(*args)
     one = RankLayout((1, 1), ("data", "model"), 0, torch.device("cpu"))
     TS.make_train_step(cfg, one, linear_warmup_cosine(1e-3, 2, 10))
 
