@@ -98,6 +98,13 @@ Phases, one line of numbers each:
      equal to the contiguous run; both layouts are timed beside SDPA on
      the same tensors (with the window's boolean mask at the window
      shape), with the plain version's time, the bound and its share;
+     then 13b (`flash_offset`): the query offset of a rank's block under
+     a sequence split (qwen3-14b's prefill at model 2: 2048 rows at
+     q_offset 2048 and 0 against 4096 keys, the last 128 rows, starcoder2-
+     7b's window shape's second half, and the f32 cut's), both variants
+     against the plain version with the same offset within the same
+     tolerances, which must reject a kernel that ignores the offset;
+     timed beside SDPA with the same boolean mask;
  14. lm: qwen3-14b at full width (40 layers, bf16 weights from
      torch.Generator seed 0) through `prefill_step` on B=2 prompts of 4096
      tokens (numpy seed 0, caches of 4128), `decode_step` and
@@ -248,24 +255,33 @@ Phases, one line of numbers each:
      (b)-(e) beside 22b-e, and run (a) alone once 22 is done and
      `go_timed` appears): two gloo ranks share cuda:0, collectives staged
      through host memory. (a) 22a's
-     model and batches at data 2, 8 steps of the sharded step (each rank
-     keeps half of every parameter and moment, gathers each block's
-     weights at use, reduce-scatters the gradients): finite losses, the
-     loss falls, step 1's loss and moe_aux within 1e-3 of 22a's step 1;
-     prints step ms (median of steps 3-8), tokens/s, each rank's peak
-     memory and a step's host-staged bytes per collective; (b) the
+     model and batches at data 1 x model 2, 8 steps of the sharded step
+     (each rank keeps half of every parameter and moment and runs its
+     half of the positions: k/v gathered per attention layer, its 16
+     experts on the gathered token groups, the gradients
+     reduce-scattered): finite losses, the loss falls, step 1's loss and
+     moe_aux within 1e-3 of 22a's step 1; prints step ms (median of steps
+     3-8), tokens/s, each rank's peak memory and a step's host-staged
+     bytes per collective, with the k/v gathers and the MoE gathers and
+     scatters broken out; (b) the
      2-layer f32 cut at 4 x 1024, one step under data 2, data 1 x model
      2 and the "dp" profile against one rank on the card (22b's rules);
      (c) the cut saved at step 2 on the ranks and resumed there (bitwise,
      22c's rule) and on one rank in this process (1e-5); (d)
-     build_prefill_step over the ranks with the flash kernel, each rank's
-     rows held to one rank's prefill (phase 14's gate), 24 wgmma launches
-     a rank; (e) the pipeline over the two ranks against its sequential
+     build_prefill_step over the ranks with the flash kernel, at data 2
+     (each rank its row, every position) and at data 1 x model 2 (each
+     rank its 2048 positions, q_offset 0 or 2048 against the gathered
+     4096 keys), each rank's rows of the last logits held to one rank's
+     prefill (phase 14's gate), 24 wgmma launches a rank in each;
+     (e) the pipeline over the two ranks against its sequential
      run (1e-5) and 50 compressed psums (1e-3);
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time (rows flash_attention[dh256] and
-     flash_attention[dh256,f32] from phase 20).
+     flash_attention[dh256,f32] from phase 20); the flash rows carry
+     13b's offset shape (`q_offset`) and the wgmma row 23d's launches a
+     rank at data 2 (`launches_data2_prefill`) and with the offset
+     (`launches_model2_prefill`).
 Order of execution: 1, 2, 13, 14, 20, then the graph phases (3-12, 21,
 15, 17, 18, 19), 22 and 23. Children do host work beside the card's:
 RMAT-21's (started with the script) and Banded-21's generation, phase
@@ -2557,12 +2573,10 @@ def dist_rank_main(args):
     numbers there."""
     import warnings
 
-    import torch.distributed as dist
-
     import repro_torch
     from repro_torch.core.engines.common import NonConvergenceWarning
     from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
-    from repro_torch.distributed.collectives import Comm, init_rank
+    from repro_torch.distributed.collectives import Comm, end_rank, init_rank
     from repro_torch.kernels import counters
 
     out_dir = pathlib.Path(args.dist_dir)
@@ -2628,8 +2642,7 @@ def dist_rank_main(args):
             meta["launches"], separators=(",", ":")), flush=True)
         np.savez(out_dir / "results.npz", **res)
         (out_dir / "meta.json").write_text(json.dumps(meta))
-    dist.destroy_process_group()
-    return 0
+    end_rank()
 
 
 def wait_go(out_dir, timeout=1800):
@@ -3460,11 +3473,9 @@ def resilience_rank_main(args):
     which exits 17 on every rank. "resume" resumes that run."""
     import warnings
 
-    import torch.distributed as dist
-
     from repro_torch.core import operators
     from repro_torch.core.engines.distributed import SCHEDULES, ShardedGraph
-    from repro_torch.distributed.collectives import init_rank
+    from repro_torch.distributed.collectives import end_rank, init_rank
     from repro_torch.distributed.faults import Fault, NonConvergenceWarning
 
     out_dir = pathlib.Path(args.dist_dir)
@@ -3527,8 +3538,7 @@ def resilience_rank_main(args):
         print("chip_smoke: the kill_part fault did not end the run",
               file=sys.stderr)
         return 1
-    dist.destroy_process_group()
-    return 0
+    end_rank()
 
 
 def phase_resilience_ranks(ctx):
@@ -3732,6 +3742,23 @@ FLASH_SHAPES = (
     ("ragged-4000", 2, 40, 8, 4000, torch.bfloat16, None),
     ("qwen3-14b-f32", 2, 40, 8, 1024, torch.float32, None),
 )
+# phase 13b, the query offset: a rank's block of rows under a sequence
+# split (model 2: T/2 rows at q_offset T/2 or 0 against all S keys; and
+# the last 128 rows), (name, B, Hq, Hkv, rows, S, q_offset, dtype,
+# window); the first of each variant gives its row's "q_offset" numbers
+FLASH_OFFSET_SHAPES = (
+    ("qwen3-14b-model2-rank1", 2, 40, 8, 2048, 4096, 2048, torch.bfloat16,
+     None),
+    ("qwen3-14b-model2-rank0", 2, 40, 8, 2048, 4096, 0, torch.bfloat16,
+     None),
+    ("qwen3-14b-last128", 2, 40, 8, 128, 4096, 3968, torch.bfloat16, None),
+    ("starcoder2-7b-window-rank1", 1, 36, 4, 4096, 8192, 4096,
+     torch.bfloat16, 4096),
+    ("qwen3-14b-f32-model2-rank1", 2, 40, 8, 512, 1024, 512, torch.float32,
+     None),
+    ("qwen3-14b-f32-last128", 2, 40, 8, 128, 1024, 896, torch.float32,
+     None),
+)
 
 
 # the lm phase: B prompts of T tokens (numpy seed 0), caches of MAX_LEN,
@@ -3742,22 +3769,23 @@ LM_REL = 5e-2
 LM_F32_TOKENS = 1024
 
 
-def live_pairs(T, S, causal, window):
-    """(query, key) pairs the masks keep: the work of one head."""
-    t = np.arange(T, dtype=np.int64)
+def live_pairs(T, S, causal, window, q_offset=0):
+    """(query, key) pairs the masks keep: the work of one head (query
+    rows at positions q_offset..q_offset+T-1)."""
+    t = np.arange(T, dtype=np.int64) + q_offset
     hi = np.minimum(t, S - 1) if causal else np.full(T, S - 1)
     lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def flash_bound(B, Hq, Hkv, T, S, Dh, dtype, causal, window,
-                f32_rate=F32_3XTF32_OPS_PER_S):
+                f32_rate=F32_3XTF32_OPS_PER_S, q_offset=0):
     """(least ms, what bounds it): 4·Dh flops per live pair per head (two
     products) at the tensor cores' bf16 rate (f32: `f32_rate`, three TF32
     products a product by default, as the kernel computes them; pass
     F32_OPS_PER_S for the bound of f32 FMA), or q, k, v read once and out
     written once at the memory rate."""
-    ops = 4.0 * B * Hq * Dh * live_pairs(T, S, causal, window)
+    ops = 4.0 * B * Hq * Dh * live_pairs(T, S, causal, window, q_offset)
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * Dh * (2 * B * Hq * T + 2 * B * Hkv * S)
     rate = BF16_OPS_PER_S if dtype != torch.float32 else f32_rate
@@ -3953,6 +3981,72 @@ def phase_flash(dev, shapes=FLASH_SHAPES, dh=128,
     return rows
 
 
+def phase_flash_offset(dev, rows, dh=128):
+    """Phase 13b: the query offset (FLASH_OFFSET_SHAPES), both variants
+    against the plain version within phase 13's tolerance, which must
+    reject a kernel that ignores the offset; each shape timed beside SDPA
+    with the same boolean mask. The first shape of each variant adds its
+    numbers to that variant's row (phase 13's `rows`) under "q_offset"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import counters
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, B, Hq, Hkv, T, S, q0, dt, window in FLASH_OFFSET_SHAPES:
+        q = torch.randn((B, Hq, T, dh), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, Hkv, S, dh), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        var = fa.variant(dt, dh)
+        counter = ("flash_attention_wgmma" if var == "wgmma"
+                   else "flash_attention")
+        counters.reset()
+        got = fa.flash_attention_cuda(q, k, v, window=window, q_offset=q0)
+        torch.cuda.synchronize()
+        if counters.snapshot()[counter] != 1:
+            fail(f"flash {name}: the {var} variant did not launch")
+        ref = fa.flash_attention_plain(q, k, v, window=window, q_offset=q0)
+        errs = flash_close(f"flash kernel {name}", got, ref, v)
+        if q0:   # a kernel that counted the rows from position 0 fails
+            blind = fa.flash_attention_plain(q, k, v, window=window)
+            rtol, atol = flash_tol(v)
+            d = (got.float() - blind.float()).abs()
+            errs["offset_ignored_over_tol"] = float(
+                (d / (atol + rtol * blind.float().abs())).max())
+            if not errs["offset_ignored_over_tol"] > 1.0:
+                fail(f"flash {name}: the tolerance passes a kernel that "
+                     f"ignores q_offset {q0}")
+            del blind, d
+        del ref
+        bound_ms, by = flash_bound(B, Hq, Hkv, T, S, dh, dt, True, window,
+                                   q_offset=q0)
+        mask = fa._live_mask(T, S, True, window, dev, q0)
+        ms = time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, window=window, q_offset=q0))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, q_offset=q0), iters=3, warmup=1)
+        flop = 4.0 * B * Hq * dh * live_pairs(T, S, True, window, q0)
+        out = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_S{S}_Dh{dh}",
+                   q_offset=q0, dtype=str(dt), variant=var, window=window,
+                   **errs, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=by,
+                   bound_share=bound_ms / ms,
+                   tflops=flop / (ms * 1e-3) / 1e12)
+        if "q_offset" not in rows[var]:
+            rows[var]["q_offset"] = {k_: out[k_] for k_ in (
+                "shape", "q_offset", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs")}
+        rows[var]["max_abs_err"] = max(rows[var]["max_abs_err"],
+                                       errs["max_abs"])
+        log("flash_offset", kernel=f"flash_attention[{var}]", case=name,
+            **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
+               for k_, v_ in out.items()})
+        del q, k, v, got, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
 def logit_gate(name, got, ref, rel, vocab):
     """max |got - ref| <= rel * max |ref| over the first `vocab` columns
     (the padded ones hold -1e30 on both sides); returns (max abs, its
@@ -4081,7 +4175,8 @@ def phase_lm(dev, flash):
              "replaces": "src/repro/kernels/flash_attention.py:104",
              "launches": launches, **{key: flash[var][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "fma_bound_ms") if key in flash[var]}}
+                 "library_ms", "fma_bound_ms", "q_offset")
+                 if key in flash[var]}}
             for name, var, launches in (
                 ("flash_attention_wgmma", "wgmma", n),
                 ("flash_attention", "mma_sync", cut["flash_launches"]))]
@@ -4441,7 +4536,8 @@ def phase_lm_families(dev):
              "replaces": "src/repro/kernels/flash_attention.py:104",
              "launches": launches, **{key: flash[var][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "fma_bound_ms") if key in flash[var]}}
+                 "library_ms", "fma_bound_ms", "q_offset")
+                 if key in flash[var]}}
             for name, var, launches in (
                 ("flash_attention[dh256]", "wgmma", n_local),
                 ("flash_attention[dh256,f32]", "mma_sync", n_f32))]
@@ -4794,10 +4890,11 @@ def phase_train(dev, after_22a=None):
 # phase 23: training on two ranks that share the card
 # ---------------------------------------------------------------------------
 
-# 23a: 22a's model and batches on two gloo ranks (data 2), TRAIN2_STEPS
-# steps; step 1 is 22a's step 1 (the same forward on the same rows, each
-# rank on half of them) within TRAIN2_REL
-TRAIN2_STEPS, TRAIN2_REL = 8, 1e-3
+# 23a: 22a's model and batches on two gloo ranks (data 1 x model 2: each
+# rank half of every row's positions), TRAIN2_STEPS steps; step 1 is 22a's
+# step 1 (the same forward on the same tokens, each rank on half of them)
+# within TRAIN2_REL
+TRAIN2_STEPS, TRAIN2_REL, TRAIN2_MP = 8, 1e-3, 2
 # 23b: the 2-layer f32 cut at 4 x 1024 (each rank's 2,048 tokens are one
 # global MoE group, models/moe.py), one step on the ranks against one
 # rank on the card under each layout: model_parallel, profile
@@ -4807,8 +4904,11 @@ TRAIN2_LAYOUTS = {"data2": (1, "default"), "model2": (2, "default"),
 # 23c: the cut saved at step 2 on the ranks, two more steps
 TRAIN2_SAVE_AT = 2
 # 23d: build_prefill_step on the ranks, granite bf16 through the flash
-# kernel, B x T rows against one rank's prefill (LM_REL, phase 14's gate)
+# kernel, under each layout (name: model_parallel): at data 2 each rank's
+# rows, at data 1 x model 2 its positions with its q_offset; the last
+# logits against one rank's prefill (LM_REL, phase 14's gate)
 PREFILL2_B, PREFILL2_T = 2, 4096
+PREFILL2_LAYOUTS = {"data2": 1, "model2": 2}
 # 23e: the pipeline case over the two ranks (2 stages of 4 layers, D 16,
 # B 8, 4 microbatches) against its sequential run, and 50 compressed
 # psums; the CPU tests' limits
@@ -4830,14 +4930,19 @@ def start_train_ranks(tmp):
 
 
 def comm_tally(layout):
-    """{kind: {count, staged_bytes}} over every Comm of the layout."""
-    out = {}
+    """({kind: {count, staged_bytes}}, {tag: the same}) over every Comm of
+    the layout: every collective, and those made under each tag (the
+    sequence split's "kv", "moe", "scan" and "logits")."""
+    out, tags = {}, {}
     for comm in layout.comms():
-        for kind, rec in comm.by_kind.items():
-            d = out.setdefault(kind, {"count": 0, "staged_bytes": 0})
-            d["count"] += rec["count"]
-            d["staged_bytes"] += rec["staged_bytes"]
-    return out
+        for table, recs in [(out, comm.by_kind)] + [
+                (tags.setdefault(tag, {}), t)
+                for tag, t in comm.by_tag.items()]:
+            for kind, rec in recs.items():
+                d = table.setdefault(kind, {"count": 0, "staged_bytes": 0})
+                d["count"] += rec["count"]
+                d["staged_bytes"] += rec["staged_bytes"]
+    return out, tags
 
 
 def reset_comms(layout):
@@ -4853,7 +4958,7 @@ def rank_23a(dev, rank):
     from repro_torch.optim import linear_warmup_cosine
     from repro_torch.train import step as TS
     cfg = get_config(TRAIN_ARCH)
-    lay = make_host_mesh(1, dev)
+    lay = make_host_mesh(TRAIN2_MP, dev)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     state = TS.init_train_state(cfg, 0, layout=lay, dtype=torch.bfloat16)
@@ -4876,11 +4981,13 @@ def rank_23a(dev, rank):
             aux = float(m["moe_aux"])
         if not (np.isfinite(loss) and np.isfinite(gn)):
             raise RuntimeError(f"23a step {i}: loss {loss}, grad norm {gn}")
-    tally = comm_tally(lay)
+    tally, tags = comm_tally(lay)
+    split = state.params.shard_plan.split
     out = dict(losses=losses, first_moe_aux=aux, ms=ms, init_s=init_s,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                shard_params=sum(p.numel() for p in state.params.parameters()),
-               staged_per_step=tally)
+               staged_per_step=tally, staged_by_tag=tags,
+               positions=[split.q0, split.q0 + split.length])
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4994,45 +5101,52 @@ def rank_23c(dev, rank, tmp):
 
 
 def rank_23d(dev, rank, tmp):
-    """23d: build_prefill_step over the ranks, granite bf16 through the
-    flash kernel; rank 0 and 1 hold their rows to one rank's prefill."""
+    """23d: build_prefill_step over the ranks under each of
+    PREFILL2_LAYOUTS, granite bf16 through the flash kernel; each rank
+    holds its rows to one rank's prefill."""
     from repro_torch import models as lm
     from repro_torch.configs import get_config
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import step as TS
     cfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
-    lay = make_host_mesh(1, dev)
-    model = lm.Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev, dtype=torch.bfloat16)
-    prefill, place = TS.build_prefill_step(cfg, lay, max_len=PREFILL2_T)
-    place.params(model)
-    prompt = family_prompt(cfg, PREFILL2_B, PREFILL2_T, dev)
-    torch.cuda.synchronize()
-    counters.reset()
-    t = time.time()
-    last, state = prefill(model, prompt)
-    torch.cuda.synchronize()
-    wall = time.time() - t
-    launches = counters.snapshot()
     ref = torch.load(tmp / "ref23d.pt")
-    rows = place._rows(PREFILL2_B)
-    got, want = last.float().cpu(), ref[rows]
-    got_v, want_v = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
-    err = max_abs_err(got_v, want_v)
-    scale = float(want_v.abs().max())
-    out = dict(rows=[rows.start, rows.stop], wall_s=wall,
-               layers=cfg.num_layers,
-               flash_wgmma=launches["flash_attention_wgmma"],
-               flash_mma_sync=launches["flash_attention"],
-               max_abs=err, max_abs_over_max=err / scale,
-               finite=bool(torch.isfinite(got).all()),
-               argmax_equal=bool(torch.equal(got_v.argmax(-1),
-                                             want_v.argmax(-1))))
-    del model, last, state
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    res = {}
+    for name, mp in PREFILL2_LAYOUTS.items():
+        lay = make_host_mesh(mp, dev)
+        model = lm.Transformer(cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+        prefill, place = TS.build_prefill_step(cfg, lay,
+                                               max_len=PREFILL2_T)
+        place.params(model)
+        prompt = family_prompt(cfg, PREFILL2_B, PREFILL2_T, dev)
+        torch.cuda.synchronize()
+        counters.reset()
+        t = time.time()
+        last, state = prefill(model, prompt)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = counters.snapshot()
+        rows = place._rows(PREFILL2_B)
+        got, want = last.float().cpu(), ref[rows]
+        got_v = got[..., :cfg.vocab_size]
+        want_v = want[..., :cfg.vocab_size]
+        err = max_abs_err(got_v, want_v)
+        scale = float(want_v.abs().max())
+        split = model.shard_plan.split
+        res[name] = dict(
+            rows=[rows.start, rows.stop], wall_s=wall, q_offset=split.q0,
+            positions=split.length or PREFILL2_T, layers=cfg.num_layers,
+            flash_wgmma=launches["flash_attention_wgmma"],
+            flash_mma_sync=launches["flash_attention"],
+            max_abs=err, max_abs_over_max=err / scale,
+            finite=bool(torch.isfinite(got).all()),
+            argmax_equal=bool(torch.equal(got_v.argmax(-1),
+                                          want_v.argmax(-1))))
+        del model, last, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def rank_23e(dev, rank):
@@ -5076,9 +5190,7 @@ def train_rank_main(args):
     """A phase-23 rank: join the gloo group; at go_checks run 23b-e on
     cuda:0 (beside phase 22b-e in the main process), at go_timed 23a
     (the card otherwise idle), and write rank<r>.json."""
-    import torch.distributed as dist
-
-    from repro_torch.distributed.collectives import init_rank
+    from repro_torch.distributed.collectives import end_rank, init_rank
     rank, tmp = args.train_rank, pathlib.Path(args.dist_dir)
     parent = os.getppid()
     init_rank(rank, 2, args.dist_port, "gloo", device="cuda:0")
@@ -5109,9 +5221,7 @@ def train_rank_main(args):
         walls[name] = time.time() - t
     out["walls"] = walls
     (tmp / f"rank{rank}.json").write_text(json.dumps(out))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+    end_rank()
 
 
 def sharded_refs(dev, tmp):
@@ -5194,7 +5304,8 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
     """Phase 23 (module docstring) after phase 22: `procs` are the two
     ranks (started before phase 22, their 23b-e begun after 22a), `first`
     22a's step-1 loss and moe_aux. 23a starts once both ranks' checks are
-    done, the card otherwise idle."""
+    done, the card otherwise idle. Returns 23d's wgmma launches a rank,
+    by layout."""
     t0 = time.time()
     card = nvidia_smi()
     while not all((tmp / f"checks{r}.done").exists() for r in range(2)):
@@ -5224,7 +5335,10 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
              f"against 22a's {first['loss']} / {first['moe_aux']}: "
              f"relative {rel_loss} / {rel_aux} over {TRAIN2_REL}")
     med = float(np.median(a["ms"][2:]))
-    log("sharded_23a", model=TRAIN_ARCH, ranks=2, layout="data 2 x model 1",
+    log("sharded_23a", model=TRAIN_ARCH, ranks=2,
+        layout=f"data {2 // TRAIN2_MP} x model {TRAIN2_MP}",
+        positions_rank0=a["positions"],
+        positions_rank1=res[1]["23a"]["positions"],
         backend="gloo, both ranks on cuda:0, collectives staged through "
                 "host memory",
         batch=TRAIN_B, seq=TRAIN_T, steps=TRAIN2_STEPS, remat="full",
@@ -5238,6 +5352,7 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
         peak_gib_rank1=round(res[1]["23a"]["peak_gib"], 3),
         shard_params_rank0=a["shard_params"],
         staged_bytes_last_step=json.dumps(a["staged_per_step"]),
+        staged_bytes_by_tag=json.dumps(a["staged_by_tag"]),
         card=repr(card))
 
     for name in TRAIN2_LAYOUTS:
@@ -5285,22 +5400,32 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
             f"nondeterministic ops), 1 rank {TRAIN_LOSS_RTOL} rel",
         card=repr(card))
 
-    for r, x in enumerate(res):
-        d = x["23d"]
-        if d["flash_wgmma"] != d["layers"] or d["flash_mma_sync"] != 0:
-            fail(f"23d rank {r}: flash launches wgmma {d['flash_wgmma']}, "
-                 f"mma_sync {d['flash_mma_sync']}; want {d['layers']} "
-                 "and 0")
-        if not (d["finite"] and d["max_abs_over_max"] <= LM_REL):
-            fail(f"23d rank {r}: rows {d['rows']} max abs {d['max_abs']} "
-                 f"= {d['max_abs_over_max']} of max|logit| over {LM_REL}")
-        log("sharded_23d", rank=r, model=TRAIN_ARCH, rows=d["rows"],
-            tokens=f"{PREFILL2_B}x{PREFILL2_T}", attn="flash_kernel",
-            flash_wgmma_launches=d["flash_wgmma"], wall_s=round(d["wall_s"],
-                                                                 3),
-            max_abs=d["max_abs"], max_abs_over_max=d["max_abs_over_max"],
-            argmax_equal=d["argmax_equal"], tol=f"{LM_REL}*max|logit|",
-            card=repr(card))
+    for name, mp in PREFILL2_LAYOUTS.items():
+        for r, x in enumerate(res):
+            d = x["23d"][name]
+            if d["flash_wgmma"] != d["layers"] or d["flash_mma_sync"] != 0:
+                fail(f"23d {name} rank {r}: flash launches wgmma "
+                     f"{d['flash_wgmma']}, mma_sync {d['flash_mma_sync']}; "
+                     f"want {d['layers']} and 0")
+            if not (d["finite"] and d["max_abs_over_max"] <= LM_REL):
+                fail(f"23d {name} rank {r}: rows {d['rows']} max abs "
+                     f"{d['max_abs']} = {d['max_abs_over_max']} of "
+                     f"max|logit| over {LM_REL}")
+            want_q0 = r * PREFILL2_T // mp if mp > 1 else 0
+            want_rows = ([0, PREFILL2_B] if mp > 1 else
+                         [r * PREFILL2_B // 2, (r + 1) * PREFILL2_B // 2])
+            if d["q_offset"] != want_q0 or d["rows"] != want_rows:
+                fail(f"23d {name} rank {r}: q_offset {d['q_offset']}, rows "
+                     f"{d['rows']}; want {want_q0}, {want_rows}")
+            log("sharded_23d", layout=f"data {2 // mp} x model {mp}",
+                rank=r, model=TRAIN_ARCH, rows=d["rows"],
+                q_offset=d["q_offset"], positions=d["positions"],
+                tokens=f"{PREFILL2_B}x{PREFILL2_T}", attn="flash_kernel",
+                flash_wgmma_launches=d["flash_wgmma"],
+                wall_s=round(d["wall_s"], 3), max_abs=d["max_abs"],
+                max_abs_over_max=d["max_abs_over_max"],
+                argmax_equal=d["argmax_equal"], tol=f"{LM_REL}*max|logit|",
+                card=repr(card))
 
     for r, x in enumerate(res):
         e = x["23e"]
@@ -5310,6 +5435,8 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
             fail(f"23e rank {r}: {e}")
         log("sharded_23e", rank=r, **e, tol=f"pipeline {PIPE2_TOL}, "
             f"compressed psum {COMPRESSED_TOL}", card=repr(card))
+    launches = {name: [x["23d"][name]["flash_wgmma"] for x in res]
+                for name in PREFILL2_LAYOUTS}
     log("sharded_phase", seconds_after_22=round(time.time() - t0, 2),
         refs_s=round(refs_s, 2), checks_wait_s=round(checks_wait_s, 2),
         ranks_23a_s=round(ranks_s, 2),
@@ -5317,6 +5444,7 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
         rank_waited_timed_s=round(r0["waited_timed_s"], 2),
         walls=json.dumps({k: round(v, 2) for k, v in r0["walls"].items()}),
         card=repr(card))
+    return launches
 
 
 def main():
@@ -5388,7 +5516,7 @@ def main():
 
     # phase 13 runs while the RMAT child makes phase 4's graph
     t = time.time()
-    flash = phase_flash(dev)
+    flash = phase_flash_offset(dev, phase_flash(dev))
     gc.collect()
     torch.cuda.empty_cache()
     log("flash_phase", seconds=round(time.time() - t, 2), peak_gib=round(
@@ -5430,7 +5558,11 @@ def main():
         log("memory", total_s=round(time.time() - t_all, 1))
         gc.collect()
         torch.cuda.empty_cache()
-        phase_sharded(dev, ranks23, tmp23, first, refs_s)
+        launches23d = phase_sharded(dev, ranks23, tmp23, first, refs_s)
+        for row in rows:
+            if row["name"] == "flash_attention_wgmma":
+                for name, n in launches23d.items():
+                    row[f"launches_{name}_prefill"] = n
     finally:
         for p in ranks23:
             if p.poll() is None:

@@ -42,12 +42,17 @@ others.
 
 Besides `calls` and `staged_bytes`, `by_kind` tallies each collective
 kind's calls and the operand and output bytes of this rank, the figures
-`launch.roofline.wire_bytes` turns into wire bytes.
+`launch.roofline.wire_bytes` turns into wire bytes; the collectives made
+inside `Comm.tagged(tag)` are also tallied apart under `by_tag[tag]`
+(the sharded step's k/v gathers, the MoE layer's gathers and scatters).
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
+import os
 import socket
+import sys
 from typing import List, Sequence, Tuple
 
 import torch
@@ -127,6 +132,8 @@ class Comm:
         self.staged_bytes = 0
         self.staged = False
         self.by_kind = {}
+        self.by_tag = {}
+        self._tag = None
         if alone or not (dist.is_available() and dist.is_initialized()):
             self.rank, self.size, self.backend = 0, 1, None
             return
@@ -153,15 +160,31 @@ class Comm:
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
 
     # -- host staging (gloo on a CUDA device) -----------------------------
-    def _rec(self, kind):
-        return self.by_kind.setdefault(kind, {
-            "count": 0, "operand_bytes": 0, "output_bytes": 0,
-            "staged_bytes": 0})
+    def _recs(self, kind):
+        """The tallies a collective of `kind` adds to: its kind's, and its
+        tag's under `tagged`."""
+        tallies = [self.by_kind]
+        if self._tag is not None:
+            tallies.append(self.by_tag.setdefault(self._tag, {}))
+        return [t.setdefault(kind, {"count": 0, "operand_bytes": 0,
+                                    "output_bytes": 0, "staged_bytes": 0})
+                for t in tallies]
+
+    @contextlib.contextmanager
+    def tagged(self, tag):
+        """Within the block, the collectives are tallied under
+        `by_tag[tag]` as well (None: no tag)."""
+        prev, self._tag = self._tag, tag if tag is not None else self._tag
+        try:
+            yield self
+        finally:
+            self._tag = prev
 
     def _stage(self, t, kind):
         n = t.numel() * t.element_size()
         self.staged_bytes += n
-        self._rec(kind)["staged_bytes"] += n
+        for rec in self._recs(kind):
+            rec["staged_bytes"] += n
 
     def _to_wire(self, t, kind):
         if not self.staged:
@@ -182,14 +205,15 @@ class Comm:
         holds `out_numel` elements of its dtype."""
         self.calls += 1
         item = t.element_size()
-        rec = self._rec(kind)
-        rec["count"] += 1
-        rec["operand_bytes"] += t.numel() * item
-        rec["output_bytes"] += out_numel * item
+        for rec in self._recs(kind):
+            rec["count"] += 1
+            rec["operand_bytes"] += t.numel() * item
+            rec["output_bytes"] += out_numel * item
 
     def reset_counts(self):
-        """Zero `calls`, `staged_bytes` and `by_kind`."""
+        """Zero `calls`, `staged_bytes`, `by_kind` and `by_tag`."""
         self.calls, self.staged_bytes, self.by_kind = 0, 0, {}
+        self.by_tag = {}
 
     def _global(self, group_rank: int) -> int:
         """The global rank of a rank of this Comm's group (P2POp names
@@ -331,6 +355,31 @@ def leave_group():
     fault leaves by `os._exit`, which runs no destructor at all.)"""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def end_rank(code: int = 0):
+    """End this rank's process once every result it reports is written
+    (files closed): a barrier, so no peer is still exchanging, the group
+    destroyed, the `atexit` handlers run, the standard streams flushed,
+    then `os._exit(code)`.
+
+    `leave_group` at exit still left a rank aborting now and then
+    ("terminate called without an active exception", exit -6) under many
+    parallel test workers. The message is `std::terminate` from a
+    joinable `std::thread` destroyed, which points at gloo's threads in
+    the C++ static destructors, after the group is destroyed and the
+    rank's work done; that cause is read from the message, not traced.
+    `os._exit` runs no static destructor, so a rank script that ends here
+    exits with `code` whatever those threads are doing; the Python
+    `atexit` handlers still run first, and its parent still checks the
+    exit code and the results."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 _LEAVE_AT_EXIT = []

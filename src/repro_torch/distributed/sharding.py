@@ -20,21 +20,39 @@ The reference hands the specs to `jax.jit`, whose SPMD partitioner
 places the arrays and inserts the collectives. Eager PyTorch has no
 partitioner, so the port does it explicitly (`train/step.py`):
 
+  * The tokens: a batch of B rows of T tokens splits its rows over the
+    axes the "batch" rule resolves to and its sequence over those the
+    "seq" rule resolves to ("model" under the default profile when T
+    divides, the reference's sequence parallelism; `token_axes_for`).
+    The token axes are both; this rank holds one block of T / n_seq
+    positions of its rows (`TokenSplit`), and no two ranks hold the same
+    token. Under the "dp" profile the batch spans every axis and the
+    sequence is whole.
   * `shard_tensor` keeps this rank's block of a whole tensor;
   * `gather_param` / `gather_params` (an autograd Function) all-gather
     parameters' shards to whole tensors where they are used (a block's
     tensors split along one dim over the same axes in one buffer, one
     collective); the backward sums each whole gradient back onto its
-    shard: a reduce-scatter over the spec's axes that split the batch,
+    shard: a reduce-scatter over the spec's axes that split the tokens,
     this rank's block over the spec's axes that do not (their ranks
-    computed the same gradient), and an all-reduce over the batch axes
-    the spec does not use, a buffer each;
+    computed the same gradient), and an all-reduce over the token axes
+    the spec does not use, a buffer each. A dim whose axes are in
+    `keep` stays sharded (the MoE layer's own experts under expert
+    parallelism, `ShardPlan.gather`): its ranks compute other work, so
+    nothing is summed over them;
+  * `gather_seq` (an all-gather along a dim whose backward
+    reduce-scatters) and `scatter_seq` (a reduce-scatter whose backward
+    all-gathers) move activations between sequence blocks: k and v
+    gathered per attention layer, the MoE layer's inputs gathered and
+    its partial outputs scattered, a recurrent block's input gathered
+    for its whole-sequence scan;
   * `psum` is an all-reduce whose backward is an all-reduce too (the
-    MoE aux loss's global means);
-  * `ShardPlan` holds a model's specs and its batch split, and
-    `shard_model` turns a whole `models.Transformer` into this rank's
-    shards with the plan attached (`Transformer.forward` gathers each
-    block's weights through it).
+    MoE aux loss's global means, over the token axes);
+  * `ShardPlan` holds a model's specs and the split of the current
+    batch, and `shard_model` turns a whole `models.Transformer` into
+    this rank's shards with the plan attached (`Transformer.forward`
+    gathers each block's weights through it and hands the split to the
+    blocks).
 
 `logical_constraint` computes nothing in eager PyTorch (there is no
 partitioner to constrain), so it returns `x` unchanged, as the reference
@@ -45,7 +63,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,9 +92,8 @@ PARAM_RULES: RuleTable = {
 # Activations / inputs / caches.
 ACT_RULES: RuleTable = {
     "batch": [("pod", "data"), ("data",), ()],
-    # sequence parallelism over the TP axis in the reference (activations
-    # shard on seq); the port resolves it but computes the whole sequence
-    # (model-axis compute is a later slice)
+    # sequence parallelism over the TP axis: each rank along it computes
+    # its own block of positions, k/v gathered per attention layer
     "seq": [("model",), ()],
     "act_embed": [()],
     "act_heads": [("model",), ()],
@@ -218,10 +235,12 @@ def shard_tensor(full: torch.Tensor, spec, layout) -> torch.Tensor:
     return x.clone()
 
 
-def _gathered(spec, layout):
-    """[(dim, axes)] of the dims `spec` splits over more than one rank."""
+def _gathered(spec, layout, keep=()):
+    """[(dim, axes)] of the dims `spec` splits over more than one rank,
+    but those whose axes all lie in `keep` (left sharded)."""
     return [(d, entry_axes(e)) for d, e in enumerate(spec)
-            if entry_axes(e) and layout.axis_size(entry_axes(e)) > 1]
+            if entry_axes(e) and layout.axis_size(entry_axes(e)) > 1
+            and not all(a in keep for a in entry_axes(e))]
 
 
 def _gather_dim(x, comm, d):
@@ -229,12 +248,19 @@ def _gather_dim(x, comm, d):
     return torch.cat(list(parts.unbind(0)), dim=d)
 
 
-def _buckets(tensors, specs, layout):
+def _scatter_dim(x, comm, d):
+    """The sum over `comm`'s ranks of `x`, cut along dim d to this rank's
+    block (a reduce-scatter)."""
+    moved = x.movedim(d, 0).contiguous()
+    return comm.psum_scatter(moved).movedim(0, d)
+
+
+def _buckets(tensors, specs, layout, keeps):
     """Tensors split along exactly one dim, by (axes, dtype): {key:
     [(index, dim)]}, each bucket one collective."""
     out = {}
-    for i, (t, spec) in enumerate(zip(tensors, specs)):
-        dims = _gathered(spec, layout)
+    for i, (t, spec, keep) in enumerate(zip(tensors, specs, keeps)):
+        dims = _gathered(spec, layout, keep)
         if len(dims) == 1:
             d, axes = dims[0]
             out.setdefault((axes, t.dtype), []).append((i, d))
@@ -242,22 +268,25 @@ def _buckets(tensors, specs, layout):
 
 
 class _Gather(torch.autograd.Function):
-    """shards -> whole tensors; the backward sums each whole gradient
-    back onto its shard (module docstring). The tensors split along one
-    dim over the same axes travel in one buffer, a collective a bucket."""
+    """shards -> whole tensors (but the dims kept sharded); the backward
+    sums each whole gradient back onto its shard (module docstring). The
+    tensors split along one dim over the same axes travel in one buffer,
+    a collective a bucket."""
 
     @staticmethod
-    def forward(ctx, layout, batch_axes, specs, *shards):
-        ctx.layout, ctx.batch_axes, ctx.specs = layout, batch_axes, specs
+    def forward(ctx, layout, token_axes, specs, keeps, *shards):
+        ctx.layout, ctx.token_axes = layout, token_axes
+        ctx.specs, ctx.keeps = specs, keeps
         outs = []
-        for s, spec in zip(shards, specs):
+        for s, spec, keep in zip(shards, specs, keeps):
             x = s
-            dims = _gathered(spec, layout)
+            dims = _gathered(spec, layout, keep)
             if len(dims) > 1:       # the vocab x embed tables
                 for d, axes in dims:
                     x = _gather_dim(x, layout.comm(axes), d)
             outs.append(x if x is not s else s.view_as(s))
-        for (axes, _), members in _buckets(shards, specs, layout).items():
+        for (axes, _), members in _buckets(shards, specs, layout,
+                                           keeps).items():
             comm = layout.comm(axes)
             parts = comm.all_gather(torch.cat(
                 [shards[i].movedim(d, 0).reshape(-1) for i, d in members]))
@@ -273,14 +302,15 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        layout, batch, specs = ctx.layout, ctx.batch_axes, ctx.specs
+        layout, batch, specs = ctx.layout, ctx.token_axes, ctx.specs
         gin = list(grads)
-        for i, spec in enumerate(specs):
-            dims = _gathered(spec, layout)
+        for i, (spec, keep) in enumerate(zip(specs, ctx.keeps)):
+            dims = _gathered(spec, layout, keep)
             if len(dims) > 1:
                 for d, axes in reversed(dims):
                     gin[i] = _cut(gin[i], d, axes, layout, batch)
-        for (axes, _), members in _buckets(grads, specs, layout).items():
+        for (axes, _), members in _buckets(grads, specs, layout,
+                                           ctx.keeps).items():
             if not all(a in batch for a in axes):
                 for i, d in members:
                     gin[i] = _cut(grads[i], d, axes, layout, batch)
@@ -297,7 +327,7 @@ class _Gather(torch.autograd.Function):
                 n = moved.numel() // P
                 gin[i] = mine[off:off + n].reshape(shape).movedim(0, d)
                 off += n
-        # the batch axes a spec does not use: an all-reduce a bucket
+        # the token axes a spec does not use: an all-reduce a bucket
         rest = {}
         for i, spec in enumerate(specs):
             axes = tuple(a for a in layout.axis_names
@@ -312,12 +342,12 @@ class _Gather(torch.autograd.Function):
                 n = gin[i].numel()
                 gin[i] = tot[off:off + n].reshape(gin[i].shape)
                 off += n
-        return (None, None, None) + tuple(g.contiguous() for g in gin)
+        return (None, None, None, None) + tuple(g.contiguous() for g in gin)
 
 
 def _cut(g, d, axes, layout, batch):
     """The gradient of dim d's gather over `axes`: summed and scattered
-    over batch axes, this rank's block over the others."""
+    over token axes (`batch`), this rank's block over the others."""
     inb = [a in batch for a in axes]
     if all(inb):
         moved = g.movedim(d, 0).contiguous()
@@ -325,26 +355,85 @@ def _cut(g, d, axes, layout, batch):
     if not any(inb):
         return torch.chunk(g, layout.axis_size(axes),
                            dim=d)[layout.axis_index(axes)]
-    raise ValueError(f"spec entry {axes} mixes batch axes {batch} with "
+    raise ValueError(f"spec entry {axes} mixes token axes {batch} with "
                      "others")
 
 
 def gather_params(shards, specs, layout,
-                  batch_axes: Tuple[str, ...] = ()) -> tuple:
+                  token_axes: Tuple[str, ...] = (), keeps=None) -> tuple:
     """The whole parameters from this rank's shards: an all-gather along
-    every dim their specs split, one collective for all the tensors split
+    every dim their specs split (but a dim whose axes all lie in the
+    tensor's `keeps` entry), one collective for all the tensors split
     along one dim over the same axes. Differentiable: the gradient
     reaching a whole tensor comes back summed over the ranks that split
-    the batch (`batch_axes`) and cut to this rank's shard (module
+    the tokens (`token_axes`) and cut to this rank's shard (module
     docstring)."""
-    return _Gather.apply(layout, tuple(batch_axes),
-                         tuple(tuple(s) for s in specs), *shards)
+    keeps = tuple(tuple(k) for k in keeps) if keeps is not None \
+        else ((),) * len(specs)
+    return _Gather.apply(layout, tuple(token_axes),
+                         tuple(tuple(s) for s in specs), keeps, *shards)
 
 
 def gather_param(shard: torch.Tensor, spec, layout,
-                 batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+                 token_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """`gather_params` of one tensor."""
-    return gather_params([shard], [spec], layout, batch_axes)[0]
+    return gather_params([shard], [spec], layout, token_axes)[0]
+
+
+# ---------------------------------------------------------------------------
+# Activations between sequence blocks
+# ---------------------------------------------------------------------------
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.tag = comm, dim, tag
+        with comm.tagged(tag):
+            return _gather_dim(x, comm, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.comm.tagged(ctx.tag):
+            return _scatter_dim(g, ctx.comm, ctx.dim), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.tag = comm, dim, tag
+        with comm.tagged(tag):
+            return _scatter_dim(x, comm, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.comm.tagged(ctx.tag):
+            return _gather_dim(g, ctx.comm, ctx.dim), None, None, None
+
+
+def gather_seq(x: torch.Tensor, comm, dim: int = 1,
+               tag: Optional[str] = None) -> torch.Tensor:
+    """The ranks' blocks of `x` concatenated along `dim` in `comm`'s rank
+    order (an all-gather). Differentiable: every rank's gradient of the
+    whole comes back summed onto each block (a reduce-scatter). An
+    integer `x` is gathered without autograd. `tag` names the
+    collectives in the Comm's `by_tag` tally."""
+    if comm is None or comm.size == 1:
+        return x
+    if not x.is_floating_point():
+        with comm.tagged(tag):
+            return _gather_dim(x, comm, dim)
+    return _GatherSeq.apply(x, comm, dim, tag)
+
+
+def scatter_seq(x: torch.Tensor, comm, dim: int = 1,
+                tag: Optional[str] = None) -> torch.Tensor:
+    """The sum over `comm`'s ranks of `x`, cut along `dim` to this rank's
+    block (a reduce-scatter): the ranks' partial sums of every block, each
+    rank keeping its own. Differentiable: the backward all-gathers the
+    blocks' gradients."""
+    if comm is None or comm.size == 1:
+        return x
+    return _ScatterSeq.apply(x, comm, dim, tag)
 
 
 class _Psum(torch.autograd.Function):
@@ -379,6 +468,53 @@ def batch_axes_for(shape, layout, rules: RuleTable) -> Tuple[str, ...]:
     return entry_axes(spec[0])
 
 
+def token_axes_for(rows: int, seq_len: Optional[int], layout,
+                   rules: RuleTable) -> Tuple[Tuple[str, ...],
+                                              Tuple[str, ...]]:
+    """(batch axes, seq axes) of a batch of `rows` sequences of
+    `seq_len` positions: the "batch" and "seq" rules resolved together
+    (an axis serves one of them), the seq axes without those of size 1.
+    No sequence (`seq_len` None: a decode step's one token) splits
+    none."""
+    if seq_len is None:
+        return batch_axes_for((rows,), layout, rules), ()
+    spec = spec_for(("batch", "seq"), (rows, seq_len), layout, rules)
+    seq = tuple(a for a in entry_axes(spec[1]) if layout.axis_size(a) > 1)
+    return entry_axes(spec[0]), seq
+
+
+class TokenSplit(NamedTuple):
+    """How this rank's tokens sit in a global batch: `batch_comm` over
+    the ranks that split its rows, `seq_comm` over those that split its
+    sequence (`seq_axes`; each rank holds `length` positions from `q0`
+    on), `token_comm` over both (`token_axes`, in layout order): the
+    loss's and the MoE aux loss's means run over it, and the parameters'
+    gradients are summed over it."""
+    batch_comm: Any
+    seq_comm: Any
+    token_comm: Any
+    token_axes: Tuple[str, ...]
+    seq_axes: Tuple[str, ...] = ()
+    q0: int = 0
+    length: Optional[int] = None
+
+    @property
+    def seq(self) -> bool:
+        """Whether the sequence is split over more than one rank."""
+        return self.seq_comm.size > 1
+
+    @property
+    def n(self) -> int:
+        """The number of token shards (ranks holding distinct tokens)."""
+        return self.token_comm.size
+
+    def own(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of a whole sequence along `dim`."""
+        if not self.seq:
+            return x
+        return x.narrow(dim, self.q0, self.length)
+
+
 def counts_once(spec, layout) -> bool:
     """Whether this rank's shard of a tensor under `spec` counts in a
     global sum: a shard replicated along an axis its spec does not use
@@ -390,46 +526,78 @@ def counts_once(spec, layout) -> bool:
 
 class ShardPlan:
     """How a model lives on this rank: `specs` {parameter name: spec}
-    over `layout`, and the split of the current batch (`set_batch`):
-    `batch_axes`, their Comm and the number of batch shards `n_batch`."""
+    over `layout`, and the `TokenSplit` of the current batch
+    (`set_batch`). `experts` names the MoE layers' expert weights, whose
+    leading "experts" dim stays sharded where the sequence splits over
+    the same axes (expert parallelism, `models/moe.py`)."""
 
-    def __init__(self, layout, specs: Dict[str, tuple], rules: RuleTable):
+    def __init__(self, layout, specs: Dict[str, tuple], rules: RuleTable,
+                 experts=()):
         self.layout, self.specs, self.rules = layout, dict(specs), rules
-        self.batch_axes: Tuple[str, ...] = ()
-        self.n_batch = 1
-        self.batch_comm = layout.comm(())
+        self.experts = frozenset(experts)
+        one = layout.comm(())
+        self.split = TokenSplit(one, one, one, ())
         self.world_comm = layout.comm(layout.axis_names)
 
-    def set_batch(self, shape) -> Tuple[str, ...]:
-        """Resolve the batch split of a global batch of `shape`."""
-        self.batch_axes = batch_axes_for(shape, self.layout, self.rules)
-        self.n_batch = self.layout.axis_size(self.batch_axes)
-        self.batch_comm = self.layout.comm(self.batch_axes)
-        # every group the gathers and their backward use, built here in
-        # the same order on every rank rather than first inside autograd
+    def set_batch(self, rows: int, seq_len: Optional[int] = None
+                  ) -> TokenSplit:
+        """Resolve the token split of a global batch of `rows` sequences
+        of `seq_len` positions (None: one token each, a decode step)."""
+        lay = self.layout
+        batch, seq = token_axes_for(rows, seq_len, lay, self.rules)
+        tokens = tuple(a for a in lay.axis_names if a in batch + seq)
+        length = None if seq_len is None else seq_len // lay.axis_size(seq)
+        q0 = lay.axis_index(seq) * length if seq else 0
+        # every group the step uses, built here in the same order on every
+        # rank rather than first inside autograd
+        comms = [lay.comm(batch), lay.comm(seq), lay.comm(tokens)]
         for spec in dict.fromkeys(self.specs.values()):
             for e in spec:
-                self.layout.comm(entry_axes(e))
-            self.layout.comm(tuple(a for a in self.layout.axis_names
-                                   if a in self.batch_axes
-                                   and a not in spec_axes(spec)))
-        return self.batch_axes
+                lay.comm(entry_axes(e))
+            lay.comm(tuple(a for a in lay.axis_names
+                           if a in tokens and a not in spec_axes(spec)))
+        self.split = TokenSplit(*comms, tokens, seq, q0, length)
+        return self.split
+
+    def drop_seq(self) -> TokenSplit:
+        """The split without its sequence split, made the plan's: a
+        decode step runs one token a row, so after a prefill whose
+        prompt split its sequence the rows keep their batch split and
+        the sequence none."""
+        s = self.split
+        if s.seq:
+            batch = tuple(a for a in s.token_axes if a not in s.seq_axes)
+            self.split = TokenSplit(s.batch_comm, self.layout.comm(()),
+                                    s.batch_comm, batch)
+        return self.split
 
     def counted(self, name: str) -> bool:
         """`counts_once` of parameter `name`'s shard on this rank."""
         return counts_once(self.specs[name], self.layout)
 
+    def _keep(self, name: str) -> Tuple[str, ...]:
+        """The axes along which parameter `name` stays sharded when
+        gathered: an expert weight's "experts" dim where it is split over
+        exactly the sequence's axes (each rank computes its own experts
+        for the whole sequence), else none."""
+        if name not in self.experts or not self.split.seq:
+            return ()
+        axes = entry_axes(self.specs[name][0])
+        return axes if axes == self.split.seq_axes else ()
+
     def gather(self, module, prefix: str = "", recurse: bool = True,
                skip: str = None) -> Dict[str, torch.Tensor]:
         """{relative name: whole tensor} of `module`'s parameters (full
-        names `prefix` + relative), through one `gather_params`; `skip`
-        leaves out the names under that prefix."""
+        names `prefix` + relative; an expert weight under expert
+        parallelism keeps its own experts only), through one
+        `gather_params`; `skip` leaves out the names under that prefix."""
         named = [(name, p) for name, p in
                  module.named_parameters(recurse=recurse)
                  if skip is None or not name.startswith(skip)]
         full = gather_params([p for _, p in named],
                              [self.specs[prefix + n] for n, _ in named],
-                             self.layout, self.batch_axes)
+                             self.layout, self.split.token_axes,
+                             [self._keep(prefix + n) for n, _ in named])
         return {n: t for (n, _), t in zip(named, full)}
 
 
@@ -452,11 +620,12 @@ def swapped(module, tensors: Dict[str, torch.Tensor]):
 
 
 @torch.no_grad()
-def shard_model(model, layout, specs: Dict[str, tuple], rules: RuleTable):
+def shard_model(model, layout, specs: Dict[str, tuple], rules: RuleTable,
+                experts=()):
     """Replace each of `model`'s parameters by this rank's shard (same
-    `requires_grad`) and attach a `ShardPlan` as `model.shard_plan`;
-    returns the model."""
-    plan = ShardPlan(layout, specs, rules)
+    `requires_grad`) and attach a `ShardPlan` as `model.shard_plan`
+    (`experts`: ShardPlan's); returns the model."""
+    plan = ShardPlan(layout, specs, rules, experts)
     for name, p in list(model.named_parameters()):
         path, _, attr = name.rpartition(".")
         m = model.get_submodule(path) if path else model

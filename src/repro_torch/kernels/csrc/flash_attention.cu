@@ -15,8 +15,10 @@
 // flash_attention_plain):
 //   * scores in f32, times sm_scale; masked scores take the sentinel -1e30;
 //   * key kpos is live when kpos < S, kpos <= qpos when causal, and
-//     kpos > qpos - window when a window is given; qpos counts from 0 for
-//     the first query row even when T != S;
+//     kpos > qpos - window when a window is given; qpos is q_off + the
+//     query row (q_off >= 0: a rank that holds queries q_off.. of a
+//     sequence against all its keys; 0 counts from the first row even
+//     when T != S), and the tile bounds below shift with it;
 //   * while a row's running max is <= -5e29 its state stays at the
 //     identity (no key seen yet); a row whose sum is 0 writes 0.
 //
@@ -197,7 +199,7 @@ __device__ __forceinline__ void store2(__half* p, float a, float b) {
 // s[j][2..3] row gr + 8, the same keys. Scale every score by sm_scale,
 // mask it on an `edge` tile, fold the tile into the running max and sum of
 // the two rows, and turn it into probabilities; `alpha` gets the factor by
-// which O's rows must be rescaled.
+// which O's rows must be rescaled. qpos holds the rows' positions.
 template <typename T, int NJ>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[NJ][4], float (&m_run)[2], float (&l_part)[2],
@@ -298,7 +300,8 @@ __global__ void __launch_bounds__(kThreads)
                      int Hkv, int T_len, int S_len, int64_t qsb, int64_t qsh,
                      int64_t qst, int64_t ksb, int64_t ksh, int64_t kst,
                      int64_t vsb, int64_t vsh, int64_t vst, float sm_scale,
-                     int causal, int has_window, int window) {
+                     int causal, int has_window, int window,
+                     int q_off) {
   using C = Cfg<T, DH>;
   constexpr int kN = DH / 8;  // 8-column fragments of the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -318,8 +321,12 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bid / Hkv;
   const int h = hk * G + gm;
 
-  const int q_lo = qt * kBlockQ;
-  const int q_hi = min(q_lo + kBlockQ, T_len) - 1;
+  // rows are counted by position (q_off + row) from here on: the bounds,
+  // masks, loads and stores read positions, over q and o moved back by
+  // q_off rows (only rows from position q_off on are touched)
+  const int T_end = q_off + T_len;  // one past the last row's position
+  const int q_lo = q_off + qt * kBlockQ;
+  const int q_hi = min(q_lo + kBlockQ, T_end) - 1;
   int k_end = S_len;  // exclusive
   if (causal) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
@@ -327,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
   const int t_begin = k_begin / kBlockK;
   const int t_end = (k_end + kBlockK - 1) / kBlockK;
 
-  const T* qb = q + b * qsb + h * qsh;
+  const T* qb = q + b * qsb + h * qsh - (int64_t)q_off * qst;
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
 
@@ -349,7 +356,7 @@ __global__ void __launch_bounds__(kThreads)
                                                     nrows);
   };
   if (t_begin < t_end) {
-    load(sQ, qb, qst, q_lo, T_len);
+    load(sQ, qb, qst, q_lo, T_end);
     load(sK, kb, kst, t_begin * kBlockK, S_len);
     load(sV, vb, vst, t_begin * kBlockK, S_len);
     cp_async_commit();
@@ -426,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // ---- epilogue: out = acc / l (0 for a row with no live key) ------------
-  T* ob = o + ((int64_t)(b * Hq + h) * T_len) * DH;
+  T* ob = o + ((int64_t)(b * Hq + h) * T_len - q_off) * DH;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_part[r];
@@ -434,7 +441,7 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     const int row = qpos[r];
-    if (row < T_len) {
+    if (row < T_end) {
       T* orow = ob + (int64_t)row * DH + 2 * tg;
 #pragma unroll
       for (int n = 0; n < kN; ++n)
@@ -531,7 +538,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
                           int64_t qsh, int64_t qst, int64_t ksb, int64_t ksh,
                           int64_t kst, int64_t vsb, int64_t vsh, int64_t vst,
                           float sm_scale, int causal, int has_window,
-                          int window) {
+                          int window, int q_off) {
   using C = TfCfg<DH>;
   constexpr int BK = C::kBK, NJ = C::kNJ, ST = C::kStages, NG = C::kNG;
   constexpr int QKS = C::kQKStride, VS = C::kVStride, kN = DH / 8;
@@ -552,8 +559,12 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
   const int b = bid / Hkv;
   const int h = hk * G + gm;
 
-  const int q_lo = qt * C::kBlockQ;
-  const int q_hi = min(q_lo + C::kBlockQ, T_len) - 1;
+  // rows are counted by position (q_off + row) from here on, over q and o
+  // moved back by q_off rows, as in flash_fwd_kernel (bounds written
+  // otherwise cost ptxas registers it has not got at Dh 256)
+  const int T_end = q_off + T_len;  // one past the last row's position
+  const int q_lo = q_off + qt * C::kBlockQ;
+  const int q_hi = min(q_lo + C::kBlockQ, T_end) - 1;
   int k_end = S_len;  // exclusive
   if (causal) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
@@ -561,7 +572,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
   const int t_begin = k_begin / BK;
   const int t_end = (k_end + BK - 1) / BK;
 
-  const float* qb = q + b * qsb + h * qsh;
+  const float* qb = q + b * qsb + h * qsh - (int64_t)q_off * qst;
   const float* kb = k + b * ksb + hk * ksh;
   const float* vb = v + b * vsb + hk * vsh;
 
@@ -597,7 +608,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
   // tile, so wait_group's counts below are fixed
   if (t_begin < t_end) {
     load_tile<float, DH, QKS, C::kBlockQ, C::kThreads>(sQ, qb, qst, q_lo,
-                                                      T_len);
+                                                      T_end);
 #pragma unroll
     for (int i = 0; i < ST; ++i) {
       if (t_begin + i < t_end) load_k(t_begin + i, i);
@@ -614,7 +625,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
     const int k0 = t * BK;
     // this warp's rows see a key of the tile (a warp-uniform skip: a tile
     // no row sees leaves m, l and O as they are)
-    const bool live = w_lo < T_len && !(causal && k0 > w_hi) &&
+    const bool live = w_lo < T_end && !(causal && k0 > w_hi) &&
                       !(has_window && k0 + BK - 1 <= w_lo - window);
     cp_async_wait<2 * ST - 1>();  // K(t) (and Q) in
     __syncthreads();
@@ -724,7 +735,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
 
   // ---- epilogue: out = acc / l (0 for a row with no live key), each
   // kNG-float run of a row in one store -------------------------------------
-  float* ob = o + ((int64_t)(b * Hq + h) * T_len) * DH;
+  float* ob = o + ((int64_t)(b * Hq + h) * T_len - q_off) * DH;
   int qpos[2];
   rows(qpos);
 #pragma unroll
@@ -734,7 +745,7 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     const int row = qpos[r];
-    if (row < T_len) {
+    if (row < T_end) {
       float* orow = ob + (int64_t)row * DH;
 #pragma unroll
       for (int m = 0; m < DH / (8 * NG); ++m) {
@@ -753,14 +764,14 @@ __global__ void __launch_bounds__(TfCfg<DH>::kThreads, 1)
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int T_len, int S_len, const int64_t* st,
-           float sm_scale, int causal, int has_window, int window,
+           float sm_scale, int causal, int has_window, int window, int q_off,
            cudaStream_t stream) {
   constexpr bool kF = std::is_same<T, float>::value;
   int block_q, threads;
   size_t smem;
   void (*kern)(const T*, const T*, const T*, T*, int, int, int, int, int64_t,
                int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
-               int64_t, float, int, int, int);
+               int64_t, float, int, int, int, int);
   if constexpr (kF) {
     using C = TfCfg<DH>;
     kern = flash_fwd_tf32_kernel<DH>;
@@ -780,7 +791,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, T_len, S_len,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      sm_scale, causal, has_window, window);
+      sm_scale, causal, has_window, window, q_off);
   return cudaGetLastError();
 }
 
@@ -790,29 +801,29 @@ template <typename T>
 int launch_dh(int Dh, const void* q, const void* k, const void* v, void* o,
               int B, int Hq, int Hkv, int T_len, int S_len,
               const int64_t* st, float sm_scale, int causal, int has_window,
-              int window, cudaStream_t s) {
+              int window, int q_off, cudaStream_t s) {
   constexpr bool kF = std::is_same<T, float>::value;
   switch (Dh) {
     case 16:
       return launch<T, 16>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                           sm_scale, causal, has_window, window, s);
+                           sm_scale, causal, has_window, window, q_off, s);
     case 32:
       return launch<T, 32>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                           sm_scale, causal, has_window, window, s);
+                           sm_scale, causal, has_window, window, q_off, s);
     case 64:
       if constexpr (kF)
         return launch<T, 64>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                             sm_scale, causal, has_window, window, s);
+                             sm_scale, causal, has_window, window, q_off, s);
       break;
     case 128:
       if constexpr (kF)
         return launch<T, 128>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                              sm_scale, causal, has_window, window, s);
+                              sm_scale, causal, has_window, window, q_off, s);
       break;
     case 256:
       if constexpr (kF)
         return launch<T, 256>(q, k, v, o, B, Hq, Hkv, T_len, S_len, st,
-                              sm_scale, causal, has_window, window, s);
+                              sm_scale, causal, has_window, window, q_off, s);
       break;
     default:
       break;
@@ -924,12 +935,13 @@ template <int BK>
 __device__ __forceinline__ void online_softmax(
     float (&s)[BK / 2], float (&m_run)[2], float (&l_part)[2],
     float (&alpha)[2], int k0, bool edge, const int (&qpos)[2], int tg,
-    float sm_scale, int S_len, int causal, int has_window, int window) {
+    float sm_scale, int S_len, int causal, int has_window, int window,
+    int q_off) {
   if (edge) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int kpos = k0 + 8 * (i / 4) + 2 * tg + (i & 1);
-      const int qp = qpos[(i >> 1) & 1];
+      const int qp = qpos[(i >> 1) & 1] + q_off;
       bool live = kpos < S_len;
       if (causal) live = live && kpos <= qp;
       if (has_window) live = live && kpos > qp - window;
@@ -1024,7 +1036,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o, int B,
     int Hq, int Hkv, int T_len, int S_len, float sm_scale, int causal,
-    int has_window, int window, int q_order, int k_order, int v_order) {
+    int has_window, int window, int q_off, int q_order, int k_order,
+    int v_order) {
   using C = WgCfg<DH, BK>;
   constexpr int ST = C::kStages;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -1049,9 +1062,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
     const int q_lo = qt * kWgBlockQ;
     const int q_hi = min(q_lo + kWgBlockQ, T_len) - 1;
     int k_end = S_len;  // exclusive
-    if (causal) k_end = min(k_end, q_hi + 1);
+    if (causal) k_end = min(k_end, q_off + q_hi + 1);
     int k_begin = 0;
-    if (has_window) k_begin = max(0, q_lo - window + 1);
+    if (has_window) k_begin = max(0, q_off + q_lo - window + 1);
     t_begin = k_begin / BK;
     return max((k_end + BK - 1) / BK - t_begin, 0);
   };
@@ -1143,9 +1156,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
     const int q_lo_c = tl.qt * kWgBlockQ + 64 * c;
     const int qpos[2] = {q_lo_c + 16 * warp + gr,
                          q_lo_c + 16 * warp + gr + 8};
+    const int p_lo_c = q_off + q_lo_c;  // the position of its first row
     auto is_edge = [&](int k0) {
-      return k0 + BK > S_len || (causal && k0 + BK - 1 > q_lo_c) ||
-             (has_window && k0 <= q_lo_c + 63 - window) ||
+      return k0 + BK > S_len || (causal && k0 + BK - 1 > p_lo_c) ||
+             (has_window && k0 <= p_lo_c + 63 - window) ||
              !(sm_scale > 0.f);
     };
 
@@ -1175,7 +1189,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
         if (n == 1) release(empty_q);
         const int k0 = t_begin * BK;
         online_softmax<BK>(s, m_run, l_part, alpha, k0, is_edge(k0), qpos,
-                           tg, sm_scale, S_len, causal, has_window, window);
+                           tg, sm_scale, S_len, causal, has_window, window,
+                           q_off);
         to_fragments<T, BK>(s, p);
       }
       for (int i = 1; i < n; ++i) {
@@ -1201,7 +1216,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
         if (i == n - 1) release(empty_q);
         const int k0 = (t_begin + i) * BK;
         online_softmax<BK>(s, m_run, l_part, alpha, k0, is_edge(k0), qpos,
-                           tg, sm_scale, S_len, causal, has_window, window);
+                           tg, sm_scale, S_len, causal, has_window, window,
+                           q_off);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(acc);
         release(empty_v + sp);
@@ -1325,7 +1341,7 @@ template <typename T, int DH, int BK>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int T_len, int S_len, int dtype,
                  const int64_t* st, float sm_scale, int causal,
-                 int has_window, int window, cudaStream_t stream) {
+                 int has_window, int window, int q_off, cudaStream_t stream) {
   using C = WgCfg<DH, BK>;
   const int64_t tiles =
       (int64_t)B * Hq * ((T_len + kWgBlockQ - 1) / kWgBlockQ);
@@ -1357,7 +1373,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kern<<<grid, kWgThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<T*>(o), B, Hq, Hkv, T_len, S_len, sm_scale,
-      causal, has_window, window, oq, ok, ov);
+      causal, has_window, window, q_off, oq, ok, ov);
   return cudaGetLastError();
 }
 
@@ -1365,12 +1381,13 @@ template <typename T>
 int launch_wgmma_dh(int Dh, int block_k, const void* q, const void* k,
                     const void* v, void* o, int B, int Hq, int Hkv, int T_len,
                     int S_len, int dtype, const int64_t* st, float sm_scale,
-                    int causal, int has_window, int window, cudaStream_t s) {
+                    int causal, int has_window, int window, int q_off,
+                    cudaStream_t s) {
 #define FLASH_WG_CASE(DH_, BK_)                                              \
   if (Dh == DH_ && block_k == BK_)                                           \
     return launch_wgmma<T, DH_, BK_>(q, k, v, o, B, Hq, Hkv, T_len, S_len,   \
                                      dtype, st, sm_scale, causal, has_window, \
-                                     window, s);
+                                     window, q_off, s);
   FLASH_WG_CASE(64, 64)
   FLASH_WG_CASE(64, 128)
   FLASH_WG_CASE(128, 64)
@@ -1383,7 +1400,8 @@ int launch_wgmma_dh(int Dh, int block_k, const void* q, const void* k,
 }  // namespace
 
 // strides: q (batch, head, row), k (batch, head, row), v (batch, head, row),
-// in elements. Returns the CUDA error of the launch (0 on success).
+// in elements; q_off: the position of q's first row (>= 0). Returns the
+// CUDA error of the launch (0 on success).
 // The mma.sync variant: f32 at Dh 16..256 (3xTF32), bf16/fp16 at Dh 16
 // and 32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -1391,22 +1409,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int Hkv, int T_len, int S_len, int Dh,
                                    int dtype, const int64_t* strides,
                                    float sm_scale, int causal, int has_window,
-                                   int window, void* stream) {
+                                   int window, int q_off, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
       return launch_dh<float>(Dh, q, k, v, o, B, Hq, Hkv, T_len, S_len,
                               strides, sm_scale, causal, has_window, window,
-                              s);
+                              q_off, s);
     case kF16:
       return launch_dh<__half>(Dh, q, k, v, o, B, Hq, Hkv, T_len, S_len,
                                strides, sm_scale, causal, has_window, window,
-                               s);
+                               q_off, s);
     case kBF16:
       return launch_dh<__nv_bfloat16>(Dh, q, k, v, o, B, Hq, Hkv, T_len,
                                       S_len, strides, sm_scale, causal,
-                                      has_window, window, s);
+                                      has_window, window, q_off, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1418,20 +1436,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 extern "C" int flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int T_len, int S_len, int Dh, int dtype, const int64_t* strides,
-    float sm_scale, int causal, int has_window, int window, int block_k,
-    void* stream) {
+    float sm_scale, int causal, int has_window, int window, int q_off,
+    int block_k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kF16:
       return launch_wgmma_dh<__half>(Dh, block_k, q, k, v, o, B, Hq, Hkv,
                                      T_len, S_len, dtype, strides, sm_scale,
-                                     causal, has_window, window, s);
+                                     causal, has_window, window, q_off, s);
     case kBF16:
       return launch_wgmma_dh<__nv_bfloat16>(Dh, block_k, q, k, v, o, B, Hq,
                                             Hkv, T_len, S_len, dtype, strides,
                                             sm_scale, causal, has_window,
-                                            window, s);
+                                            window, q_off, s);
     default:
       return cudaErrorInvalidValue;
   }

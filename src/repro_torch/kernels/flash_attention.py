@@ -36,9 +36,12 @@ Semantics (shared by both variants and :func:`flash_attention_plain`, and
 those of the Pallas kernel): q head h reads kv head h // (Hq // Hkv);
 scores in f32 times `sm_scale` (default Dh**-0.5); key kpos is live when
 kpos < S, kpos <= qpos if `causal` and kpos > qpos - window if `window` is
-not None, with qpos counted from 0 for the first query row even when
-T != S; masked scores take -1e30; a row with no live key gives 0; the
-output has q's dtype.
+not None, with qpos = `q_offset` + the query row (`q_offset` 0 by
+default, counting from the first query row even when T != S; a rank that
+holds the query rows q_offset..q_offset+T-1 of a sequence split over
+ranks passes its first position, against the whole gathered keys);
+masked scores take -1e30; a row with no live key gives 0; the output has
+q's dtype.
 """
 from __future__ import annotations
 
@@ -66,8 +69,9 @@ TILES = {
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _live_mask(T: int, S: int, causal: bool, window: int | None, device):
-    qpos = torch.arange(T, device=device)[:, None]
+def _live_mask(T: int, S: int, causal: bool, window: int | None, device,
+               q_offset: int = 0):
+    qpos = torch.arange(T, device=device)[:, None] + q_offset
     kpos = torch.arange(S, device=device)[None, :]
     mask = torch.ones((T, S), dtype=torch.bool, device=device)
     if causal:
@@ -79,7 +83,8 @@ def _live_mask(T: int, S: int, causal: bool, window: int | None, device):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int | None = None,
-                          sm_scale: float | None = None) -> torch.Tensor:
+                          sm_scale: float | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
     """The plain PyTorch version of the kernel: full f32 scores per kv
     head, the kernel's masks and sentinel, softmax, dead rows zeroed."""
     B, Hq, T, Dh = q.shape
@@ -87,7 +92,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = Hq // Hkv
     if sm_scale is None:
         sm_scale = Dh ** -0.5
-    mask = _live_mask(T, S, causal, window, q.device)
+    mask = _live_mask(T, S, causal, window, q.device, _offset(q_offset))
     any_live = mask.any(dim=-1)[:, None]
     out = torch.empty((B, Hkv, G, T, Dh), dtype=torch.float32,
                       device=q.device)
@@ -99,6 +104,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(any_live, torch.softmax(s, dim=-1), 0.0)
         out[:, h] = torch.einsum("bgts,bsd->bgtd", p, v[:, h].float())
     return out.reshape(B, Hq, T, Dh).to(q.dtype)
+
+
+def _offset(q_offset) -> int:
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash kernel: q_offset must be >= 0, got "
+                         f"{q_offset}")
+    return q_offset
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -175,8 +188,7 @@ def _library():
     lib = build("flash_attention")[0]
     sync, wg = lib.flash_attention_fwd, lib.flash_attention_fwd_wgmma
     head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int]
+        ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 4
     if sync.argtypes is None:
         sync.argtypes = head + [ctypes.c_void_p]
         sync.restype = ctypes.c_int
@@ -189,7 +201,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None,
                          sm_scale: float | None = None,
                          block_q: int | None = None,
-                         block_k: int | None = None) -> torch.Tensor:
+                         block_k: int | None = None,
+                         q_offset: int = 0) -> torch.Tensor:
     """Launch the variant that serves q's dtype and head dim on q's
     device, on the current stream, without synchronising. Returns a
     contiguous [B, Hq, T, Dh] tensor.
@@ -222,7 +235,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, T, S, Dh, _DTYPE_CODE[q.dtype], strides, float(sm_scale),
-            int(bool(causal)), int(window is not None), int(window or 0))
+            int(bool(causal)), int(window is not None), int(window or 0),
+            _offset(q_offset))
     sync, wg = _library()
     if name == "wgmma":
         err = wg(*args, bk, stream)
@@ -241,11 +255,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     sm_scale: float | None = None,
                     block_q: int | None = None,
-                    block_k: int | None = None) -> torch.Tensor:
+                    block_k: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q [B,Hq,T,Dh], k/v [B,Hkv,S,Dh] -> [B,Hq,T,Dh]: the kernel for CUDA
     tensors, the plain version for CPU tensors (where the tile sizes do
-    not matter)."""
+    not matter); `q_offset` is the position of q's first row (module
+    docstring)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, sm_scale)
+        return flash_attention_plain(q, k, v, causal, window, sm_scale,
+                                     q_offset)
     return flash_attention_cuda(q, k, v, causal, window, sm_scale, block_q,
-                                block_k)
+                                block_k, q_offset)

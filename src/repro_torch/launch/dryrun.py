@@ -30,14 +30,19 @@ needs no card. Measured for rank 0:
 The roofline uses `launch/roofline.py`'s H100 rates. The port unrolls its
 layers in Python, so every layer is counted as it runs: the reference's
 scan trip-count correction (`corrected_costs`) has no counterpart. The
-flops are rank 0's own. Compute over the "model" axis is not split in
-this port yet (ranks along it repeat the batch rows of their data
-index), so for the default profile's cells they exceed the reference's
-model_flops / chips by about the model axis's size; the JSON says so
-(`flops_note`) and `useful_compute_ratio` shows it. MoE archs' decode
-cells fail: a rank's few decode tokens cannot form the global batch's
-expert groups (`models/moe.py` raises), which needs the same model-axis
-compute.
+flops are rank 0's own. Train and prefill cells whose sequence divides
+the model axis split it there (`sharding.TokenSplit`): rank 0 runs the
+first block of positions, k/v gathered per attention layer, its own
+experts of each MoE layer; its einsum attention scores its block against
+every key. What still repeats along "model" (`flops_note`): the
+recurrent blocks' scans (each rank scans the whole gathered sequence,
+as the reference's SPMD does on a sharded scan), the MoE layers'
+routing bookkeeping and, where the experts do not divide the axis, their
+experts; and decode cells, which have no sequence to split (ranks along
+"model" repeat the step). MoE archs' decode cells fail: a rank's few
+decode tokens cannot form the global batch's expert groups
+(`models/moe.py` raises); heads-, MLP- and vocab-parallel decode is a
+later slice. `useful_compute_ratio` shows what repeats.
 
 `torch.testing._internal` is a private module of PyTorch; this is the
 only module of the port that imports it, and only when a cell runs.
@@ -70,9 +75,12 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 SCAN_NOTE = ("none: the port unrolls its layers, so each layer's cost is "
              "counted as it runs (the reference's corrected_costs has no "
              "counterpart)")
-FLOPS_NOTE = ("rank 0's own FLOPs; compute over the model axis is not split "
-              "yet, so under the default profile ranks along it repeat "
-              "their batch rows' work")
+FLOPS_NOTE = ("rank 0's own FLOPs; train and prefill cells whose sequence "
+              "divides the model axis split it there (rank 0 the first "
+              "block, k/v gathered per attention layer, its own experts), "
+              "but the recurrent scans run on the whole gathered sequence "
+              "and MoE experts that do not divide the axis repeat; decode "
+              "cells repeat the step on every rank along model")
 
 
 def _cell_model_flops(cfg, shape_name: str) -> float:

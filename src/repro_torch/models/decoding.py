@@ -4,6 +4,12 @@
 decode state: a KV cache padded to max_len for each attention layer, the
 recurrent layers' states passed through. `decode_step` lives in
 transformer.py.
+
+On a sharded model whose prompt's sequence splits over ranks (the plan's
+`sharding.TokenSplit`), each rank runs its block of positions: the
+attention layers return the whole gathered (k, v) and the recurrent
+layers the whole sequence's state, so every rank builds the same whole
+caches and the decode step runs as on one rank.
 """
 from __future__ import annotations
 
@@ -31,15 +37,24 @@ def _kv_to_cache(kv, max_len: int, dtype):
 def prefill_step(model: T.Transformer, tokens, max_len: int | None = None,
                  cache_dtype=torch.bfloat16):
     """tokens [B,T] (or embeddings [B,T,D]) -> (last_logits [B,V], decode
-    state). max_len defaults to T."""
-    T_in = tokens.shape[1]
+    state). max_len defaults to T. Under a sequence split `tokens` is this
+    rank's block (module docstring) and T the whole sequence; the last
+    position's logits, which the last rank along the split holds, are
+    returned on every rank."""
+    plan = model.shard_plan
+    split = plan.split if plan is not None and plan.split.seq else None
+    T_in = tokens.shape[1] * (split.seq_comm.size if split else 1)
     max_len = max_len or T_in
     logits, _, states = model(tokens, collect_states=True)
     state: List[dict] = [_kv_to_cache(st, max_len, cache_dtype)
                          if kind in T.ATTN_KINDS else st
                          for kind, st in zip(model.cfg.layer_types, states)]
     # a copy, so the [B, T, V] logits are freed on return
-    return logits[:, -1].clone(), state
+    last = logits[:, -1].clone()
+    if split is not None:
+        with split.seq_comm.tagged("logits"):
+            last = split.seq_comm.all_gather(last)[-1]
+    return last, state
 
 
 @torch.no_grad()

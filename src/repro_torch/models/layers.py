@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.graph_device import resolve_device
+from ..distributed import sharding as S
 from ..kernels import ops as kops
 
 NEG_INF = -1e30
@@ -151,16 +152,18 @@ def _mask(T, S, offset, window, device=None):
     return m
 
 
-def attention_scores_xla(q, k, v, window: int, out_dtype):
+def attention_scores_xla(q, k, v, window: int, out_dtype,
+                         q_offset: Optional[int] = None):
     """Full-scores einsum attention, GQA-grouped (no kv repeat); the query
-    rows are the last T of S positions. q [B,T,Hq,hd], k/v [B,S,Hkv,hd]
-    -> [B,T,Hq,hd]."""
+    rows are positions q_offset.. of the S keys' (default: the last T).
+    q [B,T,Hq,hd], k/v [B,S,Hkv,hd] -> [B,T,Hq,hd]."""
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, T, Hkv, Hq // Hkv, hd)
     s = torch.einsum("bthgk,bshk->bhgts", qg.float(), k.float()) \
         * (hd ** -0.5)
-    m = _mask(T, S, S - T, window, q.device)
+    m = _mask(T, S, S - T if q_offset is None else q_offset, window,
+              q.device)
     s = torch.where(m, s, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgts,bshk->bthgk", pattn, v.float())
@@ -168,9 +171,11 @@ def attention_scores_xla(q, k, v, window: int, out_dtype):
 
 
 def attention_scores_chunked(q, k, v, window: int, out_dtype,
-                             chunk: int = 1024):
+                             chunk: int = 1024,
+                             q_offset: Optional[int] = None):
     """Online softmax over KV chunks: memory linear in S.
-    q [B,T,Hq,hd], k/v [B,S,Hkv,hd]."""
+    q [B,T,Hq,hd], k/v [B,S,Hkv,hd]; the query rows are positions
+    q_offset.. (default: the last T)."""
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -183,7 +188,8 @@ def attention_scores_chunked(q, k, v, window: int, out_dtype,
     qg = q.reshape(B, T, Hkv, G, hd).float().permute(0, 2, 3, 1, 4)
     kc = k.float().permute(0, 2, 1, 3).reshape(B, Hkv, n_chunks, chunk, hd)
     vc = v.float().permute(0, 2, 1, 3).reshape(B, Hkv, n_chunks, chunk, hd)
-    qpos = torch.arange(T, device=q.device) + (S - T)
+    qpos = torch.arange(T, device=q.device) + (
+        S - T if q_offset is None else q_offset)
 
     m_run = torch.full((B, Hkv, G, T), NEG_INF, device=q.device)
     l_run = torch.zeros((B, Hkv, G, T), device=q.device)
@@ -208,23 +214,35 @@ def attention_scores_chunked(q, k, v, window: int, out_dtype,
 
 
 def attention_fwd(p: Attention, cfg, x, positions, *, window: int = 0,
-                  impl: Optional[str] = None):
+                  impl: Optional[str] = None, split=None):
     """Training / prefill attention over the full sequence.
     Returns (y [B,T,D], (k, v)) for cache construction. `impl`
     "flash_kernel" runs the CUDA flash kernel on the card (its plain
     version on the CPU), "xla_chunked" the chunked online softmax, any
-    other the full-scores einsum."""
+    other the full-scores einsum.
+
+    Under a sequence split (`split`, a `sharding.TokenSplit`) x is this
+    rank's block of positions q0.. (`positions` holds them, so RoPE
+    rotates q and k at their global positions): k and v are gathered
+    along the split's ranks (one all-gather), the block's queries attend
+    to the whole sequence under the mask offset by q0, and the whole
+    (k, v) is returned for the prefill cache."""
     impl = impl or cfg.attn_impl
     q, k, v = _qkv(p, cfg, x, positions)
+    q0 = 0
+    if split is not None and split.seq:
+        k, v = S.gather_seq(torch.stack([k, v]), split.seq_comm, 2,
+                            tag="kv").unbind(0)
+        q0 = split.q0
     if impl == "flash_kernel":
         o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,
-                                 window=window or None)
+                                 window=window or None, q_offset=q0)
         o = o.transpose(1, 2)
     elif impl == "xla_chunked":
-        o = attention_scores_chunked(q, k, v, window, x.dtype)
+        o = attention_scores_chunked(q, k, v, window, x.dtype, q_offset=q0)
     else:
-        o = attention_scores_xla(q, k, v, window, x.dtype)
+        o = attention_scores_xla(q, k, v, window, x.dtype, q_offset=q0)
     y = torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype))
     return y, (k, v)
 

@@ -18,6 +18,23 @@ dropped. Two dispatches, chosen by `cfg.moe_impl`:
 The reference's `logical_constraint` sharding hints are no-ops on one
 device and are not ported; so `moe_ep_gather`, which only moves where the
 reference's gather is sharded, gathers the same rows here.
+
+On a sharded model (`split`, a `distributed.sharding.TokenSplit`) the
+token groups are still the global batch's [B, T] row-major groups. Where
+the sequence splits over ranks (the "model" axis under the default
+profile), a rank's block of T / M positions may be smaller than a group,
+so each rank routes its own tokens, then gathers the tokens, their gate
+values (both differentiable) and their experts along the split's ranks:
+every rank holds its rows whole and computes the same slot positions of
+every group. Where the experts split over the same ranks (the reference's
+"experts" -> "model", expert parallelism) a rank runs only its own E / M
+experts on [G, E / M, C, D], combines them by a scatter-add into partial
+sums of every token (f32; in the model dtype under `moe_ep_combine`, as
+that arm's cross-shard sums travel), and the partials are reduce-scattered
+back onto the sequence blocks (`sharding.scatter_seq`). Where they do not
+(E % M != 0) each rank runs every expert on the gathered tokens and keeps
+its own rows: that work repeats M times. The aux loss's means run over
+every rank that holds other tokens (the split's token axes).
 """
 from __future__ import annotations
 
@@ -27,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import psum
+from ..distributed import sharding as S
 from . import layers as L
 
 
@@ -36,11 +53,6 @@ class MoE(nn.Module):
             "w_gate": ("experts", "embed", "expert_mlp"),
             "w_up": ("experts", "embed", "expert_mlp"),
             "w_down": ("experts", "expert_mlp", "embed")}
-
-    #: the batch ranks' Comm when the model is sharded over several ranks
-    #: (`distributed.sharding.ShardPlan.set_batch` sets it): the aux loss
-    #: then takes its means over the global batch
-    batch_comm = None
 
     def __init__(self, cfg, gen, device=None, dtype=torch.float32):
         super().__init__()
@@ -55,10 +67,11 @@ class MoE(nn.Module):
                                dtype)
 
 
-def _route(p: MoE, cfg, xg):
-    """[G,S,D] -> (probs [G,S,E], gate values [G,S,K], top-k experts
-    [G,S,K]). Ties take the lowest expert first, as `lax.top_k`."""
-    logits = torch.einsum("gsd,de->gse", xg.float(), p.router.float())
+def _route(p: MoE, cfg, x):
+    """[B,T,D] -> (probs [B,T,E], gate values [B,T,K], top-k experts
+    [B,T,K]), token by token. Ties take the lowest expert first, as
+    `lax.top_k`."""
+    logits = torch.einsum("btd,de->bte", x.float(), p.router.float())
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, topk_idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -84,15 +97,17 @@ def _expert_mlp(p: MoE, cfg, exp_in):
 
 def _aux_loss(cfg, probs, topk_idx, comm=None):
     """E * sum(mean(probs) * mean(routed)): a product of means over the
-    whole batch, so on batch-split ranks (`comm`) the per-rank means are
-    summed (a differentiable psum) and divided by the ranks before the
-    product; the mean of per-rank aux values would be another number."""
+    whole batch, so on ranks holding other tokens (`comm`, equal counts)
+    the per-rank means are summed (a differentiable psum) and divided by
+    the ranks before the product; the mean of per-rank aux values would
+    be another number."""
     E, K = cfg.num_experts, cfg.top_k
-    sel = F.one_hot(topk_idx, E).float()                       # [G,S,K,E]
+    sel = F.one_hot(topk_idx, E).float()                       # [B,T,K,E]
     me = probs.mean(dim=(0, 1))
     ce = sel.sum(2).mean(dim=(0, 1)) / K                        # frac routed
     if comm is not None and comm.size > 1:
-        me, ce = (psum(torch.stack([me, ce]), comm) / comm.size).unbind(0)
+        me, ce = (S.psum(torch.stack([me, ce]), comm)
+                  / comm.size).unbind(0)
     return E * torch.sum(me * ce)
 
 
@@ -104,39 +119,71 @@ def _group(N: int, group_size: int) -> int:
     return g
 
 
-def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True):
+def _check_groups(N: int, B: int, T: int, group_size: int, comm):
+    """Raise unless each of the batch-split ranks' N = B x T tokens is a
+    multiple of the global batch's token group."""
+    if comm is None or comm.size == 1:
+        return
+    g_all = _group(N * comm.size, group_size)
+    if N % g_all:
+        raise ValueError(
+            f"MoE grouping: the batch split over {comm.size} ranks "
+            f"gives each {B} x {T} = {N} tokens, not a multiple of the "
+            f"global batch's token group {g_all} (of {N * comm.size} "
+            "tokens), so the ranks would route other groups than one "
+            "rank does; split the batch so each rank's tokens are a "
+            "multiple of it")
+
+
+def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True,
+            split=None):
     """x [B,T,D] -> (y [B,T,D], {"moe_aux": f32 scalar}); the aux is None
-    when not `aux` (decode, which discards it). On batch-split ranks
-    (`p.batch_comm`) the rank's token groups must be the global batch's:
-    the rank's token count must be a multiple of the global group, else
-    ValueError."""
-    B, T, D = x.shape
+    when not `aux` (decode, which discards it). On a sharded model
+    `split` is the plan's token split (module docstring): under a
+    sequence split x is this rank's block of positions. The rank's token
+    groups must be the global batch's: the tokens of its rows must be a
+    multiple of the global group, else ValueError."""
+    B, Tl, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    seq = None if split is None else split.seq_comm   # one rank: no-ops
+    T = Tl * (1 if seq is None else seq.size)
     N = B * T
     g = _group(N, group_size)
-    comm = p.batch_comm
-    if comm is not None and comm.size > 1:
-        g_all = _group(N * comm.size, group_size)
-        if N % g_all:
-            raise ValueError(
-                f"MoE grouping: the batch split over {comm.size} ranks "
-                f"gives each {B} x {T} = {N} tokens, not a multiple of the "
-                f"global batch's token group {g_all} (of {N * comm.size} "
-                "tokens), so the ranks would route other groups than one "
-                "rank does; split the batch so each rank's tokens are a "
-                "multiple of it")
-    xg = x.reshape(N // g, g, D)
-    probs, gate_vals, topk_idx = _route(p, cfg, xg)
+    _check_groups(N, B, T, group_size,
+                  None if split is None else split.batch_comm)
+    probs, gate_vals, topk_idx = _route(p, cfg, x)       # own tokens
+    xg = S.gather_seq(x, seq, 1, tag="moe").reshape(N // g, g, D)
+    gate_g = S.gather_seq(gate_vals, seq, 1, tag="moe").reshape(
+        N // g, g, K)
+    topk_g = S.gather_seq(topk_idx, seq, 1, tag="moe").reshape(N // g, g, K)
     cap = max(int(math.ceil(K * g * cfg.capacity_factor / E)), 1)
     dispatch = _dispatch_einsum if cfg.moe_impl == "einsum" \
         else _dispatch_sort
-    y = dispatch(p, cfg, xg, gate_vals, topk_idx, cap, x.dtype)
-    return y.reshape(B, T, D), {
-        "moe_aux": _aux_loss(cfg, probs, topk_idx, comm) if aux else None}
+    n_local = p.w_up.shape[0]                 # this rank's experts
+    if n_local == E:      # one rank, or "experts" fell back: work repeats
+        y = dispatch(p, cfg, xg, gate_g, topk_g, cap, x.dtype).reshape(
+            B, T, D)
+        if split is not None:
+            y = split.own(y)
+    else:
+        if n_local * seq.size != E:
+            raise ValueError(f"MoE: {n_local} experts a rank over "
+                             f"{seq.size} ranks, of {E}")
+        part = dispatch(p, cfg, xg, gate_g, topk_g, cap, x.dtype,
+                        local=(seq.rank * n_local, n_local))
+        y = S.scatter_seq(part.reshape(B, T, D), seq, 1,
+                          tag="moe").to(x.dtype)
+    comm = None if split is None else split.token_comm
+    return y, {"moe_aux": _aux_loss(cfg, probs, topk_idx, comm)
+               if aux else None}
 
 
-def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
-    """Gather-based dispatch: no [S,E,C] one-hot is ever built."""
+def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype,
+                   local=None):
+    """Gather-based dispatch: no [S,E,C] one-hot is ever built. `local`
+    (first expert, count): run those experts only (p's expert weights
+    are theirs) and return their partial sums of every token, in f32 (in
+    `dtype` under `moe_ep_combine`)."""
     G, g, D = xg.shape
     E, K = cfg.num_experts, cfg.top_k
     SK = g * K
@@ -155,22 +202,28 @@ def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
     slot_tok = torch.full((G, E * cap + 1), g, dtype=torch.long, device=dev)
     slot_tok.scatter_(1, slot_s, tok_s)
     slot_tok = slot_tok[:, :-1]
+    e0, n_e = local or (0, E)
+    mine = slice(e0 * cap, (e0 + n_e) * cap)          # this rank's slots
+    slot_tok = slot_tok[:, mine]
 
     xg_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
     exp_in = xg_pad[rows, slot_tok].to(dtype)         # empty slots read 0
-    exp_out = _expert_mlp(p, cfg, exp_in.reshape(G, E, cap, D))
-    exp_out = exp_out.reshape(G, E * cap, D)
+    exp_out = _expert_mlp(p, cfg, exp_in.reshape(G, n_e, cap, D))
+    exp_out = exp_out.reshape(G, n_e * cap, D)
 
-    if cfg.moe_ep_combine:
+    if cfg.moe_ep_combine or local is not None:
         # scatter each slot's gate-weighted output back to its token, the
-        # partial sums in the model dtype
+        # partial sums in the model dtype (f32 for a rank's partials of
+        # the gather combine)
+        acc = dtype if cfg.moe_ep_combine else torch.float32
         gate_s = torch.gather(gate_vals.reshape(G, SK), 1, order)
         slot_gate = torch.zeros((G, E * cap + 1), dtype=torch.float32,
                                 device=dev)
         slot_gate.scatter_(1, slot_s, gate_s)
-        contrib = (exp_out.float() * slot_gate[:, :-1, None]).to(dtype)
-        y = torch.zeros((G, g + 1, D), dtype=dtype, device=dev)
-        y.scatter_add_(1, slot_tok[..., None].expand(G, E * cap, D), contrib)
+        contrib = (exp_out.float() * slot_gate[:, mine, None]).to(acc)
+        y = torch.zeros((G, g + 1, D), dtype=acc, device=dev)
+        y.scatter_add_(1, slot_tok[..., None].expand(G, n_e * cap, D),
+                       contrib)
         return y[:, :g]
 
     # combine: each token gathers its K slots back
@@ -182,8 +235,10 @@ def _dispatch_sort(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
     return (picked.float() * w).sum(dim=2).to(dtype)
 
 
-def _dispatch_einsum(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
-    """GShard-style dispatch einsums (the oracle)."""
+def _dispatch_einsum(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype,
+                     local=None):
+    """GShard-style dispatch einsums (the oracle); `local` as in
+    `_dispatch_sort` (the partial sums in f32)."""
     G, g, D = xg.shape
     E, K = cfg.num_experts, cfg.top_k
     sel = F.one_hot(topk_idx, E)                                # [G,S,K,E]
@@ -197,7 +252,10 @@ def _dispatch_einsum(p: MoE, cfg, xg, gate_vals, topk_idx, cap, dtype):
     dispatch = torch.einsum("gske,gskc->gsec", disp, pos_oh)
     combine = torch.einsum("gske,gskc->gsec", disp * gate_vals[..., None],
                            pos_oh)
+    if local is not None:
+        mine = slice(local[0], local[0] + local[1])
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
     exp_in = torch.einsum("gsec,gsd->gecd", dispatch, xg.float()).to(dtype)
     exp_out = _expert_mlp(p, cfg, exp_in)
-    return torch.einsum("gsec,gecd->gsd", combine,
-                        exp_out.float()).to(dtype)
+    y = torch.einsum("gsec,gecd->gsd", combine, exp_out.float())
+    return y if local is not None else y.to(dtype)

@@ -21,6 +21,13 @@ Parameters live in `nn.Module`s named and shaped as the reference's tree
 True)`. The projections run in the activation dtype, as the reference's
 einsums; gates, the stabilisers and the recurrent states `h`/`C`/`n`/`m`
 are f32. Every block has a one-step `*_decode` update carrying O(1) state.
+
+None of the scans (nor the causal conv1d before two of them) can split
+its sequence: under a sequence split over ranks, `whole_sequence` runs a
+block on the whole sequence gathered along the split's ranks and keeps
+this rank's rows, so the final state is whole (the prefill needs it) and
+every rank repeats the block's work, as the reference's SPMD does on a
+sharded scan.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import sharding as S
 from . import layers as L
 
 NEG_INF = -1e30
@@ -375,6 +383,18 @@ def rglru_decode(p: RGLRU, cfg, x, state: Dict):
     y = torch.einsum("btr,rd->btd", h_new[:, None].to(x.dtype) * g,
                      p.w_out.to(x.dtype))
     return y, {"h": h_new, "conv": new_conv}
+
+
+def whole_sequence(fwd, p, cfg, x, split=None):
+    """(y, final state) of the block `fwd` (mlstm_fwd, slstm_fwd or
+    rglru_fwd) on x [B, T, D]. Under a sequence split (`split`, a
+    `sharding.TokenSplit`) x is this rank's block of positions: the block
+    runs on the whole sequence gathered along the split's ranks and y
+    keeps this rank's rows; the state is the whole sequence's."""
+    if split is None or not split.seq:
+        return fwd(p, cfg, x)
+    y, st = fwd(p, cfg, S.gather_seq(x, split.seq_comm, 1, tag="scan"))
+    return split.own(y), st
 
 
 def init_state(kind: str, cfg, batch: int, dtype, device=None

@@ -59,11 +59,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _run_block(blk, cfg, x, positions, plan, prefix):
     """Block.forward on whole weights: the block's own parameters, or on
     a sharded model (`plan`) its shards gathered here (so a checkpointed
-    block gathers again when it is recomputed)."""
+    block gathers again when it is recomputed), with the plan's token
+    split (the model comm and this rank's first position q0)."""
     if plan is None:
         return blk(cfg, x, positions)
     with S.swapped(blk, plan.gather(blk, prefix)):
-        return blk(cfg, x, positions)
+        return blk(cfg, x, positions, plan.split)
 
 
 def _block_remat(blk, cfg, x, positions, plan=None, prefix=""):
@@ -117,39 +118,41 @@ class Block(nn.Module):
                 self.norm2 = L.Norm(cfg.d_model, cfg.norm, device, dtype)
                 self.mlp = L.MLP(cfg, gen, device, dtype)
 
-    def _ffn(self, cfg, x, aux=True):
+    def _ffn(self, cfg, x, aux=True, split=None):
         """x + the block's second half: the MLP or the MoE layer after
         norm2. Returns (x, moe aux or None; None too when not `aux`)."""
         h2 = L.apply_norm(self.norm2, x, cfg.norm)
         if self.kind == "moe":
-            y2, auxd = M.moe_fwd(self.moe, cfg, h2, aux=aux)
+            y2, auxd = M.moe_fwd(self.moe, cfg, h2, aux=aux, split=split)
             return x + y2, auxd["moe_aux"]
         return x + L.mlp_fwd(self.mlp, cfg, h2), None
 
-    def forward(self, cfg, x, positions):
+    def forward(self, cfg, x, positions, split=None):
         """Returns (x_out, aux, state): the MoE aux (None for other kinds)
         and the prefill state, (k, v) for the attention kinds, the
-        recurrent state dict for the others."""
+        recurrent state dict for the others. On a sharded model `split`
+        is the plan's `sharding.TokenSplit`: x holds this rank's block of
+        positions, and the state is the whole sequence's."""
         kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
         if kind in ATTN_KINDS:
             y, st = L.attention_fwd(self.attn, cfg, h, positions,
-                                    window=_window(cfg, kind))
-            x, aux = self._ffn(cfg, x + y)
+                                    window=_window(cfg, kind), split=split)
+            x, aux = self._ffn(cfg, x + y, split=split)
             return x, aux, st
         if kind == "mlstm":
-            y, st = R.mlstm_fwd(self.mlstm, cfg, h)
+            y, st = R.whole_sequence(R.mlstm_fwd, self.mlstm, cfg, h, split)
             return x + y, None, st
         if kind == "slstm":
-            y, st = R.slstm_fwd(self.slstm, cfg, h)
+            y, st = R.whole_sequence(R.slstm_fwd, self.slstm, cfg, h, split)
             return x + y, None, st
-        y, st = R.rglru_fwd(self.rglru, cfg, h)
+        y, st = R.whole_sequence(R.rglru_fwd, self.rglru, cfg, h, split)
         x = x + y
         if cfg.d_ff:
-            x, _ = self._ffn(cfg, x)
+            x, _ = self._ffn(cfg, x, split=split)
         return x, None, st
 
-    def decode(self, cfg, x, state):
+    def decode(self, cfg, x, state, split=None):
         """One token: x [B,1,D] and this layer's decode state -> (x_out,
         new state). A KV cache is updated in place."""
         kind = self.kind
@@ -157,7 +160,7 @@ class Block(nn.Module):
         if kind in ATTN_KINDS:
             y, state = L.attention_decode(self.attn, cfg, h, state,
                                           window=_window(cfg, kind))
-            return self._ffn(cfg, x + y, aux=False)[0], state
+            return self._ffn(cfg, x + y, aux=False, split=split)[0], state
         if kind == "mlstm":
             y, state = R.mlstm_decode(self.mlstm, cfg, h, state)
             return x + y, state
@@ -167,7 +170,7 @@ class Block(nn.Module):
         y, state = R.rglru_decode(self.rglru, cfg, h, state)
         x = x + y
         if cfg.d_ff:
-            x, _ = self._ffn(cfg, x, aux=False)
+            x, _ = self._ffn(cfg, x, aux=False, split=split)
         return x, state
 
 
@@ -227,8 +230,11 @@ class Transformer(nn.Module):
         else:
             x = L.embed_tokens(self, cfg, inputs, dtype)
         B, T = x.shape[:2]
+        plan = self.shard_plan
         if positions is None:
-            positions = torch.arange(T, dtype=torch.int32,
+            # a sharded model's block of a split sequence starts at q0
+            q0 = plan.split.q0 if plan is not None else 0
+            positions = torch.arange(q0, q0 + T, dtype=torch.int32,
                                      device=x.device)[None].expand(B, T)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         states = []
@@ -236,7 +242,6 @@ class Transformer(nn.Module):
         # every parameter, so the first one speaks for all of them
         remat = (torch.is_grad_enabled() and not collect_states
                  and next(self.parameters()).requires_grad)
-        plan = self.shard_plan
         for i, blk in enumerate(self.layers):
             if remat:
                 x, a = _block_remat(blk, cfg, x, positions, plan,
@@ -324,10 +329,13 @@ def init_decode_state(cfg, batch: int, max_len: int,
 def decode_step(model: Transformer, tokens, state: List[dict]):
     """One serve step: tokens [B] (or [B,D] embeddings) -> (logits [B,V],
     state). The KV caches in `state` are updated in place; the recurrent
-    layers' entries are new dicts."""
+    layers' entries are new dicts. On a sharded model the step drops the
+    plan's sequence split (`ShardPlan.drop_seq`): a prefill's split
+    does not reach the one-token step."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     plan = model.shard_plan
+    split = None if plan is None else plan.drop_seq()
     with _top_weights(model):
         if cfg.embed_inputs:
             x = (tokens[:, None] if tokens.ndim == 2 else tokens).to(dtype)
@@ -337,7 +345,7 @@ def decode_step(model: Transformer, tokens, state: List[dict]):
         for i, (blk, st) in enumerate(zip(model.layers, state)):
             w = {} if plan is None else plan.gather(blk, f"layers.{i}.")
             with S.swapped(blk, w):
-                x, st = blk.decode(cfg, x, st)
+                x, st = blk.decode(cfg, x, st, split)
             new_state.append(st)
         x = L.apply_norm(model.final_norm, x, cfg.norm)
         return L.logits_fwd(model, cfg, x)[:, 0], new_state

@@ -16,22 +16,34 @@ process per rank over `torch.distributed`): the reference gets this from
   * Each rank keeps only its shard of every parameter and of both AdamW
     moments, as `param_spec` resolves it over the layout
     (`Placement.state`, `init_train_state(..., layout=)`).
+  * The step takes the global batch [B, T+1] and keeps this rank's
+    tokens: its rows, along the axes the "batch" rule of the config's
+    profile resolves to (`sharding.rules_for_profile`), then, after the
+    next-token shift (inputs `tokens[:, :-1]`, targets `tokens[:, 1:]`),
+    its block of the T positions along the axes the "seq" rule resolves
+    to: "model" under the default profile when T divides, the
+    reference's sequence parallelism (`sharding.TokenSplit`). The block
+    runs at its global positions q0 + arange(T / M); each attention
+    layer gathers k and v along "model", the MoE layers run their own
+    experts on the gathered token groups, the recurrent blocks scan the
+    gathered sequence (`models/`).
   * Each block gathers its parameters whole where they are used
     (`sharding.gather_param`, inside the block's remat region), and the
     gradients come back reduce-scattered to their owners in their own
-    dtype (as XLA's all-reduce reduces); the sum over the batch's ranks
+    dtype (as XLA's all-reduce reduces); the sum over the token shards
     is then divided by their number.
-  * The step takes the global batch and keeps this rank's rows: the
-    batch splits along the axes that the "batch" rule of the config's
-    profile resolves to (`sharding.rules_for_profile`).
-  * The loss metrics are averaged over the batch's ranks, the MoE aux
-    loss takes global means (`models/moe.py`), and the gradient norm
-    counts every element once (`optim.clip_by_global_norm`).
+  * nll, z_loss and the loss are averaged over the token shards: they
+    hold equal token counts, so the mean of their means is the global
+    batch's mean. The MoE aux loss takes global means over the same
+    ranks (`models/moe.py`), and the gradient norm counts every element
+    once (`optim.clip_by_global_norm`).
 
-So P ranks compute what one rank computes on the global batch. Compute
-over the `model` axis is not split (a later slice): ranks along it keep
-different shards but compute the same batch rows; under the "dp"
-profile the batch spans every axis, so no rank repeats another's work.
+So P ranks compute what one rank computes on the global batch, and no
+two ranks process the same token: under the default profile the ranks
+along "model" hold different positions of the same rows (where T does
+not divide, they fall back to the same rows and repeat that work);
+under the "dp" profile the batch spans every axis. A decode step has no
+sequence to split: ranks along "model" repeat it.
 
 The second member of each `build_*` pair, a `Placement`, puts a whole
 state, model, batch or decode state onto this rank's shards: the
@@ -178,11 +190,13 @@ class Placement:
 
     def params(self, model):
         """A whole model -> this rank's shards of it (in place), with its
-        `ShardPlan`."""
+        `ShardPlan` (which knows the MoE layers' expert weights)."""
         if model.shard_plan is not None:
             raise ValueError("the model is already sharded")
+        experts = [k for k, axes in param_logical_axes(model).items()
+                   if axes[0] == "experts"]
         return S.shard_model(model, self.layout, self.param_specs(model),
-                             self.rules)
+                             self.rules, experts)
 
     @torch.no_grad()
     def state(self, state: TrainState) -> TrainState:
@@ -269,13 +283,23 @@ def _placed(model, layout, what: str):
     return plan
 
 
-def _bind_batch(model, plan, batch):
-    """Resolve the global batch's split on the plan and hand its Comm to
-    the MoE layers (their aux loss takes global means)."""
-    plan.set_batch(tuple(_lead(batch).shape))
-    for m in model.modules():
-        if isinstance(m, M.moe.MoE):
-            m.batch_comm = plan.batch_comm
+def _seq_len(batch) -> int:
+    """The positions the model runs on a global training batch: T of
+    tokens [B, T+1] (after the shift), of labels [B, T] in a dict."""
+    if isinstance(batch, dict):
+        return batch["labels"].shape[1]
+    return batch.shape[1] - 1
+
+
+def _own_tokens(rows, split) -> dict:
+    """This rank's tokens of its rows of a training batch (tokens [b,
+    T+1], or an embed_inputs config's dict), after the next-token shift:
+    {"inputs", "labels"}, each its block of the T positions."""
+    if isinstance(rows, dict):
+        inputs, labels = rows["inputs"], rows["labels"]
+    else:
+        inputs, labels = rows[:, :-1], rows[:, 1:]
+    return {"inputs": split.own(inputs), "labels": split.own(labels)}
 
 
 def make_train_step(cfg, layout=None, lr_schedule=None,
@@ -303,15 +327,14 @@ def make_train_step(cfg, layout=None, lr_schedule=None,
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
         else:
             plan = _placed(model, layout, "make_train_step")
-            _bind_batch(model, plan, batch)
-            loss, metrics, grads = loss_and_grads(model,
-                                                  place.batch(batch, dev))
-            nb = plan.n_batch
-            if nb > 1:
+            split = plan.set_batch(_lead(batch).shape[0], _seq_len(batch))
+            loss, metrics, grads = loss_and_grads(
+                model, _own_tokens(place.batch(batch, dev), split))
+            if split.n > 1:
                 for g in grads.values():
-                    g.div_(nb)
-                red = plan.batch_comm.psum(torch.stack(
-                    [loss, metrics["nll"], metrics["z_loss"]])) / nb
+                    g.div_(split.n)
+                red = split.token_comm.psum(torch.stack(
+                    [loss, metrics["nll"], metrics["z_loss"]])) / split.n
                 loss, metrics["nll"], metrics["z_loss"] = red.unbind(0)
             grads, gnorm = clip_by_global_norm(
                 grads, clip_norm, {k: plan.counted(k) for k in grads},
@@ -345,8 +368,8 @@ def make_serve_step(cfg, layout=None):
     def serve_step(model, tokens, state):
         model.cfg = cfg
         if sharded:
-            _bind_batch(model, _placed(model, layout, "make_serve_step"),
-                        tokens)
+            _placed(model, layout, "make_serve_step").set_batch(
+                tokens.shape[0])
             tokens = place.batch(tokens, next(model.parameters()).device)
         return M.decode_step(model, tokens, state)
     return serve_step
@@ -354,17 +377,20 @@ def make_serve_step(cfg, layout=None):
 
 def make_prefill_step(cfg, layout=None, max_len: Optional[int] = None):
     """prefill(model, tokens) -> (last logits, decode state):
-    `prefill_step` under `cfg`; on several ranks the global batch in,
-    this rank's rows of the logits and of the decode state out."""
+    `prefill_step` under `cfg`; on several ranks the global batch in
+    (each rank runs its rows' block of positions, module docstring),
+    this rank's rows of the last logits and of the decode state out, the
+    caches whole along the sequence."""
     sharded = _sharded(layout)
     place = Placement(cfg, layout) if sharded else None
 
     def prefill(model, tokens):
         model.cfg = cfg
         if sharded:
-            _bind_batch(model, _placed(model, layout, "make_prefill_step"),
-                        tokens)
-            tokens = place.batch(tokens, next(model.parameters()).device)
+            split = _placed(model, layout, "make_prefill_step").set_batch(
+                tokens.shape[0], tokens.shape[1])
+            tokens = split.own(place.batch(
+                tokens, next(model.parameters()).device))
         return M.prefill_step(model, tokens, max_len=max_len)
     return prefill
 

@@ -1394,7 +1394,8 @@ def _flash_match(q, k, v, dtype, **kw):
     assert sum(launches[n] for n in FLASH_COUNTER.values()) == 1
     assert out.dtype == q.dtype and out.shape == q.shape
     ref = fa.flash_attention_plain(q, k, v, **{
-        key: kw[key] for key in ("causal", "window", "sm_scale") if key in kw})
+        key: kw[key] for key in ("causal", "window", "sm_scale", "q_offset")
+        if key in kw})
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(),
                                **_flash_tol(dtype, v))
@@ -1437,6 +1438,24 @@ def test_flash_kernel_masks_vs_plain(cuda, dtype, case):
     q, k, v = _qkv((1, Hq, T, 64), (1, Hkv, S, 64), dtype, cuda, seed=1)
     _flash_match(q, k, v, dtype, causal=c.get("causal", True),
                  window=c.get("window"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("where", ["0", "T/2", "T-128"])
+@pytest.mark.parametrize("dtype,Dh", [("bfloat16", 128), ("bfloat16", 256),
+                                      ("float32", 128), ("bfloat16", 32)])
+def test_flash_kernel_q_offset_vs_plain(cuda, dtype, Dh, where, window):
+    """A rank's block of queries under a sequence split: rows q0.. of a
+    T = 512 sequence against all its keys, q_offset = q0 at 0, T/2 and
+    T - 128 (T/2 rows, or the last 128), causal with and without a
+    window, on both variants (wgmma at bf16 Dh 128/256, mma_sync at f32
+    and at bf16 Dh 32)."""
+    T = 512
+    q0 = {"0": 0, "T/2": T // 2, "T-128": T - 128}[where]
+    q, k, v = _qkv((2, 4, min(T // 2, T - q0), Dh), (2, 2, T, Dh), dtype,
+                   cuda, seed=q0)
+    _flash_match(q, k, v, dtype, causal=True, window=window, q_offset=q0)
 
 
 @pytest.mark.cuda
@@ -2258,14 +2277,18 @@ _SHARDED_CASES = {"dense/data2": ("qwen3-14b", 1, "default", "dots", 16),
                   "dense/dp": ("qwen3-14b", 2, "dp", "none", 16),
                   "moe/data2": ("granite-moe-1b-a400m", 1, "default", "full",
                                 1024),
-                  "moe/dp": ("granite-moe-1b-a400m", 2, "dp", "none", 1024)}
+                  "moe/model2": ("granite-moe-1b-a400m", 2, "default",
+                                 "none", 1024),
+                  "moe/dp": ("granite-moe-1b-a400m", 2, "dp", "none", 1024),
+                  "local/model2": ("recurrentgemma-9b", 2, "default", "none",
+                                   32)}
 
 _SHARDED_RANK = r"""
 import pickle, sys
 import torch
 from repro_torch.configs import get_config, smoke
 from repro_torch.data import SyntheticLMDataset
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import linear_warmup_cosine
 from repro_torch.train import step as TS
@@ -2288,7 +2311,9 @@ for key, (arch, mp, prof, remat, T) in cases.items():
     res[key] = {"metrics": ms,
                 "params": {k: v.cpu() for k, v in tree.params.items()}}
 if rank == 0:
-    pickle.dump(res, open(out, "wb"))
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+end_rank()
 """
 
 

@@ -230,7 +230,7 @@ import sys, warnings
 import numpy as np
 from repro_torch import UniGPS
 from repro_torch.core.graph import from_edges
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 warnings.simplefilter("ignore")
 rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 init_rank(rank, 2, port, "gloo")
@@ -256,6 +256,7 @@ for gname, (src, dst, V) in GRAPHS.items():
                                                        **k)[0]
 if rank == 0:
     np.savez(f"{out}/p2.npz", **{k: np.asarray(v) for k, v in res.items()})
+end_rank()
 """
 
 

@@ -517,7 +517,7 @@ import numpy as np, torch
 from repro_torch.core import io, operators as ops, vcprog
 from repro_torch.core.engines.common import NonConvergenceWarning
 from repro_torch.core.engines.distributed import ShardedGraph
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 warnings.simplefilter("ignore", NonConvergenceWarning)
 rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 init_rank(rank, world, port, "gloo")
@@ -572,6 +572,7 @@ if rank == 0:
     np.savez(f"{out}/single.npz", **{k: np.asarray(v) for k, v in single.items()})
     with open(f"{out}/meta.json", "w") as f:
         json.dump(meta, f)
+end_rank()
 """
 
 # The reference at P = 4 (kernel off), in a fresh interpreter with four

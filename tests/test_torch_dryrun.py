@@ -11,7 +11,11 @@ reference; it is compared as a value (0).
 
 The cell: its argument bytes equal the sum of rank 0's shard bytes
 (parameters, both moments, the two steps) and its rows of the batch, as
-`param_spec` resolves them; its counts are rank 0's own.
+`param_spec` resolves them; its counts are rank 0's own. With experts
+that divide the model axis, rank 0's counts fall by it (16) against the
+same cell run with the "seq" rule replicated (a rules table local to the
+test): the sequence split over "model" shares every layer's work out,
+the experts too.
 """
 import dataclasses
 
@@ -156,6 +160,9 @@ def _smoke_overrides(arch):
 
 
 def test_smoke_cell_on_a_fake_pod(tmp_path, monkeypatch, capsys):
+    """granite's smoke widths: its 4 experts do not divide the model axis
+    (16), so each rank runs every expert on its gathered rows (the
+    repeated-experts arm of `moe_fwd`, forward and backward)."""
     arch, shape = "granite-moe-1b-a400m", "train_4k"
     ov = _smoke_overrides(arch)
     assert not dist.is_initialized()
@@ -191,6 +198,30 @@ def test_smoke_cell_on_a_fake_pod(tmp_path, monkeypatch, capsys):
     text = capsys.readouterr().out
     assert f"| {arch} | {shape} | OK |" in text
     assert "fake_tensor" in text
+
+
+def test_seq_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
+    """granite's smoke widths with its own 32 experts, top 8 (they divide
+    the model axis): rank 0's FLOPs fall by the model axis (16) against
+    the same cell with the "seq" rule replicated (a rules table local to
+    the test), the experts split over "model" too."""
+    arch, shape = "granite-moe-1b-a400m", "train_4k"
+    ov = {k: v for k, v in _smoke_overrides(arch).items()
+          if k not in ("num_experts", "top_k")}
+    assert not dist.is_initialized()
+    no_seq = dict(S.ACT_RULES, seq=[()])
+    try:
+        res = D.run_cell(arch, shape, "pod", ov, verbose=False)
+        with monkeypatch.context() as m:
+            m.setattr(S, "rules_for_profile", lambda profile: no_seq)
+            whole = D.run_cell(arch, shape, "pod", ov, verbose=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert res["status"] == "OK", res.get("traceback")
+    assert whole["status"] == "OK", whole.get("traceback")
+    np.testing.assert_allclose(whole["roofline"]["flops"]
+                               / res["roofline"]["flops"], 16, rtol=0.1)
 
 
 def test_cli_writes_a_skip_record(tmp_path, monkeypatch):

@@ -77,6 +77,36 @@ def test_plain_causal_counts_qpos_from_zero(T, S):
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("window", [None, 8, 40])
+@pytest.mark.parametrize("q0,Tq", [(0, 48), (48, 48), (64, 32), (95, 1)])
+def test_plain_q_offset_matches_the_reference_rows(q0, Tq, window):
+    """A rank holding query rows q0..q0+Tq-1 of a 96-position sequence
+    (against all 96 keys, as under a sequence split): the plain version
+    with q_offset=q0 equals those rows of the reference's attention on the
+    whole sequence (the Pallas kernel in interpret mode and `mha_ref`),
+    with and without a window."""
+    q, k, v = _inputs((2, 4, 96, 32), (2, 2, 96, 32), seed=q0 + Tq)
+    kw = dict(causal=True, window=window)
+    _, kern, ref = _both(q, k, v, **kw)
+    rows = slice(q0, q0 + Tq)
+    port = fa.flash_attention_plain(
+        torch.from_numpy(q[:, :, rows]), torch.from_numpy(k),
+        torch.from_numpy(v), q_offset=q0, **kw).numpy()
+    np.testing.assert_allclose(port, kern[:, :, rows], **F32_TOL)
+    np.testing.assert_allclose(port, ref[:, :, rows], **F32_TOL)
+    # the wrapper's CPU path takes the same offset
+    got = tops.flash_attention(torch.from_numpy(q[:, :, rows]),
+                               torch.from_numpy(k), torch.from_numpy(v),
+                               q_offset=q0, **kw).numpy()
+    np.testing.assert_array_equal(got, port)
+
+
+def test_plain_q_offset_refuses_a_negative_one():
+    q, k, v = (torch.zeros((1, 1, 4, 16)) for _ in range(3))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_plain(q, k, v, q_offset=-1)
+
+
 def test_plain_ragged_and_dead_rows():
     """Ragged T = S = 77 (no tile multiple); window 0 leaves every row
     without a live key, so every row is 0 on both sides."""

@@ -187,7 +187,7 @@ _RANK = r"""
 import json, sys, warnings
 from repro_torch.core import io, operators as ops
 from repro_torch.core.engines.common import NonConvergenceWarning
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 from repro_torch.launch import roofline as RL
 warnings.simplefilter("ignore", NonConvergenceWarning)
 rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
@@ -204,7 +204,9 @@ for sch in ("ring", "allgather", "push"):
                               "iterations": info["iterations"],
                               "collectives": RL.collectives_from_info(info)}
 if rank == 0:
-    json.dump(res, open(out, "w"))
+    with open(out, "w") as f:
+        json.dump(res, f)
+end_rank()
 """
 
 

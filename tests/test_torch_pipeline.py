@@ -20,7 +20,7 @@ _RANK = r"""
 import faulthandler, json, sys
 faulthandler.enable(all_threads=True)
 import numpy as np, torch
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 from repro_torch.distributed.pipeline import make_pipelined_fn
 from repro_torch.launch.mesh import RankLayout
 rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
@@ -42,10 +42,10 @@ lay = RankLayout((S,), ("pipe",), rank, torch.device("cpu"))
 piped = make_pipelined_fn(stage_fn, lay, "pipe", num_microbatches=M)
 y = piped(Ws, x)
 comm = lay.comm("pipe")
-json.dump({"y": y.tolist(), "permutes": comm.by_kind[
-    "collective-permute"]["count"]}, open(f"{out}.{rank}", "w"))
-torch.distributed.barrier()
-torch.distributed.destroy_process_group()
+with open(f"{out}.{rank}", "w") as f:
+    json.dump({"y": y.tolist(), "permutes": comm.by_kind[
+        "collective-permute"]["count"]}, f)
+end_rank()
 """
 
 

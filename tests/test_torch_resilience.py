@@ -777,7 +777,7 @@ import json, shutil, sys, warnings
 import numpy as np, torch
 from repro_torch.core import io, operators as ops
 from repro_torch.core.engines.distributed import ShardedGraph
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 from repro_torch.distributed.faults import Fault, NonConvergenceWarning
 warnings.simplefilter("ignore", NonConvergenceWarning)
 rank, world, port, out, mode = (int(sys.argv[1]), int(sys.argv[2]),
@@ -802,11 +802,11 @@ if mode == "resume":
     if rank == 0:
         np.save(f"{out}/resumed.npy", d)
         np.save(f"{out}/guarded.npy", g_d)
-        json.dump({"resumed_from": info["resumed_from"],
-                   "iterations": info["iterations"],
-                   "guarded_rollbacks": g_info["rollbacks"]},
-                  open(f"{out}/resumed.json", "w"))
-    sys.exit(0)
+        with open(f"{out}/resumed.json", "w") as f:
+            json.dump({"resumed_from": info["resumed_from"],
+                       "iterations": info["iterations"],
+                       "guarded_rollbacks": g_info["rollbacks"]}, f)
+    end_rank()
 res, meta = {}, {}
 for sch in ("allgather", "ring", "push"):
     k = dict(kw, schedule=sch)
@@ -843,7 +843,8 @@ for sch in ("allgather", "ring", "push"):
 res["full"] = ops.sssp(g, 0, frontier="auto", schedule="ring", **kw)[0]
 if rank == 0:
     np.savez(f"{out}/matrix.npz", **{k: np.asarray(v) for k, v in res.items()})
-    json.dump(meta, open(f"{out}/meta.json", "w"))
+    with open(f"{out}/meta.json", "w") as f:
+        json.dump(meta, f)
 ops.sssp(g, 0, frontier="auto", schedule="ring", checkpoint_dir=f"{out}/ckpt",
          **dict(kw, **KILL))
 """

@@ -1,6 +1,7 @@
 """Training on several ranks: the sharded train step at P = 2 gloo ranks
 on the CPU against the reference's single-device step on the global
-batch, checkpoints that reshard, and the error-feedback compressed psum.
+batch, the split of the work over "model", the sharded prefill,
+checkpoints that reshard, and the error-feedback compressed psum.
 
 One spawn of two ranks runs every case (`_RANK`): the reference's
 initial state (JAX, `init_train_state`, converted through `convert` with
@@ -9,15 +10,31 @@ the rank's layout, so each rank keeps its shards) takes three steps of
 dense 2-layer smoke config (qwen3-14b, `remat="dots"` under data 2) and
 `smoke(granite-moe-1b-a400m)` (B 4 x T 1024: each rank's 2,048 tokens
 are one global MoE group; `remat="full"` under data 2), each under
-data 2, data 1 x model 2 and the "dp" profile on data 1 x model 2. The
-reference takes the same three steps here with `make_train_step(cfg,
-None, ...)`.
+data 2, data 1 x model 2 and the "dp" profile on data 1 x model 2, and
+under data 1 x model 2 a local-window config (recurrentgemma-9b: RG-LRU
+blocks and a window of 8 across the two sequence blocks), a recurrent
+one (xlstm-350m: mLSTM and sLSTM) and granite with 3 experts, which do
+not divide the model axis (each rank runs every expert on its gathered
+rows). Under model 2 each rank runs its half of the positions (the
+sequence split of the default profile; the experts split too where they
+divide). The reference takes the same three steps here with
+`make_train_step(cfg, None, ...)`.
 
 Tolerances, per step: loss 1e-5 relative, grad_norm 1e-4 relative (the
 gradients sum in another order), moe_aux 1e-6 relative; after three steps
-every parameter and both moments within 1e-5 absolute. P = 1 is bitwise
-the one-rank step. A checkpoint saved at P = 2 resumes bitwise at P = 2
-and within 1e-5 at P = 1.
+every parameter and both moments within 1e-5 absolute. The ranks' first
+model-2 step runs at their own positions and counts at most 0.6 of one
+rank's FLOPs on the same global batch (`FlopCounterMode`). A prefill
+(`build_prefill_step`) under model 2, and a dense one under data 2,
+equals the reference's `prefill_step` on the global batch in each rank's
+rows: last logits within 1e-4, caches and recurrent states within 1e-5
+(bf16 caches within one bf16 step); one `decode_step` after it equals
+the reference's within 1e-3 (bf16 caches, as tests/test_torch_models.py
+holds a decode). P = 1 is bitwise the one-rank step. A checkpoint saved at
+P = 2 resumes bitwise at P = 2 and within 1e-5 at P = 1.
+
+Every rank ends by `collectives.end_rank` once its results are written;
+the test checks each rank's exit code and results.
 """
 import json
 import pickle
@@ -29,7 +46,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+from torch.utils.flop_counter import FlopCounterMode
+
 from repro import configs as jcfgs
+from repro import models as JM
 from repro.optim import linear_warmup_cosine as j_lr
 from repro.train import step as JTS
 from repro_torch import configs as tcfgs
@@ -43,21 +64,34 @@ from repro_torch.optim import linear_warmup_cosine
 from repro_torch.train import step as TS
 
 LOSS_RTOL, GNORM_RTOL, AUX_RTOL, STATE_ATOL = 1e-5, 1e-4, 1e-6, 1e-5
+LOGIT_TOL, DECODE_TOL, FLOP_SHARE = 1e-4, 1e-3, 0.6
 STEPS, LR = 3, (1e-3, 2, 10)
 #: name -> (arch, B, T, remat under data 2)
 CONFIGS = {"dense": ("qwen3-14b", 4, 16, "dots"),
-           "moe": ("granite-moe-1b-a400m", 4, 1024, "full")}
+           "moe": ("granite-moe-1b-a400m", 4, 1024, "full"),
+           "local": ("recurrentgemma-9b", 2, 32, "none"),
+           "recurrent": ("xlstm-350m", 2, 32, "none"),
+           "moe3": ("granite-moe-1b-a400m", 2, 32, "none")}
+#: name -> config overrides beyond the smoke's
+OVERRIDES = {"moe3": {"num_experts": 3}}
 #: name -> (model_parallel, sharding profile)
 LAYOUTS = {"data2": (1, "default"), "model2": (2, "default"),
            "dp": (2, "dp")}
-CASES = [(c, lay) for c in CONFIGS for lay in LAYOUTS]
+CASES = [(c, lay) for c in ("dense", "moe") for lay in LAYOUTS] + [
+    ("local", "model2"), ("recurrent", "model2"), ("moe3", "model2")]
+#: the prefills: name -> (arch, attn_impl, B, T, model_parallel)
+PREFILLS = {"dense": ("qwen3-14b", "flash_kernel", 2, 32, 2),
+            "moe": ("granite-moe-1b-a400m", "xla", 2, 32, 2),
+            "local": ("recurrentgemma-9b", "flash_kernel", 2, 32, 2),
+            "dense_data2": ("qwen3-14b", "flash_kernel", 2, 32, 1)}
 
 
 def _cfgs(name, layout):
     arch, _, _, remat = CONFIGS[name]
     mp, prof = LAYOUTS[layout]
     kw = dict(sharding_profile=prof,
-              remat=remat if layout == "data2" else "none")
+              remat=remat if layout == "data2" else "none",
+              **OVERRIDES.get(name, {}))
     return (jcfgs.smoke(jcfgs.get_config(arch)).replace(**kw),
             tcfgs.smoke(tcfgs.get_config(arch)).replace(**kw))
 
@@ -72,20 +106,35 @@ def _plain(state):
 _RANK = r"""
 import json, pickle, sys
 import numpy as np, torch
-from repro_torch import configs as tcfgs, convert
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch import configs as tcfgs, convert, models as lm
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.distributed import compression as C
-from repro_torch.distributed.collectives import init_rank
+from repro_torch.distributed.collectives import end_rank, init_rank
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers as TL
 from repro_torch.optim import linear_warmup_cosine
 from repro_torch.train import step as TS
 rank, world, port, tmp = (int(sys.argv[1]), int(sys.argv[2]),
                           int(sys.argv[3]), sys.argv[4])
 torch.set_num_threads(1)
 init_rank(rank, world, port, "gloo")
-job = pickle.load(open(f"{tmp}/job.pkl", "rb"))
+with open(f"{tmp}/job.pkl", "rb") as f:
+    job = pickle.load(f)
 out = {}
+
+# the positions the model rotates q and k at (RoPE), as (first, last),
+# and the shapes of the token blocks it embeds
+seen, embedded = [], []
+real_rope, real_embed = TL.rope, TL.embed_tokens
+def rope(x, positions, theta):
+    seen.append((int(positions.min()), int(positions.max())))
+    return real_rope(x, positions, theta)
+def embed_tokens(model, cfg, tokens, dtype):
+    embedded.append(tuple(tokens.shape))
+    return real_embed(model, cfg, tokens, dtype)
+TL.rope, TL.embed_tokens = rope, embed_tokens
 
 def whole(state):
     t = TS.state_tree(state)
@@ -102,13 +151,47 @@ for key, c in job["cases"].items():
     data = SyntheticLMDataset(cfg.vocab_size, c["T"], c["B"], seed=0)
     ms = []
     for s in range(job["steps"]):
-        state, m = step(state, data.batch(s))
+        seen.clear()
+        embedded.clear()
+        with FlopCounterMode(display=False) as fc:
+            state, m = step(state, data.batch(s))
+        if s == 0:
+            flops, positions = fc.get_total_flops(), sorted(set(seen))
+            blocks = sorted(set(embedded))
+            split = state.params.shard_plan.split
         ms.append({k: float(v) for k, v in m.items()})
     w = whole(state)
     out[key] = {"metrics": ms, "shapes": {
-        k: list(p.shape) for k, p in state.params.named_parameters()}}
+        k: list(p.shape) for k, p in state.params.named_parameters()},
+        "flops": flops, "positions": positions, "embedded": blocks,
+        "q0": split.q0, "length": split.length}
     if rank == 0:
-        pickle.dump(w, open(f"{tmp}/{key.replace('/', '__')}.pkl", "wb"))
+        with open(f"{tmp}/{key.replace('/', '__')}.pkl", "wb") as f:
+            pickle.dump(w, f)
+
+# the prefills of the reference's weights, then one decode step straight
+# after each (on this rank's rows)
+for key, c in job["prefills"].items():
+    cfg = tcfgs.smoke(tcfgs.get_config(c["arch"])).replace(**c["kw"])
+    lay = make_host_mesh(c["mp"], "cpu")
+    model = lm.Transformer(cfg, device="cpu")
+    model.load_state_dict(convert.model_params_from_numpy(c["params"], cfg),
+                          strict=True)
+    prefill, place = TS.build_prefill_step(cfg, lay, max_len=c["max_len"])
+    place.params(model)
+    seen.clear()
+    last, state = prefill(model, torch.from_numpy(c["tokens"]))
+    rows = place._rows(c["tokens"].shape[0])
+    out[f"prefill/{key}"] = {"positions": sorted(set(seen)),
+                             "rows": [rows.start, rows.stop]}
+    caches = [{k: (str(v.dtype), v.float().numpy())
+               if isinstance(v, torch.Tensor) else v
+               for k, v in st.items()} for st in state]
+    dec, _ = lm.decode_step(model, torch.from_numpy(c["next"][rows]), state)
+    with open(f"{tmp}/prefill__{key}__{rank}.pkl", "wb") as f:
+        pickle.dump({"last": last.numpy(), "state": caches,
+                     "decode": dec.numpy()}, f)
+TL.rope, TL.embed_tokens = real_rope, real_embed
 
 # a split that breaks the MoE grouping
 c = job["cases"]["moe/data2"]
@@ -171,36 +254,67 @@ for _ in range(50):
 out["compressed"] = (acc / 50).tolist()
 out["compressed_bytes"] = comm.by_kind
 
-if rank == 0:
-    json.dump(out, open(f"{tmp}/out.json", "w"))
-torch.distributed.barrier()
-torch.distributed.destroy_process_group()
+with open(f"{tmp}/out{rank}.json", "w") as f:
+    json.dump(out, f)
+end_rank()
 """
+
+
+def _prefill_jobs():
+    """{name: the reference's smoke weights (per-layer layout), a prompt,
+    the next tokens and the rank's config overrides} of PREFILLS, and
+    {name: the reference's prefill_step on it (last logits, per-layer
+    state) and its decode_step on the next tokens (logits)}."""
+    jobs, ref = {}, {}
+    for name, (arch, impl, B, T, mp) in PREFILLS.items():
+        kw = dict(sharding_profile="default", attn_impl=impl)
+        jcfg = jcfgs.smoke(jcfgs.get_config(arch)).replace(
+            scan_layers=False, **kw)
+        params = jax.tree.map(np.asarray, JM.init_model(
+            jcfg, jax.random.PRNGKey(1))[0])
+        tokens = np.random.default_rng(5).integers(
+            0, jcfg.vocab_size, (B, T)).astype(np.int32)
+        nxt = np.random.default_rng(6).integers(
+            0, jcfg.vocab_size, (B,)).astype(np.int32)
+        last, st = jax.jit(JM.prefill_step, static_argnames=(
+            "cfg", "max_len", "cache_dtype"))(
+            params, jcfg, jnp.asarray(tokens), max_len=T + 4)
+        dec, _ = jax.jit(JM.decode_step, static_argnames=("cfg",))(
+            params, jcfg, jnp.asarray(nxt), st)
+        jobs[name] = dict(arch=arch, kw=dict(kw, scan_layers=False),
+                          params=params, tokens=tokens, next=nxt,
+                          max_len=T + 4, mp=mp)
+        ref[name] = (np.asarray(last), [
+            jax.tree.map(lambda a: np.asarray(a, np.float32), x)
+            for x in st["layers"] + st["rem"]], np.asarray(dec))
+    return jobs, ref
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Spawn the two ranks once; returns (tmp dir, their JSON, the
-    reference's per-case results)."""
+    """Spawn the two ranks once; returns (tmp dir, rank 0's JSON, the
+    reference's per-case results, rank 1's JSON, the reference's
+    prefills)."""
     tmp = tmp_path_factory.mktemp("sharded")
     cases, ref = {}, {}
-    for name, (arch, B, T, _) in CONFIGS.items():
-        for lay in LAYOUTS:
-            jcfg, _ = _cfgs(name, lay)
-            jstate = JTS.init_train_state(jcfg, jax.random.PRNGKey(0))
-            cases[f"{name}/{lay}"] = dict(
-                arch=arch, B=B, T=T, mp=LAYOUTS[lay][0],
-                kw=dict(sharding_profile=jcfg.sharding_profile,
-                        remat=jcfg.remat),
-                init=_plain(jstate))
-            jstep = jax.jit(JTS.make_train_step(jcfg, None, j_lr(*LR)))
-            data = SyntheticLMDataset(jcfg.vocab_size, T, B, seed=0)
-            ms = []
-            for s in range(STEPS):
-                jstate, m = jstep(jstate, data.batch(s))
-                ms.append({k: float(v) for k, v in m.items()})
-            ref[f"{name}/{lay}"] = (ms, _plain(jstate))
-    job = {"cases": cases, "lr": LR, "steps": STEPS}
+    for name, lay in CASES:
+        arch, B, T, _ = CONFIGS[name]
+        jcfg, _ = _cfgs(name, lay)
+        jstate = JTS.init_train_state(jcfg, jax.random.PRNGKey(0))
+        cases[f"{name}/{lay}"] = dict(
+            arch=arch, B=B, T=T, mp=LAYOUTS[lay][0],
+            kw=dict(sharding_profile=jcfg.sharding_profile,
+                    remat=jcfg.remat, **OVERRIDES.get(name, {})),
+            init=_plain(jstate))
+        jstep = jax.jit(JTS.make_train_step(jcfg, None, j_lr(*LR)))
+        data = SyntheticLMDataset(jcfg.vocab_size, T, B, seed=0)
+        ms = []
+        for s in range(STEPS):
+            jstate, m = jstep(jstate, data.batch(s))
+            ms.append({k: float(v) for k, v in m.items()})
+        ref[f"{name}/{lay}"] = (ms, _plain(jstate))
+    prefills, ref_prefill = _prefill_jobs()
+    job = {"cases": cases, "lr": LR, "steps": STEPS, "prefills": prefills}
     with open(tmp / "job.pkl", "wb") as f:
         pickle.dump(job, f)
     port = collectives.free_port()
@@ -218,7 +332,8 @@ def ranks(tmp_path_factory):
                 p.wait()
     for p, err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
-    return tmp, json.loads((tmp / "out.json").read_text()), ref
+    outs = [json.loads((tmp / f"out{r}.json").read_text()) for r in range(2)]
+    return tmp, outs[0], ref, outs[1], ref_prefill
 
 
 def _rel(a, b):
@@ -227,10 +342,16 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("case", [f"{c}/{lay}" for c, lay in CASES])
 def test_sharded_step_matches_reference(ranks, case):
-    tmp, out, ref = ranks
+    tmp, out, ref = ranks[:3]
     name, lay = case.split("/")
     _, tcfg = _cfgs(name, lay)
     got, (want, jfinal) = out[case]["metrics"], ref[case]
+    if name == "moe3":
+        # 3 experts do not divide the model axis: no rank's shard splits
+        # them, so each runs all three
+        ups = [v for k, v in out[case]["shapes"].items()
+               if k.endswith("moe.w_up")]
+        assert ups and all(v[0] == 3 for v in ups), ups
     for s, (m, jm) in enumerate(zip(got, want)):
         assert _rel(m["loss"], jm["loss"]) <= LOSS_RTOL, (s, m, jm)
         assert _rel(m["grad_norm"], jm["grad_norm"]) <= GNORM_RTOL, (s,)
@@ -249,10 +370,101 @@ def test_sharded_step_matches_reference(ranks, case):
                                        err_msg=f"{part} {k}")
 
 
+@pytest.mark.parametrize("name", ["dense", "moe", "local", "recurrent"])
+def test_model_axis_splits_the_tokens(ranks, name):
+    """Under data 1 x model 2 each rank runs only its own block of the
+    positions: it embeds B x T/2 tokens, the first or the second half,
+    and RoPE rotates them at those positions (xlstm has no RoPE); and for
+    dense and MoE its first step counts at most FLOP_SHARE of one rank's
+    step on the same global batch (the recurrent scans run on the whole
+    gathered sequence by design)."""
+    _, out0, _, out1 = ranks[:4]
+    arch, B, T, _ = CONFIGS[name]
+    case = f"{name}/model2"
+    for r, out in enumerate((out0, out1)):
+        blk = [r * T // 2, (r + 1) * T // 2 - 1]
+        assert out[case]["embedded"] == [[B, T // 2]]
+        assert (out[case]["q0"], out[case]["length"]) == (blk[0], T // 2)
+        assert out[case]["positions"] == ([] if name == "recurrent"
+                                          else [blk])
+    if name not in ("dense", "moe"):
+        return
+    _, cfg = _cfgs(name, "model2")
+    state = TS.init_train_state(cfg, 0, "cpu")
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(*LR))
+    with FlopCounterMode(display=False) as fc:
+        step(state, SyntheticLMDataset(cfg.vocab_size, T, B,
+                                       seed=0).batch(0))
+    one = fc.get_total_flops()
+    for out in (out0, out1):
+        assert 0 < out[case]["flops"] <= FLOP_SHARE * one, (
+            out[case]["flops"], one)
+
+
+def _prefill_rank(tmp, out, name, rank):
+    """(rank's rows, its pickled prefill and decode results)."""
+    rows = slice(*out[f"prefill/{name}"]["rows"])
+    with open(tmp / f"prefill__{name}__{rank}.pkl", "rb") as f:
+        return rows, pickle.load(f)
+
+
+@pytest.mark.parametrize("name", list(PREFILLS))
+def test_sharded_prefill_matches_reference(ranks, name):
+    """`build_prefill_step` under data 1 x model 2 (each rank its half of
+    the prompt's positions, k/v gathered per attention layer), or under
+    data 2 (each rank its rows, every position), against the reference's
+    `prefill_step` on the global prompt: each rank's rows of the last
+    position's logits and of the whole caches (bf16 on both sides, the
+    default: f32 values 1e-7 apart may round to neighbouring bf16 values,
+    so within one bf16 step, at most 2^-7 relative) and recurrent states
+    (f32)."""
+    tmp, out0, _, out1, ref = ranks
+    _, _, B, T, mp = PREFILLS[name]
+    want_last, want_state, _ = ref[name]
+    for r, out in enumerate((out0, out1)):
+        blk = [r * T // 2, (r + 1) * T // 2 - 1] if mp == 2 else [0, T - 1]
+        assert out[f"prefill/{name}"]["positions"] == [blk]
+        rows, got = _prefill_rank(tmp, out, name, r)
+        assert rows == (slice(0, B) if mp == 2
+                        else slice(r * B // 2, (r + 1) * B // 2))
+        np.testing.assert_allclose(got["last"], want_last[rows],
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        assert len(got["state"]) == len(want_state)
+        for i, (g, w) in enumerate(zip(got["state"], want_state)):
+            assert set(g) == set(w), i
+            for k in g:
+                if k == "pos":
+                    assert g[k] == int(w[k]) == T
+                elif g[k][0] == "torch.bfloat16":
+                    np.testing.assert_allclose(
+                        g[k][1], w[k][rows], rtol=2.0 ** -7,
+                        atol=STATE_ATOL, err_msg=f"rank {r} layer {i} {k}")
+                else:
+                    assert g[k][0] == "torch.float32", (i, k, g[k][0])
+                    np.testing.assert_allclose(
+                        g[k][1], w[k][rows], rtol=0, atol=STATE_ATOL,
+                        err_msg=f"rank {r} layer {i} {k}")
+
+
+@pytest.mark.parametrize("name", list(PREFILLS))
+def test_decode_after_sharded_prefill_matches_reference(ranks, name):
+    """One `decode_step` called straight after the sharded prefill, on the
+    plan the prefill left (its sequence split dropped by the step), against
+    the reference's decode_step after its prefill: each rank's rows of the
+    logits within DECODE_TOL (the caches are bf16)."""
+    tmp, out0, _, out1, ref = ranks
+    want = ref[name][2]
+    for r, out in enumerate((out0, out1)):
+        rows, got = _prefill_rank(tmp, out, name, r)
+        np.testing.assert_allclose(got["decode"], want[rows],
+                                   rtol=DECODE_TOL, atol=DECODE_TOL,
+                                   err_msg=f"rank {r}")
+
+
 def test_shards_are_the_layouts(ranks):
     """Rank 0's parameter shards have the shapes `param_spec` gives: the
     embedding split over model and data under (1, 2)."""
-    _, out, _ = ranks
+    out = ranks[1]
     _, tcfg = _cfgs("dense", "model2")
     lay = RankLayout((1, 2), ("data", "model"), 0, torch.device("cpu"))
     shapes, _ = TS.model_specs(tcfg)
@@ -264,13 +476,13 @@ def test_shards_are_the_layouts(ranks):
 
 
 def test_moe_split_that_breaks_the_grouping_raises(ranks):
-    _, out, _ = ranks
+    out = ranks[1]
     msg = out["moe_split"]
     assert msg.startswith("MoE grouping") and "2 ranks" in msg, msg
 
 
 def test_checkpoint_resumes_bitwise_on_two_ranks(ranks):
-    _, out, _ = ranks
+    out = ranks[1]
     ck = out["ckpt"]
     assert ck["went_on"] == ck["resumed"]
     assert ck["params_equal"] and ck["moments_equal"]
@@ -279,7 +491,7 @@ def test_checkpoint_resumes_bitwise_on_two_ranks(ranks):
 def test_checkpoint_from_two_ranks_resumes_on_one(ranks):
     """The P = 2 checkpoint restores on one rank (whole tensors); two
     steps there land within 1e-5 of the two ranks' run."""
-    tmp, out, _ = ranks
+    tmp, out = ranks[:2]
     _, cfg = _cfgs("dense", "data2")
     step = TS.make_train_step(cfg, None, linear_warmup_cosine(*LR))
     data = SyntheticLMDataset(cfg.vocab_size, CONFIGS["dense"][2],
@@ -336,7 +548,7 @@ def test_compressed_psum_unbiased_over_time(ranks, world):
             acc = acc + mean["w"]
         got = acc / 50
     else:
-        _, out, _ = ranks
+        out = ranks[1]
         got = torch.tensor(out["compressed"])
         kinds = out["compressed_bytes"]
         assert kinds["all-reduce"]["count"] == 100

@@ -63,7 +63,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 
 _SOFTMAX_HEAD = ("    float sm_scale, int S_len, int causal, int has_window, "
-                 "int window) {\n  if (edge) {")
+                 "int window,\n    int q_off) {\n  if (edge) {")
 _K_LOAD = """          sm90::mbar_arrive_expect_tx(full_k + s, C::kKVBytes);
 #pragma unroll
           for (int p = 0; p < C::kPanels; ++p)"""
@@ -112,7 +112,8 @@ _S_PART = """          float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] += part[e];"""
 _F32_SOFTMAX = """      softmax_tile<float, NJ>(s, m_run, l_part, alpha, k0, edge, qpos, tg,
-                              sm_scale, S_len, causal, has_window, window);"""
+                              sm_scale, S_len, causal, has_window, window,
+                              q_off);"""
 
 #: the f32 kernel's variants (--dtype f32)
 EDITS_F32 = {
