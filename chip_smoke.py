@@ -208,7 +208,9 @@ Phases, one line of numbers each:
      last-position logits within 5e-2 * max|logit| of attn_impl="xla";
      prefill + one decode step against the forward at T+1; the 3-layer
      f32 cut (rglru, rglru, local) flash against xla within 2e-4;
-     (c) xlstm-350m at full width (bf16, 2 x 2048 tokens): the same
+     (c) xlstm-350m at full width (bf16, 2 x 1024 tokens: its sLSTM is a
+     Python loop over time, so the prompt was cut from 2 x 2048 to keep
+     the wall): the same
      serving calls, no flash launch; decode against the forward at T+1
      in its f32 twin (the bf16 weights upcast) within 2e-4, and the bf16
      decode within twice the bf16 forward's distance from the twin's
@@ -273,6 +275,18 @@ Phases, one line of numbers each:
      rank its 2048 positions, q_offset 0 or 2048 against the gathered
      4096 keys), each rank's rows of the last logits held to one rank's
      prefill (phase 14's gate), 24 wgmma launches a rank in each;
+     (f) straight after each of (d)'s prefills (caches of 4,112
+     positions) 16 serve steps of fixed tokens from its state: at data 2
+     each rank its row (the MoE layers gather the global batch's one
+     token group, which raised before the decode split), at data 1 x
+     model 2 each rank its heads, MLP width, vocabulary and 16 experts
+     and its 2,056-position block of every cache; each rank's rows of
+     every step's logits held to one rank's decode on the card from the
+     same prefill (phase 14's gate); at model 2 the bytes staged a token
+     must stay under 1 % of the rank's parameter bytes; prints decode ms
+     a token (median of steps 3-16), the staged bytes a token by
+     collective and by tag (attn, mlp, moe, embed, logits, weights) and
+     each rank's cache bytes;
      (e) the pipeline over the two ranks against its sequential
      run (1e-5) and 50 compressed psums (1e-3);
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
@@ -4195,7 +4209,7 @@ FLASH256_SHAPES = (
 )
 # 20b-d, arch -> (B, prompt T, cache length, greedy steps)
 FAMILIES = {"recurrentgemma-9b": (2, 4096, 4128, 32),
-            "xlstm-350m": (2, 2048, 2080, 32),
+            "xlstm-350m": (2, 1024, 1056, 32),
             "granite-moe-1b-a400m": (2, 4096, 4128, 32)}
 FAMILY_F32_TOKENS = 1024
 # 20c: the bf16 decode's RMS distance from the f32 twin's forward, over
@@ -4909,6 +4923,11 @@ TRAIN2_SAVE_AT = 2
 # logits against one rank's prefill (LM_REL, phase 14's gate)
 PREFILL2_B, PREFILL2_T = 2, 4096
 PREFILL2_LAYOUTS = {"data2": 1, "model2": 2}
+# 23f: DECODE2_STEPS serve steps of fixed tokens after each of 23d's
+# prefills (caches of DECODE2_MAX positions), each step's logits against
+# one rank's decode (LM_REL); at model 2 the bytes staged a token under
+# DECODE2_STAGED of the rank's parameter bytes
+DECODE2_MAX, DECODE2_STEPS, DECODE2_STAGED = 4112, 16, 0.01
 # 23e: the pipeline case over the two ranks (2 stages of 4 layers, D 16,
 # B 8, 4 microbatches) against its sequential run, and 50 compressed
 # psums; the CPU tests' limits
@@ -5100,10 +5119,43 @@ def rank_23c(dev, rank, tmp):
                 nondeterministic_ops=nondet)
 
 
+def decode_23f(dev, cfg, lay, model, state, rows, ref):
+    """23f on this rank: DECODE2_STEPS serve steps from a 23d prefill's
+    `state`; returns its numbers (`ref`: one rank's tokens and logits)."""
+    from repro_torch.train import step as TS
+    serve, _ = TS.build_serve_step(cfg, lay)
+    V = cfg.vocab_size
+    ms, rel, finite, staged, by_tag = [], [], True, [], []
+    for s in range(DECODE2_STEPS):
+        reset_comms(lay)
+        torch.cuda.synchronize()
+        t = time.time()
+        logits, state = serve(model, ref["tokens"][s].to(dev), state)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        got = logits.float().cpu()[:, :V]
+        want = ref["logits"][s][rows][:, :V]
+        finite &= bool(torch.isfinite(got).all())
+        rel.append(max_abs_err(got, want) / float(want.abs().max()))
+        tally, tags = comm_tally(lay)
+        staged.append(sum(d["staged_bytes"] for d in tally.values()))
+        by_tag.append((tally, tags))
+    split = model.shard_plan.split
+    return dict(
+        ms=ms, max_rel=max(rel), finite=finite, tp=sorted(split.tp),
+        staged_max=max(staged), staged_by_kind=by_tag[-1][0],
+        staged_by_tag=by_tag[-1][1],
+        cache_bytes=sum(v.numel() * v.element_size() for st in state
+                        for k, v in st.items() if k in ("k", "v")),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()))
+
+
 def rank_23d(dev, rank, tmp):
     """23d: build_prefill_step over the ranks under each of
     PREFILL2_LAYOUTS, granite bf16 through the flash kernel; each rank
-    holds its rows to one rank's prefill."""
+    holds its rows to one rank's prefill. Then 23f from each prefill's
+    state (`decode_23f`). Returns (23d's numbers, 23f's)."""
     from repro_torch import models as lm
     from repro_torch.configs import get_config
     from repro_torch.kernels import counters
@@ -5111,13 +5163,14 @@ def rank_23d(dev, rank, tmp):
     from repro_torch.train import step as TS
     cfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
     ref = torch.load(tmp / "ref23d.pt")
-    res = {}
+    ref_f = torch.load(tmp / "ref23f.pt")
+    res, res_f = {}, {}
     for name, mp in PREFILL2_LAYOUTS.items():
         lay = make_host_mesh(mp, dev)
         model = lm.Transformer(cfg, torch.Generator(
             device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
         prefill, place = TS.build_prefill_step(cfg, lay,
-                                               max_len=PREFILL2_T)
+                                               max_len=DECODE2_MAX)
         place.params(model)
         prompt = family_prompt(cfg, PREFILL2_B, PREFILL2_T, dev)
         torch.cuda.synchronize()
@@ -5143,10 +5196,11 @@ def rank_23d(dev, rank, tmp):
             finite=bool(torch.isfinite(got).all()),
             argmax_equal=bool(torch.equal(got_v.argmax(-1),
                                           want_v.argmax(-1))))
+        res_f[name] = decode_23f(dev, cfg, lay, model, state, rows, ref_f)
         del model, last, state
         gc.collect()
         torch.cuda.empty_cache()
-    return res
+    return res, res_f
 
 
 def rank_23e(dev, rank):
@@ -5219,6 +5273,8 @@ def train_rank_main(args):
         t = time.time()
         out[name] = fn()
         walls[name] = time.time() - t
+        if name == "23d":
+            out["23d"], out["23f"] = out["23d"]
     out["walls"] = walls
     (tmp / f"rank{rank}.json").write_text(json.dumps(out))
     end_rank()
@@ -5254,11 +5310,25 @@ def sharded_refs(dev, tmp):
     pcfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
     model = lm.Transformer(pcfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev, dtype=torch.bfloat16)
-    last, _ = lm.prefill_step(model, family_prompt(pcfg, PREFILL2_B,
-                                                   PREFILL2_T, dev),
-                              max_len=PREFILL2_T)
+    last, state = lm.prefill_step(model, family_prompt(pcfg, PREFILL2_B,
+                                                       PREFILL2_T, dev),
+                                  max_len=DECODE2_MAX)
     torch.save(last.float().cpu(), tmp / "ref23d.pt")
-    del model, last
+    # 23f's reference: one rank's decode of fixed tokens from that state
+    tokens = torch.randint(0, pcfg.vocab_size, (DECODE2_STEPS, PREFILL2_B),
+                           generator=torch.Generator().manual_seed(23),
+                           dtype=torch.int32)
+    logits, ms = [], []
+    for s in range(DECODE2_STEPS):
+        torch.cuda.synchronize()
+        t = time.time()
+        lg, state = lm.decode_step(model, tokens[s].to(dev), state)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        logits.append(lg.float().cpu())
+    torch.save({"tokens": tokens, "logits": torch.stack(logits), "ms": ms},
+               tmp / "ref23f.pt")
+    del model, last, state
     free_model(None)
 
 
@@ -5426,6 +5496,43 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
                 max_abs_over_max=d["max_abs_over_max"],
                 argmax_equal=d["argmax_equal"], tol=f"{LM_REL}*max|logit|",
                 card=repr(card))
+
+    one_ms = torch.load(tmp / "ref23f.pt")["ms"]
+    for name, mp in PREFILL2_LAYOUTS.items():
+        for r, x in enumerate(res):
+            f = x["23f"][name]
+            if not (f["finite"] and f["max_rel"] <= LM_REL):
+                fail(f"23f {name} rank {r}: logits {f['max_rel']} of "
+                     f"max|logit| from one rank's decode, over {LM_REL}")
+            share = f["staged_max"] / f["param_bytes"]
+            if mp > 1 and not share < DECODE2_STAGED:
+                fail(f"23f {name} rank {r}: {f['staged_max']} B staged a "
+                     f"token, {share} of the rank's {f['param_bytes']} "
+                     f"parameter bytes (limit {DECODE2_STAGED})")
+            log("sharded_23f", layout=f"data {2 // mp} x model {mp}",
+                rank=r, model=TRAIN_ARCH, param_dtype="bfloat16",
+                prompt=f"{PREFILL2_B}x{PREFILL2_T}", max_len=DECODE2_MAX,
+                steps=DECODE2_STEPS, split=json.dumps(f["tp"]),
+                decode_ms_median_3_16=round(float(np.median(f["ms"][2:])),
+                                            3),
+                first_step_ms=round(f["ms"][0], 3),
+                one_rank_ms_median_3_16=round(float(np.median(one_ms[2:])),
+                                              3),
+                max_abs_over_max=f["max_rel"], tol=f"{LM_REL}*max|logit|",
+                staged_bytes_per_token=f["staged_max"],
+                staged_share_of_params=share,
+                staged_by_kind=json.dumps(f["staged_by_kind"]),
+                staged_by_tag=json.dumps(f["staged_by_tag"]),
+                cache_bytes=f["cache_bytes"],
+                param_bytes=f["param_bytes"], card=repr(card))
+    moe2 = [x["23f"]["data2"] for x in res]
+    log("sharded_23f_moe_data2", model=TRAIN_ARCH, ranks=2,
+        note="MoE decode on batch-split ranks (raised before the decode "
+             "split: a rank's tokens could not form the global group)",
+        moe_gathers=json.dumps(moe2[0]["staged_by_tag"].get("moe", {})),
+        max_abs_over_max=max(f["max_rel"] for f in moe2),
+        decode_ms_median_3_16=[round(float(np.median(f["ms"][2:])), 3)
+                               for f in moe2], card=repr(card))
 
     for r, x in enumerate(res):
         e = x["23e"]

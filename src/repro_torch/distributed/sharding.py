@@ -48,11 +48,25 @@ partitioner, so the port does it explicitly (`train/step.py`):
     for its whole-sequence scan;
   * `psum` is an all-reduce whose backward is an all-reduce too (the
     MoE aux loss's global means, over the token axes);
+  * A decode step (one token a row) has no sequence to split: its
+    split (`ShardPlan.decode_split`, `decode_axes`) takes the
+    rows over the "batch" axes and, over the axes the reference's decode
+    rules give "act_heads", "act_kv_heads", "act_mlp", "act_vocab",
+    "act_experts" and "cache_seq" once "batch" has taken its own (the
+    tensor-parallel axes: "model" under the default profile), the
+    heads, the MLP width, the vocabulary, the experts and the caches'
+    positions, each where its size divides (`TokenSplit.over`). The
+    weights then keep those dims sharded (`ShardPlan._keep`) and the
+    layers run Megatron-style: column- then row-parallel products whose
+    partial sums cross in f32, a vocab-parallel embedding and LM head,
+    attention over the rank's block of the cache (`models/layers.py`),
+    and the MoE layer's own experts on the global batch's one token
+    group (`models/moe.py`);
   * `ShardPlan` holds a model's specs and the split of the current
     batch, and `shard_model` turns a whole `models.Transformer` into
     this rank's shards with the plan attached (`Transformer.forward`
     gathers each block's weights through it and hands the split to the
-    blocks).
+    blocks; the gathers are tallied under the tag "weights").
 
 `logical_constraint` computes nothing in eager PyTorch (there is no
 partitioner to constrain), so it returns `x` unchanged, as the reference
@@ -483,13 +497,67 @@ def token_axes_for(rows: int, seq_len: Optional[int], layout,
     return entry_axes(spec[0]), seq
 
 
+#: a decode step's tensor-parallel names (the reference's act rules) ->
+#: the logical axis of the weights' dims they split
+TP_NAMES = {"act_heads": "heads", "act_kv_heads": "kv_heads",
+            "act_mlp": "mlp", "act_vocab": "vocab",
+            "act_experts": "experts", "cache_seq": None}
+
+
+def decode_dims(cfg) -> Dict[str, int]:
+    """The sizes a decode step's tensor-parallel names resolve against:
+    heads, kv heads, the MLP width, the padded vocabulary and the experts
+    (of the configs that have them)."""
+    dims = {"act_heads": cfg.num_heads, "act_kv_heads": cfg.num_kv_heads,
+            "act_mlp": cfg.d_ff, "act_vocab": cfg.padded_vocab}
+    if cfg.num_experts:
+        dims["act_experts"] = cfg.num_experts
+    return {k: v for k, v in dims.items() if v}
+
+
+def decode_axes(rows: int, dims: Dict[str, int], cache_len: Optional[int],
+                layout, rules: RuleTable):
+    """(batch axes, tensor-parallel axes, the names that split over them)
+    of a decode step of `rows` rows, as the reference resolves its decode
+    activations: q/k/v `("batch", "seq", "act_heads" | "act_kv_heads",
+    None)` with T = 1 (so "seq" falls back), the MLP's hidden `("batch",
+    "seq", "act_mlp")`, the logits `("batch", "seq", "act_vocab")` and
+    the caches `("batch", "cache_seq", None, None)` of `cache_len`
+    positions (None: the caches are whole). Each name is resolved on its
+    own array against its real size (`dims`, `decode_dims`), so each
+    falls back by divisibility alone; the tensor-parallel axes are the
+    axes they take (axes of size 1 dropped), which must be one set."""
+    batch = batch_axes_for((rows,), layout, rules)
+    got = {}
+    for name, size in dims.items():
+        spec = spec_for(("batch", "seq", name), (rows, 1, size), layout,
+                        rules)
+        got[name] = entry_axes(spec[2])
+    if cache_len:
+        spec = spec_for(("batch", "cache_seq"), (rows, cache_len), layout,
+                        rules)
+        got["cache_seq"] = entry_axes(spec[1])
+    got = {k: tuple(a for a in v if layout.axis_size(a) > 1)
+           for k, v in got.items()}
+    tp = tuple(a for a in layout.axis_names
+               if any(a in v for v in got.values()))
+    odd = {k: v for k, v in got.items() if v and v != tp}
+    if odd:
+        raise ValueError(f"the decode rules split {odd} over other axes "
+                         f"than {tp}")
+    return batch, tp, frozenset(k for k, v in got.items() if v)
+
+
 class TokenSplit(NamedTuple):
     """How this rank's tokens sit in a global batch: `batch_comm` over
     the ranks that split its rows, `seq_comm` over those that split its
     sequence (`seq_axes`; each rank holds `length` positions from `q0`
     on), `token_comm` over both (`token_axes`, in layout order): the
     loss's and the MoE aux loss's means run over it, and the parameters'
-    gradients are summed over it."""
+    gradients are summed over it. A decode step's split (`decode`) has
+    no sequence; `tp_comm` runs over its tensor-parallel axes
+    (`tp_axes`), and `tp` names what splits over them (`decode_axes`,
+    `over`)."""
     batch_comm: Any
     seq_comm: Any
     token_comm: Any
@@ -497,6 +565,10 @@ class TokenSplit(NamedTuple):
     seq_axes: Tuple[str, ...] = ()
     q0: int = 0
     length: Optional[int] = None
+    decode: bool = False
+    tp_comm: Any = None
+    tp_axes: Tuple[str, ...] = ()
+    tp: frozenset = frozenset()
 
     @property
     def seq(self) -> bool:
@@ -514,6 +586,12 @@ class TokenSplit(NamedTuple):
             return x
         return x.narrow(dim, self.q0, self.length)
 
+    def over(self, name: str):
+        """The Comm over the ranks that split a decode step's `name`
+        (TP_NAMES) between them, or None where it is whole on every
+        rank."""
+        return self.tp_comm if name in self.tp else None
+
 
 def counts_once(spec, layout) -> bool:
     """Whether this rank's shard of a tensor under `spec` counts in a
@@ -526,49 +604,83 @@ def counts_once(spec, layout) -> bool:
 
 class ShardPlan:
     """How a model lives on this rank: `specs` {parameter name: spec}
-    over `layout`, and the `TokenSplit` of the current batch
-    (`set_batch`). `experts` names the MoE layers' expert weights, whose
-    leading "experts" dim stays sharded where the sequence splits over
-    the same axes (expert parallelism, `models/moe.py`)."""
+    over `layout`, `logical` {name: logical axes}, the sizes a decode
+    step resolves (`dims`, `decode_dims`), and the `TokenSplit` of the
+    current batch (`set_batch`). The MoE layers' expert weights (leading
+    "experts" dim) stay sharded where the sequence splits over the same
+    axes (expert parallelism, `models/moe.py`)."""
 
     def __init__(self, layout, specs: Dict[str, tuple], rules: RuleTable,
-                 experts=()):
+                 logical: Dict[str, tuple], dims: Dict[str, int]):
         self.layout, self.specs, self.rules = layout, dict(specs), rules
-        self.experts = frozenset(experts)
+        self.logical, self.dims = dict(logical), dict(dims)
+        self.experts = frozenset(k for k, v in self.logical.items()
+                                 if v and v[0] == "experts")
         one = layout.comm(())
         self.split = TokenSplit(one, one, one, ())
         self.world_comm = layout.comm(layout.axis_names)
 
-    def set_batch(self, rows: int, seq_len: Optional[int] = None
-                  ) -> TokenSplit:
+    def set_batch(self, rows: int,
+                  seq_len: Optional[int] = None) -> TokenSplit:
         """Resolve the token split of a global batch of `rows` sequences
-        of `seq_len` positions (None: one token each, a decode step)."""
+        of `seq_len` positions (None: one token each, a decode step's
+        split, whose caches `decode_split` sizes), made the plan's."""
+        self.split = self._resolve(rows, seq_len, None)
+        return self.split
+
+    def _resolve(self, rows, seq_len, cache_len) -> TokenSplit:
+        """The split of `set_batch`; a decode split (`seq_len` None)
+        resolves its tensor-parallel names by `decode_axes`, with caches
+        of `cache_len` positions (None: whole caches)."""
         lay = self.layout
-        batch, seq = token_axes_for(rows, seq_len, lay, self.rules)
+        tp_axes, tp = (), frozenset()
+        if seq_len is None:
+            batch, tp_axes, tp = decode_axes(rows, self.dims, cache_len,
+                                             lay, self.rules)
+            seq = ()
+        else:
+            batch, seq = token_axes_for(rows, seq_len, lay, self.rules)
         tokens = tuple(a for a in lay.axis_names if a in batch + seq)
         length = None if seq_len is None else seq_len // lay.axis_size(seq)
         q0 = lay.axis_index(seq) * length if seq else 0
         # every group the step uses, built here in the same order on every
         # rank rather than first inside autograd
         comms = [lay.comm(batch), lay.comm(seq), lay.comm(tokens)]
+        tp_comm = lay.comm(tp_axes)
         for spec in dict.fromkeys(self.specs.values()):
             for e in spec:
                 lay.comm(entry_axes(e))
             lay.comm(tuple(a for a in lay.axis_names
                            if a in tokens and a not in spec_axes(spec)))
-        self.split = TokenSplit(*comms, tokens, seq, q0, length)
+        return TokenSplit(*comms, tokens, seq, q0, length, seq_len is None,
+                          tp_comm, tp_axes, tp)
+
+    def decode_split(self, rows: int,
+                     cache_len: Optional[int] = None) -> TokenSplit:
+        """The decode split of this rank's `rows` rows (the plan's split
+        stays): the global rows are those of the current split's batch
+        (a prefill's or a serve step's), the caches hold `cache_len`
+        positions."""
+        s = self.split
+        batch = tuple(a for a in s.token_axes if a not in s.seq_axes)
+        return self._resolve(rows * self.layout.axis_size(batch), None,
+                             cache_len)
+
+    def for_decode(self, rows: int,
+                   cache_len: Optional[int] = None) -> TokenSplit:
+        """`decode_split`, made the plan's: a decode step never runs on
+        a prefill's split."""
+        self.split = self.decode_split(rows, cache_len)
         return self.split
 
-    def drop_seq(self) -> TokenSplit:
-        """The split without its sequence split, made the plan's: a
-        decode step runs one token a row, so after a prefill whose
-        prompt split its sequence the rows keep their batch split and
-        the sequence none."""
+    def rows_only(self) -> TokenSplit:
+        """The split without its sequence or tensor-parallel split, made
+        the plan's: each rank runs its rows whole (a forward called on a
+        decode step's split)."""
         s = self.split
-        if s.seq:
-            batch = tuple(a for a in s.token_axes if a not in s.seq_axes)
-            self.split = TokenSplit(s.batch_comm, self.layout.comm(()),
-                                    s.batch_comm, batch)
+        batch = tuple(a for a in s.token_axes if a not in s.seq_axes)
+        self.split = TokenSplit(s.batch_comm, self.layout.comm(()),
+                                s.batch_comm, batch)
         return self.split
 
     def counted(self, name: str) -> bool:
@@ -577,27 +689,44 @@ class ShardPlan:
 
     def _keep(self, name: str) -> Tuple[str, ...]:
         """The axes along which parameter `name` stays sharded when
-        gathered: an expert weight's "experts" dim where it is split over
-        exactly the sequence's axes (each rank computes its own experts
-        for the whole sequence), else none."""
-        if name not in self.experts or not self.split.seq:
+        gathered: under a sequence split an expert weight's "experts" dim
+        where it is split over exactly the sequence's axes (each rank
+        computes its own experts for the whole sequence); under a decode
+        split the dim whose logical axis (heads, kv_heads, mlp, vocab,
+        experts) the split's tensor-parallel axes split (each rank
+        computes its own block of it); else none. FSDP's "embed" dim and
+        the recurrent blocks' "rnn" dims are gathered."""
+        s, spec = self.split, self.specs[name]
+        if s.seq:
+            if name not in self.experts:
+                return ()
+            axes = entry_axes(spec[0])
+            return axes if axes == s.seq_axes else ()
+        if not s.tp:
             return ()
-        axes = entry_axes(self.specs[name][0])
-        return axes if axes == self.split.seq_axes else ()
+        for logical, e in zip(self.logical[name], spec):
+            if entry_axes(e) == s.tp_axes and any(
+                    TP_NAMES[n] == logical for n in s.tp):
+                return s.tp_axes
+        return ()
 
     def gather(self, module, prefix: str = "", recurse: bool = True,
                skip: str = None) -> Dict[str, torch.Tensor]:
         """{relative name: whole tensor} of `module`'s parameters (full
-        names `prefix` + relative; an expert weight under expert
-        parallelism keeps its own experts only), through one
-        `gather_params`; `skip` leaves out the names under that prefix."""
+        names `prefix` + relative; the dims `_keep` names stay this
+        rank's block), through one `gather_params` whose collectives are
+        tallied under the tag "weights"; `skip` leaves out the names
+        under that prefix."""
         named = [(name, p) for name, p in
                  module.named_parameters(recurse=recurse)
                  if skip is None or not name.startswith(skip)]
-        full = gather_params([p for _, p in named],
-                             [self.specs[prefix + n] for n, _ in named],
-                             self.layout, self.split.token_axes,
-                             [self._keep(prefix + n) for n, _ in named])
+        with contextlib.ExitStack() as tags:
+            for comm in self.layout.comms():
+                tags.enter_context(comm.tagged("weights"))
+            full = gather_params([p for _, p in named],
+                                 [self.specs[prefix + n] for n, _ in named],
+                                 self.layout, self.split.token_axes,
+                                 [self._keep(prefix + n) for n, _ in named])
         return {n: t for (n, _), t in zip(named, full)}
 
 
@@ -621,11 +750,11 @@ def swapped(module, tensors: Dict[str, torch.Tensor]):
 
 @torch.no_grad()
 def shard_model(model, layout, specs: Dict[str, tuple], rules: RuleTable,
-                experts=()):
+                logical: Dict[str, tuple]):
     """Replace each of `model`'s parameters by this rank's shard (same
     `requires_grad`) and attach a `ShardPlan` as `model.shard_plan`
-    (`experts`: ShardPlan's); returns the model."""
-    plan = ShardPlan(layout, specs, rules, experts)
+    (`logical`: the parameters' logical axes); returns the model."""
+    plan = ShardPlan(layout, specs, rules, logical, decode_dims(model.cfg))
     for name, p in list(model.named_parameters()):
         path, _, attr = name.rpartition(".")
         m = model.get_submodule(path) if path else model

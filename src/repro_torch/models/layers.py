@@ -247,7 +247,8 @@ def attention_fwd(p: Attention, cfg, x, positions, *, window: int = 0,
     return y, (k, v)
 
 
-def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0):
+def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0,
+                     split=None):
     """Single-token decode against a KV cache.
 
     x [B,1,D]; cache {"k","v": [B,S,Hkv,hd], "pos": int (tokens already in
@@ -260,7 +261,17 @@ def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0):
     cache dtype before the product with V. Only the first pos + 1 cache
     rows take part: the rest are masked in the reference, and a masked
     score adds an exact 0.
+
+    Under a decode split (`split`, a `sharding.TokenSplit`) that splits
+    the heads or the cache's positions over ranks, `_decode_split` runs
+    the step (its docstring); otherwise the step is the one-rank one.
     """
+    heads = seqc = None
+    if split is not None:
+        heads, seqc = split.over("act_heads"), split.over("cache_seq")
+    if heads is not None or seqc is not None:
+        return _decode_split(p, cfg, x, cache, window, heads,
+                             split.over("act_kv_heads"), seqc)
     pos = int(cache["pos"])
     q, k, v = _project(p, cfg, x)
     posv = torch.full(x.shape[:1] + (1,), pos, dtype=torch.int32,
@@ -289,6 +300,109 @@ def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0):
     return y, {"k": ck, "v": cv, "pos": pos + 1}
 
 
+def _kv_group(cfg, h0: int, n_heads: int, Hkv: int):
+    """The kv heads of query heads h0 .. h0 + n_heads as (first kv head,
+    kv heads, query heads a kv head) for the grouped einsum, or None where
+    the block's heads do not form whole groups of one size."""
+    G = cfg.num_heads // Hkv
+    if n_heads % G == 0:
+        return h0 // G, n_heads // G, G
+    if G % n_heads == 0:
+        return h0 // G, 1, n_heads
+    return None
+
+
+def _decode_split(p: Attention, cfg, x, cache: Dict, window: int, heads,
+                  kvs, seqc):
+    """`attention_decode` on a decode split. `heads`, `kvs`, `seqc`: the
+    Comm over the ranks that split the query heads, the kv heads and the
+    cache's positions (`TokenSplit.over`), or None where that is whole
+    here. The weights hold this rank's heads (wq, wk, wv, wo kept
+    sharded); the cache holds every kv head.
+
+    The new token's k and v are gathered over `kvs` where the kv heads
+    split, so the rank that writes them writes every head. Where the
+    cache splits (rank r holds positions [r L, (r+1) L) of max_len), q is
+    gathered over the heads' ranks, every rank scores every head against
+    its block (the window on global positions), and the reference's
+    softmax is formed over all blocks: the row max by `pmax`, the
+    denominator by `psum` of the blocks' exp-sums, then each probability
+    exp(s - m) / l, rounded to the cache dtype before its product with
+    the block of V. The partial outputs (f32) are summed over the blocks,
+    reduce-scattered over heads where the heads split. Where the cache is
+    whole, each rank attends with its own heads and no statistic crosses.
+    Then `wo` runs row-parallel: the partial y crosses in f32 and is
+    rounded to the model dtype once, after the sum."""
+    pos = int(cache["pos"])
+    q, k, v = _project(p, cfg, x)
+    posv = torch.full(x.shape[:1] + (1,), pos, dtype=torch.int32,
+                      device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    if kvs is not None:
+        k, v = S.gather_seq(torch.stack([k, v]), kvs, 3,
+                            tag="attn").unbind(0)
+    ck, cv = cache["k"], cache["v"]
+    B, L, Hkv, hd = ck.shape
+    Hq = cfg.num_heads
+    c0 = 0 if seqc is None else seqc.rank * L   # the block's first position
+    if c0 <= pos < c0 + L:
+        ck[:, pos - c0] = k[:, 0].to(ck.dtype)
+        cv[:, pos - c0] = v[:, 0].to(cv.dtype)
+    n = max(0, min(pos + 1 - c0, L))           # the block's live rows
+    kpos = c0 + torch.arange(n, device=x.device)
+    scale = hd ** -0.5
+    if seqc is None:
+        Hl = q.shape[2]
+        h0 = heads.rank * Hl
+        grp = _kv_group(cfg, h0, Hl, Hkv)
+        if grp is None:        # one kv head per query head
+            idx = torch.div(torch.arange(h0, h0 + Hl, device=x.device),
+                            Hq // Hkv, rounding_mode="floor")
+            kc, vc, grp = (ck[:, :n].index_select(2, idx),
+                           cv[:, :n].index_select(2, idx), (0, Hl, 1))
+        else:
+            kc, vc = (ck[:, :n, grp[0]:grp[0] + grp[1]],
+                      cv[:, :n, grp[0]:grp[0] + grp[1]])
+        qg = q.reshape(B, 1, grp[1], grp[2], hd).to(ck.dtype).float()
+        s = torch.einsum("bthgk,bshk->bhgts", qg, kc.float()) * scale
+        if window:
+            s = torch.where(kpos > pos - window, s, NEG_INF)
+        pattn = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgts,bshk->bthgk", pattn.to(cv.dtype).float(),
+                         vc.float())
+        o = o.reshape(B, 1, Hl, hd).to(x.dtype)
+    else:
+        if heads is not None:
+            q = S.gather_seq(q, seqc, 2, tag="attn")
+        G = Hq // Hkv
+        qg = q.reshape(B, 1, Hkv, G, hd).to(ck.dtype).float()
+        s = torch.einsum("bthgk,bshk->bhgts", qg, ck[:, :n].float()) * scale
+        if window:
+            s = torch.where(kpos > pos - window, s, NEG_INF)
+        with seqc.tagged("attn"):
+            m = seqc.pmax(s.amax(dim=-1) if n else torch.full(
+                s.shape[:-1], NEG_INF, device=x.device))
+            e = torch.exp(s - m[..., None])
+            den = seqc.psum(e.sum(dim=-1))
+        pattn = e / den[..., None]
+        o = torch.einsum("bhgts,bshk->bthgk", pattn.to(cv.dtype).float(),
+                         cv[:, :n].float()).reshape(B, 1, Hq, hd)
+        if heads is not None:
+            o = S.scatter_seq(o, seqc, 2, tag="attn")
+        else:
+            with seqc.tagged("attn"):
+                o = S.psum(o, seqc)
+        o = o.to(x.dtype)
+    if heads is None:
+        y = torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype))
+    else:
+        y = torch.einsum("bthk,hkd->btd", o.float(), p.wo.float())
+        with heads.tagged("attn"):
+            y = S.psum(y, heads).to(x.dtype)
+    return y, {"k": ck, "v": cv, "pos": pos + 1}
+
+
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda"):
     """An empty cache of max_len positions on `device` ("cuda" unless the
@@ -300,6 +414,14 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
                              device=device),
             "pos": 0}
+
+
+def kv_cache_specs(cfg):
+    """The logical axes of a KV cache's entries (the reference's): rows
+    over "batch", positions over "cache_seq"."""
+    return {"k": ("batch", "cache_seq", None, None),
+            "v": ("batch", "cache_seq", None, None),
+            "pos": ()}
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +444,13 @@ class MLP(nn.Module):
                              device, dtype)
 
 
-def mlp_fwd(p: MLP, cfg, x):
-    """jax.nn.gelu is the tanh approximation, so is this one."""
+def mlp_fwd(p: MLP, cfg, x, split=None):
+    """jax.nn.gelu is the tanh approximation, so is this one. Under a
+    decode split whose tensor-parallel ranks split the hidden width
+    ("act_mlp", `TokenSplit.over`) the weights hold this rank's columns
+    of `w_gate` / `w_up` and rows of `w_down`: the partial products of
+    `w_down` cross in f32 and are rounded to the activation dtype once,
+    after the sum."""
     up = torch.einsum("btd,df->btf", x, p.w_up.to(x.dtype))
     if cfg.activation == "swiglu":
         g = torch.einsum("btd,df->btf", x, p.w_gate.to(x.dtype))
@@ -333,7 +460,12 @@ def mlp_fwd(p: MLP, cfg, x):
         h = F.gelu(g, approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return torch.einsum("btf,fd->btd", h, p.w_down.to(x.dtype))
+    comm = None if split is None else split.over("act_mlp")
+    if comm is None:
+        return torch.einsum("btf,fd->btd", h, p.w_down.to(x.dtype))
+    y = torch.einsum("btf,fd->btd", h.float(), p.w_down.float())
+    with comm.tagged("mlp"):
+        return S.psum(y, comm).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -345,11 +477,36 @@ def embed_tokens(model, cfg, tokens, dtype):
     return F.embedding(tokens.long(), model.embedding).to(dtype)
 
 
-def logits_fwd(model, cfg, h):
+def embed_tokens_split(model, cfg, tokens, dtype, comm):
+    """`embed_tokens` from this rank's block of the table's rows (a
+    decode split's vocab block, over `comm`'s ranks): zeros for ids
+    outside it, summed over the ranks (exact: one term is not zero)."""
+    table = model.embedding
+    n = table.shape[0]
+    ids = tokens.long() - comm.rank * n
+    mine = (ids >= 0) & (ids < n)
+    rows = F.embedding(ids.clamp(0, n - 1), table)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    with comm.tagged("embed"):
+        return S.psum(rows, comm).to(dtype)
+
+
+def logits_fwd(model, cfg, h, split=None):
     """f32 logits of the product taken in the activation dtype; padded
-    vocabulary columns are set to -1e30 so no argmax picks them."""
+    vocabulary columns are set to -1e30 so no argmax picks them. Under a
+    decode split that splits the vocabulary ("act_vocab") the table is
+    this rank's block of columns: the padded columns are masked by their
+    global index, then the blocks are gathered, so every rank has whole
+    rows."""
     w = model.embedding.T if cfg.tied_embeddings else model.lm_head
     logits = torch.einsum("btd,dv->btv", h, w.to(h.dtype)).float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG_INF
-    return logits
+    comm = None if split is None else split.over("act_vocab")
+    if comm is None:
+        if cfg.padded_vocab != cfg.vocab_size:
+            logits[..., cfg.vocab_size:] = NEG_INF
+        return logits
+    n = logits.shape[-1]
+    pad = max(0, min(n, comm.rank * n + n - cfg.vocab_size))
+    if pad:
+        logits[..., n - pad:] = NEG_INF
+    return S.gather_seq(logits, comm, logits.ndim - 1, tag="logits")

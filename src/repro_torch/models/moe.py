@@ -35,6 +35,17 @@ back onto the sequence blocks (`sharding.scatter_seq`). Where they do not
 (E % M != 0) each rank runs every expert on the gathered tokens and keeps
 its own rows: that work repeats M times. The aux loss's means run over
 every rank that holds other tokens (the split's token axes).
+
+A decode step (`split.decode`, one token a row) has no sequence to
+split: its rows are split over the batch ranks, and the reference makes
+one group of all B tokens of the global batch. So each rank routes its
+own tokens (from its block of the router's columns where the experts
+split over the tensor-parallel ranks, the logits gathered there), then
+gathers the tokens and the routing results over the batch ranks: every
+rank holds the global batch's group and its capacity. It runs its own
+experts where they split (E / M of them; every expert where they do not),
+sums the partials over the tensor-parallel ranks in f32 and keeps its
+rows.
 """
 from __future__ import annotations
 
@@ -67,11 +78,13 @@ class MoE(nn.Module):
                                dtype)
 
 
-def _route(p: MoE, cfg, x):
+def _route(p: MoE, cfg, x, comm=None):
     """[B,T,D] -> (probs [B,T,E], gate values [B,T,K], top-k experts
     [B,T,K]), token by token. Ties take the lowest expert first, as
-    `lax.top_k`."""
+    `lax.top_k`. `comm`: the ranks whose blocks of the router's columns
+    (experts) are gathered into the whole logits."""
     logits = torch.einsum("btd,de->bte", x.float(), p.router.float())
+    logits = S.gather_seq(logits, comm, 2, tag="moe")
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, topk_idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -142,7 +155,10 @@ def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True,
     `split` is the plan's token split (module docstring): under a
     sequence split x is this rank's block of positions. The rank's token
     groups must be the global batch's: the tokens of its rows must be a
-    multiple of the global group, else ValueError."""
+    multiple of the global group, else ValueError. A decode split
+    gathers the global batch's group instead (module docstring)."""
+    if split is not None and split.decode:
+        return _moe_decode(p, cfg, x, group_size, aux, split)
     B, Tl, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     seq = None if split is None else split.seq_comm   # one rank: no-ops
@@ -175,6 +191,36 @@ def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True,
                           tag="moe").to(x.dtype)
     comm = None if split is None else split.token_comm
     return y, {"moe_aux": _aux_loss(cfg, probs, topk_idx, comm)
+               if aux else None}
+
+
+def _moe_decode(p: MoE, cfg, x, group_size: int, aux: bool, split):
+    """`moe_fwd` on a decode split (module docstring): x [b,T,D], this
+    rank's rows."""
+    b, T, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    ec, rows = split.over("act_experts"), split.batch_comm
+    probs, gate_vals, topk_idx = _route(p, cfg, x, ec)   # own tokens
+    xg, gate_g, topk_g = (S.gather_seq(t, rows, 0, tag="moe")
+                          for t in (x, gate_vals, topk_idx))
+    N = xg.shape[0] * T
+    g = _group(N, group_size)
+    xg, gate_g, topk_g = (t.reshape(N // g, g, t.shape[-1])
+                          for t in (xg, gate_g, topk_g))
+    cap = max(int(math.ceil(K * g * cfg.capacity_factor / E)), 1)
+    dispatch = _dispatch_einsum if cfg.moe_impl == "einsum" \
+        else _dispatch_sort
+    mine = slice(rows.rank * b, (rows.rank + 1) * b)
+    if ec is None:          # every expert on every rank
+        y = dispatch(p, cfg, xg, gate_g, topk_g, cap, x.dtype)
+        y = y.reshape(N // T, T, D)[mine]
+    else:
+        n_local = p.w_up.shape[0]
+        part = dispatch(p, cfg, xg, gate_g, topk_g, cap, x.dtype,
+                        local=(ec.rank * n_local, n_local))
+        with ec.tagged("moe"):
+            y = S.psum(part.reshape(N // T, T, D)[mine], ec).to(x.dtype)
+    return y, {"moe_aux": _aux_loss(cfg, probs, topk_idx, split.token_comm)
                if aux else None}
 
 

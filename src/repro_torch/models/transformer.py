@@ -12,6 +12,15 @@ its parameter layouts convert, `convert.model_params_from_numpy`). The
 decode state is a list with one entry per layer: a KV cache for the
 attention kinds, a dict of recurrent state tensors for the others.
 
+On a sharded model (`shard_plan`) the decode step runs on the plan's
+decode split (`ShardPlan.for_decode`): the rows over the "batch" axes and
+the heads, MLP width, vocabulary, experts and the caches' positions over
+the tensor-parallel ones, each where it divides (`sharding.decode_axes`;
+`models/layers.py`, `models/moe.py`). A `DecodeState` says how long its
+caches are along the whole sequence; a state whose caches are this rank's
+blocks along "cache_seq" is one. The recurrent blocks decode on whole
+weights and states (their rows only).
+
 Training: `lm_loss` is differentiable once the parameters require grad
 (`train.step.init_train_state`); the serving entry points (`decode_step`
 here, `prefill_step` and `greedy_generate` in decoding.py) run under
@@ -125,7 +134,7 @@ class Block(nn.Module):
         if self.kind == "moe":
             y2, auxd = M.moe_fwd(self.moe, cfg, h2, aux=aux, split=split)
             return x + y2, auxd["moe_aux"]
-        return x + L.mlp_fwd(self.mlp, cfg, h2), None
+        return x + L.mlp_fwd(self.mlp, cfg, h2, split=split), None
 
     def forward(self, cfg, x, positions, split=None):
         """Returns (x_out, aux, state): the MoE aux (None for other kinds)
@@ -154,12 +163,16 @@ class Block(nn.Module):
 
     def decode(self, cfg, x, state, split=None):
         """One token: x [B,1,D] and this layer's decode state -> (x_out,
-        new state). A KV cache is updated in place."""
+        new state). A KV cache is updated in place. On a sharded model
+        `split` is the plan's decode split: the attention, MLP and MoE
+        layers run on this rank's share of the heads, width and experts
+        and its block of the cache; the recurrent blocks run whole."""
         kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
         if kind in ATTN_KINDS:
             y, state = L.attention_decode(self.attn, cfg, h, state,
-                                          window=_window(cfg, kind))
+                                          window=_window(cfg, kind),
+                                          split=split)
             return self._ffn(cfg, x + y, aux=False, split=split)[0], state
         if kind == "mlstm":
             y, state = R.mlstm_decode(self.mlstm, cfg, h, state)
@@ -218,7 +231,11 @@ class Transformer(nn.Module):
         one), states the per-layer prefill states (Block.forward) when
         `collect_states`, else None. With grad mode on, trainable parameters
         and no states collected, each block runs under `cfg.remat` (module
-        docstring); a frozen model runs the plain loop."""
+        docstring); a frozen model runs the plain loop. A forward never
+        runs on a decode step's split: after one, each rank runs its
+        rows (`ShardPlan.rows_only`)."""
+        if self.shard_plan is not None and self.shard_plan.split.decode:
+            self.shard_plan.rows_only()
         with _top_weights(self):
             return self._forward(inputs, positions, collect_states)
 
@@ -261,7 +278,8 @@ class Transformer(nn.Module):
 def _top_weights(model: Transformer):
     """A context in which a sharded model's embedding, LM head and final
     norm read whole (gathered once for the call: a tied table serves the
-    embedding and the logits); a no-op on one rank."""
+    embedding and the logits), but for the vocabulary dim a decode split
+    keeps sharded (`ShardPlan._keep`); a no-op on one rank."""
     plan = model.shard_plan
     if plan is None:
         return contextlib.nullcontext()
@@ -312,6 +330,19 @@ def lm_loss(model: Transformer, inputs, labels=None, z_loss: float = 1e-4,
     return total, {"nll": nll, "z_loss": zl, "moe_aux": aux}
 
 
+class DecodeState(list):
+    """A decode state (one entry a layer, as `init_decode_state` makes
+    it) from a sharded model's prefill or `train.step.Placement`:
+    `cache_len` is its caches' length along the whole sequence, so a
+    decode split knows whether the caches are this rank's blocks along
+    "cache_seq" (`sharding.decode_axes`). A plain list's caches are
+    whole."""
+
+    def __init__(self, layers=(), cache_len: Optional[int] = None):
+        super().__init__(layers)
+        self.cache_len = cache_len
+
+
 def init_decode_state(cfg, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device="cuda") -> List[dict]:
     """One empty state per layer on `device`: a KV cache for the attention
@@ -325,20 +356,48 @@ def init_decode_state(cfg, batch: int, max_len: int,
             for kind in cfg.layer_types]
 
 
+def _state_specs(kind: str) -> dict:
+    """The logical axes of one recurrent kind's decode state (the
+    reference's `decode_state_specs`)."""
+    if kind == "mlstm":
+        return {"C": ("batch", "act_heads", None, None),
+                "n": ("batch", "act_heads", None),
+                "m": ("batch", "act_heads"),
+                "conv": ("batch", None, "act_mlp")}
+    if kind == "slstm":
+        z = ("batch", "act_heads", None)
+        return {"h": z, "c": z, "n": z, "m": z}
+    return {"h": ("batch", "act_mlp"), "conv": ("batch", None, "act_mlp")}
+
+
+def decode_state_specs(cfg) -> List[dict]:
+    """The logical-axis tree of `init_decode_state(cfg, ...)`: one dict a
+    layer (the reference's tree without the "layers" axis its scanned
+    configs stack)."""
+    return [L.kv_cache_specs(cfg) if kind in ATTN_KINDS
+            else _state_specs(kind) for kind in cfg.layer_types]
+
+
 @torch.no_grad()
 def decode_step(model: Transformer, tokens, state: List[dict]):
     """One serve step: tokens [B] (or [B,D] embeddings) -> (logits [B,V],
     state). The KV caches in `state` are updated in place; the recurrent
-    layers' entries are new dicts. On a sharded model the step drops the
-    plan's sequence split (`ShardPlan.drop_seq`): a prefill's split
-    does not reach the one-token step."""
+    layers' entries are new dicts. On a sharded model `tokens` and
+    `state` are this rank's rows, and the step runs on the plan's decode
+    split (`ShardPlan.for_decode`, module docstring): the logits are
+    whole rows, and a `DecodeState` comes back as one."""
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
     plan = model.shard_plan
-    split = None if plan is None else plan.drop_seq()
+    split = None if plan is None else plan.for_decode(
+        tokens.shape[0], getattr(state, "cache_len", None))
+    vocab = None if split is None else split.over("act_vocab")
     with _top_weights(model):
         if cfg.embed_inputs:
             x = (tokens[:, None] if tokens.ndim == 2 else tokens).to(dtype)
+        elif vocab is not None:
+            x = L.embed_tokens_split(model, cfg, tokens[:, None], dtype,
+                                     vocab)
         else:
             x = L.embed_tokens(model, cfg, tokens[:, None], dtype)
         new_state = []
@@ -348,4 +407,7 @@ def decode_step(model: Transformer, tokens, state: List[dict]):
                 x, st = blk.decode(cfg, x, st, split)
             new_state.append(st)
         x = L.apply_norm(model.final_norm, x, cfg.norm)
-        return L.logits_fwd(model, cfg, x)[:, 0], new_state
+        logits = L.logits_fwd(model, cfg, x, split)[:, 0]
+    if isinstance(state, DecodeState):
+        new_state = DecodeState(new_state, state.cache_len)
+    return logits, new_state

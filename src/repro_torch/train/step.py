@@ -43,7 +43,15 @@ two ranks process the same token: under the default profile the ranks
 along "model" hold different positions of the same rows (where T does
 not divide, they fall back to the same rows and repeat that work);
 under the "dp" profile the batch spans every axis. A decode step has no
-sequence to split: ranks along "model" repeat it.
+sequence to split: its rows split over the "batch" axes, and the axes
+the reference's decode rules give "act_heads", "act_kv_heads",
+"act_mlp", "act_vocab", "act_experts" and "cache_seq" ("model" under the
+default profile) split the heads, the MLP width, the vocabulary, the
+experts and the caches' positions, each where its size divides
+(`sharding.decode_axes`); the weights keep those dims sharded, and the
+caches are this rank's blocks (`Placement.decode_state`,
+`make_prefill_step`). The recurrent blocks' states and weights stay
+whole along them (their rows only).
 
 The second member of each `build_*` pair, a `Placement`, puts a whole
 state, model, batch or decode state onto this rank's shards: the
@@ -193,10 +201,8 @@ class Placement:
         `ShardPlan` (which knows the MoE layers' expert weights)."""
         if model.shard_plan is not None:
             raise ValueError("the model is already sharded")
-        experts = [k for k, axes in param_logical_axes(model).items()
-                   if axes[0] == "experts"]
         return S.shard_model(model, self.layout, self.param_specs(model),
-                             self.rules, experts)
+                             self.rules, param_logical_axes(model))
 
     @torch.no_grad()
     def state(self, state: TrainState) -> TrainState:
@@ -228,13 +234,28 @@ class Placement:
         return _as_tensor(batch[rows], device)
 
     def decode_state(self, state):
-        """This rank's rows of a whole decode state (KV caches and
-        recurrent states are [B, ...]; positions are kept)."""
-        b = next(v.shape[0] for st in state for v in st.values()
-                 if isinstance(v, torch.Tensor))
-        rows = self._rows(b)
-        return [{k: v[rows].clone() if isinstance(v, torch.Tensor) else v
-                 for k, v in st.items()} for st in state]
+        """This rank's share of a whole decode state, cut by
+        `decode_state_specs` resolved with the act rules: the KV caches'
+        rows and their block along "cache_seq", the recurrent states'
+        rows only (their "act_heads" / "act_mlp" dims stay whole);
+        positions are kept. Returns a `models.DecodeState` of the whole
+        caches' length."""
+        specs = M.decode_state_specs(self.cfg)
+        cache_len = next((st["k"].shape[1] for st in state if "k" in st),
+                         None)
+        out = []
+        for st, axes in zip(state, specs):
+            cut = {}
+            for k, v in st.items():
+                if not isinstance(v, torch.Tensor):
+                    cut[k] = v
+                    continue
+                spec = S.spec_for(axes[k], v.shape, self.layout, self.rules)
+                if "k" not in st:           # recurrent: rows only
+                    spec = spec[:1] + (None,) * (len(spec) - 1)
+                cut[k] = S.shard_tensor(v, spec, self.layout)
+            out.append(cut)
+        return M.DecodeState(out, cache_len)
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +380,11 @@ def build_train_step(cfg, layout, lr_schedule=None):
 def make_serve_step(cfg, layout=None):
     """serve_step(model, tokens, state) -> (logits, state): `decode_step`
     under `cfg`. On several ranks `tokens` is the global batch (each rank
-    keeps its rows) and `state` this rank's rows (as `make_prefill_step`
-    returns them, or `Placement.decode_state` cuts them); the logits are
-    this rank's rows."""
+    keeps its rows) and `state` this rank's share (its rows, and its
+    blocks of the caches along "cache_seq": as `make_prefill_step`
+    returns it, or `Placement.decode_state` cuts it); the step runs on
+    the decode split (module docstring) and the logits are this rank's
+    rows, whole along the vocabulary."""
     sharded = _sharded(layout)
     place = Placement(cfg, layout) if sharded else None
 
@@ -379,8 +402,9 @@ def make_prefill_step(cfg, layout=None, max_len: Optional[int] = None):
     """prefill(model, tokens) -> (last logits, decode state):
     `prefill_step` under `cfg`; on several ranks the global batch in
     (each rank runs its rows' block of positions, module docstring),
-    this rank's rows of the last logits and of the decode state out, the
-    caches whole along the sequence."""
+    this rank's rows of the last logits and its share of the decode
+    state out: its rows, and its block of each cache where "cache_seq"
+    splits max_len (a `models.DecodeState`)."""
     sharded = _sharded(layout)
     place = Placement(cfg, layout) if sharded else None
 
@@ -397,7 +421,7 @@ def make_prefill_step(cfg, layout=None, max_len: Optional[int] = None):
 
 def build_serve_step(cfg, layout):
     """(serve_step, Placement): `.params` places a whole model,
-    `.decode_state` a whole decode state."""
+    `.decode_state` cuts a whole decode state into this rank's share."""
     return make_serve_step(cfg, layout), Placement(cfg, layout)
 
 

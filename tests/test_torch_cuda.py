@@ -2380,3 +2380,143 @@ def test_sharded_step_on_card_matches_one_rank(sharded_on_card, case):
         np.testing.assert_allclose(got["params"][k].numpy(),
                                    p.detach().cpu().numpy(), rtol=0,
                                    atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# Decode on two ranks that share the card (gloo, host-staged)
+# ---------------------------------------------------------------------------
+
+#: name -> (arch, model_parallel): twins of tests/test_torch_decode_sharded.py
+_DECODE_CASES = {"dense/model2": ("qwen3-14b", 2),
+                 "moe/model2": ("granite-moe-1b-a400m", 2),
+                 "moe/data2": ("granite-moe-1b-a400m", 1)}
+_DECODE_B, _DECODE_T, _DECODE_STEPS, _DECODE_MAX = 2, 16, 8, 40
+
+_DECODE_RANK = r"""
+import copy, pickle, sys
+import numpy as np, torch
+from repro_torch import models as lm
+from repro_torch.configs import get_config, smoke
+from repro_torch.distributed.collectives import end_rank, init_rank
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train import step as TS
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+cases, (B, T, STEPS, MAX) = pickle.loads(bytes.fromhex(sys.argv[4]))
+init_rank(rank, 2, port, "gloo", device="cuda:0")
+torch.backends.cuda.matmul.allow_tf32 = False
+cuda = torch.device("cuda", 0)
+res = {}
+for key, (arch, mp) in cases.items():
+    cfg = smoke(get_config(arch))
+    model = lm.Transformer(cfg, torch.Generator().manual_seed(1),
+                           device="cpu").to(cuda)
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                              .astype(np.int32)).to(cuda)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (STEPS, B))
+                           .astype(np.int32)).to(cuda)
+    lay = make_host_mesh(mp, "cuda:0")
+    prefill, place = TS.build_prefill_step(cfg, lay, max_len=MAX)
+    serve, _ = TS.build_serve_step(cfg, lay)
+    if key == "moe/data2":   # 2 x 16 tokens are one MoE group: a whole state
+        _, whole = lm.prefill_step(copy.deepcopy(model), tokens, max_len=MAX)
+        place.params(model)
+        state = place.decode_state(whole)
+    else:
+        place.params(model)
+        _, state = prefill(model, tokens)
+    logits = []
+    for s in range(STEPS):
+        got, state = serve(model, nxt[s], state)
+        logits.append(got.cpu())
+    split = model.shard_plan.split
+    res[key] = {"logits": torch.stack(logits),
+                "rows": place._rows(B), "tp": sorted(split.tp),
+                "c0": split.tp_comm.rank * state[0]["k"].shape[1]
+                if "cache_seq" in split.tp else 0,
+                "caches": [{k: v.float().cpu() for k, v in st.items()
+                            if k in ("k", "v")} for st in state]}
+with open(f"{out}{rank}", "wb") as f:
+    pickle.dump(res, f)
+end_rank()
+"""
+
+
+@pytest.fixture(scope="module")
+def decode_on_card(tmp_path_factory):
+    """Two gloo ranks on cuda:0 run every case of _DECODE_CASES once;
+    returns [rank 0's results, rank 1's]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m "
+                    "pytest --noconftest -m cuda tests/test_torch_*.py)")
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch import envutil
+    from repro_torch.distributed import collectives
+    out = tmp_path_factory.mktemp("decode_card") / "out"
+    port = collectives.free_port()
+    arg = pickle.dumps((_DECODE_CASES, (_DECODE_B, _DECODE_T, _DECODE_STEPS,
+                                        _DECODE_MAX))).hex()
+    env = envutil.subprocess_env(threads=2, base=os.environ)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DECODE_RANK, str(r), str(port), str(out),
+         arg], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    res = []
+    for r in range(2):
+        with open(f"{out}{r}", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_DECODE_CASES))
+def test_sharded_decode_on_card_matches_cpu(decode_on_card, case):
+    """Two gloo ranks sharing the card, f32 (TF32 off), prefill then 8
+    serve steps (the written position crosses from rank 0's cache block
+    to rank 1's at model 2), against the one-rank CPU path on the same
+    weights and tokens: each rank's rows of every step's logits within
+    1e-3, its caches its block of the CPU's within one bf16 step."""
+    arch, mp = _DECODE_CASES[case]
+    cfg = smoke(get_config(arch))
+    model = lm.Transformer(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (_DECODE_B, _DECODE_T)).astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (_DECODE_STEPS, _DECODE_B)).astype(np.int32))
+    _, state = lm.prefill_step(model, tokens, max_len=_DECODE_MAX)
+    want = []
+    for s in range(_DECODE_STEPS):
+        lg, state = lm.decode_step(model, nxt[s], state)
+        want.append(lg)
+    want = torch.stack(want)
+    for r, res in enumerate(decode_on_card):
+        got = res[case]
+        rows = got["rows"]
+        if mp == 2:
+            assert {"act_heads", "act_vocab", "cache_seq"} <= set(got["tp"])
+        np.testing.assert_allclose(got["logits"].numpy(),
+                                   want[:, rows].numpy(), rtol=1e-3,
+                                   atol=1e-3, err_msg=f"rank {r}")
+        for i, (g, w) in enumerate(zip(got["caches"], state)):
+            for k in g:
+                n = g[k].shape[1]
+                np.testing.assert_allclose(
+                    g[k].numpy(),
+                    w[k][rows, got["c0"]:got["c0"] + n].float().numpy(),
+                    rtol=2.0 ** -7, atol=1e-5,
+                    err_msg=f"rank {r} layer {i} {k}")

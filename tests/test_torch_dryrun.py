@@ -15,7 +15,8 @@ The cell: its argument bytes equal the sum of rank 0's shard bytes
 that divide the model axis, rank 0's counts fall by it (16) against the
 same cell run with the "seq" rule replicated (a rules table local to the
 test): the sequence split over "model" shares every layer's work out,
-the experts too.
+the experts too; so does a decode cell's split of heads, widths,
+vocabulary, experts and cache positions over "model".
 """
 import dataclasses
 
@@ -222,6 +223,36 @@ def test_seq_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
     assert whole["status"] == "OK", whole.get("traceback")
     np.testing.assert_allclose(whole["roofline"]["flops"]
                                / res["roofline"]["flops"], 16, rtol=0.1)
+
+
+def test_decode_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
+    """granite's `decode_32k` cell at smoke widths with 16 heads, 16 kv
+    heads and its own 32 experts, top 8 (with d_ff 128 and the padded
+    vocab 256, all divide the model axis): rank 0's FLOPs fall by at
+    least 12 of the axis's 16 against the same cell with "act_heads",
+    "act_kv_heads", "act_mlp", "act_vocab", "act_experts" and
+    "cache_seq" replicated (a rules table local to the test, under which
+    every rank along model repeats the step on its rows)."""
+    arch, shape = "granite-moe-1b-a400m", "decode_32k"
+    ov = {k: v for k, v in _smoke_overrides(arch).items()
+          if k not in ("num_experts", "top_k")}
+    ov.update(num_heads=16, num_kv_heads=16)
+    assert not dist.is_initialized()
+    whole_rules = dict(S.ACT_RULES, **{
+        k: [()] for k in ("act_heads", "act_kv_heads", "act_mlp",
+                          "act_vocab", "act_experts", "cache_seq")})
+    try:
+        res = D.run_cell(arch, shape, "pod", ov, verbose=False)
+        with monkeypatch.context() as m:
+            m.setattr(S, "rules_for_profile", lambda profile: whole_rules)
+            whole = D.run_cell(arch, shape, "pod", ov, verbose=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert res["status"] == "OK", res.get("traceback")
+    assert whole["status"] == "OK", whole.get("traceback")
+    ratio = whole["roofline"]["flops"] / res["roofline"]["flops"]
+    assert 12 <= ratio <= 16, ratio
 
 
 def test_cli_writes_a_skip_record(tmp_path, monkeypatch):

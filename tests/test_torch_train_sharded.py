@@ -27,8 +27,9 @@ model-2 step runs at their own positions and counts at most 0.6 of one
 rank's FLOPs on the same global batch (`FlopCounterMode`). A prefill
 (`build_prefill_step`) under model 2, and a dense one under data 2,
 equals the reference's `prefill_step` on the global batch in each rank's
-rows: last logits within 1e-4, caches and recurrent states within 1e-5
-(bf16 caches within one bf16 step); one `decode_step` after it equals
+rows: last logits within 1e-4, caches (under model 2 each rank's block
+along "cache_seq") and recurrent states within 1e-5 (bf16 caches within
+one bf16 step); one `decode_step` after it equals
 the reference's within 1e-3 (bf16 caches, as tests/test_torch_models.py
 holds a decode). P = 1 is bitwise the one-rank step. A checkpoint saved at
 P = 2 resumes bitwise at P = 2 and within 1e-5 at P = 1.
@@ -183,7 +184,8 @@ for key, c in job["prefills"].items():
     last, state = prefill(model, torch.from_numpy(c["tokens"]))
     rows = place._rows(c["tokens"].shape[0])
     out[f"prefill/{key}"] = {"positions": sorted(set(seen)),
-                             "rows": [rows.start, rows.stop]}
+                             "rows": [rows.start, rows.stop],
+                             "q0": model.shard_plan.split.q0}
     caches = [{k: (str(v.dtype), v.float().numpy())
                if isinstance(v, torch.Tensor) else v
                for k, v in st.items()} for st in state]
@@ -414,22 +416,28 @@ def test_sharded_prefill_matches_reference(ranks, name):
     the prompt's positions, k/v gathered per attention layer), or under
     data 2 (each rank its rows, every position), against the reference's
     `prefill_step` on the global prompt: each rank's rows of the last
-    position's logits and of the whole caches (bf16 on both sides, the
+    position's logits and of the caches (bf16 on both sides, the
     default: f32 values 1e-7 apart may round to neighbouring bf16 values,
     so within one bf16 step, at most 2^-7 relative) and recurrent states
-    (f32)."""
+    (f32). Under model 2 the caches' T + 4 positions split over "model"
+    ("cache_seq", laid out for the decode step): rank r holds its block
+    of (T + 4) / 2 positions; under data 2 they are whole."""
     tmp, out0, _, out1, ref = ranks
     _, _, B, T, mp = PREFILLS[name]
     want_last, want_state, _ = ref[name]
     for r, out in enumerate((out0, out1)):
         blk = [r * T // 2, (r + 1) * T // 2 - 1] if mp == 2 else [0, T - 1]
         assert out[f"prefill/{name}"]["positions"] == [blk]
+        # the plan keeps the prefill's split (the decode step makes its own)
+        assert out[f"prefill/{name}"]["q0"] == blk[0]
         rows, got = _prefill_rank(tmp, out, name, r)
         assert rows == (slice(0, B) if mp == 2
                         else slice(r * B // 2, (r + 1) * B // 2))
         np.testing.assert_allclose(got["last"], want_last[rows],
                                    rtol=LOGIT_TOL, atol=LOGIT_TOL)
         assert len(got["state"]) == len(want_state)
+        n = (T + 4) // mp                # the rank's block of positions
+        c0 = r * n if mp == 2 else 0
         for i, (g, w) in enumerate(zip(got["state"], want_state)):
             assert set(g) == set(w), i
             for k in g:
@@ -437,7 +445,7 @@ def test_sharded_prefill_matches_reference(ranks, name):
                     assert g[k] == int(w[k]) == T
                 elif g[k][0] == "torch.bfloat16":
                     np.testing.assert_allclose(
-                        g[k][1], w[k][rows], rtol=2.0 ** -7,
+                        g[k][1], w[k][rows, c0:c0 + n], rtol=2.0 ** -7,
                         atol=STATE_ATOL, err_msg=f"rank {r} layer {i} {k}")
                 else:
                     assert g[k][0] == "torch.float32", (i, k, g[k][0])
@@ -449,7 +457,7 @@ def test_sharded_prefill_matches_reference(ranks, name):
 @pytest.mark.parametrize("name", list(PREFILLS))
 def test_decode_after_sharded_prefill_matches_reference(ranks, name):
     """One `decode_step` called straight after the sharded prefill, on the
-    plan the prefill left (its sequence split dropped by the step), against
+    decode split the step resolves (never the prefill's split), against
     the reference's decode_step after its prefill: each rank's rows of the
     logits within DECODE_TOL (the caches are bf16)."""
     tmp, out0, _, out1, ref = ranks
