@@ -104,7 +104,11 @@ Phases, one line of numbers each:
      7b's window shape's second half, and the f32 cut's), both variants
      against the plain version with the same offset within the same
      tolerances, which must reject a kernel that ignores the offset;
-     timed beside SDPA with the same boolean mask;
+     timed beside SDPA with the same boolean mask; then 13c (`flash_tp`):
+     the tensor-parallel arm's launch at a model-2 rank's heads
+     (granite-moe's 8 of 16 heads against 4 of 8 kv heads at Dh 64,
+     T 4095; recurrentgemma-9b's local 8 of 16 heads against its one kv
+     head at Dh 256, window 2048), held and timed the same way;
  14. lm: qwen3-14b at full width (40 layers, bf16 weights from
      torch.Generator seed 0) through `prefill_step` on B=2 prompts of 4096
      tokens (numpy seed 0, caches of 4128), `decode_step` and
@@ -207,11 +211,15 @@ Phases, one line of numbers each:
      local layer's attention against the einsum path within flash_tol;
      last-position logits within 5e-2 * max|logit| of attn_impl="xla";
      prefill + one decode step against the forward at T+1; the 3-layer
-     f32 cut (rglru, rglru, local) flash against xla within 2e-4;
+     f32 cut (rglru, rglru, local) flash against xla within 2e-4; the
+     references of 23g (`ref_23g`: the model in bf16, then upcast to f32
+     in place, each a 2 x 512 prefill and 16 decode steps of fixed
+     tokens, saved for the ranks);
      (c) xlstm-350m at full width (bf16, 2 x 1024 tokens: its sLSTM is a
      Python loop over time, so the prompt was cut from 2 x 2048 to keep
      the wall): the same
-     serving calls, no flash launch; decode against the forward at T+1
+     serving calls, no flash launch, 23g's references (bf16, then the
+     twin); decode against the forward at T+1
      in its f32 twin (the bf16 weights upcast) within 2e-4, and the bf16
      decode within twice the bf16 forward's distance from the twin's
      forward (the two bf16 paths round apart by more than 5e-2);
@@ -284,18 +292,48 @@ Phases, one line of numbers each:
      every step's logits held to one rank's decode on the card from the
      same prefill (phase 14's gate); at model 2 the bytes staged a token
      must stay under 1 % of the rank's parameter bytes; prints decode ms
-     a token (median of steps 3-16), the staged bytes a token by
+     a token (median from step 3), the staged bytes a token by
      collective and by tag (attn, mlp, moe, embed, logits, weights) and
-     each rank's cache bytes;
+     each rank's cache bytes (data 2 takes 4 steps: it gathers the whole
+     model every token; model 2 takes 16);
+     (g) recurrentgemma-9b (all 38 layers) and xlstm-350m at full width
+     (bf16 weights from seed 0) at data 1 x model 2, each built on one
+     rank after the other (one whole 9B copy on the card at a time) and
+     placed: a prefill of 2 x 512 tokens (the sequence split: each RG-LRU
+     / mLSTM / sLSTM block scans the gathered sequence on its own
+     channels or heads; 12 launches a rank of the flash kernel for
+     recurrentgemma's local layers), then 16 serve steps of fixed tokens
+     on the decode split (the blocks' states their channels or heads), no
+     weight byte staged a token. First in bf16 (the wgmma variant): the
+     ranks' logits, the prefill's last and every step's, lie no further
+     from one rank's f32 twin (the bf16 weights upcast exactly) than 1.5
+     x one rank's bf16 logits do, in max and in RMS (in bf16 two equally
+     accurate paths part by more than phase 14's gate over 38 layers).
+     Then each rank's shards upcast in place to the twin (the mma.sync
+     variant): the last logits and every step's held to one rank's twin
+     on the card (phase 20's models, `ref_23g`; phase 14's gate); prints
+     ms a token, the three bf16 distances, staged bytes a token by tag,
+     each rank's state bytes and peak memory;
+     (h) granite-moe-1b-a400m bf16 at data 1 x model 2 prefills 2 x 4095
+     tokens through the tensor-parallel arm (each rank 8 of 16 heads
+     against 4 of 8 kv heads through the flash kernel at q_offset 0, 24
+     wgmma launches a rank; its 16 experts on every token group; its
+     vocab block, the logits gathered), the last logits held to one
+     rank's; 4 serve steps from that state held the same way; then one
+     step of the 2-layer f32 cut at 4 x 1023 under model 2 (the
+     tensor-parallel arm in training, Megatron's pair) against one rank
+     on the card (22b's loss and grad_norm limits);
      (e) the pipeline over the two ranks against its sequential
      run (1e-5) and 50 compressed psums (1e-3);
  16. one JSON line {"kernels": [...]}: launches on each kernel's path,
      parity, kernel time, plain time, the card's bound and a library
      call's time (rows flash_attention[dh256] and
      flash_attention[dh256,f32] from phase 20); the flash rows carry
-     13b's offset shape (`q_offset`) and the wgmma row 23d's launches a
-     rank at data 2 (`launches_data2_prefill`) and with the offset
-     (`launches_model2_prefill`).
+     13b's offset shape (`q_offset`) and 13c's rank-heads shape
+     (`tp_heads`; the Dh-256 row the local layers'), and the wgmma row
+     23d's launches a rank at data 2 (`launches_data2_prefill`) and with
+     the offset (`launches_model2_prefill`) and 23h's on the
+     tensor-parallel arm (`launches_model2_tp_prefill`).
 Order of execution: 1, 2, 13, 14, 20, then the graph phases (3-12, 21,
 15, 17, 18, 19), 22 and 23. Children do host work beside the card's:
 RMAT-21's (started with the script) and Banded-21's generation, phase
@@ -3773,6 +3811,17 @@ FLASH_OFFSET_SHAPES = (
     ("qwen3-14b-f32-last128", 2, 40, 8, 128, 1024, 896, torch.float32,
      None),
 )
+# 13c: the tensor-parallel arm's launch, a model-2 rank's query heads
+# against its kv heads at q_offset 0, as (name, B, Hq, Hkv, T, S, q0,
+# dtype, window, Dh): 23h's granite-moe prefill (8 of 16 heads, 4 of 8 kv
+# heads, 4095 positions) and recurrentgemma-9b's local layers (8 of 16
+# heads against the one kv head, window 2048)
+FLASH_TP_SHAPES = (
+    ("granite-moe-model2-rank", 2, 8, 4, 4095, 4095, 0, torch.bfloat16,
+     None, 64),
+    ("recurrentgemma-9b-local-model2-rank", 2, 8, 1, 4096, 4096, 0,
+     torch.bfloat16, 2048, 256),
+)
 
 
 # the lm phase: B prompts of T tokens (numpy seed 0), caches of MAX_LEN,
@@ -3995,70 +4044,107 @@ def phase_flash(dev, shapes=FLASH_SHAPES, dh=128,
     return rows
 
 
-def phase_flash_offset(dev, rows, dh=128):
-    """Phase 13b: the query offset (FLASH_OFFSET_SHAPES), both variants
-    against the plain version within phase 13's tolerance, which must
-    reject a kernel that ignores the offset; each shape timed beside SDPA
-    with the same boolean mask. The first shape of each variant adds its
-    numbers to that variant's row (phase 13's `rows`) under "q_offset"."""
+#: the numbers of a timed shape that a `kernels` row carries
+FLASH_ROW_KEYS = ("shape", "q_offset", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "max_abs")
+
+
+def flash_case(dev, gen, name, B, Hq, Hkv, T, S, q0, dt, window, dh):
+    """One launch of the variant that serves (dt, dh) at q [B, Hq, T, dh]
+    against k/v [B, Hkv, S, dh] from query position q0, held to the plain
+    version within phase 13's tolerance (which must reject a kernel that
+    ignores a nonzero offset), then timed beside the plain version and
+    SDPA with the same boolean mask. Returns its numbers."""
     import torch.nn.functional as F
     from repro_torch.kernels import counters
     from repro_torch.kernels import flash_attention as fa
 
+    q = torch.randn((B, Hq, T, dh), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((B, Hkv, S, dh), generator=gen,
+                        device=dev).to(dt) for _ in range(2))
+    var = fa.variant(dt, dh)
+    counter = ("flash_attention_wgmma" if var == "wgmma"
+               else "flash_attention")
+    counters.reset()
+    got = fa.flash_attention_cuda(q, k, v, window=window, q_offset=q0)
+    torch.cuda.synchronize()
+    if counters.snapshot()[counter] != 1:
+        fail(f"flash {name}: the {var} variant did not launch")
+    ref = fa.flash_attention_plain(q, k, v, window=window, q_offset=q0)
+    errs = flash_close(f"flash kernel {name}", got, ref, v)
+    if q0:   # a kernel that counted the rows from position 0 fails
+        blind = fa.flash_attention_plain(q, k, v, window=window)
+        rtol, atol = flash_tol(v)
+        d = (got.float() - blind.float()).abs()
+        errs["offset_ignored_over_tol"] = float(
+            (d / (atol + rtol * blind.float().abs())).max())
+        if not errs["offset_ignored_over_tol"] > 1.0:
+            fail(f"flash {name}: the tolerance passes a kernel that "
+                 f"ignores q_offset {q0}")
+        del blind, d
+    del ref, got
+    bound_ms, by = flash_bound(B, Hq, Hkv, T, S, dh, dt, True, window,
+                               q_offset=q0)
+    mask = fa._live_mask(T, S, True, window, dev, q0)
+    ms = time_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, window=window, q_offset=q0))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, window=window, q_offset=q0), iters=3, warmup=1)
+    flop = 4.0 * B * Hq * dh * live_pairs(T, S, True, window, q0)
+    del q, k, v, mask
+    return dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_S{S}_Dh{dh}",
+                q_offset=q0, dtype=str(dt), variant=var, window=window,
+                **errs, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
+                tflops=flop / (ms * 1e-3) / 1e12)
+
+
+def log_flash_case(phase, name, out):
+    log(phase, kernel=f"flash_attention[{out['variant']}]", case=name,
+        **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
+           for k_, v_ in out.items()})
+
+
+def phase_flash_offset(dev, rows, dh=128):
+    """Phase 13b: the query offset (FLASH_OFFSET_SHAPES), both variants
+    against the plain version within phase 13's tolerance, which must
+    reject a kernel that ignores the offset; each shape timed beside SDPA
+    with the same boolean mask (`flash_case`). The first shape of each
+    variant adds its numbers to that variant's row (phase 13's `rows`)
+    under "q_offset"."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    for name, B, Hq, Hkv, T, S, q0, dt, window in FLASH_OFFSET_SHAPES:
-        q = torch.randn((B, Hq, T, dh), generator=gen, device=dev).to(dt)
-        k, v = (torch.randn((B, Hkv, S, dh), generator=gen,
-                            device=dev).to(dt) for _ in range(2))
-        var = fa.variant(dt, dh)
-        counter = ("flash_attention_wgmma" if var == "wgmma"
-                   else "flash_attention")
-        counters.reset()
-        got = fa.flash_attention_cuda(q, k, v, window=window, q_offset=q0)
-        torch.cuda.synchronize()
-        if counters.snapshot()[counter] != 1:
-            fail(f"flash {name}: the {var} variant did not launch")
-        ref = fa.flash_attention_plain(q, k, v, window=window, q_offset=q0)
-        errs = flash_close(f"flash kernel {name}", got, ref, v)
-        if q0:   # a kernel that counted the rows from position 0 fails
-            blind = fa.flash_attention_plain(q, k, v, window=window)
-            rtol, atol = flash_tol(v)
-            d = (got.float() - blind.float()).abs()
-            errs["offset_ignored_over_tol"] = float(
-                (d / (atol + rtol * blind.float().abs())).max())
-            if not errs["offset_ignored_over_tol"] > 1.0:
-                fail(f"flash {name}: the tolerance passes a kernel that "
-                     f"ignores q_offset {q0}")
-            del blind, d
-        del ref
-        bound_ms, by = flash_bound(B, Hq, Hkv, T, S, dh, dt, True, window,
-                                   q_offset=q0)
-        mask = fa._live_mask(T, S, True, window, dev, q0)
-        ms = time_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, window=window, q_offset=q0))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, window=window, q_offset=q0), iters=3, warmup=1)
-        flop = 4.0 * B * Hq * dh * live_pairs(T, S, True, window, q0)
-        out = dict(shape=f"B{B}_Hq{Hq}_Hkv{Hkv}_T{T}_S{S}_Dh{dh}",
-                   q_offset=q0, dtype=str(dt), variant=var, window=window,
-                   **errs, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=by,
-                   bound_share=bound_ms / ms,
-                   tflops=flop / (ms * 1e-3) / 1e12)
+    for name, *shape in FLASH_OFFSET_SHAPES:
+        out = flash_case(dev, gen, name, *shape, dh)
+        var = out["variant"]
         if "q_offset" not in rows[var]:
-            rows[var]["q_offset"] = {k_: out[k_] for k_ in (
-                "shape", "q_offset", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs")}
+            rows[var]["q_offset"] = {k_: out[k_] for k_ in FLASH_ROW_KEYS}
         rows[var]["max_abs_err"] = max(rows[var]["max_abs_err"],
-                                       errs["max_abs"])
-        log("flash_offset", kernel=f"flash_attention[{var}]", case=name,
-            **{k_: (round(v_, 6) if isinstance(v_, float) else v_)
-               for k_, v_ in out.items()})
-        del q, k, v, got, mask
+                                       out["max_abs"])
+        log_flash_case("flash_offset", name, out)
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_flash_tp(dev, rows):
+    """Phase 13c: the tensor-parallel arm's launch at a model-2 rank's
+    heads (FLASH_TP_SHAPES, `flash_case`): 23h's granite-moe prefill adds
+    its numbers to the wgmma row under "tp_heads"; returns those of
+    recurrentgemma-9b's local layers (Dh 256), which phase 20's Dh-256 row
+    carries."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dh256 = None
+    for name, *shape in FLASH_TP_SHAPES:
+        out = flash_case(dev, gen, name, *shape)
+        nums = {k_: out[k_] for k_ in FLASH_ROW_KEYS}
+        if shape[-1] == 256:
+            dh256 = nums
+        else:
+            rows[out["variant"]]["tp_heads"] = nums
+        log_flash_case("flash_tp", name, out)
+    torch.cuda.empty_cache()
+    return rows, dh256
 
 
 def logit_gate(name, got, ref, rel, vocab):
@@ -4189,7 +4275,7 @@ def phase_lm(dev, flash):
              "replaces": "src/repro/kernels/flash_attention.py:104",
              "launches": launches, **{key: flash[var][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "fma_bound_ms", "q_offset")
+                 "library_ms", "fma_bound_ms", "q_offset", "tp_heads")
                  if key in flash[var]}}
             for name, var, launches in (
                 ("flash_attention_wgmma", "wgmma", n),
@@ -4390,6 +4476,32 @@ def free_model(model):
     torch.cuda.empty_cache()
 
 
+def ref_23g(dev, model, cfg, dtype):
+    """23g's references, one rank on the card with phase 20's model in
+    `dtype`: "bfloat16" as built, "float32" upcast in place first
+    (`twin_f32`). The prefill of RECUR2_B x RECUR2_T tokens
+    (`family_prompt`) into states of RECUR2_MAX positions, then
+    RECUR2_STEPS decode steps of fixed tokens; the last logits, each
+    step's logits and its ms saved under REF23G for the ranks."""
+    from repro_torch import models as lm
+    if dtype == "float32":
+        twin_f32(model, cfg)
+    prompt = family_prompt(cfg, RECUR2_B, RECUR2_T, dev)
+    last, state = lm.prefill_step(model, prompt, max_len=RECUR2_MAX)
+    ref = one_rank_decode(model, state, RECUR2_STEPS, RECUR2_B)
+    REF23G.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(ref, last=last.float().cpu()),
+               REF23G / f"{cfg.name}.{dtype}.pt")
+    del last, state
+
+
+def twin_f32(model, cfg):
+    """The model's f32 twin, in place: its bf16 weights upcast exactly,
+    f32 activations."""
+    model.float()
+    model.cfg = cfg.replace(dtype="float32")
+
+
 def phase_recurrentgemma(dev):
     """20b: recurrentgemma-9b at full width, its 12 local layers through
     the flash kernel's wgmma variant at Dh 256. Returns their launches a
@@ -4415,6 +4527,8 @@ def phase_recurrentgemma(dev):
     log("lm_families_flash_vs_xla", model=name, **nums)
     peak = torch.cuda.max_memory_allocated() / 2**30
     del last, last_x
+    ref_23g(dev, model, cfg, "bfloat16")
+    ref_23g(dev, model, cfg, "float32")
     free_model(model)
     # the 3-layer f32 cut (rglru, rglru, local) at full width: the f32
     # mma.sync (3xTF32) path at Dh 256
@@ -4434,6 +4548,7 @@ def phase_xlstm(dev):
     prompt = family_prompt(cfg, B, T, dev)
     want = {"flash_attention": 0, "flash_attention_wgmma": 0}
     family_serve(model, prompt, MAX_LEN, STEPS, want, "lm_families")
+    ref_23g(dev, model, cfg, "bfloat16")
     # decode against the forward at T + 1. In bf16 the two paths round
     # apart by more than LM_REL (0.0614 of max|logit| on an H100): the
     # chunked forward and the recurrent decode round in other places
@@ -4446,8 +4561,7 @@ def phase_xlstm(dev):
     # full width, four layers, on the CPU), which also holds the port's
     # bf16 casts to the reference's
     got16, fwd16, tok = decode_and_forward(model, prompt, MAX_LEN)
-    model.float()
-    model.cfg = cfg.replace(dtype="float32")
+    twin_f32(model, cfg)
     got32, fwd32, _ = decode_and_forward(model, prompt, MAX_LEN, tok)
     V = cfg.vocab_size
     got16, fwd16, got32, fwd32 = (a[:, :V].float()
@@ -4480,6 +4594,7 @@ def phase_xlstm(dev):
         bf16_decode_vs_bf16_forward_max=top(got16, fwd16))
     log("lm_families_memory", model=name, peak_gib=round(
         torch.cuda.max_memory_allocated() / 2**30, 3))
+    ref_23g(dev, model, cfg, "float32")
     free_model(model)
 
 
@@ -4926,12 +5041,39 @@ PREFILL2_LAYOUTS = {"data2": 1, "model2": 2}
 # 23f: DECODE2_STEPS serve steps of fixed tokens after each of 23d's
 # prefills (caches of DECODE2_MAX positions), each step's logits against
 # one rank's decode (LM_REL); at model 2 the bytes staged a token under
-# DECODE2_STAGED of the rank's parameter bytes
-DECODE2_MAX, DECODE2_STEPS, DECODE2_STAGED = 4112, 16, 0.01
+# DECODE2_STAGED of the rank's parameter bytes. Data 2 gathers the whole
+# model every token (3.4-4.1 s), so it takes fewer steps
+DECODE2_MAX, DECODE2_STAGED = 4112, 0.01
+DECODE2_STEPS = {"data2": 4, "model2": 16}
 # 23e: the pipeline case over the two ranks (2 stages of 4 layers, D 16,
 # B 8, 4 microbatches) against its sequential run, and 50 compressed
 # psums; the CPU tests' limits
 PIPE2_TOL, COMPRESSED_TOL = 1e-5, 1e-3
+# 23g: the recurrent models at full width (recurrentgemma-9b at full depth)
+# on the ranks at data 1 x model 2, built one rank after the other (one
+# whole 9B copy on the card at a time): a prefill of RECUR2_B x RECUR2_T
+# tokens (T divides: the sequence split, each recurrent block scanning the
+# gathered sequence on its own channels) into states of RECUR2_MAX
+# positions, then RECUR2_STEPS serve steps of fixed tokens, no weight
+# byte staged; first in bf16, then in the f32 twin (the bf16 shards
+# upcast exactly). The twin's last logits and each step's are held to
+# one rank's twin on the card (`ref_23g`, phase 20's models; LM_REL). In
+# bf16 two equally accurate paths part by more than LM_REL over 38
+# layers, so the ranks' bf16 logits are held by their distance from one
+# rank's twin: within RECUR2_BF16 times one rank's bf16 distance, in the
+# worst position's max|a - b| / max|twin| and in RMS (`bf16_distances`)
+RECUR2_ARCHS = ("recurrentgemma-9b", "xlstm-350m")
+RECUR2_B, RECUR2_T, RECUR2_MAX, RECUR2_STEPS = 2, 512, 544, 16
+RECUR2_BF16 = 1.5
+REF23G = ROOT / "build" / "ref23g"
+# 23h: granite-moe bf16 at data 1 x model 2 prefills TP2_B x TP2_T tokens
+# (T odd: the tensor-parallel arm, each rank 8 of 16 heads against 4 of 8
+# kv heads through the flash kernel, its 16 experts, its vocab block) into
+# caches of TP2_MAX positions, then TP2_STEPS serve steps; the last logits
+# and each step's held to one rank's (LM_REL); then one step of the
+# 2-layer f32 cut at TRAIN2_CUT_B x TP2_CUT_T under model 2 held to one
+# rank's (22b's loss and grad_norm limits)
+TP2_B, TP2_T, TP2_MAX, TP2_STEPS, TP2_CUT_T = 2, 4095, 4104, 4, 1023
 
 
 def start_train_ranks(tmp):
@@ -5119,14 +5261,17 @@ def rank_23c(dev, rank, tmp):
                 nondeterministic_ops=nondet)
 
 
-def decode_23f(dev, cfg, lay, model, state, rows, ref):
-    """23f on this rank: DECODE2_STEPS serve steps from a 23d prefill's
-    `state`; returns its numbers (`ref`: one rank's tokens and logits)."""
+def decode_23f(dev, cfg, lay, model, state, rows, ref, steps, keep=False):
+    """23f on this rank (and 23g's, 23h's serve steps): `steps` serve
+    steps from a prefill's `state`; returns its numbers (`ref`: one
+    rank's tokens and logits), with `keep` each step's logits too (on
+    the CPU, [steps, B, V] under "logits")."""
     from repro_torch.train import step as TS
     serve, _ = TS.build_serve_step(cfg, lay)
     V = cfg.vocab_size
-    ms, rel, finite, staged, by_tag = [], [], True, [], []
-    for s in range(DECODE2_STEPS):
+    ms, rel, finite, staged, by_tag, weights = [], [], True, [], [], []
+    kept = []
+    for s in range(steps):
         reset_comms(lay)
         torch.cuda.synchronize()
         t = time.time()
@@ -5137,18 +5282,25 @@ def decode_23f(dev, cfg, lay, model, state, rows, ref):
         want = ref["logits"][s][rows][:, :V]
         finite &= bool(torch.isfinite(got).all())
         rel.append(max_abs_err(got, want) / float(want.abs().max()))
+        if keep:
+            kept.append(got)
         tally, tags = comm_tally(lay)
         staged.append(sum(d["staged_bytes"] for d in tally.values()))
+        weights.append(sum(d["staged_bytes"]
+                           for d in tags.get("weights", {}).values()))
         by_tag.append((tally, tags))
     split = model.shard_plan.split
     return dict(
         ms=ms, max_rel=max(rel), finite=finite, tp=sorted(split.tp),
         staged_max=max(staged), staged_by_kind=by_tag[-1][0],
-        staged_by_tag=by_tag[-1][1],
+        staged_by_tag=by_tag[-1][1], weights_staged_max=max(weights),
         cache_bytes=sum(v.numel() * v.element_size() for st in state
                         for k, v in st.items() if k in ("k", "v")),
+        state_bytes=sum(v.numel() * v.element_size() for st in state
+                        for v in st.values() if isinstance(v, torch.Tensor)),
         param_bytes=sum(p.numel() * p.element_size()
-                        for p in model.parameters()))
+                        for p in model.parameters()),
+        **({"logits": torch.stack(kept)} if keep else {}))
 
 
 def rank_23d(dev, rank, tmp):
@@ -5196,7 +5348,8 @@ def rank_23d(dev, rank, tmp):
             finite=bool(torch.isfinite(got).all()),
             argmax_equal=bool(torch.equal(got_v.argmax(-1),
                                           want_v.argmax(-1))))
-        res_f[name] = decode_23f(dev, cfg, lay, model, state, rows, ref_f)
+        res_f[name] = decode_23f(dev, cfg, lay, model, state, rows, ref_f,
+                                 DECODE2_STEPS[name])
         del model, last, state
         gc.collect()
         torch.cuda.empty_cache()
@@ -5240,6 +5393,164 @@ def rank_23e(dev, rank):
                 compressed_max_abs=comp_err)
 
 
+def prefill_on_ranks(dev, lay, cfg, model, prefill, prompt, ref,
+                     keep=False):
+    """A prefill on the ranks (`prefill` from `build_prefill_step`):
+    returns its state and numbers, the last logits held to one rank's
+    (`ref["last"]`; the rows are all, at data 1 x model 2), and with
+    `keep` the last logits themselves (on the CPU, under "logits")."""
+    from repro_torch.kernels import counters
+    reset_comms(lay)
+    counters.reset()
+    torch.cuda.synchronize()
+    t = time.time()
+    last, state = prefill(model, prompt)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = counters.snapshot()
+    _, tags = comm_tally(lay)
+    V = cfg.vocab_size
+    got, want = last.float().cpu()[:, :V], ref["last"][:, :V]
+    split = model.shard_plan.split
+    return state, dict(
+        wall_s=wall, seq=split.seq, tp=sorted(split.tp),
+        flash_wgmma=launches["flash_attention_wgmma"],
+        flash_mma_sync=launches["flash_attention"],
+        max_rel=max_abs_err(got, want) / float(want.abs().max()),
+        finite=bool(torch.isfinite(got).all()),
+        staged_by_tag=tags, **({"logits": got} if keep else {}))
+
+
+def bf16_distances(two, one, twin, vocab):
+    """23g's bf16 distances over the prefill's last logits and every
+    serve step's ([steps + 1, B, V] on the CPU): `two` (the ranks), `one`
+    (one rank) and `twin` (one rank's f32 twin). Each pair's largest
+    |a - b| over max|twin logit| at a position (the worst position) and
+    its RMS over the twin's RMS (all positions)."""
+    two, one, twin = (a[..., :vocab].double() for a in (two, one, twin))
+    top = twin.abs().amax(dim=(1, 2))
+    rms = float(twin.square().mean().sqrt())
+    out = {}
+    for key, a, b in (("two_vs_twin", two, twin), ("one_vs_twin", one, twin),
+                      ("two_vs_one", two, one)):
+        d = a - b
+        out[key + "_max"] = float((d.abs().amax(dim=(1, 2)) / top).max())
+        out[key + "_rms"] = float(d.square().mean().sqrt()) / rms
+    return out
+
+
+def ref_logits(ref):
+    """A `ref_23g` reference's [steps + 1, B, V] logits: the prefill's
+    last, then each decode step's."""
+    return torch.cat([ref["last"][None], ref["logits"]])
+
+
+def rank_23g(dev, rank):
+    """23g on this rank: each of RECUR2_ARCHS at full width, built one
+    rank after the other and placed in bf16, prefilled over the ranks and
+    served RECUR2_STEPS tokens (`bf16_distances` from one rank's bf16
+    run and its f32 twin's); then its shards upcast in place to the twin
+    and run again, against one rank's twin (`ref_23g`)."""
+    import torch.distributed as dist
+
+    from repro_torch import models as lm
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as TS
+    lay = make_host_mesh(2, dev)
+    out = {}
+    for name in RECUR2_ARCHS:
+        ref = torch.load(REF23G / f"{name}.float32.pt")
+        ref16 = torch.load(REF23G / f"{name}.bfloat16.pt")
+        cfg = get_config(name).replace(attn_impl="flash_kernel")
+        prefill, place = TS.build_prefill_step(cfg, lay, max_len=RECUR2_MAX)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        for r in range(2):      # one whole copy on the card at a time
+            if r == rank:
+                model = lm.Transformer(cfg, torch.Generator(
+                    device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+                place.params(model)
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        build_s = time.time() - t
+        build_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prompt = family_prompt(cfg, RECUR2_B, RECUR2_T, dev)
+        state, pre16 = prefill_on_ranks(dev, lay, cfg, model, prefill,
+                                        prompt, ref, keep=True)
+        serve16 = decode_23f(dev, cfg, lay, model, state,
+                             slice(0, RECUR2_B), ref, RECUR2_STEPS,
+                             keep=True)
+        del state
+        two = torch.cat([pre16.pop("logits")[None], serve16.pop("logits")])
+        bf16 = dict(prefill=pre16, serve=serve16, **bf16_distances(
+            two, ref_logits(ref16), ref_logits(ref), cfg.vocab_size))
+        twin_f32(model, cfg)    # its shards, not the whole copy
+        cfg = model.cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefill, _ = TS.build_prefill_step(cfg, lay, max_len=RECUR2_MAX)
+        state, pre = prefill_on_ranks(dev, lay, cfg, model, prefill, prompt,
+                                      ref)
+        serve = decode_23f(dev, cfg, lay, model, state,
+                           slice(0, RECUR2_B), ref, RECUR2_STEPS)
+        out[name] = dict(
+            layers=cfg.num_layers, build_s=build_s, prefill=pre,
+            serve=serve, bf16=bf16, build_peak_bytes=build_peak,
+            peak_bytes=torch.cuda.max_memory_allocated())
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_23h(dev, rank, tmp):
+    """23h on this rank: granite-moe's prefill of an odd length through
+    the tensor-parallel arm and TP2_STEPS serve steps, then one step of
+    the 2-layer f32 cut at T TP2_CUT_T, against one rank's (ref23h)."""
+    from repro_torch import models as lm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import linear_warmup_cosine
+    from repro_torch.train import step as TS
+    ref = torch.load(tmp / "ref23h.pt")
+    cfg = get_config(TRAIN_ARCH).replace(attn_impl="flash_kernel")
+    lay = make_host_mesh(2, dev)
+    model = lm.Transformer(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    prefill, place = TS.build_prefill_step(cfg, lay, max_len=TP2_MAX)
+    place.params(model)
+    state, pre = prefill_on_ranks(dev, lay, cfg, model, prefill,
+                                  family_prompt(cfg, TP2_B, TP2_T, dev), ref)
+    serve = decode_23f(dev, cfg, lay, model, state, slice(0, TP2_B), ref,
+                       TP2_STEPS)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = train_cut_cfg()
+    train = TS.init_train_state(cut, 0, layout=lay)
+    step = TS.make_train_step(cut, lay, linear_warmup_cosine(
+        TRAIN_CUT_LR, 0, 10))
+    torch.cuda.synchronize()
+    t = time.time()
+    train, m = step(train, SyntheticLMDataset(
+        cut.vocab_size, TP2_CUT_T, TRAIN2_CUT_B, seed=0).batch(0))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    step_s = time.time() - t
+    cut_tp = sorted(train.params.shard_plan.split.tp)
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill=pre, serve=serve, cut=dict(
+        tp=cut_tp, loss=loss, step_s=step_s,
+        loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+        grad_norm_rel=abs(gnorm - ref["grad_norm"]) / abs(ref["grad_norm"])))
+
+
 def train_rank_main(args):
     """A phase-23 rank: join the gloo group; at go_checks run 23b-e on
     cuda:0 (beside phase 22b-e in the main process), at go_timed 23a
@@ -5265,6 +5576,8 @@ def train_rank_main(args):
                      ("23c", lambda: rank_23c(dev, rank, tmp)),
                      ("23d", lambda: rank_23d(dev, rank, tmp)),
                      ("23e", lambda: rank_23e(dev, rank)),
+                     ("23g", lambda: rank_23g(dev, rank)),
+                     ("23h", lambda: rank_23h(dev, rank, tmp)),
                      ("23a", lambda: rank_23a(dev, rank))):
         if name == "23a":
             # the timed steps run alone on the card: after phase 22
@@ -5281,7 +5594,8 @@ def train_rank_main(args):
 
 
 def sharded_refs(dev, tmp):
-    """One rank's references for 23b and 23d, saved to tmp on the CPU."""
+    """One rank's references for 23b, 23d, 23f and 23h, saved to tmp on
+    the CPU (23g's come from phase 20, `ref_23g`)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.optim import linear_warmup_cosine
@@ -5315,21 +5629,43 @@ def sharded_refs(dev, tmp):
                                   max_len=DECODE2_MAX)
     torch.save(last.float().cpu(), tmp / "ref23d.pt")
     # 23f's reference: one rank's decode of fixed tokens from that state
-    tokens = torch.randint(0, pcfg.vocab_size, (DECODE2_STEPS, PREFILL2_B),
+    torch.save(one_rank_decode(model, state, max(DECODE2_STEPS.values()),
+                               PREFILL2_B), tmp / "ref23f.pt")
+    del last, state
+    # 23h's: the prefill of an odd length, its decode, the cut's step
+    last, state = lm.prefill_step(model, family_prompt(pcfg, TP2_B, TP2_T,
+                                                       dev),
+                                  max_len=TP2_MAX)
+    ref = one_rank_decode(model, state, TP2_STEPS, TP2_B)
+    del model, state
+    free_model(None)
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(
+        TRAIN_CUT_LR, 0, 10))
+    _, m = step(TS.init_train_state(cfg, 0, dev), SyntheticLMDataset(
+        cfg.vocab_size, TP2_CUT_T, TRAIN2_CUT_B, seed=0).batch(0))
+    torch.save(dict(ref, last=last.float().cpu(), loss=float(m["loss"]),
+                    grad_norm=float(m["grad_norm"])), tmp / "ref23h.pt")
+    del last, m
+    free_model(None)
+
+
+def one_rank_decode(model, state, steps, rows):
+    """One rank's decode of `steps` fixed tokens ([steps, rows], seed 23)
+    from `state`: {tokens, logits, ms a step}, on the CPU."""
+    from repro_torch import models as lm
+    dev = next(model.parameters()).device
+    tokens = torch.randint(0, model.cfg.vocab_size, (steps, rows),
                            generator=torch.Generator().manual_seed(23),
                            dtype=torch.int32)
     logits, ms = [], []
-    for s in range(DECODE2_STEPS):
+    for s in range(steps):
         torch.cuda.synchronize()
         t = time.time()
         lg, state = lm.decode_step(model, tokens[s].to(dev), state)
         torch.cuda.synchronize()
         ms.append((time.time() - t) * 1e3)
         logits.append(lg.float().cpu())
-    torch.save({"tokens": tokens, "logits": torch.stack(logits), "ms": ms},
-               tmp / "ref23f.pt")
-    del model, last, state
-    free_model(None)
+    return {"tokens": tokens, "logits": torch.stack(logits), "ms": ms}
 
 
 def resume_on_one_rank(dev, tmp, went_on):
@@ -5368,6 +5704,157 @@ def start_sharded_checks(dev, tmp):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     (tmp / "go_checks").write_text("")
     return time.time() - t
+
+
+def get_config_layers(name):
+    from repro_torch.configs import get_config
+    return list(get_config(name).layer_types)
+
+
+def check_ranks_prefill(what, pre, wgmma, mma_sync, seq):
+    """A prefill over the two ranks: finite last logits within LM_REL of
+    one rank's, `wgmma` and `mma_sync` launches of the flash kernel's two
+    variants, on the sequence split (`seq`) or the tensor-parallel
+    arm."""
+    if not (pre["finite"] and pre["max_rel"] <= LM_REL):
+        fail(f"{what}: prefill's last logits {pre['max_rel']} of "
+             f"max|logit| from one rank's, over {LM_REL}")
+    if (pre["flash_wgmma"], pre["flash_mma_sync"]) != (wgmma, mma_sync):
+        fail(f"{what}: flash launches wgmma {pre['flash_wgmma']}, mma_sync "
+             f"{pre['flash_mma_sync']}; want {wgmma} and {mma_sync}")
+    if pre["seq"] != seq or bool(pre["tp"]) == seq:
+        fail(f"{what}: the prefill took seq {pre['seq']}, tp {pre['tp']}")
+
+
+def check_ranks_serve(what, f):
+    """Serve steps over the two ranks: finite logits within LM_REL of one
+    rank's decode at every step, and no weight byte staged."""
+    if not (f["finite"] and f["max_rel"] <= LM_REL):
+        fail(f"{what}: logits {f['max_rel']} of max|logit| from one "
+             f"rank's decode, over {LM_REL}")
+    if f["weights_staged_max"] != 0:
+        fail(f"{what}: {f['weights_staged_max']} B of weights staged a "
+             "token")
+
+
+def check_23g(res, card):
+    """23g's gates and lines from the ranks' results `res`."""
+    for name in RECUR2_ARCHS:
+        n_local = get_config_layers(name).count("local")
+        ref = torch.load(REF23G / f"{name}.float32.pt")
+        ref16 = torch.load(REF23G / f"{name}.bfloat16.pt")
+        if not torch.equal(ref["tokens"], ref16["tokens"]):
+            fail(f"23g {name}: the bf16 and f32 references decode other "
+                 "tokens")
+        one = ref["ms"]
+        for r, x in enumerate(res):
+            g = x["23g"][name]
+            check_23g_bf16(name, r, g["bf16"], n_local, ref16["ms"], card)
+            pre, f = g["prefill"], g["serve"]
+            check_ranks_prefill(f"23g {name} rank {r}", pre, 0, n_local,
+                                seq=True)
+            check_ranks_serve(f"23g {name} rank {r}", f)
+            log("sharded_23g", model=name, rank=r, layers=g["layers"],
+                layout="data 1 x model 2",
+                param_dtype="float32 (the bf16 weights upcast)",
+                prompt=f"{RECUR2_B}x{RECUR2_T}", max_len=RECUR2_MAX,
+                prefill_split="seq", prefill_wall_s=round(pre["wall_s"], 3),
+                prefill_max_abs_over_max=pre["max_rel"],
+                flash_mma_sync_launches=pre["flash_mma_sync"],
+                prefill_staged_by_tag=json.dumps(pre["staged_by_tag"]),
+                steps=RECUR2_STEPS, split=json.dumps(f["tp"]),
+                decode_ms_median_from_3=round(float(np.median(f["ms"][2:])),
+                                              3),
+                first_step_ms=round(f["ms"][0], 3),
+                one_rank_ms_median_from_3=round(float(np.median(one[2:])),
+                                                3),
+                max_abs_over_max=f["max_rel"], tol=f"{LM_REL}*max|logit|",
+                staged_bytes_per_token=f["staged_max"],
+                weights_staged_bytes=f["weights_staged_max"],
+                staged_by_kind=json.dumps(f["staged_by_kind"]),
+                staged_by_tag=json.dumps(f["staged_by_tag"]),
+                state_bytes=f["state_bytes"], param_bytes=f["param_bytes"],
+                build_s=round(g["build_s"], 2),
+                build_peak_gib=round(g["build_peak_bytes"] / 2**30, 3),
+                peak_gib=round(g["peak_bytes"] / 2**30, 3), card=repr(card))
+
+
+def check_23g_bf16(name, r, b, n_local, one_ms, card):
+    """23g's bf16 run on rank `r` (`b`): its prefill on the sequence
+    split with the wgmma flash variant, no weight byte staged a token, and
+    its distance from the f32 twin within RECUR2_BF16 times one rank's
+    bf16 distance, in the worst position's max and in RMS."""
+    what = f"23g {name} bf16 rank {r}"
+    pre, f = b["prefill"], b["serve"]
+    if (pre["flash_wgmma"], pre["flash_mma_sync"]) != (n_local, 0):
+        fail(f"{what}: flash launches wgmma {pre['flash_wgmma']}, mma_sync "
+             f"{pre['flash_mma_sync']}; want {n_local} and 0")
+    if not pre["seq"] or pre["tp"]:
+        fail(f"{what}: the prefill took seq {pre['seq']}, tp {pre['tp']}")
+    if not (pre["finite"] and f["finite"]):
+        fail(f"{what}: logits not finite")
+    if f["weights_staged_max"] != 0:
+        fail(f"{what}: {f['weights_staged_max']} B of weights staged a "
+             "token")
+    for k in ("max", "rms"):
+        two, one = b[f"two_vs_twin_{k}"], b[f"one_vs_twin_{k}"]
+        if not two <= RECUR2_BF16 * one:
+            fail(f"{what}: the ranks' {k} distance from the f32 twin, "
+                 f"{two}, over {RECUR2_BF16} x one rank's {one}")
+    log("sharded_23g_bf16", model=name, rank=r, layout="data 1 x model 2",
+        param_dtype="bfloat16", prompt=f"{RECUR2_B}x{RECUR2_T}",
+        steps=RECUR2_STEPS, split=json.dumps(f["tp"]),
+        flash_wgmma_launches=pre["flash_wgmma"],
+        prefill_wall_s=round(pre["wall_s"], 3),
+        decode_ms_median_from_3=round(float(np.median(f["ms"][2:])), 3),
+        one_rank_ms_median_from_3=round(float(np.median(one_ms[2:])), 3),
+        **{k: b[k] for k in sorted(b) if k.endswith(("_max", "_rms"))},
+        ratio_max=b["two_vs_twin_max"] / b["one_vs_twin_max"],
+        ratio_rms=b["two_vs_twin_rms"] / b["one_vs_twin_rms"],
+        tol=f"two_vs_twin <= {RECUR2_BF16} x one_vs_twin",
+        staged_bytes_per_token=f["staged_max"],
+        weights_staged_bytes=f["weights_staged_max"],
+        state_bytes=f["state_bytes"], param_bytes=f["param_bytes"],
+        card=repr(card))
+
+
+def check_23h(res, tmp, card):
+    """23h's gates and lines from the ranks' results `res`."""
+    one = torch.load(tmp / "ref23h.pt")["ms"]
+    for r, x in enumerate(res):
+        h = x["23h"]
+        pre, f, cut = h["prefill"], h["serve"], h["cut"]
+        check_ranks_prefill(f"23h rank {r}", pre,
+                            get_config_layers(TRAIN_ARCH).count("moe"), 0,
+                            seq=False)
+        check_ranks_serve(f"23h rank {r}", f)
+        if not (cut["tp"] and cut["loss_rel"] <= TRAIN_LOSS_RTOL
+                and cut["grad_norm_rel"] <= TRAIN_GNORM_RTOL):
+            fail(f"23h rank {r}: the cut's step at T {TP2_CUT_T} under "
+                 f"model 2: {cut} outside loss {TRAIN_LOSS_RTOL}, grad_norm "
+                 f"{TRAIN_GNORM_RTOL} relative")
+        log("sharded_23h", model=TRAIN_ARCH, rank=r,
+            layout="data 1 x model 2", param_dtype="bfloat16",
+            prompt=f"{TP2_B}x{TP2_T}", max_len=TP2_MAX,
+            prefill_split=json.dumps(pre["tp"]),
+            prefill_wall_s=round(pre["wall_s"], 3),
+            flash_wgmma_launches=pre["flash_wgmma"],
+            flash_heads="Hq 8 / Hkv 4, Dh 64",
+            prefill_max_abs_over_max=pre["max_rel"],
+            prefill_staged_by_tag=json.dumps(pre["staged_by_tag"]),
+            steps=TP2_STEPS, decode_split=json.dumps(f["tp"]),
+            decode_ms_median_from_3=round(float(np.median(f["ms"][2:])), 3),
+            one_rank_ms_median_from_3=round(float(np.median(one[2:])), 3),
+            max_abs_over_max=f["max_rel"], tol=f"{LM_REL}*max|logit|",
+            staged_bytes_per_token=f["staged_max"],
+            weights_staged_bytes=f["weights_staged_max"],
+            cut_split=json.dumps(cut["tp"]),
+            cut_batch=f"{TRAIN2_CUT_B}x{TP2_CUT_T}",
+            cut_loss=cut["loss"], cut_loss_rel=cut["loss_rel"],
+            cut_grad_norm_rel=cut["grad_norm_rel"],
+            cut_step_s=round(cut["step_s"], 3),
+            tol_cut=f"loss {TRAIN_LOSS_RTOL}, grad_norm {TRAIN_GNORM_RTOL} "
+                    "relative", card=repr(card))
 
 
 def phase_sharded(dev, procs, tmp, first, refs_s):
@@ -5509,15 +5996,16 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
                 fail(f"23f {name} rank {r}: {f['staged_max']} B staged a "
                      f"token, {share} of the rank's {f['param_bytes']} "
                      f"parameter bytes (limit {DECODE2_STAGED})")
+            steps = DECODE2_STEPS[name]
             log("sharded_23f", layout=f"data {2 // mp} x model {mp}",
                 rank=r, model=TRAIN_ARCH, param_dtype="bfloat16",
                 prompt=f"{PREFILL2_B}x{PREFILL2_T}", max_len=DECODE2_MAX,
-                steps=DECODE2_STEPS, split=json.dumps(f["tp"]),
-                decode_ms_median_3_16=round(float(np.median(f["ms"][2:])),
-                                            3),
-                first_step_ms=round(f["ms"][0], 3),
-                one_rank_ms_median_3_16=round(float(np.median(one_ms[2:])),
+                steps=steps, split=json.dumps(f["tp"]),
+                decode_ms_median_from_3=round(float(np.median(f["ms"][2:])),
                                               3),
+                first_step_ms=round(f["ms"][0], 3),
+                one_rank_ms_median_from_3=round(float(np.median(
+                    one_ms[2:steps])), 3),
                 max_abs_over_max=f["max_rel"], tol=f"{LM_REL}*max|logit|",
                 staged_bytes_per_token=f["staged_max"],
                 staged_share_of_params=share,
@@ -5531,8 +6019,8 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
              "split: a rank's tokens could not form the global group)",
         moe_gathers=json.dumps(moe2[0]["staged_by_tag"].get("moe", {})),
         max_abs_over_max=max(f["max_rel"] for f in moe2),
-        decode_ms_median_3_16=[round(float(np.median(f["ms"][2:])), 3)
-                               for f in moe2], card=repr(card))
+        decode_ms_median_from_3=[round(float(np.median(f["ms"][2:])), 3)
+                                 for f in moe2], card=repr(card))
 
     for r, x in enumerate(res):
         e = x["23e"]
@@ -5542,8 +6030,13 @@ def phase_sharded(dev, procs, tmp, first, refs_s):
             fail(f"23e rank {r}: {e}")
         log("sharded_23e", rank=r, **e, tol=f"pipeline {PIPE2_TOL}, "
             f"compressed psum {COMPRESSED_TOL}", card=repr(card))
+
+    check_23g(res, card)
+    check_23h(res, tmp, card)
     launches = {name: [x["23d"][name]["flash_wgmma"] for x in res]
                 for name in PREFILL2_LAYOUTS}
+    launches["model2_tp"] = [x["23h"]["prefill"]["flash_wgmma"]
+                             for x in res]
     log("sharded_phase", seconds_after_22=round(time.time() - t0, 2),
         refs_s=round(refs_s, 2), checks_wait_s=round(checks_wait_s, 2),
         ranks_23a_s=round(ranks_s, 2),
@@ -5623,7 +6116,8 @@ def main():
 
     # phase 13 runs while the RMAT child makes phase 4's graph
     t = time.time()
-    flash = phase_flash_offset(dev, phase_flash(dev))
+    flash, tp256 = phase_flash_tp(dev, phase_flash_offset(
+        dev, phase_flash(dev)))
     gc.collect()
     torch.cuda.empty_cache()
     log("flash_phase", seconds=round(time.time() - t, 2), peak_gib=round(
@@ -5638,6 +6132,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lm_rows.extend(phase_lm_families(dev))
+    for row in lm_rows:
+        if row["name"] == "flash_attention[dh256]":
+            row["tp_heads"] = tp256
     log("memory", total_s=round(time.time() - t_all, 1))
     gc.collect()
     torch.cuda.empty_cache()
@@ -5676,6 +6173,7 @@ def main():
                 p.kill()
                 p.wait()
         shutil.rmtree(tmp23, ignore_errors=True)
+        shutil.rmtree(REF23G, ignore_errors=True)
     log("memory", total_s=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

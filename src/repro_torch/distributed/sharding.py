@@ -47,7 +47,9 @@ partitioner, so the port does it explicitly (`train/step.py`):
     its partial outputs scattered, a recurrent block's input gathered
     for its whole-sequence scan;
   * `psum` is an all-reduce whose backward is an all-reduce too (the
-    MoE aux loss's global means, over the token axes);
+    MoE aux loss's global means, over the token axes; a sum of partials
+    that each rank then uses for its own channels, as a norm's sum of
+    squares);
   * A decode step (one token a row) has no sequence to split: its
     split (`ShardPlan.decode_split`, `decode_axes`) takes the
     rows over the "batch" axes and, over the axes the reference's decode
@@ -55,13 +57,28 @@ partitioner, so the port does it explicitly (`train/step.py`):
     "act_experts" and "cache_seq" once "batch" has taken its own (the
     tensor-parallel axes: "model" under the default profile), the
     heads, the MLP width, the vocabulary, the experts and the caches'
-    positions, each where its size divides (`TokenSplit.over`). The
-    weights then keep those dims sharded (`ShardPlan._keep`) and the
-    layers run Megatron-style: column- then row-parallel products whose
-    partial sums cross in f32, a vocab-parallel embedding and LM head,
-    attention over the rank's block of the cache (`models/layers.py`),
-    and the MoE layer's own experts on the global batch's one token
-    group (`models/moe.py`);
+    positions, each where its size divides (`TokenSplit.over`; a
+    recurrent block's state names are resolved on that block's own
+    sizes, `decode_dims`). The weights then keep those dims sharded
+    (`ShardPlan._keep`; a recurrent block's "rnn" dims where all of them
+    split) and the layers run Megatron-style: column- then row-parallel
+    products whose partial sums cross in f32, a vocab-parallel embedding
+    and LM head, attention over the rank's block of the cache
+    (`models/layers.py`), the MoE layer's own experts on the global
+    batch's one token group (`models/moe.py`), and each recurrent
+    block's own channels or heads (`models/recurrent.py`);
+  * A training or prefill step whose T the "seq" rule cannot split (the
+    tensor-parallel arm) resolves its split like a decode step's, with
+    T positions: every rank of the tensor-parallel axes holds the same
+    tokens and computes its share of the heads, MLP width, vocabulary,
+    experts and recurrent channels. Its ends are Megatron's pair:
+    `tp_enter` (identity forward, all-reduce backward) where a
+    replicated activation, or a replicated weight, enters a rank's
+    share of the work (`ShardPlan.gather` passes such weights through
+    it), `tp_exit` (all-reduce forward, identity backward) where the
+    ranks' partial sums become one replicated activation, and
+    `tp_gather` (all-gather forward, this rank's block backward) for the
+    vocab-parallel logits and the router's;
   * `ShardPlan` holds a model's specs and the split of the current
     batch, and `shard_model` turns a whole `models.Transformer` into
     this rank's shards with the plan attached (`Transformer.forward`
@@ -470,6 +487,73 @@ def psum(x: torch.Tensor, comm) -> torch.Tensor:
     return _Psum.apply(x, comm)
 
 
+class _TpEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.comm.tagged("tp"):
+            return ctx.comm.psum(g.contiguous()), None
+
+
+class _TpExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.psum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return _gather_dim(x, comm, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.chunk(g, ctx.comm.size, dim=ctx.dim)[
+            ctx.comm.rank].contiguous(), None, None
+
+
+def tp_enter(x: torch.Tensor, comm) -> torch.Tensor:
+    """Megatron's f: `x` (replicated over `comm`'s ranks, which hold the
+    same tokens) as it enters each rank's share of the work. Identity
+    forward; the backward sums the ranks' partial gradients of it (an
+    all-reduce)."""
+    if comm is None or comm.size == 1 or not torch.is_grad_enabled():
+        return x
+    return _TpEnter.apply(x, comm)
+
+
+def tp_exit(x: torch.Tensor, comm) -> torch.Tensor:
+    """Megatron's g: the sum over `comm`'s ranks of their partials (an
+    all-reduce), a replicated activation whose gradient every rank
+    already holds whole: the backward passes it through."""
+    if comm is None or comm.size == 1:
+        return x
+    if not torch.is_grad_enabled():
+        return comm.psum(x.contiguous())
+    return _TpExit.apply(x, comm)
+
+
+def tp_gather(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """The ranks' blocks of `x` concatenated along `dim` (an all-gather)
+    into a replicated tensor whose gradient every rank holds whole: the
+    backward keeps this rank's block of it."""
+    if comm is None or comm.size == 1:
+        return x
+    dim %= x.ndim
+    if not torch.is_grad_enabled():
+        return _gather_dim(x, comm, dim)
+    return _TpGather.apply(x, comm, dim)
+
+
 # ---------------------------------------------------------------------------
 # A model's parameters over a layout
 # ---------------------------------------------------------------------------
@@ -497,42 +581,63 @@ def token_axes_for(rows: int, seq_len: Optional[int], layout,
     return entry_axes(spec[0]), seq
 
 
-#: a decode step's tensor-parallel names (the reference's act rules) ->
-#: the logical axis of the weights' dims they split
+#: a tensor-parallel name (the reference's act rules) -> the logical axis
+#: of the weights' dims it splits; a recurrent block's state names carry
+#: its kind ("mlstm.act_heads") and name no weight dim (its "rnn" dims
+#: follow their own rule, `ShardPlan._keep`)
 TP_NAMES = {"act_heads": "heads", "act_kv_heads": "kv_heads",
             "act_mlp": "mlp", "act_vocab": "vocab",
             "act_experts": "experts", "cache_seq": None}
 
 
 def decode_dims(cfg) -> Dict[str, int]:
-    """The sizes a decode step's tensor-parallel names resolve against:
-    heads, kv heads, the MLP width, the padded vocabulary and the experts
-    (of the configs that have them)."""
-    dims = {"act_heads": cfg.num_heads, "act_kv_heads": cfg.num_kv_heads,
-            "act_mlp": cfg.d_ff, "act_vocab": cfg.padded_vocab}
-    if cfg.num_experts:
+    """The sizes the tensor-parallel names resolve against, each on its
+    own array (as the reference's `spec_for` resolves each array): the
+    attention layers' heads and kv heads, the MLP's width (`d_ff`, where
+    a block has an MLP), the experts and the padded vocabulary; the
+    mLSTM states' heads and conv width (`mlstm_proj_factor` x d), the
+    sLSTM states' heads and the RG-LRU width (`rnn_width_`), of the
+    block kinds the config has."""
+    kinds = set(cfg.layer_types)
+    dims = {"act_vocab": cfg.padded_vocab}
+    if kinds & {"attn", "local", "moe"}:
+        dims.update(act_heads=cfg.num_heads, act_kv_heads=cfg.num_kv_heads)
+    if kinds & {"attn", "local"} or ("rglru" in kinds and cfg.d_ff):
+        dims["act_mlp"] = cfg.d_ff
+    if "moe" in kinds:
         dims["act_experts"] = cfg.num_experts
+    if "mlstm" in kinds:
+        dims["mlstm.act_heads"] = cfg.num_heads
+        dims["mlstm.act_mlp"] = int(cfg.mlstm_proj_factor * cfg.d_model)
+    if "slstm" in kinds:
+        dims["slstm.act_heads"] = cfg.num_heads
+    if "rglru" in kinds:
+        dims["rglru.act_mlp"] = cfg.rnn_width_
     return {k: v for k, v in dims.items() if v}
 
 
 def decode_axes(rows: int, dims: Dict[str, int], cache_len: Optional[int],
-                layout, rules: RuleTable):
+                layout, rules: RuleTable, seq_len: int = 1):
     """(batch axes, tensor-parallel axes, the names that split over them)
-    of a decode step of `rows` rows, as the reference resolves its decode
-    activations: q/k/v `("batch", "seq", "act_heads" | "act_kv_heads",
-    None)` with T = 1 (so "seq" falls back), the MLP's hidden `("batch",
-    "seq", "act_mlp")`, the logits `("batch", "seq", "act_vocab")` and
-    the caches `("batch", "cache_seq", None, None)` of `cache_len`
-    positions (None: the caches are whole). Each name is resolved on its
-    own array against its real size (`dims`, `decode_dims`), so each
-    falls back by divisibility alone; the tensor-parallel axes are the
-    axes they take (axes of size 1 dropped), which must be one set."""
+    of a step of `rows` rows of `seq_len` positions, as the reference
+    resolves its activations: q/k/v `("batch", "seq", "act_heads" |
+    "act_kv_heads", None)`, the MLP's hidden `("batch", "seq",
+    "act_mlp")`, the logits `("batch", "seq", "act_vocab")` (a decode
+    step's T = 1, or a T the "seq" rule cannot split: "seq" falls back
+    and these take its axes), a recurrent block's states by their own
+    names, and the caches `("batch", "cache_seq", None, None)` of
+    `cache_len` positions (None: the caches are whole, or there are
+    none). Each name is resolved on its own array against its real size
+    (`dims`, `decode_dims`), so each falls back by divisibility alone;
+    the tensor-parallel axes are the axes they take (axes of size 1
+    dropped), which must be one set."""
     batch = batch_axes_for((rows,), layout, rules)
     got = {}
-    for name, size in dims.items():
-        spec = spec_for(("batch", "seq", name), (rows, 1, size), layout,
-                        rules)
-        got[name] = entry_axes(spec[2])
+    for key, size in dims.items():
+        name = key.rpartition(".")[2]
+        spec = spec_for(("batch", "seq", name), (rows, seq_len, size),
+                        layout, rules)
+        got[key] = entry_axes(spec[2])
     if cache_len:
         spec = spec_for(("batch", "cache_seq"), (rows, cache_len), layout,
                         rules)
@@ -557,7 +662,9 @@ class TokenSplit(NamedTuple):
     gradients are summed over it. A decode step's split (`decode`) has
     no sequence; `tp_comm` runs over its tensor-parallel axes
     (`tp_axes`), and `tp` names what splits over them (`decode_axes`,
-    `over`)."""
+    `over`). A training or prefill split with `tp` (and no sequence
+    split) is the tensor-parallel arm: its ranks along `tp_axes` hold
+    the same tokens."""
     batch_comm: Any
     seq_comm: Any
     token_comm: Any
@@ -587,9 +694,9 @@ class TokenSplit(NamedTuple):
         return x.narrow(dim, self.q0, self.length)
 
     def over(self, name: str):
-        """The Comm over the ranks that split a decode step's `name`
-        (TP_NAMES) between them, or None where it is whole on every
-        rank."""
+        """The Comm over the ranks that split `name` (TP_NAMES) between
+        them on a decode step or the tensor-parallel arm, or None where it
+        is whole on every rank."""
         return self.tp_comm if name in self.tp else None
 
 
@@ -608,7 +715,11 @@ class ShardPlan:
     step resolves (`dims`, `decode_dims`), and the `TokenSplit` of the
     current batch (`set_batch`). The MoE layers' expert weights (leading
     "experts" dim) stay sharded where the sequence splits over the same
-    axes (expert parallelism, `models/moe.py`)."""
+    axes (expert parallelism, `models/moe.py`). `rnn` holds the axes of
+    each recurrent block's weights whose "rnn" dims all split over one
+    set of axes ({name: axes}): those blocks run on their own channels
+    under any split over those axes (`models/recurrent.py`); a block
+    with a dim that does not divide runs whole."""
 
     def __init__(self, layout, specs: Dict[str, tuple], rules: RuleTable,
                  logical: Dict[str, tuple], dims: Dict[str, int]):
@@ -616,9 +727,26 @@ class ShardPlan:
         self.logical, self.dims = dict(logical), dict(dims)
         self.experts = frozenset(k for k, v in self.logical.items()
                                  if v and v[0] == "experts")
+        self.rnn = self._rnn_blocks()
         one = layout.comm(())
         self.split = TokenSplit(one, one, one, ())
         self.world_comm = layout.comm(layout.axis_names)
+
+    def _rnn_blocks(self) -> Dict[str, Tuple[str, ...]]:
+        """{parameter name: axes} of the recurrent blocks (a layer's
+        "mlstm" / "slstm" / "rglru" module) whose every "rnn" dim splits
+        over the same axes of more than one rank."""
+        blocks: Dict[str, set] = {}
+        for name, axes in self.logical.items():
+            for logical, e in zip(axes, self.specs[name]):
+                if logical == "rnn":
+                    blocks.setdefault(_module(name), set()).add(
+                        entry_axes(e))
+        split = {m: next(iter(a)) for m, a in blocks.items()
+                 if len(a) == 1 and self.layout.axis_size(next(iter(a))) > 1}
+        return {name: split[_module(name)]
+                for name, axes in self.logical.items()
+                if "rnn" in axes and _module(name) in split}
 
     def set_batch(self, rows: int,
                   seq_len: Optional[int] = None) -> TokenSplit:
@@ -631,7 +759,9 @@ class ShardPlan:
     def _resolve(self, rows, seq_len, cache_len) -> TokenSplit:
         """The split of `set_batch`; a decode split (`seq_len` None)
         resolves its tensor-parallel names by `decode_axes`, with caches
-        of `cache_len` positions (None: whole caches)."""
+        of `cache_len` positions (None: whole caches), and so does a
+        sequence the "seq" rule cannot split (the tensor-parallel arm,
+        with its T positions)."""
         lay = self.layout
         tp_axes, tp = (), frozenset()
         if seq_len is None:
@@ -640,6 +770,9 @@ class ShardPlan:
             seq = ()
         else:
             batch, seq = token_axes_for(rows, seq_len, lay, self.rules)
+            if not seq:
+                _, tp_axes, tp = decode_axes(rows, self.dims, None, lay,
+                                             self.rules, seq_len)
         tokens = tuple(a for a in lay.axis_names if a in batch + seq)
         length = None if seq_len is None else seq_len // lay.axis_size(seq)
         q0 = lay.axis_index(seq) * length if seq else 0
@@ -692,22 +825,25 @@ class ShardPlan:
         gathered: under a sequence split an expert weight's "experts" dim
         where it is split over exactly the sequence's axes (each rank
         computes its own experts for the whole sequence); under a decode
-        split the dim whose logical axis (heads, kv_heads, mlp, vocab,
-        experts) the split's tensor-parallel axes split (each rank
-        computes its own block of it); else none. FSDP's "embed" dim and
-        the recurrent blocks' "rnn" dims are gathered."""
+        split or the tensor-parallel arm the dim whose logical axis
+        (heads, kv_heads, mlp, vocab, experts) the split's tensor-parallel
+        axes split (each rank computes its own block of it); under either
+        a recurrent block's "rnn" dims where all of them split over those
+        axes (`rnn`); else none. FSDP's "embed" dim is gathered."""
         s, spec = self.split, self.specs[name]
-        if s.seq:
-            if name not in self.experts:
-                return ()
-            axes = entry_axes(spec[0])
-            return axes if axes == s.seq_axes else ()
-        if not s.tp:
+        axes = s.seq_axes if s.seq else s.tp_axes
+        if not axes:
             return ()
+        if self.rnn.get(name) == axes:
+            return axes
+        if s.seq:
+            if name in self.experts and entry_axes(spec[0]) == axes:
+                return axes
+            return ()
+        kept = {TP_NAMES.get(n) for n in s.tp} - {None}
         for logical, e in zip(self.logical[name], spec):
-            if entry_axes(e) == s.tp_axes and any(
-                    TP_NAMES[n] == logical for n in s.tp):
-                return s.tp_axes
+            if entry_axes(e) == axes and logical in kept:
+                return axes
         return ()
 
     def gather(self, module, prefix: str = "", recurse: bool = True,
@@ -716,18 +852,36 @@ class ShardPlan:
         names `prefix` + relative; the dims `_keep` names stay this
         rank's block), through one `gather_params` whose collectives are
         tallied under the tag "weights"; `skip` leaves out the names
-        under that prefix."""
+        under that prefix. On the tensor-parallel arm a whole tensor of a
+        module (a layer's attention, MLP, MoE or recurrent block) that
+        keeps another's dim sharded is used inside the ranks' shares of
+        the work, so it is passed through `tp_enter`."""
         named = [(name, p) for name, p in
                  module.named_parameters(recurse=recurse)
                  if skip is None or not name.startswith(skip)]
+        keeps = [self._keep(prefix + n) for n, _ in named]
         with contextlib.ExitStack() as tags:
             for comm in self.layout.comms():
                 tags.enter_context(comm.tagged("weights"))
             full = gather_params([p for _, p in named],
                                  [self.specs[prefix + n] for n, _ in named],
-                                 self.layout, self.split.token_axes,
-                                 [self._keep(prefix + n) for n, _ in named])
+                                 self.layout, self.split.token_axes, keeps)
+        s = self.split
+        if s.tp and not s.decode:
+            split_mods = {_module(prefix + n)
+                          for (n, _), k in zip(named, keeps) if k}
+            full = [tp_enter(t, s.tp_comm)
+                    if not k and _module(prefix + n) in split_mods else t
+                    for (n, _), t, k in zip(named, full, keeps)]
         return {n: t for (n, _), t in zip(named, full)}
+
+
+def _module(name: str) -> str:
+    """The module of a full parameter name whose tensors split together:
+    a layer's attention, MLP, MoE, recurrent block or norm
+    ("layers.3.mlstm"), else the name's first part."""
+    parts = name.split(".")
+    return ".".join(parts[:3]) if parts[0] == "layers" else parts[0]
 
 
 @contextlib.contextmanager

@@ -33,19 +33,22 @@ scan trip-count correction (`corrected_costs`) has no counterpart. The
 flops are rank 0's own. Train and prefill cells whose sequence divides
 the model axis split it there (`sharding.TokenSplit`): rank 0 runs the
 first block of positions, k/v gathered per attention layer, its own
-experts of each MoE layer; its einsum attention scores its block against
-every key. Decode cells split the work over "model" as the reference's
-decode rules do (`sharding.decode_axes`): each rank its share of the
-heads, kv heads, MLP width, vocabulary and experts where they divide the
-axis, and its block of the caches along "cache_seq" (rank 0 scores every
-head against the first max_len / 16 positions); the MoE layers gather
-their rows' tokens into the global batch's one group. What still repeats
-along "model" (`flops_note`): the recurrent blocks' scans (each rank
-scans the whole gathered sequence, as the reference's SPMD does on a
-sharded scan) and their decode steps, the MoE layers' routing
-bookkeeping, experts that do not divide the axis, and in a decode cell
-the projections of heads that do not divide it (qwen3-14b's 40 heads
-and 8 kv heads over 16). `useful_compute_ratio` shows what repeats.
+experts of each MoE layer, and each recurrent block on its own channels
+of the gathered sequence; its einsum attention scores its block against
+every key. Decode cells, and train or prefill cells whose sequence the
+axis does not divide (the tensor-parallel arm), split the work over
+"model" as the reference's act rules do (`sharding.decode_axes`): each
+rank its share of the heads, kv heads, MLP width, vocabulary, experts and
+recurrent channels (RG-LRU width, mLSTM inner width and heads, sLSTM
+heads) where they divide the axis, and in a decode cell its block of the
+caches along "cache_seq" (rank 0 scores every head against the first
+max_len / 16 positions); the MoE layers gather their rows' tokens into
+the global batch's one group. What still repeats along "model"
+(`flops_note`): the MoE layers' routing bookkeeping, experts that do not
+divide the axis, the recurrences of heads that do not (xlstm-350m's 4
+over 16: ~2 M MACs a layer a token), and in a decode cell the
+projections of attention heads that do not (qwen3-14b's 40 heads and 8
+kv heads over 16). `useful_compute_ratio` shows what repeats.
 
 `torch.testing._internal` is a private module of PyTorch; this is the
 only module of the port that imports it, and only when a cell runs.
@@ -80,12 +83,14 @@ SCAN_NOTE = ("none: the port unrolls its layers, so each layer's cost is "
              "counterpart)")
 FLOPS_NOTE = ("rank 0's own FLOPs; train and prefill cells whose sequence "
               "divides the model axis split it there (rank 0 the first "
-              "block, k/v gathered per attention layer, its own experts), "
-              "decode cells split heads, kv heads, MLP width, vocab, "
-              "experts and the cache's positions over model where each "
-              "divides; the recurrent blocks run whole (scans on the "
-              "gathered sequence, decode on whole states), and MoE "
-              "experts and heads that do not divide the axis repeat")
+              "block, k/v gathered per attention layer, its own experts, "
+              "the recurrent blocks on their own channels of the gathered "
+              "sequence); decode cells, and train and prefill cells whose "
+              "sequence does not divide, split heads, kv heads, MLP width, "
+              "vocab, experts, recurrent channels and (decode) the "
+              "cache's positions over model where each divides; MoE "
+              "experts, attention heads and recurrent heads that do not "
+              "divide the axis repeat")
 
 
 def _cell_model_flops(cfg, shape_name: str) -> float:

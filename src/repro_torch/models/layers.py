@@ -226,25 +226,61 @@ def attention_fwd(p: Attention, cfg, x, positions, *, window: int = 0,
     rotates q and k at their global positions): k and v are gathered
     along the split's ranks (one all-gather), the block's queries attend
     to the whole sequence under the mask offset by q0, and the whole
-    (k, v) is returned for the prefill cache."""
+    (k, v) is returned for the prefill cache.
+
+    On the tensor-parallel arm that splits the heads ("act_heads",
+    `TokenSplit.over`) the weights hold this rank's heads (wq, wo; wk and
+    wv where the kv heads split too, else every kv head): q, k and v are
+    column-parallel, the rank's query heads attend (at `q_offset` 0)
+    against their kv heads (k/v expanded to one kv head a query head
+    where the rank's heads do not form whole groups, `_kv_group`), and
+    `wo` runs row-parallel: the partial y crosses in f32 and is rounded
+    once after the sum (Megatron's pair at both ends,
+    `sharding.tp_enter` / `tp_exit`). The (k, v) returned are the
+    weights' kv heads (the prefill gathers them over the kv heads'
+    ranks)."""
     impl = impl or cfg.attn_impl
+    heads = None
+    if split is not None and not split.seq:
+        heads = split.over("act_heads")
+        x = S.tp_enter(x, heads)
     q, k, v = _qkv(p, cfg, x, positions)
     q0 = 0
     if split is not None and split.seq:
         k, v = S.gather_seq(torch.stack([k, v]), split.seq_comm, 2,
                             tag="kv").unbind(0)
         q0 = split.q0
+    kc, vc = k, v
+    if heads is not None and split.over("act_kv_heads") is None:
+        kc, vc = _heads_kv(cfg, k, v, heads.rank * q.shape[2], q.shape[2])
     if impl == "flash_kernel":
-        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True,
+        o = kops.flash_attention(q.transpose(1, 2), kc.transpose(1, 2),
+                                 vc.transpose(1, 2), causal=True,
                                  window=window or None, q_offset=q0)
         o = o.transpose(1, 2)
     elif impl == "xla_chunked":
-        o = attention_scores_chunked(q, k, v, window, x.dtype, q_offset=q0)
+        o = attention_scores_chunked(q, kc, vc, window, x.dtype,
+                                     q_offset=q0)
     else:
-        o = attention_scores_xla(q, k, v, window, x.dtype, q_offset=q0)
-    y = torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype))
-    return y, (k, v)
+        o = attention_scores_xla(q, kc, vc, window, x.dtype, q_offset=q0)
+    if heads is None:
+        return torch.einsum("bthk,hkd->btd", o, p.wo.to(x.dtype)), (k, v)
+    y = torch.einsum("bthk,hkd->btd", o.float(), p.wo.float())
+    with heads.tagged("attn"):
+        return S.tp_exit(y, heads).to(x.dtype), (k, v)
+
+
+def _heads_kv(cfg, k, v, h0: int, n_heads: int):
+    """The kv heads [B, S, ., hd] of k/v [B, S, Hkv, hd] (every kv head)
+    that query heads h0 .. h0 + n_heads read: their whole groups'
+    (`_kv_group`), else one kv head a query head."""
+    Hkv = k.shape[2]
+    grp = _kv_group(cfg, h0, n_heads, Hkv)
+    if grp is None:
+        idx = torch.div(torch.arange(h0, h0 + n_heads, device=k.device),
+                        cfg.num_heads // Hkv, rounding_mode="floor")
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, grp[0]:grp[0] + grp[1]], v[:, :, grp[0]:grp[0] + grp[1]]
 
 
 def attention_decode(p: Attention, cfg, x, cache: Dict, *, window: int = 0,
@@ -354,17 +390,9 @@ def _decode_split(p: Attention, cfg, x, cache: Dict, window: int, heads,
     scale = hd ** -0.5
     if seqc is None:
         Hl = q.shape[2]
-        h0 = heads.rank * Hl
-        grp = _kv_group(cfg, h0, Hl, Hkv)
-        if grp is None:        # one kv head per query head
-            idx = torch.div(torch.arange(h0, h0 + Hl, device=x.device),
-                            Hq // Hkv, rounding_mode="floor")
-            kc, vc, grp = (ck[:, :n].index_select(2, idx),
-                           cv[:, :n].index_select(2, idx), (0, Hl, 1))
-        else:
-            kc, vc = (ck[:, :n, grp[0]:grp[0] + grp[1]],
-                      cv[:, :n, grp[0]:grp[0] + grp[1]])
-        qg = q.reshape(B, 1, grp[1], grp[2], hd).to(ck.dtype).float()
+        kc, vc = _heads_kv(cfg, ck[:, :n], cv[:, :n], heads.rank * Hl, Hl)
+        qg = q.reshape(B, 1, kc.shape[2], Hl // kc.shape[2], hd).to(
+            ck.dtype).float()
         s = torch.einsum("bthgk,bshk->bhgts", qg, kc.float()) * scale
         if window:
             s = torch.where(kpos > pos - window, s, NEG_INF)
@@ -446,11 +474,13 @@ class MLP(nn.Module):
 
 def mlp_fwd(p: MLP, cfg, x, split=None):
     """jax.nn.gelu is the tanh approximation, so is this one. Under a
-    decode split whose tensor-parallel ranks split the hidden width
-    ("act_mlp", `TokenSplit.over`) the weights hold this rank's columns
-    of `w_gate` / `w_up` and rows of `w_down`: the partial products of
-    `w_down` cross in f32 and are rounded to the activation dtype once,
-    after the sum."""
+    decode split or the tensor-parallel arm whose ranks split the hidden
+    width ("act_mlp", `TokenSplit.over`) the weights hold this rank's
+    columns of `w_gate` / `w_up` and rows of `w_down`: the partial
+    products of `w_down` cross in f32 and are rounded to the activation
+    dtype once, after the sum (Megatron's pair at both ends)."""
+    comm = None if split is None else split.over("act_mlp")
+    x = S.tp_enter(x, comm)
     up = torch.einsum("btd,df->btf", x, p.w_up.to(x.dtype))
     if cfg.activation == "swiglu":
         g = torch.einsum("btd,df->btf", x, p.w_gate.to(x.dtype))
@@ -460,12 +490,11 @@ def mlp_fwd(p: MLP, cfg, x, split=None):
         h = F.gelu(g, approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    comm = None if split is None else split.over("act_mlp")
     if comm is None:
         return torch.einsum("btf,fd->btd", h, p.w_down.to(x.dtype))
     y = torch.einsum("btf,fd->btd", h.float(), p.w_down.float())
     with comm.tagged("mlp"):
-        return S.psum(y, comm).to(x.dtype)
+        return S.tp_exit(y, comm).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +507,10 @@ def embed_tokens(model, cfg, tokens, dtype):
 
 
 def embed_tokens_split(model, cfg, tokens, dtype, comm):
-    """`embed_tokens` from this rank's block of the table's rows (a
-    decode split's vocab block, over `comm`'s ranks): zeros for ids
-    outside it, summed over the ranks (exact: one term is not zero)."""
+    """`embed_tokens` from this rank's block of the table's rows (the
+    vocab block of a decode split or the tensor-parallel arm, over
+    `comm`'s ranks): zeros for ids outside it, summed over the ranks
+    (exact: one term is not zero; `sharding.tp_exit`)."""
     table = model.embedding
     n = table.shape[0]
     ids = tokens.long() - comm.rank * n
@@ -488,19 +518,20 @@ def embed_tokens_split(model, cfg, tokens, dtype, comm):
     rows = F.embedding(ids.clamp(0, n - 1), table)
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
     with comm.tagged("embed"):
-        return S.psum(rows, comm).to(dtype)
+        return S.tp_exit(rows, comm).to(dtype)
 
 
 def logits_fwd(model, cfg, h, split=None):
     """f32 logits of the product taken in the activation dtype; padded
     vocabulary columns are set to -1e30 so no argmax picks them. Under a
-    decode split that splits the vocabulary ("act_vocab") the table is
-    this rank's block of columns: the padded columns are masked by their
-    global index, then the blocks are gathered, so every rank has whole
-    rows."""
+    decode split or the tensor-parallel arm that splits the vocabulary
+    ("act_vocab") the table is this rank's block of columns: the padded
+    columns are masked by their global index, then the blocks are
+    gathered (`sharding.tp_gather`), so every rank has whole rows."""
     w = model.embedding.T if cfg.tied_embeddings else model.lm_head
-    logits = torch.einsum("btd,dv->btv", h, w.to(h.dtype)).float()
     comm = None if split is None else split.over("act_vocab")
+    h = S.tp_enter(h, comm)
+    logits = torch.einsum("btd,dv->btv", h, w.to(h.dtype)).float()
     if comm is None:
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = NEG_INF
@@ -509,4 +540,5 @@ def logits_fwd(model, cfg, h, split=None):
     pad = max(0, min(n, comm.rank * n + n - cfg.vocab_size))
     if pad:
         logits[..., n - pad:] = NEG_INF
-    return S.gather_seq(logits, comm, logits.ndim - 1, tag="logits")
+    with comm.tagged("logits"):
+        return S.tp_gather(logits, comm, logits.ndim - 1)

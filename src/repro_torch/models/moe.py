@@ -46,6 +46,15 @@ rank holds the global batch's group and its capacity. It runs its own
 experts where they split (E / M of them; every expert where they do not),
 sums the partials over the tensor-parallel ranks in f32 and keeps its
 rows.
+
+On the tensor-parallel arm (a training or prefill step whose T the "seq"
+rule cannot split; `split.tp`) every rank of the tensor-parallel axes
+holds the same rows whole, so the token groups are its own: it routes
+them from its block of the router's columns (the logits gathered), runs
+its own experts on every group where they split, and the partial
+outputs are summed over the ranks in f32 (Megatron's pair:
+`sharding.tp_enter` on the tokens and the gate values each rank's
+experts read, `sharding.tp_exit` on the sum).
 """
 from __future__ import annotations
 
@@ -84,7 +93,9 @@ def _route(p: MoE, cfg, x, comm=None):
     `lax.top_k`. `comm`: the ranks whose blocks of the router's columns
     (experts) are gathered into the whole logits."""
     logits = torch.einsum("btd,de->bte", x.float(), p.router.float())
-    logits = S.gather_seq(logits, comm, 2, tag="moe")
+    if comm is not None:
+        with comm.tagged("moe"):
+            logits = S.tp_gather(logits, comm, 2)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, topk_idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -159,6 +170,8 @@ def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True,
     gathers the global batch's group instead (module docstring)."""
     if split is not None and split.decode:
         return _moe_decode(p, cfg, x, group_size, aux, split)
+    if split is not None and split.over("act_experts") is not None:
+        return _moe_tp(p, cfg, x, group_size, aux, split)
     B, Tl, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     seq = None if split is None else split.seq_comm   # one rank: no-ops
@@ -191,6 +204,31 @@ def moe_fwd(p: MoE, cfg, x, *, group_size: int = 2048, aux: bool = True,
                           tag="moe").to(x.dtype)
     comm = None if split is None else split.token_comm
     return y, {"moe_aux": _aux_loss(cfg, probs, topk_idx, comm)
+               if aux else None}
+
+
+def _moe_tp(p: MoE, cfg, x, group_size: int, aux: bool, split):
+    """`moe_fwd` on the tensor-parallel arm (module docstring): x [B,T,D],
+    this rank's rows, every position."""
+    B, T, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    ec = split.over("act_experts")
+    N = B * T
+    g = _group(N, group_size)
+    _check_groups(N, B, T, group_size, split.batch_comm)
+    x = S.tp_enter(x, ec)
+    probs, gate_vals, topk_idx = _route(p, cfg, x, ec)
+    cap = max(int(math.ceil(K * g * cfg.capacity_factor / E)), 1)
+    dispatch = _dispatch_einsum if cfg.moe_impl == "einsum" \
+        else _dispatch_sort
+    n_local = p.w_up.shape[0]
+    part = dispatch(p, cfg, x.reshape(N // g, g, D),
+                    S.tp_enter(gate_vals, ec).reshape(N // g, g, K),
+                    topk_idx.reshape(N // g, g, K), cap, x.dtype,
+                    local=(ec.rank * n_local, n_local))
+    with ec.tagged("moe"):
+        y = S.tp_exit(part.reshape(B, T, D), ec).to(x.dtype)
+    return y, {"moe_aux": _aux_loss(cfg, probs, topk_idx, split.token_comm)
                if aux else None}
 
 

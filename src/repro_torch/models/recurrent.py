@@ -22,17 +22,40 @@ True)`. The projections run in the activation dtype, as the reference's
 einsums; gates, the stabilisers and the recurrent states `h`/`C`/`n`/`m`
 are f32. Every block has a one-step `*_decode` update carrying O(1) state.
 
-None of the scans (nor the causal conv1d before two of them) can split
-its sequence: under a sequence split over ranks, `whole_sequence` runs a
-block on the whole sequence gathered along the split's ranks and keeps
-this rank's rows, so the final state is whole (the prefill needs it) and
-every rank repeats the block's work, as the reference's SPMD does on a
-sharded scan.
+On a sharded model a block whose "rnn" dims all split over the ranks of
+a split (`sharding.ShardPlan.rnn`; "model" under the default profile)
+runs Megatron-style on its own channels (`Channels`), partial sums
+crossing in f32 and rounded once after the sum:
+
+  RG-LRU  w_x / w_gate column-parallel (u and the gate are this rank's
+          channels), the depthwise conv on them, u @ w_a and u @ w_i
+          from row blocks reduce-scattered onto the rank's channels, h
+          its channels, w_out row-parallel.
+  mLSTM   w_up / w_gate_up / the conv column-parallel over the inner
+          width; wq / wk / wv / wi / wf row blocks whose partial sums are
+          reduce-scattered onto the rank's heads where the heads divide,
+          else summed (every rank runs every head); the output norm's
+          mean square summed over the ranks; w_down row-parallel.
+  sLSTM   w_in's column block is the rank's heads' [H, 4·dh] gates where
+          the heads divide (its slice of r), else the input projection is
+          gathered and every rank runs every head; the output norm as
+          the mLSTM's; w_down row-parallel.
+
+A decode step and the tensor-parallel arm (ranks holding the same
+tokens) enter the block through `sharding.tp_enter` and leave it through
+`sharding.tp_exit`; under a sequence split `whole_sequence` gathers the
+sequence along the split's ranks (none of the scans, nor the conv before
+two of them, can split it) and reduce-scatters the row-parallel output
+onto each rank's positions. The states are then the rank's channels or
+heads (the reference's `decode_state_specs`: "act_mlp" / "act_heads").
+A block with a dim that does not divide runs whole: on a decode step on
+its whole state, under a sequence split on the gathered sequence, each
+rank keeping its own positions of the output (that work repeats).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +108,110 @@ def conv1d_fwd(p: Conv1d, x, state=None):
 
 
 # ---------------------------------------------------------------------------
+# A block's channels over ranks
+# ---------------------------------------------------------------------------
+
+class Channels(NamedTuple):
+    """How a block's channels split: `comm` over the ranks that hold its
+    other channels, which hold the same tokens (`same`: a decode step or
+    the tensor-parallel arm) or the gathered blocks of one sequence (a
+    sequence split)."""
+    comm: Any
+    same: bool
+
+    def block(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of a whole tensor along `dim`."""
+        n = t.shape[dim] // self.comm.size
+        return t.narrow(dim, self.comm.rank * n, n)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's input as its column-parallel products read it
+        (`sharding.tp_enter` where the ranks hold the same tokens)."""
+        return S.tp_enter(x, self.comm) if self.same else x
+
+    def leave(self, y: torch.Tensor, dtype) -> torch.Tensor:
+        """The ranks' row-parallel partials `y` [B, T, D] (f32) summed,
+        in `dtype`: replicated (`sharding.tp_exit`), or under a sequence
+        split reduce-scattered onto each rank's positions."""
+        if self.same:
+            with self.comm.tagged("rnn"):
+                y = S.tp_exit(y, self.comm)
+        else:
+            y = S.scatter_seq(y, self.comm, 1, tag="scan")
+        return y.to(dtype)
+
+    def scatter(self, parts):
+        """This rank's block of the sum over the ranks of each partial sum
+        in `parts` ([..., n], n a multiple of the ranks), in one
+        reduce-scatter."""
+        M = self.comm.size
+        lead = parts[0].shape[:-1]
+        widths = [t.shape[-1] // M for t in parts]
+        packed = torch.cat([t.reshape(lead + (M, w))
+                            for t, w in zip(parts, widths)], dim=-1)
+        mine = S.scatter_seq(packed, self.comm, packed.ndim - 2, tag="rnn")
+        return torch.split(mine.squeeze(-2), widths, dim=-1)
+
+    def psum(self, parts):
+        """The sum over the ranks of each partial in `parts` (which each
+        rank then uses for its own channels), in one all-reduce."""
+        with self.comm.tagged("rnn"):
+            tot = S.psum(torch.cat(parts, dim=-1), self.comm)
+        return torch.split(tot, [t.shape[-1] for t in parts], dim=-1)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of `t` along its last dim (an all-gather)."""
+        return S.gather_seq(t, self.comm, t.ndim - 1, tag="rnn")
+
+
+def _widths(p, cfg):
+    """(whole width, this rank's) of a block's split channels."""
+    if isinstance(p, RGLRU):
+        return cfg.rnn_width_, p.w_x.shape[1]
+    if isinstance(p, MLSTM):
+        return int(cfg.mlstm_proj_factor * cfg.d_model), p.w_up.shape[1]
+    return 4 * cfg.d_model, p.w_in.shape[1]
+
+
+def channels(p, cfg, split) -> Optional[Channels]:
+    """The `Channels` of block `p` under `split` (a
+    `sharding.TokenSplit`), or None where its weights are whole (one
+    rank, a split that keeps them whole, or a dim that does not
+    divide)."""
+    whole, mine = _widths(p, cfg)
+    if split is None or mine == whole:
+        return None
+    comm = split.seq_comm if split.seq else split.tp_comm
+    if comm.size * mine != whole:
+        raise ValueError(f"{type(p).__name__}: {mine} of {whole} channels "
+                         f"a rank over {comm.size} ranks")
+    return Channels(comm, not split.seq)
+
+
+def _rms(h, scale, width: int, ch: Optional[Channels] = None,
+         eps: float = 1e-6):
+    """The RMS norm of h [..., n] over `width` channels, in f32, in h's
+    dtype: where h holds this rank's block (n < width) the sum of squares
+    is summed over the ranks."""
+    hf = h.float()
+    if h.shape[-1] < width:
+        ss, = ch.psum([hf.square().sum(dim=-1, keepdim=True)])
+        var = ss / width
+    else:
+        var = hf.square().mean(dim=-1, keepdim=True)
+    return (hf * torch.rsqrt(var + eps) * scale.float()).to(h.dtype)
+
+
+def _norm_out(scale, h, width: int, ch: Channels):
+    """A split block's output norm on this rank's channels: normed whole
+    then cut where every rank holds every channel (heads that do not
+    divide), else from the rank's block."""
+    if h.shape[-1] == width:
+        return ch.block(_rms(h, scale, width))
+    return _rms(h, ch.block(scale), width, ch)
+
+
+# ---------------------------------------------------------------------------
 # mLSTM (xLSTM matrix-memory block), chunkwise parallel
 # ---------------------------------------------------------------------------
 
@@ -116,36 +243,63 @@ class MLSTM(nn.Module):
                                dtype)
 
 
-def _mlstm_qkvif(p: MLSTM, cfg, x, conv_state=None):
+def _mlstm_qkvif(p: MLSTM, cfg, x, conv_state=None,
+                 ch: Optional[Channels] = None):
+    """q/k/v [B,T,H,dh], the gates' logs [B,T,H], the output gate's
+    input and the new conv state; on split channels (`ch`) the heads
+    are this rank's where they divide, else every head."""
     dt = x.dtype
     u = torch.einsum("btd,di->bti", x, p.w_up.to(dt))
     g = torch.einsum("btd,di->bti", x, p.w_gate_up.to(dt))
     uc, new_conv = conv1d_fwd(p.conv, u, conv_state)
     uc = F.silu(uc)
-    B, T, inner = u.shape
+    B, T, _ = u.shape
     H = cfg.num_heads
-    dh = inner // H
-    q = torch.einsum("bti,ij->btj", uc, p.wq.to(dt)).reshape(B, T, H, dh)
-    k = torch.einsum("bti,ij->btj", uc, p.wk.to(dt)).reshape(B, T, H, dh)
-    v = torch.einsum("bti,ij->btj", u, p.wv.to(dt)).reshape(B, T, H, dh)
-    li = (torch.einsum("bti,ih->bth", uc, p.wi.to(dt))
-          + p.bi.to(dt)).float()
-    lf = F.logsigmoid((torch.einsum("bti,ih->bth", uc, p.wf.to(dt))
-                       + p.bf.to(dt)).float())
+    dh = int(cfg.mlstm_proj_factor * cfg.d_model) // H
+    bi, bf = p.bi, p.bf
+    if ch is None:
+        q, k, v, li, lf = (
+            torch.einsum("bti,ij->btj", a, w.to(dt))
+            for a, w in ((uc, p.wq), (uc, p.wk), (u, p.wv), (uc, p.wi),
+                         (uc, p.wf)))
+    else:   # row blocks: the partial sums cross in f32
+        ucf, uf = uc.float(), u.float()
+        parts = [torch.einsum("bti,ij->btj", a, w.float())
+                 for a, w in ((ucf, p.wq), (ucf, p.wk), (uf, p.wv),
+                              (ucf, p.wi), (ucf, p.wf))]
+        if H % ch.comm.size == 0:
+            parts = ch.scatter(parts)
+            bi, bf, H = ch.block(bi), ch.block(bf), H // ch.comm.size
+        else:
+            parts = ch.psum(parts)
+        q, k, v, li, lf = (t.to(dt) for t in parts)
+    q, k, v = (t.reshape(B, T, H, dh) for t in (q, k, v))
+    li = (li + bi.to(dt)).float()
+    lf = F.logsigmoid((lf + bf.to(dt)).float())
     return q, k, v, li, lf, g, new_conv
 
 
-def _mlstm_out(p: MLSTM, h, g, x):
-    """Output norm, the silu(g) gate and the down projection."""
-    h = L.apply_norm(p.out_norm, h.to(x.dtype), "rmsnorm")
-    h = h * F.silu(g)
-    return torch.einsum("bti,id->btd", h, p.w_down.to(x.dtype))
+def _mlstm_out(p: MLSTM, cfg, h, g, x, ch: Optional[Channels] = None):
+    """Output norm, the silu(g) gate and the down projection (on split
+    channels row-parallel, `Channels.leave`)."""
+    dt = x.dtype
+    if ch is None:
+        h = L.apply_norm(p.out_norm, h.to(dt), "rmsnorm")
+        return torch.einsum("bti,id->btd", h * F.silu(g), p.w_down.to(dt))
+    inner = int(cfg.mlstm_proj_factor * cfg.d_model)
+    h = _norm_out(p.out_norm.scale, h.to(dt), inner, ch) * F.silu(g)
+    return ch.leave(torch.einsum("bti,id->btd", h.float(),
+                                 p.w_down.float()), dt)
 
 
-def mlstm_fwd(p: MLSTM, cfg, x, chunk: int = 256):
+def mlstm_fwd(p: MLSTM, cfg, x, chunk: int = 256,
+              ch: Optional[Channels] = None):
     """x [B,T,D] -> (y [B,T,D], final state). Chunkwise parallel with the
-    log-space stabiliser; the chunk shrinks to a divisor of T."""
-    q, k, v, li, lf, g, new_conv = _mlstm_qkvif(p, cfg, x)
+    log-space stabiliser; the chunk shrinks to a divisor of T. `ch`: the
+    block's split channels (module docstring)."""
+    if ch is not None:
+        x = ch.enter(x)
+    q, k, v, li, lf, g, new_conv = _mlstm_qkvif(p, cfg, x, ch=ch)
     B, T, H, dh = q.shape
     C = min(chunk, T)
     while T % C:
@@ -188,7 +342,7 @@ def mlstm_fwd(p: MLSTM, cfg, x, chunk: int = 256):
         n = n * decay[..., None] + torch.einsum("bsh,bshk->bhk", wC, kb)
         m0 = s[:, -1, :] + ML
     h = torch.cat(hs, dim=1).reshape(B, T, H * dh)
-    y = _mlstm_out(p, h, g, x)
+    y = _mlstm_out(p, cfg, h, g, x, ch)
     return y, {"C": Cm, "n": n, "m": m0, "conv": new_conv}
 
 
@@ -204,9 +358,14 @@ def mlstm_init_state(cfg, batch, dtype=torch.float32, device=None):
                                 dtype=dtype, device=device)}
 
 
-def mlstm_decode(p: MLSTM, cfg, x, state: Dict):
-    """One-step recurrent update; x [B,1,D]."""
-    q, k, v, li, lf, g, new_conv = _mlstm_qkvif(p, cfg, x, state["conv"])
+def mlstm_decode(p: MLSTM, cfg, x, state: Dict,
+                 ch: Optional[Channels] = None):
+    """One-step recurrent update; x [B,1,D]; `ch` as in `mlstm_fwd` (the
+    state is this rank's heads and conv channels)."""
+    if ch is not None:
+        x = ch.enter(x)
+    q, k, v, li, lf, g, new_conv = _mlstm_qkvif(p, cfg, x, state["conv"],
+                                                ch)
     B, _, H, dh = q.shape
     qb = q[:, 0].float() * dh ** -0.5
     kb, vb = k[:, 0].float(), v[:, 0].float()
@@ -220,7 +379,7 @@ def mlstm_decode(p: MLSTM, cfg, x, state: Dict):
     num = torch.einsum("bhk,bhkj->bhj", qb, C_new)
     den = torch.einsum("bhk,bhk->bh", qb, n_new)
     h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-    y = _mlstm_out(p, h.reshape(B, 1, H * dh), g, x)
+    y = _mlstm_out(p, cfg, h.reshape(B, 1, H * dh), g, x, ch)
     return y, {"C": C_new, "n": n_new, "m": m_new, "conv": new_conv}
 
 
@@ -246,13 +405,13 @@ class SLSTM(nn.Module):
                                dtype)
 
 
-def _slstm_cell(p: SLSTM, cfg, xt, state: Dict):
-    """xt [B,4d], the input projection of one step; state of [B,H,dh]."""
+def _slstm_cell(r, xt, state: Dict):
+    """xt [B, H·4dh], the input projection of one step of the H heads
+    whose recurrence `r` [H, dh, 4dh] holds; state of [B,H,dh]."""
     B = xt.shape[0]
-    H = cfg.num_heads
-    dh = cfg.d_model // H
+    H, dh = r.shape[:2]
     hprev = state["h"]
-    rec = torch.einsum("bhk,hkj->bhj", hprev, p.r.to(hprev.dtype))
+    rec = torch.einsum("bhk,hkj->bhj", hprev, r.to(hprev.dtype))
     gates = (xt.reshape(B, H, 4 * dh) + rec).float()
     li, lf, z, o = torch.split(gates, dh, dim=-1)
     lf = F.logsigmoid(lf)
@@ -270,34 +429,63 @@ def _slstm_in(p: SLSTM, x):
             + p.b_in.to(x.dtype))
 
 
-def _slstm_out(p: SLSTM, h, x):
-    h = L.apply_norm(p.out_norm, h.to(x.dtype), "rmsnorm")
-    return torch.einsum("btd,dj->btj", h, p.w_down.to(x.dtype))
+def _slstm_heads(p: SLSTM, cfg, xin, ch: Optional[Channels]):
+    """(input projection, recurrence) of the heads this rank runs: on
+    split channels its heads where they divide (w_in's column block is
+    their [H, 4·dh] gates), else every head (the projection gathered)."""
+    if ch is None:
+        return xin, p.r
+    if cfg.num_heads % ch.comm.size == 0:
+        return xin, ch.block(p.r, 0)
+    return ch.gather(xin), p.r
 
 
-def slstm_fwd(p: SLSTM, cfg, x):
-    B, T, d = x.shape
-    xin = _slstm_in(p, x)
-    state = slstm_init_state(cfg, B, device=x.device)
+def _slstm_out(p: SLSTM, cfg, h, x, ch: Optional[Channels] = None):
+    dt = x.dtype
+    if ch is None:
+        h = L.apply_norm(p.out_norm, h.to(dt), "rmsnorm")
+        return torch.einsum("btd,dj->btj", h, p.w_down.to(dt))
+    h = _norm_out(p.out_norm.scale, h.to(dt), cfg.d_model, ch)
+    return ch.leave(torch.einsum("btd,dj->btj", h.float(),
+                                 p.w_down.float()), dt)
+
+
+def slstm_fwd(p: SLSTM, cfg, x, ch: Optional[Channels] = None):
+    """x [B,T,D] -> (y, final state); `ch`: the block's split channels
+    (module docstring)."""
+    if ch is not None:
+        x = ch.enter(x)
+    B, T, _ = x.shape
+    xin, r = _slstm_heads(p, cfg, _slstm_in(p, x), ch)
+    state = _slstm_zeros(B, r.shape[0], r.shape[1], x.device)
     hs = []
     for t in range(T):
-        state = _slstm_cell(p, cfg, xin[:, t], state)
+        state = _slstm_cell(r, xin[:, t], state)
         hs.append(state["h"])
-    h = torch.stack(hs, dim=1).reshape(B, T, d)
-    return _slstm_out(p, h, x), state
+    h = torch.stack(hs, dim=1).reshape(B, T, -1)
+    return _slstm_out(p, cfg, h, x, ch), state
 
 
-def slstm_init_state(cfg, batch, device=None):
-    H = cfg.num_heads
-    dh = cfg.d_model // H
+def _slstm_zeros(batch, H, dh, device):
     z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
     return {"h": z, "c": z, "n": z, "m": torch.full_like(z, NEG_INF)}
 
 
-def slstm_decode(p: SLSTM, cfg, x, state: Dict):
-    new = _slstm_cell(p, cfg, _slstm_in(p, x)[:, 0], state)
-    h = new["h"].reshape(x.shape[0], 1, cfg.d_model)
-    return _slstm_out(p, h, x), new
+def slstm_init_state(cfg, batch, device=None):
+    return _slstm_zeros(batch, cfg.num_heads, cfg.d_model // cfg.num_heads,
+                        device)
+
+
+def slstm_decode(p: SLSTM, cfg, x, state: Dict,
+                 ch: Optional[Channels] = None):
+    """One step; `ch` as in `slstm_fwd` (the state is this rank's
+    heads)."""
+    if ch is not None:
+        x = ch.enter(x)
+    xin, r = _slstm_heads(p, cfg, _slstm_in(p, x), ch)
+    new = _slstm_cell(r, xin[:, 0], state)
+    h = new["h"].reshape(x.shape[0], 1, -1)
+    return _slstm_out(p, cfg, h, x, ch), new
 
 
 # ---------------------------------------------------------------------------
@@ -324,13 +512,22 @@ class RGLRU(nn.Module):
                               dtype)
 
 
-def _rglru_gates(p: RGLRU, u):
-    """u [B,T,R] conv output -> per-step (a, b), f32."""
-    rt = torch.sigmoid(torch.einsum("btr,rs->bts", u, p.w_a.to(u.dtype))
-                       .float())
-    it = torch.sigmoid(torch.einsum("btr,rs->bts", u, p.w_i.to(u.dtype))
-                       .float())
-    log_a = -_RGLRU_C * rt * F.softplus(p.lam.float())
+def _rglru_gates(p: RGLRU, u, ch: Optional[Channels] = None):
+    """u [B,T,R] conv output -> per-step (a, b), f32; on split channels
+    (`ch`) u and (a, b) are this rank's, the gates' products from row
+    blocks reduce-scattered onto them."""
+    lam = p.lam
+    if ch is None:
+        ra, ri = (torch.einsum("btr,rs->bts", u, w.to(u.dtype))
+                  for w in (p.w_a, p.w_i))
+    else:
+        uf = u.float()
+        ra, ri = (t.to(u.dtype) for t in ch.scatter(
+            [torch.einsum("btr,rs->bts", uf, w.float())
+             for w in (p.w_a, p.w_i)]))
+        lam = ch.block(lam)
+    rt, it = torch.sigmoid(ra.float()), torch.sigmoid(ri.float())
+    log_a = -_RGLRU_C * rt * F.softplus(lam.float())
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * it * u.float()
     return a, b
@@ -358,14 +555,24 @@ def _rglru_in(p: RGLRU, x):
     return g, u
 
 
-def rglru_fwd(p: RGLRU, cfg, x):
-    """Griffin recurrent block: gate ⊙ RG-LRU(conv(W_x x)) -> out proj."""
+def _rglru_out(p: RGLRU, h, g, x, ch: Optional[Channels]):
+    dt = x.dtype
+    if ch is None:
+        return torch.einsum("btr,rd->btd", h.to(dt) * g, p.w_out.to(dt))
+    return ch.leave(torch.einsum("btr,rd->btd", (h.to(dt) * g).float(),
+                                 p.w_out.float()), dt)
+
+
+def rglru_fwd(p: RGLRU, cfg, x, ch: Optional[Channels] = None):
+    """Griffin recurrent block: gate ⊙ RG-LRU(conv(W_x x)) -> out proj;
+    `ch`: the block's split channels (module docstring)."""
+    if ch is not None:
+        x = ch.enter(x)
     g, u = _rglru_in(p, x)
     u, new_conv = conv1d_fwd(p.conv, u)
-    a, b = _rglru_gates(p, u)
+    a, b = _rglru_gates(p, u, ch)
     h = linear_scan(a, b)
-    y = torch.einsum("btr,rd->btd", h.to(x.dtype) * g, p.w_out.to(x.dtype))
-    return y, {"h": h[:, -1], "conv": new_conv}
+    return _rglru_out(p, h, g, x, ch), {"h": h[:, -1], "conv": new_conv}
 
 
 def rglru_init_state(cfg, batch, dtype=torch.float32, device=None):
@@ -375,26 +582,37 @@ def rglru_init_state(cfg, batch, dtype=torch.float32, device=None):
                                 device=device)}
 
 
-def rglru_decode(p: RGLRU, cfg, x, state: Dict):
+def rglru_decode(p: RGLRU, cfg, x, state: Dict,
+                 ch: Optional[Channels] = None):
+    """One step; `ch` as in `rglru_fwd` (the state is this rank's
+    channels)."""
+    if ch is not None:
+        x = ch.enter(x)
     g, u = _rglru_in(p, x)
     u, new_conv = conv1d_fwd(p.conv, u, state["conv"])
-    a, b = _rglru_gates(p, u)
+    a, b = _rglru_gates(p, u, ch)
     h_new = a[:, 0] * state["h"] + b[:, 0]
-    y = torch.einsum("btr,rd->btd", h_new[:, None].to(x.dtype) * g,
-                     p.w_out.to(x.dtype))
-    return y, {"h": h_new, "conv": new_conv}
+    return _rglru_out(p, h_new[:, None], g, x, ch), {"h": h_new,
+                                                     "conv": new_conv}
 
 
 def whole_sequence(fwd, p, cfg, x, split=None):
     """(y, final state) of the block `fwd` (mlstm_fwd, slstm_fwd or
-    rglru_fwd) on x [B, T, D]. Under a sequence split (`split`, a
-    `sharding.TokenSplit`) x is this rank's block of positions: the block
-    runs on the whole sequence gathered along the split's ranks and y
-    keeps this rank's rows; the state is the whole sequence's."""
+    rglru_fwd) on x [B, T, D] under `split` (a `sharding.TokenSplit`, or
+    None). Under a sequence split x is this rank's block of positions:
+    the block runs on the whole sequence gathered along the split's
+    ranks, on its own channels where they split (the output
+    reduce-scattered onto the rank's positions, the state its channels),
+    else whole (y keeps this rank's rows; the state is whole). The
+    tensor-parallel arm runs the whole sequence on the rank's channels."""
+    ch = channels(p, cfg, split)
     if split is None or not split.seq:
-        return fwd(p, cfg, x)
-    y, st = fwd(p, cfg, S.gather_seq(x, split.seq_comm, 1, tag="scan"))
-    return split.own(y), st
+        return fwd(p, cfg, x, ch=ch)
+    xs = S.gather_seq(x, split.seq_comm, 1, tag="scan")
+    if ch is None:
+        y, st = fwd(p, cfg, xs)
+        return split.own(y), st
+    return fwd(p, cfg, xs, ch=ch)
 
 
 def init_state(kind: str, cfg, batch: int, dtype, device=None

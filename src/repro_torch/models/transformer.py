@@ -14,12 +14,15 @@ attention kinds, a dict of recurrent state tensors for the others.
 
 On a sharded model (`shard_plan`) the decode step runs on the plan's
 decode split (`ShardPlan.for_decode`): the rows over the "batch" axes and
-the heads, MLP width, vocabulary, experts and the caches' positions over
-the tensor-parallel ones, each where it divides (`sharding.decode_axes`;
-`models/layers.py`, `models/moe.py`). A `DecodeState` says how long its
-caches are along the whole sequence; a state whose caches are this rank's
-blocks along "cache_seq" is one. The recurrent blocks decode on whole
-weights and states (their rows only).
+the heads, MLP width, vocabulary, experts, recurrent channels and the
+caches' positions over the tensor-parallel ones, each where it divides
+(`sharding.decode_axes`; `models/layers.py`, `models/moe.py`,
+`models/recurrent.py`). A `DecodeState` says how long its caches are
+along the whole sequence; a state whose caches are this rank's blocks
+along "cache_seq" is one. A training or prefill step whose T the "seq"
+rule cannot split runs the same split over its T positions (the
+tensor-parallel arm: `Transformer.forward` embeds and takes the logits
+vocab-parallel).
 
 Training: `lm_loss` is differentiable once the parameters require grad
 (`train.step.init_train_state`); the serving entry points (`decode_step`
@@ -140,8 +143,13 @@ class Block(nn.Module):
         """Returns (x_out, aux, state): the MoE aux (None for other kinds)
         and the prefill state, (k, v) for the attention kinds, the
         recurrent state dict for the others. On a sharded model `split`
-        is the plan's `sharding.TokenSplit`: x holds this rank's block of
-        positions, and the state is the whole sequence's."""
+        is the plan's `sharding.TokenSplit`: under a sequence split x
+        holds this rank's block of positions, and the state is the whole
+        sequence's (k/v of every position; a recurrent block's own
+        channels or heads where they split); on the tensor-parallel arm
+        x holds every position and each layer runs on this rank's share
+        of its heads, width, experts or channels (k/v of its kv heads
+        where they split)."""
         kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
         if kind in ATTN_KINDS:
@@ -166,7 +174,8 @@ class Block(nn.Module):
         new state). A KV cache is updated in place. On a sharded model
         `split` is the plan's decode split: the attention, MLP and MoE
         layers run on this rank's share of the heads, width and experts
-        and its block of the cache; the recurrent blocks run whole."""
+        and its block of the cache, a recurrent block on its channels or
+        heads where they split (its state holds them)."""
         kind = self.kind
         h = L.apply_norm(self.norm1, x, cfg.norm)
         if kind in ATTN_KINDS:
@@ -175,12 +184,15 @@ class Block(nn.Module):
                                           split=split)
             return self._ffn(cfg, x + y, aux=False, split=split)[0], state
         if kind == "mlstm":
-            y, state = R.mlstm_decode(self.mlstm, cfg, h, state)
+            y, state = R.mlstm_decode(self.mlstm, cfg, h, state,
+                                      R.channels(self.mlstm, cfg, split))
             return x + y, state
         if kind == "slstm":
-            y, state = R.slstm_decode(self.slstm, cfg, h, state)
+            y, state = R.slstm_decode(self.slstm, cfg, h, state,
+                                      R.channels(self.slstm, cfg, split))
             return x + y, state
-        y, state = R.rglru_decode(self.rglru, cfg, h, state)
+        y, state = R.rglru_decode(self.rglru, cfg, h, state,
+                                  R.channels(self.rglru, cfg, split))
         x = x + y
         if cfg.d_ff:
             x, _ = self._ffn(cfg, x, aux=False, split=split)
@@ -224,30 +236,39 @@ class Transformer(nn.Module):
             Block(cfg, kind, gen, device, dtype) for kind in cfg.layer_types)
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, device, dtype)
 
-    def forward(self, inputs, positions=None, collect_states: bool = False):
+    def forward(self, inputs, positions=None, collect_states: bool = False,
+                last_only: bool = False):
         """inputs: tokens [B,T] integer, or embeddings [B,T,D] when
         cfg.embed_inputs. Returns (logits [B,T,V] f32, aux, states): aux
         is the f32 sum of the MoE layers' load-balancing losses (0 without
         one), states the per-layer prefill states (Block.forward) when
-        `collect_states`, else None. With grad mode on, trainable parameters
+        `collect_states`, else None; `last_only`: the logits of the last
+        position only ([B,1,V]). With grad mode on, trainable parameters
         and no states collected, each block runs under `cfg.remat` (module
         docstring); a frozen model runs the plain loop. A forward never
         runs on a decode step's split: after one, each rank runs its
-        rows (`ShardPlan.rows_only`)."""
+        rows (`ShardPlan.rows_only`). On the tensor-parallel arm the
+        embedding and the logits are vocab-parallel, the logits gathered
+        whole."""
         if self.shard_plan is not None and self.shard_plan.split.decode:
             self.shard_plan.rows_only()
         with _top_weights(self):
-            return self._forward(inputs, positions, collect_states)
+            return self._forward(inputs, positions, collect_states,
+                                 last_only)
 
-    def _forward(self, inputs, positions, collect_states):
+    def _forward(self, inputs, positions, collect_states, last_only):
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
+        plan = self.shard_plan
+        split = None if plan is None else plan.split
+        vocab = None if split is None else split.over("act_vocab")
         if cfg.embed_inputs:
             x = inputs.to(dtype)
+        elif vocab is not None:
+            x = L.embed_tokens_split(self, cfg, inputs, dtype, vocab)
         else:
             x = L.embed_tokens(self, cfg, inputs, dtype)
         B, T = x.shape[:2]
-        plan = self.shard_plan
         if positions is None:
             # a sharded model's block of a split sequence starts at q0
             q0 = plan.split.q0 if plan is not None else 0
@@ -271,7 +292,9 @@ class Transformer(nn.Module):
             if a is not None:
                 aux = aux + a
         x = L.apply_norm(self.final_norm, x, cfg.norm)
-        logits = L.logits_fwd(self, cfg, x)
+        if last_only:
+            x = x[:, -1:]
+        logits = L.logits_fwd(self, cfg, x, split)
         return logits, aux, (states if collect_states else None)
 
 
@@ -356,7 +379,7 @@ def init_decode_state(cfg, batch: int, max_len: int,
             for kind in cfg.layer_types]
 
 
-def _state_specs(kind: str) -> dict:
+def recurrent_state_specs(kind: str) -> dict:
     """The logical axes of one recurrent kind's decode state (the
     reference's `decode_state_specs`)."""
     if kind == "mlstm":
@@ -375,7 +398,7 @@ def decode_state_specs(cfg) -> List[dict]:
     layer (the reference's tree without the "layers" axis its scanned
     configs stack)."""
     return [L.kv_cache_specs(cfg) if kind in ATTN_KINDS
-            else _state_specs(kind) for kind in cfg.layer_types]
+            else recurrent_state_specs(kind) for kind in cfg.layer_types]
 
 
 @torch.no_grad()

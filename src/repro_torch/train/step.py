@@ -26,7 +26,7 @@ process per rank over `torch.distributed`): the reference gets this from
     runs at its global positions q0 + arange(T / M); each attention
     layer gathers k and v along "model", the MoE layers run their own
     experts on the gathered token groups, the recurrent blocks scan the
-    gathered sequence (`models/`).
+    gathered sequence on their own channels (`models/`).
   * Each block gathers its parameters whole where they are used
     (`sharding.gather_param`, inside the block's remat region), and the
     gradients come back reduce-scattered to their owners in their own
@@ -41,17 +41,22 @@ process per rank over `torch.distributed`): the reference gets this from
 So P ranks compute what one rank computes on the global batch, and no
 two ranks process the same token: under the default profile the ranks
 along "model" hold different positions of the same rows (where T does
-not divide, they fall back to the same rows and repeat that work);
+not divide, they hold the same rows and split the heads, widths,
+vocabulary, experts and recurrent channels instead);
 under the "dp" profile the batch spans every axis. A decode step has no
 sequence to split: its rows split over the "batch" axes, and the axes
 the reference's decode rules give "act_heads", "act_kv_heads",
 "act_mlp", "act_vocab", "act_experts" and "cache_seq" ("model" under the
 default profile) split the heads, the MLP width, the vocabulary, the
 experts and the caches' positions, each where its size divides
-(`sharding.decode_axes`); the weights keep those dims sharded, and the
-caches are this rank's blocks (`Placement.decode_state`,
-`make_prefill_step`). The recurrent blocks' states and weights stay
-whole along them (their rows only).
+(`sharding.decode_axes`), and so do the recurrent blocks' channels and
+heads; the weights keep those dims sharded, and the caches and
+recurrent states are this rank's blocks (`Placement.decode_state`,
+`make_prefill_step`). A training or prefill step whose T the "seq" rule
+cannot split takes the same tensor-parallel split over its T positions
+(every rank along "model" holds the same tokens: Megatron's pair at each
+split layer's ends, `sharding.tp_enter` / `tp_exit`, and the loss on
+whole logits gathered vocab-parallel).
 
 The second member of each `build_*` pair, a `Placement`, puts a whole
 state, model, batch or decode state onto this rank's shards: the
@@ -235,11 +240,12 @@ class Placement:
 
     def decode_state(self, state):
         """This rank's share of a whole decode state, cut by
-        `decode_state_specs` resolved with the act rules: the KV caches'
-        rows and their block along "cache_seq", the recurrent states'
-        rows only (their "act_heads" / "act_mlp" dims stay whole);
-        positions are kept. Returns a `models.DecodeState` of the whole
-        caches' length."""
+        `decode_state_specs` resolved with the act rules (the reference's
+        resolution): the KV caches' rows and their block along
+        "cache_seq", the recurrent states' rows and their blocks along
+        "act_heads" / "act_mlp" where those divide; positions are kept.
+        Returns a `models.DecodeState` of the whole caches' length (a
+        later step never cuts it again)."""
         specs = M.decode_state_specs(self.cfg)
         cache_len = next((st["k"].shape[1] for st in state if "k" in st),
                          None)
@@ -251,8 +257,6 @@ class Placement:
                     cut[k] = v
                     continue
                 spec = S.spec_for(axes[k], v.shape, self.layout, self.rules)
-                if "k" not in st:           # recurrent: rows only
-                    spec = spec[:1] + (None,) * (len(spec) - 1)
                 cut[k] = S.shard_tensor(v, spec, self.layout)
             out.append(cut)
         return M.DecodeState(out, cache_len)

@@ -1458,6 +1458,43 @@ def test_flash_kernel_q_offset_vs_plain(cuda, dtype, Dh, where, window):
     _flash_match(q, k, v, dtype, causal=True, window=window, q_offset=q0)
 
 
+#: a rank's heads on the tensor-parallel arm at model 2: name -> (query
+#: heads, kv heads, head dim, window) of the whole layer, and the kv heads
+#: a rank's launch reads
+FLASH_TP_CASES = {
+    "granite": ((16, 8, 64, None), 4),            # kv heads split
+    "recurrentgemma_local": ((16, 1, 256, 100), 1),  # the one kv head
+    "expand": ((6, 3, 128, None), 3),     # a kv head a query head
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("case", sorted(FLASH_TP_CASES))
+def test_flash_kernel_tensor_parallel_heads_vs_plain(cuda, case, rank):
+    """The tensor-parallel arm's launch (`models.layers.attention_fwd`):
+    rank `rank`'s query heads of a model-2 split at q_offset 0 against
+    its kv heads: its block where the kv heads split, the whole group's
+    kv head where they do not, or k/v expanded to one kv head a query
+    head (`layers._heads_kv`) where its heads do not form whole groups;
+    the [B, T, H, Dh] projections read as transposed views, bf16, T 255."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import layers as TL
+    (Hq, Hkv, Dh, window), n_kv = FLASH_TP_CASES[case]
+    T, Hl = 255, Hq // 2
+    q, k, v = _qkv((2, T, Hl, Dh), (2, T, Hkv, Dh), "bfloat16", cuda,
+                   seed=rank)
+    if Hkv % 2 == 0:
+        k, v = (t[:, :, rank * Hkv // 2:(rank + 1) * Hkv // 2] for t in (k, v))
+    else:
+        k, v = TL._heads_kv(SimpleNamespace(num_heads=Hq), k, v, rank * Hl,
+                            Hl)
+    assert k.shape[2] == n_kv
+    _flash_match(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 "bfloat16", causal=True, window=window, q_offset=0)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_heads(cuda):
     """The model passes [B, T, H, Dh] projections transposed to

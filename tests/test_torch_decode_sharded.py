@@ -25,19 +25,25 @@ state is the reference's whole prefill state cut by
 | moe/model2 | granite-moe-1b-a400m | data 1 x model 2 | 2 of 4 experts a rank, the rest as dense |
 | moe/data2 | granite-moe-1b-a400m | data 2 | rows; one MoE group across the ranks |
 | moe3/model2 | granite-moe-1b-a400m, 3 experts | data 1 x model 2 | experts repeat |
-| local/model2 | recurrentgemma-9b | data 1 x model 2 | window-8 attention across the blocks; RG-LRU whole |
+| local/model2 | recurrentgemma-9b | data 1 x model 2 | window-8 attention across the blocks; RG-LRU split (32 channels a rank) |
 | dense_heads/model2 | qwen3-14b, 3 heads, 1 kv head | data 1 x model 2 | d_ff, vocab, the cache; every head on every rank |
 | dense_kv/model2 | qwen3-14b, MAX_LEN 41 | data 1 x model 2 | heads, kv heads (k/v gathered to write every head), d_ff, vocab; the cache whole |
 | dense_odd/model2 | qwen3-14b, 6 heads, 3 kv heads, MAX_LEN 41 | data 1 x model 2 | heads (3 a rank: a kv head a query head), d_ff, vocab; kv heads and the cache whole |
+| recurrent/model2 | recurrentgemma-9b, RG-LRU width 96 | data 1 x model 2 | the RG-LRU at a width of its own (48 channels a rank), d_ff, vocab, heads, the cache |
+| xlstm/model2 | xlstm-350m | data 1 x model 2 | mLSTM and sLSTM: 2 heads a rank, the conv's channels, vocab; no cache |
+| xlstm_heads1/model2 | xlstm-350m, 1 head | data 1 x model 2 | the mLSTM's conv channels and row blocks (summed: every rank runs the head), the sLSTM's projections (gathered); heads whole |
+| rglru_odd/model2 | recurrentgemma-9b, RG-LRU width 63 | data 1 x model 2 | d_ff, vocab, heads, the cache; the RG-LRU whole |
 
 Tolerances: every step's logits (the rank's rows) within DECODE_TOL
 (1e-3 relative and absolute; the caches are bf16), as
 tests/test_torch_train_sharded.py holds a decode; after the last step
 each rank's caches equal its block of the reference's within one bf16
-step (2^-7 relative), its recurrent states (f32) within 1e-5. At data 1
-x model 2 a dense or MoE step counts at most FLOP_SHARE of one rank's
-FLOPs on the same step (`FlopCounterMode`), and the weight gathers
-(`ShardPlan.gather`'s collectives, tag "weights") move no byte.
+step (2^-7 relative), its recurrent states (f32) its block of the
+reference's (along the heads or channels its split names) within 1e-5.
+At data 1 x model 2 a dense, MoE or recurrent step counts at most
+FLOP_SHARE of one rank's FLOPs on the same step (`FlopCounterMode`), and
+the weight gathers (`ShardPlan.gather`'s collectives, tag "weights")
+move no byte.
 """
 import json
 import pickle
@@ -80,22 +86,36 @@ CASES = {
                            MAX_LEN, 2, "default"),
     "dense_kv/model2": ("qwen3-14b", {}, MAX_LEN + 1, 2, "default"),
     "dense_odd/model2": ("qwen3-14b", {"num_heads": 6, "num_kv_heads": 3},
-                         MAX_LEN + 1, 2, "default")}
+                         MAX_LEN + 1, 2, "default"),
+    "recurrent/model2": ("recurrentgemma-9b", {"rnn_width": 96}, MAX_LEN, 2,
+                         "default"),
+    "xlstm/model2": ("xlstm-350m", {}, MAX_LEN, 2, "default"),
+    "xlstm_heads1/model2": ("xlstm-350m", {"num_heads": 1}, MAX_LEN, 2,
+                            "default"),
+    "rglru_odd/model2": ("recurrentgemma-9b", {"rnn_width": 63}, MAX_LEN, 2,
+                         "default")}
 #: what each case's decode split splits over "model" (`TokenSplit.tp`)
 SPLITS = {
     "dense/model2": {"act_heads", "act_kv_heads", "act_mlp", "act_vocab",
                      "cache_seq"},
     "dense_fallback/model2": {"act_heads", "act_mlp", "act_vocab"},
     "dense/data2": set(), "dense/dp": set(),
-    "moe/model2": {"act_heads", "act_kv_heads", "act_mlp", "act_vocab",
-                   "act_experts", "cache_seq"},
+    "moe/model2": {"act_heads", "act_kv_heads", "act_vocab", "act_experts",
+                   "cache_seq"},
     "moe/data2": set(),
-    "moe3/model2": {"act_heads", "act_kv_heads", "act_mlp", "act_vocab",
-                    "cache_seq"},
-    "local/model2": {"act_heads", "act_mlp", "act_vocab", "cache_seq"},
+    "moe3/model2": {"act_heads", "act_kv_heads", "act_vocab", "cache_seq"},
+    "local/model2": {"act_heads", "act_mlp", "act_vocab", "cache_seq",
+                     "rglru.act_mlp"},
     "dense_heads/model2": {"act_mlp", "act_vocab", "cache_seq"},
     "dense_kv/model2": {"act_heads", "act_kv_heads", "act_mlp", "act_vocab"},
-    "dense_odd/model2": {"act_heads", "act_mlp", "act_vocab"}}
+    "dense_odd/model2": {"act_heads", "act_mlp", "act_vocab"},
+    "recurrent/model2": {"act_heads", "act_mlp", "act_vocab", "cache_seq",
+                         "rglru.act_mlp"},
+    "xlstm/model2": {"act_vocab", "mlstm.act_heads", "mlstm.act_mlp",
+                     "slstm.act_heads"},
+    "xlstm_heads1/model2": {"act_vocab", "mlstm.act_mlp"},
+    "rglru_odd/model2": {"act_heads", "act_mlp", "act_vocab", "cache_seq"}}
+
 #: the layouts of tests/test_torch_sharding.py
 LAYOUTS = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model"),
            (2, 2): ("data", "model"), (1, 4): ("data", "model"),
@@ -167,15 +187,18 @@ for key, c in job.items():
                     d["operand_bytes"] += rec["operand_bytes"]
         tags.append(by)
     split = model.shard_plan.split
-    again = None
+    again = again_step = None
     if c["whole"] is None:
-        # a forward straight after the decode steps runs on the rows
-        again, _ = lm.prefill_step(model, torch.from_numpy(
+        # a forward straight after the decode steps runs on the rows, its
+        # whole recurrent states cut to the decode split's blocks
+        again, st = lm.prefill_step(model, torch.from_numpy(
             c["tokens"][rows]), max_len=c["max_len"])
         again = again.numpy()
+        again_step = lm.decode_step(model, torch.from_numpy(
+            c["next"][0][rows]), st)[0].numpy()
     with open(f"{tmp}/{key.replace('/', '__')}__{rank}.pkl", "wb") as f:
         pickle.dump({"logits": logits, "state": plain(state),
-                     "again": again}, f)
+                     "again": again, "again_step": again_step}, f)
     out[key] = {"rows": [rows.start, rows.stop], "flops": flops,
                 "tags": tags, "tp": sorted(split.tp),
                 "tp_rank": split.tp_comm.rank, "decode": split.decode,
@@ -265,17 +288,31 @@ def _block(name, out):
     return out["tp_rank"] * n, n
 
 
+def _state_block(cfg, i, key, want, out):
+    """The rank's block of the reference's recurrent state `want` (its
+    rows) of layer i: halved along each dim whose act name
+    (`decode_state_specs`, e.g. "act_heads" of an mLSTM's C) the case's
+    split names ("mlstm.act_heads")."""
+    kind = cfg.layer_types[i]
+    for d, ax in enumerate(lm.decode_state_specs(cfg)[i][key]):
+        if ax and f"{kind}.{ax}" in out["tp"]:
+            want = np.split(want, 2, axis=d)[out["tp_rank"]]
+    return want
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_decode_matches_reference(ranks, name):
     """Each rank's rows of every step's logits within DECODE_TOL of the
     reference's decode on the global batch; after the last step its
     caches are its block of the reference's (bf16: within one bf16 step),
-    its recurrent states the reference's rows (f32)."""
+    its recurrent states its block of the reference's rows (f32)."""
     tmp, outs, ref, _ = ranks
     want_logits, want_state, _ = ref[name]
+    _, cfg = _cfgs(name)
+    caches = any(k in lm.transformer.ATTN_KINDS for k in cfg.layer_types)
     for r, out in enumerate(o[name] for o in outs):
         assert out["decode"] and set(out["tp"]) == SPLITS[name], out["tp"]
-        assert out["cache_len"] == CASES[name][2]
+        assert out["cache_len"] == (CASES[name][2] if caches else None)
         rows = slice(*out["rows"])
         assert rows == (slice(0, B) if name.endswith("model2")
                         else slice(r * B // 2, (r + 1) * B // 2))
@@ -297,7 +334,8 @@ def test_sharded_decode_matches_reference(ranks, name):
                         atol=STATE_ATOL, err_msg=f"rank {r} layer {i} {k}")
                 else:
                     np.testing.assert_allclose(
-                        g[k][1], w[k][rows], rtol=0, atol=STATE_ATOL,
+                        g[k][1], _state_block(cfg, i, k, w[k][rows], out),
+                        rtol=0, atol=STATE_ATOL,
                         err_msg=f"rank {r} layer {i} {k}")
 
 
@@ -307,13 +345,20 @@ def test_prefill_after_decode_runs_on_the_rows(ranks, name):
     `build_prefill_step` to set the batch) never runs on the decode
     step's split: each rank runs its rows whole (`ShardPlan.rows_only`),
     and its last logits equal the reference's prefill within 1e-4, as
-    tests/test_torch_train_sharded.py holds a prefill."""
+    tests/test_torch_train_sharded.py holds a prefill; a decode step from
+    that state (its caches and recurrent states cut to the decode split's
+    blocks by the prefill) equals the reference's first step within
+    DECODE_TOL."""
     tmp, outs, ref, _ = ranks
     want = ref[name][2]
     for r, out in enumerate(o[name] for o in outs):
-        got = _rank_result(tmp, name, r)["again"]
-        np.testing.assert_allclose(got, want[slice(*out["rows"])],
+        got = _rank_result(tmp, name, r)
+        rows = slice(*out["rows"])
+        np.testing.assert_allclose(got["again"], want[rows],
                                    rtol=1e-4, atol=1e-4,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["again_step"], ref[name][0][0][rows],
+                                   rtol=DECODE_TOL, atol=DECODE_TOL,
                                    err_msg=f"rank {r}")
 
 
@@ -335,11 +380,13 @@ def _one_rank_flops(name, job):
     return flops
 
 
-@pytest.mark.parametrize("name", ["dense/model2", "moe/model2"])
+@pytest.mark.parametrize("name", ["dense/model2", "moe/model2",
+                                  "local/model2", "xlstm/model2"])
 def test_decode_split_cuts_rank_flops(ranks, name):
     """At data 1 x model 2 each rank's decode steps count at most
     FLOP_SHARE of one rank's on the same global batch, step by step
-    (the attention's scores run all heads on the rank's block)."""
+    (the attention's scores run all heads on the rank's block; the
+    recurrent blocks run their own channels and heads)."""
     outs = ranks[1]
     one = _one_rank_flops(name, ranks[3][name])
     for out in outs:
@@ -347,20 +394,30 @@ def test_decode_split_cuts_rank_flops(ranks, name):
             assert 0 < f <= FLOP_SHARE * o, (s, f, o)
 
 
-@pytest.mark.parametrize("name", ["dense/model2", "moe/model2"])
+@pytest.mark.parametrize("name", ["dense/model2", "moe/model2",
+                                  "local/model2", "recurrent/model2",
+                                  "xlstm/model2", "xlstm_heads1/model2",
+                                  "rglru_odd/model2"])
 def test_decode_weight_gathers_move_nothing(ranks, name):
-    """At data 1 x model 2 every model-sharded dim is kept and FSDP's data
-    axis has size 1: a decode step's weight gathers move no byte, and its
-    other collectives carry activations only (their bytes are printed,
-    not bounded: at smoke widths the activations are not small beside
-    the weights)."""
+    """At data 1 x model 2 every model-sharded dim is kept (a recurrent
+    block's "rnn" dims too) and FSDP's data axis has size 1: a decode
+    step's weight gathers move no byte, and its other collectives carry
+    activations only (their bytes are printed, not bounded: at smoke
+    widths the activations are not small beside the weights); the
+    attention's, and a split recurrent block's ("rnn"), among them."""
     outs = ranks[1]
+    _, cfg = _cfgs(name)
+    want = {"logits", "embed"}
+    if any(k in lm.transformer.ATTN_KINDS for k in cfg.layer_types):
+        want.add("attn")
+    if any(n.partition(".")[0] in cfg.layer_types for n in SPLITS[name]):
+        want.add("rnn")
     for r, out in enumerate(outs):
         for s, tags in enumerate(out[name]["tags"]):
             moved = sum(d["operand_bytes"]
                         for d in tags.get("weights", {}).values())
             assert moved == 0, (r, s, tags)
-            assert {"attn", "logits", "embed"} <= set(tags), tags
+            assert want <= set(tags), tags
         print(name, "rank", r, "step 1 collectives by tag:",
               json.dumps(out[name]["tags"][0]))
 
@@ -422,8 +479,8 @@ def test_placement_decode_state_is_the_reference_resolution(arch, shape):
     rows of 128 positions, "meta": nothing allocated) on rank 0 of each
     layout: every KV cache has the shape the reference's `spec_for`
     resolution of its specs gives (rows and the block along
-    "cache_seq"); a recurrent state keeps its rows' cut only (its
-    "act_heads" / "act_mlp" dims whole)."""
+    "cache_seq"), and so has every recurrent state (rows and its blocks
+    along "act_heads" / "act_mlp" where they divide)."""
     axes = LAYOUTS[shape]
     cfg, jcfg = tcfgs.get_config(arch), jcfgs.get_config(arch)
     rules = JS.rules_for_profile(jcfg.sharding_profile)
@@ -442,7 +499,5 @@ def test_placement_decode_state_is_the_reference_resolution(arch, shape):
                 continue
             ref = tuple(JS.spec_for(spec[k], v.shape, mesh, rules))
             ref = ref + (None,) * (v.ndim - len(ref))
-            if "k" not in w:
-                ref = ref[:1] + (None,) * (v.ndim - 1)
             assert tuple(g[k].shape) == S.shard_shape(v.shape, ref, lay), (
                 i, k, g[k].shape, ref)

@@ -13,10 +13,13 @@ The cell: its argument bytes equal the sum of rank 0's shard bytes
 (parameters, both moments, the two steps) and its rows of the batch, as
 `param_spec` resolves them; its counts are rank 0's own. With experts
 that divide the model axis, rank 0's counts fall by it (16) against the
-same cell run with the "seq" rule replicated (a rules table local to the
-test): the sequence split over "model" shares every layer's work out,
-the experts too; so does a decode cell's split of heads, widths,
-vocabulary, experts and cache positions over "model".
+same cell run with the "seq" rule and the tensor-parallel names
+replicated (a rules table local to the test; with "seq" alone replicated
+the step would take the tensor-parallel arm): the sequence split over
+"model" shares every layer's work out, the experts too; so does a decode
+cell's split of heads, widths, vocabulary, experts and cache positions
+over "model", and a recurrent decode cell's split of its blocks'
+channels.
 """
 import dataclasses
 
@@ -34,6 +37,11 @@ from repro_torch.launch import report
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import RankLayout
 from repro_torch.train import step as TS
+
+#: the least factor by which a recurrent decode cell's rank-0 FLOPs fall
+#: (xlstm-350m, 16 ranks along "model"; the recurrences' ~2 M MACs a
+#: layer repeat on every rank)
+RECURRENT_DECODE_CUT = 4.0
 
 
 def _flat(tree, prefix=""):
@@ -201,16 +209,24 @@ def test_smoke_cell_on_a_fake_pod(tmp_path, monkeypatch, capsys):
     assert "fake_tensor" in text
 
 
+#: the act rules with every tensor-parallel name replicated
+_NO_TP = dict(S.ACT_RULES, **{
+    k: [()] for k in ("act_heads", "act_kv_heads", "act_mlp", "act_vocab",
+                      "act_experts", "cache_seq")})
+
+
 def test_seq_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
     """granite's smoke widths with its own 32 experts, top 8 (they divide
     the model axis): rank 0's FLOPs fall by the model axis (16) against
     the same cell with the "seq" rule replicated (a rules table local to
-    the test), the experts split over "model" too."""
+    the test, which replicates the tensor-parallel names as well: with
+    "seq" alone replicated the step takes the tensor-parallel arm), the
+    experts split over "model" too."""
     arch, shape = "granite-moe-1b-a400m", "train_4k"
     ov = {k: v for k, v in _smoke_overrides(arch).items()
           if k not in ("num_experts", "top_k")}
     assert not dist.is_initialized()
-    no_seq = dict(S.ACT_RULES, seq=[()])
+    no_seq = dict(_NO_TP, seq=[()])
     try:
         res = D.run_cell(arch, shape, "pod", ov, verbose=False)
         with monkeypatch.context() as m:
@@ -238,13 +254,10 @@ def test_decode_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
           if k not in ("num_experts", "top_k")}
     ov.update(num_heads=16, num_kv_heads=16)
     assert not dist.is_initialized()
-    whole_rules = dict(S.ACT_RULES, **{
-        k: [()] for k in ("act_heads", "act_kv_heads", "act_mlp",
-                          "act_vocab", "act_experts", "cache_seq")})
     try:
         res = D.run_cell(arch, shape, "pod", ov, verbose=False)
         with monkeypatch.context() as m:
-            m.setattr(S, "rules_for_profile", lambda profile: whole_rules)
+            m.setattr(S, "rules_for_profile", lambda profile: _NO_TP)
             whole = D.run_cell(arch, shape, "pod", ov, verbose=False)
     finally:
         if dist.is_initialized():
@@ -253,6 +266,30 @@ def test_decode_split_cuts_rank_flops_by_the_model_axis(monkeypatch):
     assert whole["status"] == "OK", whole.get("traceback")
     ratio = whole["roofline"]["flops"] / res["roofline"]["flops"]
     assert 12 <= ratio <= 16, ratio
+
+
+def test_recurrent_decode_split_cuts_rank_flops(monkeypatch):
+    """xlstm-350m's `decode_32k` cell at full size: its mLSTM and sLSTM
+    blocks run on their own channels over "model" (their 4 heads do not
+    divide 16, so every rank runs every head on the mLSTM's summed row
+    blocks and the sLSTM's gathered projection): rank 0's FLOPs fall by
+    at least RECURRENT_DECODE_CUT against the same cell with the
+    tensor-parallel names replicated, under which every rank runs every
+    block whole."""
+    arch, shape = "xlstm-350m", "decode_32k"
+    assert not dist.is_initialized()
+    try:
+        res = D.run_cell(arch, shape, "pod", None, verbose=False)
+        with monkeypatch.context() as m:
+            m.setattr(S, "rules_for_profile", lambda profile: _NO_TP)
+            whole = D.run_cell(arch, shape, "pod", None, verbose=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert res["status"] == "OK", res.get("traceback")
+    assert whole["status"] == "OK", whole.get("traceback")
+    ratio = whole["roofline"]["flops"] / res["roofline"]["flops"]
+    assert ratio >= RECURRENT_DECODE_CUT, ratio
 
 
 def test_cli_writes_a_skip_record(tmp_path, monkeypatch):

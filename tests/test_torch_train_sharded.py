@@ -17,20 +17,28 @@ one (xlstm-350m: mLSTM and sLSTM) and granite with 3 experts, which do
 not divide the model axis (each rank runs every expert on its gathered
 rows). Under model 2 each rank runs its half of the positions (the
 sequence split of the default profile; the experts split too where they
-divide). The reference takes the same three steps here with
+divide; a recurrent block scans the gathered sequence on its own
+channels). Four cases at T 15, which 2 does not divide, take the
+tensor-parallel arm instead (every rank every position, the heads, MLP
+width, vocabulary, experts and recurrent channels split, Megatron's pair
+at each split layer's ends): dense, MoE, local + RG-LRU and xLSTM smoke
+("*_tp"). The reference takes the same three steps here with
 `make_train_step(cfg, None, ...)`.
 
 Tolerances, per step: loss 1e-5 relative, grad_norm 1e-4 relative (the
 gradients sum in another order), moe_aux 1e-6 relative; after three steps
 every parameter and both moments within 1e-5 absolute. The ranks' first
-model-2 step runs at their own positions and counts at most 0.6 of one
-rank's FLOPs on the same global batch (`FlopCounterMode`). A prefill
-(`build_prefill_step`) under model 2, and a dense one under data 2,
-equals the reference's `prefill_step` on the global batch in each rank's
-rows: last logits within 1e-4, caches (under model 2 each rank's block
-along "cache_seq") and recurrent states within 1e-5 (bf16 caches within
-one bf16 step); one `decode_step` after it equals
-the reference's within 1e-3 (bf16 caches, as tests/test_torch_models.py
+model-2 step runs at their own positions (or, at T 15, on their share
+of the heads and widths) and counts at most 0.6 of one rank's FLOPs on
+the same global batch (`FlopCounterMode`). A prefill
+(`build_prefill_step`) under model 2 (T 32: the sequence split; T 15:
+the tensor-parallel arm), and a dense one under data 2, equals the
+reference's `prefill_step` on the global batch in each rank's rows: last
+logits within 1e-4, caches (each rank's block along "cache_seq" where
+the decode split takes one) and recurrent states (each rank's block
+along the heads or channels the decode split names) within 1e-5 (bf16
+caches within one bf16 step); one `decode_step` after it equals the
+reference's within 1e-3 (bf16 caches, as tests/test_torch_models.py
 holds a decode). P = 1 is bitwise the one-rank step. A checkpoint saved at
 P = 2 resumes bitwise at P = 2 and within 1e-5 at P = 1.
 
@@ -56,6 +64,7 @@ from repro.optim import linear_warmup_cosine as j_lr
 from repro.train import step as JTS
 from repro_torch import configs as tcfgs
 from repro_torch import convert, envutil
+from repro_torch import models as lm
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.distributed import collectives
@@ -72,19 +81,36 @@ CONFIGS = {"dense": ("qwen3-14b", 4, 16, "dots"),
            "moe": ("granite-moe-1b-a400m", 4, 1024, "full"),
            "local": ("recurrentgemma-9b", 2, 32, "none"),
            "recurrent": ("xlstm-350m", 2, 32, "none"),
-           "moe3": ("granite-moe-1b-a400m", 2, 32, "none")}
+           "moe3": ("granite-moe-1b-a400m", 2, 32, "none"),
+           "dense_tp": ("qwen3-14b", 2, 15, "none"),
+           "moe_tp": ("granite-moe-1b-a400m", 2, 15, "none"),
+           "local_tp": ("recurrentgemma-9b", 2, 15, "none"),
+           "recurrent_tp": ("xlstm-350m", 2, 15, "none")}
+#: what the tensor-parallel arm splits over "model" (`TokenSplit.tp`), in
+#: training and in the prefill, at T 15
+TP_SPLITS = {
+    "dense_tp": {"act_heads", "act_kv_heads", "act_mlp", "act_vocab"},
+    "moe_tp": {"act_heads", "act_kv_heads", "act_vocab", "act_experts"},
+    "local_tp": {"act_heads", "act_mlp", "act_vocab", "rglru.act_mlp"},
+    "recurrent_tp": {"act_vocab", "mlstm.act_heads", "mlstm.act_mlp",
+                     "slstm.act_heads"}}
 #: name -> config overrides beyond the smoke's
 OVERRIDES = {"moe3": {"num_experts": 3}}
 #: name -> (model_parallel, sharding profile)
 LAYOUTS = {"data2": (1, "default"), "model2": (2, "default"),
            "dp": (2, "dp")}
 CASES = [(c, lay) for c in ("dense", "moe") for lay in LAYOUTS] + [
-    ("local", "model2"), ("recurrent", "model2"), ("moe3", "model2")]
+    ("local", "model2"), ("recurrent", "model2"), ("moe3", "model2")] + [
+    (c, "model2") for c in TP_SPLITS]
 #: the prefills: name -> (arch, attn_impl, B, T, model_parallel)
 PREFILLS = {"dense": ("qwen3-14b", "flash_kernel", 2, 32, 2),
             "moe": ("granite-moe-1b-a400m", "xla", 2, 32, 2),
             "local": ("recurrentgemma-9b", "flash_kernel", 2, 32, 2),
-            "dense_data2": ("qwen3-14b", "flash_kernel", 2, 32, 1)}
+            "dense_data2": ("qwen3-14b", "flash_kernel", 2, 32, 1),
+            "dense_tp": ("qwen3-14b", "flash_kernel", 2, 15, 2),
+            "moe_tp": ("granite-moe-1b-a400m", "xla", 2, 15, 2),
+            "local_tp": ("recurrentgemma-9b", "flash_kernel", 2, 15, 2),
+            "recurrent_tp": ("xlstm-350m", "xla", 2, 15, 2)}
 
 
 def _cfgs(name, layout):
@@ -127,15 +153,21 @@ out = {}
 
 # the positions the model rotates q and k at (RoPE), as (first, last),
 # and the shapes of the token blocks it embeds
+# (the tensor-parallel arm embeds from its block of the table)
 seen, embedded = [], []
 real_rope, real_embed = TL.rope, TL.embed_tokens
+real_split = TL.embed_tokens_split
 def rope(x, positions, theta):
     seen.append((int(positions.min()), int(positions.max())))
     return real_rope(x, positions, theta)
 def embed_tokens(model, cfg, tokens, dtype):
     embedded.append(tuple(tokens.shape))
     return real_embed(model, cfg, tokens, dtype)
+def embed_tokens_split(model, cfg, tokens, dtype, comm):
+    embedded.append(tuple(tokens.shape))
+    return real_split(model, cfg, tokens, dtype, comm)
 TL.rope, TL.embed_tokens = rope, embed_tokens
+TL.embed_tokens_split = embed_tokens_split
 
 def whole(state):
     t = TS.state_tree(state)
@@ -165,7 +197,7 @@ for key, c in job["cases"].items():
     out[key] = {"metrics": ms, "shapes": {
         k: list(p.shape) for k, p in state.params.named_parameters()},
         "flops": flops, "positions": positions, "embedded": blocks,
-        "q0": split.q0, "length": split.length}
+        "q0": split.q0, "length": split.length, "tp": sorted(split.tp)}
     if rank == 0:
         with open(f"{tmp}/{key.replace('/', '__')}.pkl", "wb") as f:
             pickle.dump(w, f)
@@ -183,9 +215,13 @@ for key, c in job["prefills"].items():
     seen.clear()
     last, state = prefill(model, torch.from_numpy(c["tokens"]))
     rows = place._rows(c["tokens"].shape[0])
+    plan = model.shard_plan
+    dec = plan.decode_split(rows.stop - rows.start, state.cache_len)
     out[f"prefill/{key}"] = {"positions": sorted(set(seen)),
                              "rows": [rows.start, rows.stop],
-                             "q0": model.shard_plan.split.q0}
+                             "q0": plan.split.q0, "tp": sorted(plan.split.tp),
+                             "dec_tp": sorted(dec.tp),
+                             "tp_rank": dec.tp_comm.rank}
     caches = [{k: (str(v.dtype), v.float().numpy())
                if isinstance(v, torch.Tensor) else v
                for k, v in st.items()} for st in state]
@@ -194,6 +230,7 @@ for key, c in job["prefills"].items():
         pickle.dump({"last": last.numpy(), "state": caches,
                      "decode": dec.numpy()}, f)
 TL.rope, TL.embed_tokens = real_rope, real_embed
+TL.embed_tokens_split = real_split
 
 # a split that breaks the MoE grouping
 c = job["cases"]["moe/data2"]
@@ -372,14 +409,27 @@ def test_sharded_step_matches_reference(ranks, case):
                                        err_msg=f"{part} {k}")
 
 
+def _one_rank_step_flops(name):
+    """FLOPs of one rank's first step of case `name` on the global
+    batch."""
+    _, B, T, _ = CONFIGS[name]
+    _, cfg = _cfgs(name, "model2")
+    state = TS.init_train_state(cfg, 0, "cpu")
+    step = TS.make_train_step(cfg, None, linear_warmup_cosine(*LR))
+    with FlopCounterMode(display=False) as fc:
+        step(state, SyntheticLMDataset(cfg.vocab_size, T, B,
+                                       seed=0).batch(0))
+    return fc.get_total_flops()
+
+
 @pytest.mark.parametrize("name", ["dense", "moe", "local", "recurrent"])
 def test_model_axis_splits_the_tokens(ranks, name):
     """Under data 1 x model 2 each rank runs only its own block of the
     positions: it embeds B x T/2 tokens, the first or the second half,
-    and RoPE rotates them at those positions (xlstm has no RoPE); and for
-    dense and MoE its first step counts at most FLOP_SHARE of one rank's
-    step on the same global batch (the recurrent scans run on the whole
-    gathered sequence by design)."""
+    and RoPE rotates them at those positions (xlstm has no RoPE); and its
+    first step counts at most FLOP_SHARE of one rank's step on the same
+    global batch (a recurrent block scans the gathered sequence on its
+    own channels)."""
     _, out0, _, out1 = ranks[:4]
     arch, B, T, _ = CONFIGS[name]
     case = f"{name}/model2"
@@ -389,15 +439,30 @@ def test_model_axis_splits_the_tokens(ranks, name):
         assert (out[case]["q0"], out[case]["length"]) == (blk[0], T // 2)
         assert out[case]["positions"] == ([] if name == "recurrent"
                                           else [blk])
-    if name not in ("dense", "moe"):
-        return
-    _, cfg = _cfgs(name, "model2")
-    state = TS.init_train_state(cfg, 0, "cpu")
-    step = TS.make_train_step(cfg, None, linear_warmup_cosine(*LR))
-    with FlopCounterMode(display=False) as fc:
-        step(state, SyntheticLMDataset(cfg.vocab_size, T, B,
-                                       seed=0).batch(0))
-    one = fc.get_total_flops()
+        assert out[case]["tp"] == []
+    one = _one_rank_step_flops(name)
+    for out in (out0, out1):
+        assert 0 < out[case]["flops"] <= FLOP_SHARE * one, (
+            out[case]["flops"], one)
+
+
+@pytest.mark.parametrize("name", list(TP_SPLITS))
+def test_tensor_parallel_arm_splits_the_work(ranks, name):
+    """At T 15 under data 1 x model 2 the "seq" rule falls back: each
+    rank embeds every token of its rows, RoPE rotates positions 0..T-1,
+    the split names what the reference's act rules give "model"
+    (TP_SPLITS), and its first step counts at most FLOP_SHARE of one
+    rank's."""
+    _, out0, _, out1 = ranks[:4]
+    arch, B, T, _ = CONFIGS[name]
+    case = f"{name}/model2"
+    for out in (out0, out1):
+        assert set(out[case]["tp"]) == TP_SPLITS[name], out[case]["tp"]
+        assert out[case]["embedded"] == [[B, T]]
+        assert (out[case]["q0"], out[case]["length"]) == (0, T)
+        assert out[case]["positions"] == ([] if arch == "xlstm-350m"
+                                          else [[0, T - 1]])
+    one = _one_rank_step_flops(name)
     for out in (out0, out1):
         assert 0 < out[case]["flops"] <= FLOP_SHARE * one, (
             out[case]["flops"], one)
@@ -423,35 +488,58 @@ def test_sharded_prefill_matches_reference(ranks, name):
     ("cache_seq", laid out for the decode step): rank r holds its block
     of (T + 4) / 2 positions; under data 2 they are whole."""
     tmp, out0, _, out1, ref = ranks
-    _, _, B, T, mp = PREFILLS[name]
+    arch, _, B, T, mp = PREFILLS[name]
     want_last, want_state, _ = ref[name]
+    cfg = tcfgs.smoke(tcfgs.get_config(arch))
+    tp = name in TP_SPLITS
     for r, out in enumerate((out0, out1)):
-        blk = [r * T // 2, (r + 1) * T // 2 - 1] if mp == 2 else [0, T - 1]
-        assert out[f"prefill/{name}"]["positions"] == [blk]
+        pre = out[f"prefill/{name}"]
+        blk = ([r * T // 2, (r + 1) * T // 2 - 1] if mp == 2 and not tp
+               else [0, T - 1])
+        assert pre["positions"] == ([] if arch == "xlstm-350m" else [blk])
         # the plan keeps the prefill's split (the decode step makes its own)
-        assert out[f"prefill/{name}"]["q0"] == blk[0]
+        assert pre["q0"] == blk[0]
+        assert set(pre["tp"]) == TP_SPLITS.get(name, set()), pre["tp"]
         rows, got = _prefill_rank(tmp, out, name, r)
         assert rows == (slice(0, B) if mp == 2
                         else slice(r * B // 2, (r + 1) * B // 2))
         np.testing.assert_allclose(got["last"], want_last[rows],
                                    rtol=LOGIT_TOL, atol=LOGIT_TOL)
         assert len(got["state"]) == len(want_state)
-        n = (T + 4) // mp                # the rank's block of positions
-        c0 = r * n if mp == 2 else 0
+        n = T + 4                         # the rank's block of positions
+        c0 = 0
+        if "cache_seq" in pre["dec_tp"]:
+            n //= 2
+            c0 = pre["tp_rank"] * n
         for i, (g, w) in enumerate(zip(got["state"], want_state)):
             assert set(g) == set(w), i
             for k in g:
                 if k == "pos":
                     assert g[k] == int(w[k]) == T
-                elif g[k][0] == "torch.bfloat16":
+                elif g[k][0] == "torch.bfloat16":   # caches, conv states
+                    want = (w[k][rows, c0:c0 + n] if k in ("k", "v") else
+                            _state_block(cfg, i, k, w[k][rows], pre))
                     np.testing.assert_allclose(
-                        g[k][1], w[k][rows, c0:c0 + n], rtol=2.0 ** -7,
-                        atol=STATE_ATOL, err_msg=f"rank {r} layer {i} {k}")
+                        g[k][1], want, rtol=2.0 ** -7, atol=STATE_ATOL,
+                        err_msg=f"rank {r} layer {i} {k}")
                 else:
                     assert g[k][0] == "torch.float32", (i, k, g[k][0])
                     np.testing.assert_allclose(
-                        g[k][1], w[k][rows], rtol=0, atol=STATE_ATOL,
+                        g[k][1], _state_block(cfg, i, k, w[k][rows], pre),
+                        rtol=0, atol=STATE_ATOL,
                         err_msg=f"rank {r} layer {i} {k}")
+
+
+def _state_block(cfg, i, key, want, pre):
+    """The rank's block of the reference's recurrent state `want` (its
+    rows) of layer i, as the decode split after the prefill lays it out:
+    halved along each dim whose act name (`decode_state_specs`) that
+    split names for the layer's kind ("rglru.act_mlp")."""
+    kind = cfg.layer_types[i]
+    for d, ax in enumerate(lm.decode_state_specs(cfg)[i][key]):
+        if ax and f"{kind}.{ax}" in pre["dec_tp"]:
+            want = np.split(want, 2, axis=d)[pre["tp_rank"]]
+    return want
 
 
 @pytest.mark.parametrize("name", list(PREFILLS))
